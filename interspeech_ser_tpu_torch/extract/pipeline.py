@@ -1,0 +1,204 @@
+"""Batched, bucketed embedding extraction on one device.
+
+Port of ``interspeech_ser_tpu/extract/pipeline.py::SpeechExtractionPipeline``
+(single device; the mesh, tensor-parallel and shard_map legs come with the
+multi-device slice):
+
+  header-only batch plan (exact post-resample lengths, length-sorted
+  token-budget batches, 1-s buckets)  ->  decoder threads + assembler
+  feeding a bounded queue  ->  device loop: batch k is enqueued on the card,
+  and its selected hidden state starts an async copy into pinned host
+  memory, before batch k-1 is written out  ->  backpressured per-utterance
+  ``.pt`` writer threads. Machinery in ``extract/streaming.py``.
+
+Layer selection: ``n_layer`` (HF hidden_states indexing, -1 = last) or the
+mean of the last 4 (``use_average``). ``replicate_dir_count_bug`` reproduces
+the reference's ``hidden_states[len(os.listdir(save_path))]`` quirk.
+``SER_TPU_SKIP_EXISTING=1`` skips utterances whose ``.pt`` already exists.
+
+Output contract: ``save_path/<utt>.pt``, a float32 [T_valid, D] tensor.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import time
+from dataclasses import dataclass
+from functools import partial
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.speech import feat_extract_output_length
+from ..utils import ptio
+from ..utils.audio import load_wav, normalize_waveform
+from . import streaming
+
+BUCKET_QUANTUM = 16000  # batches pad to whole seconds of 16-kHz audio
+
+
+@dataclass
+class ExtractionStats:
+    n_utts: int = 0
+    n_failed: int = 0
+    n_skipped: int = 0  # SER_TPU_SKIP_EXISTING resume
+    n_batches: int = 0
+    audio_seconds: float = 0.0
+    wall_seconds: float = 0.0
+
+    @property
+    def utts_per_sec(self) -> float:
+        return self.n_utts / self.wall_seconds if self.wall_seconds else 0.0
+
+
+def _skip_existing(names: Sequence[str], save_path: str, stats: ExtractionStats) -> Sequence[str]:
+    """SER_TPU_SKIP_EXISTING=1 -> skip utterances whose ``.pt`` exists (the
+    writer is atomic). Off by default, as in the reference."""
+    if os.environ.get("SER_TPU_SKIP_EXISTING") != "1":
+        return names
+
+    def done(n):
+        stem = os.path.splitext(os.path.basename(n))[0]
+        return os.path.exists(os.path.join(save_path, f"{stem}.pt"))
+
+    kept = [n for n in names if not done(n)]
+    stats.n_skipped = len(names) - len(kept)
+    return kept
+
+
+class SpeechExtractionPipeline:
+    """wav dir -> per-utterance SSL embeddings (WavLM-style encoders)."""
+
+    def __init__(
+        self,
+        model,  # SpeechEncoderModel, f32 parameters
+        config,  # SpeechConfig
+        n_layer: int = -1,
+        use_average: bool = False,
+        do_normalize: bool = True,
+        token_budget: Optional[int] = None,  # samples per batch
+        num_workers: int = 8,
+        replicate_dir_count_bug: bool = False,
+        device: Optional[torch.device] = None,
+    ):
+        if device is None:
+            device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        self.device = torch.device(device)
+        # bf16 mode: cast the frozen parameters once (norms still compute in
+        # f32 on the bf16 values)
+        model = model.to(self.device)
+        if config.compute_dtype == torch.bfloat16:
+            model = model.to(torch.bfloat16)
+        self.model = model.eval()
+        self.config = config
+        self.n_layer = n_layer
+        self.use_average = use_average
+        self.do_normalize = do_normalize
+        if token_budget is None:
+            # size-aware default: 320 s of audio per batch up to D=1024,
+            # 160 s for wider encoders
+            token_budget = 16000 * (320 if config.hidden_size <= 1024 else 160)
+        self.token_budget = token_budget
+        self.num_workers = num_workers
+        self.replicate_dir_count_bug = replicate_dir_count_bug
+
+    @torch.inference_mode()
+    def _forward(self, wav: np.ndarray, mask: np.ndarray, n_layer: int) -> torch.Tensor:
+        """Selected hidden state [B, T, D] in the compute dtype, on the device."""
+        dev = self.device
+        pin = dev.type == "cuda"
+        wav_t = torch.from_numpy(wav)
+        mask_t = torch.from_numpy(mask)
+        if pin:
+            wav_t, mask_t = wav_t.pin_memory(), mask_t.pin_memory()
+        wav_t = wav_t.to(dev, non_blocking=True)
+        mask_t = mask_t.to(dev, non_blocking=True)
+        keep = (-4, -3, -2, -1) if self.use_average else (n_layer,)
+        hs = self.model(wav_t, mask_t, keep=keep)["hidden_states"]
+        if self.use_average:
+            return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
+        return hs[n_layer]
+
+    def _load_one(self, wav_dir: str, name: str) -> Optional[np.ndarray]:
+        path = os.path.join(wav_dir, name)
+        try:
+            y, _sr = load_wav(path, target_sr=16000)
+            return normalize_waveform(y, self.do_normalize)
+        except Exception as e:  # skip-and-log like the reference
+            print(f"Failed to process {path}: {e}")
+            return None
+
+    def _plan(self, wav_dir: str, wav_names: Sequence[str], stats: ExtractionStats):
+        """Header-only batch plan (no audio decoded; exact lengths)."""
+
+        def one(name: str):
+            try:
+                return name, streaming.planned_wav_len(os.path.join(wav_dir, name))
+            except Exception:
+                w = self._load_one(wav_dir, name)  # odd container: decode for the length
+                return (name, len(w)) if w is not None else None
+
+        with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            results = list(pool.map(one, wav_names))
+        planned = [r for r in results if r is not None]
+        stats.n_failed += len(results) - len(planned)
+        return streaming.plan_batches(planned, self.token_budget, BUCKET_QUANTUM)
+
+    def run(self, wav_dir: str, save_path: str, wav_names: Optional[Sequence[str]] = None) -> ExtractionStats:
+        os.makedirs(save_path, exist_ok=True)
+        n_layer = self.n_layer
+        if self.replicate_dir_count_bug:
+            n_layer = len(os.listdir(save_path))
+        if wav_names is None:
+            wav_names = sorted(os.listdir(wav_dir))
+        stats = ExtractionStats()
+        t0 = time.perf_counter()
+
+        wav_names = _skip_existing(wav_names, save_path, stats)
+        plan = self._plan(wav_dir, wav_names, stats)
+        stream = streaming.BatchStream(
+            partial(self._load_one, wav_dir), plan, BUCKET_QUANTUM, num_workers=self.num_workers,
+        )
+        writer = streaming.BoundedWriter(num_workers=self.num_workers)
+        cuda = self.device.type == "cuda"
+
+        def fetch(sel: torch.Tensor):
+            """Start the device-to-host copy; return (host tensor, done event)."""
+            if not cuda:
+                return sel, None
+            host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=True)
+            host.copy_(sel, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            return host, ev
+
+        def drain(rb, host, ev) -> None:
+            if ev is not None:
+                ev.synchronize()
+            feats = host.float()
+            for i, name in enumerate(rb.names):
+                stem = os.path.splitext(os.path.basename(name))[0]
+                n_frames = feat_extract_output_length(rb.lengths[i], self.config)
+                # save_tensor writes a compact clone of the row, not the batch's storage
+                writer.submit(ptio.save_tensor, feats[i, :n_frames], os.path.join(save_path, f"{stem}.pt"))
+                stats.n_utts += 1
+                stats.audio_seconds += rb.lengths[i] / 16000.0
+
+        prev = None
+        for rb in stream:
+            stats.n_failed += rb.n_failed
+            if not rb.names:
+                continue
+            sel = self._forward(rb.wav, rb.mask, n_layer)
+            stats.n_batches += 1
+            cur = (rb, *fetch(sel))
+            if prev is not None:
+                drain(*prev)  # host writes of k-1 overlap the device work of k
+            prev = cur
+        if prev is not None:
+            drain(*prev)
+        writer.drain()
+        stats.wall_seconds = time.perf_counter() - t0
+        return stats

@@ -1,0 +1,116 @@
+"""Weights carried across from the JAX package: flax-layout numpy -> torch.
+
+Neither function needs jax: they take the JAX package's param trees as
+nested dicts of numpy arrays and return the port's state dicts.
+
+- :func:`speech_params_from_flax` mirrors ``speech_flax_to_hf``
+  (interspeech_ser_tpu/models/convert_hf.py) and yields HF key names, with
+  the positional conv kept as one plain (folded) ``weight``.
+- :func:`fusion_params_from_flax` mirrors ``convert_fusion.flax_to_torch``
+  and yields the reference's ``multimodal_ser.pt`` names.
+
+Layouts: a flax Dense kernel [in, out] is a torch Linear weight [out, in];
+a flax Conv kernel [k, in/g, out] is a torch Conv1d weight [out, in/g, k].
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+MODALITY_NAMES = ("speech", "text", "prosody")
+
+
+def _get(params: Dict, *path) -> np.ndarray:
+    node = params
+    for k in path:
+        node = node[k]
+    return np.asarray(node)
+
+
+def _t(x: np.ndarray) -> np.ndarray:  # Dense kernel [in, out] -> Linear weight [out, in]
+    return x.T
+
+
+def _unconv(x: np.ndarray) -> np.ndarray:  # [k, in/g, out] -> [out, in/g, k]
+    return np.transpose(x, (2, 1, 0))
+
+
+def _to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}  # copies
+
+
+def speech_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """JAX ``SpeechEncoderModel`` params -> the port's (HF-named) state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(len(config.conv_dim)):
+        base = f"feature_extractor.conv_layers.{i}"
+        sd[f"{base}.conv.weight"] = _unconv(g("feature_extractor", f"conv{i}", "kernel"))
+        if config.conv_bias:
+            sd[f"{base}.conv.bias"] = g("feature_extractor", f"conv{i}", "bias")
+        sd[f"{base}.layer_norm.weight"] = g("feature_extractor", f"conv_ln{i}", "scale")
+        sd[f"{base}.layer_norm.bias"] = g("feature_extractor", f"conv_ln{i}", "bias")
+    sd["feature_projection.layer_norm.weight"] = g("fp_layer_norm", "scale")
+    sd["feature_projection.layer_norm.bias"] = g("fp_layer_norm", "bias")
+    sd["feature_projection.projection.weight"] = _t(g("fp_projection", "kernel"))
+    sd["feature_projection.projection.bias"] = g("fp_projection", "bias")
+    sd["encoder.pos_conv_embed.conv.weight"] = _unconv(g("pos_conv_embed", "conv", "kernel"))
+    sd["encoder.pos_conv_embed.conv.bias"] = g("pos_conv_embed", "conv", "bias")
+    sd["encoder.layer_norm.weight"] = g("encoder_layer_norm", "scale")
+    sd["encoder.layer_norm.bias"] = g("encoder_layer_norm", "bias")
+    for i in range(config.num_layers):
+        base, src = f"encoder.layers.{i}", f"layer{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[f"{base}.attention.{proj}.weight"] = _t(g(src, "attention", proj, "kernel"))
+            sd[f"{base}.attention.{proj}.bias"] = g(src, "attention", proj, "bias")
+        if config.attention_type == "wavlm":
+            sd[f"{base}.attention.gru_rel_pos_linear.weight"] = _t(
+                g(src, "attention", "gru_rel_pos_linear", "kernel")
+            )
+            sd[f"{base}.attention.gru_rel_pos_linear.bias"] = g(
+                src, "attention", "gru_rel_pos_linear", "bias"
+            )
+            sd[f"{base}.attention.gru_rel_pos_const"] = g(src, "attention", "gru_rel_pos_const")
+            if i == 0:
+                sd[f"{base}.attention.rel_attn_embed.weight"] = g(src, "attention", "rel_attn_embed")
+        for ln in ("layer_norm", "final_layer_norm"):
+            sd[f"{base}.{ln}.weight"] = g(src, ln, "scale")
+            sd[f"{base}.{ln}.bias"] = g(src, ln, "bias")
+        for dense in ("intermediate_dense", "output_dense"):
+            sd[f"{base}.feed_forward.{dense}.weight"] = _t(g(src, "feed_forward", dense, "kernel"))
+            sd[f"{base}.feed_forward.{dense}.bias"] = g(src, "feed_forward", dense, "bias")
+    return _to_torch(sd)
+
+
+def fusion_params_from_flax(params: Dict, n_mod: int) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiModalEmotionClassifier`` params -> reference torch names."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {}
+    for mod in MODALITY_NAMES[:n_mod]:
+        enc = f"{mod}_encoder"
+        sd[f"{mod}_projection.weight"] = _t(g(enc, "projection", "kernel"))
+        sd[f"{mod}_projection.bias"] = g(enc, "projection", "bias")
+        sd[f"{mod}_norm.weight"] = g(enc, "norm", "scale")
+        sd[f"{mod}_norm.bias"] = g(enc, "norm", "bias")
+        for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+            sd[f"{mod}_gru.weight_ih_l0{sfx}"] = _t(g(enc, "gru", f"w_ih_{d}"))
+            sd[f"{mod}_gru.weight_hh_l0{sfx}"] = _t(g(enc, "gru", f"w_hh_{d}"))
+            sd[f"{mod}_gru.bias_ih_l0{sfx}"] = g(enc, "gru", f"b_ih_{d}")
+            sd[f"{mod}_gru.bias_hh_l0{sfx}"] = g(enc, "gru", f"b_hh_{d}")
+        att = f"{mod}_attention"
+        sd[f"{att}.in_proj_weight"] = _t(g(att, "in_proj_kernel"))
+        sd[f"{att}.in_proj_bias"] = g(att, "in_proj_bias")
+        sd[f"{att}.out_proj.weight"] = _t(g(att, "out_kernel"))
+        sd[f"{att}.out_proj.bias"] = g(att, "out_bias")
+        sd[f"{mod}_attn.weight"] = _t(g(f"{mod}_pool_attn", "kernel"))
+        sd[f"{mod}_attn.bias"] = g(f"{mod}_pool_attn", "bias")
+    sd["layer_norm.weight"] = g("fusion_norm", "scale")
+    sd["layer_norm.bias"] = g("fusion_norm", "bias")
+    sd["classifier.0.weight"] = _t(g("classifier_fc1", "kernel"))
+    sd["classifier.0.bias"] = g("classifier_fc1", "bias")
+    sd["classifier.3.weight"] = _t(g("classifier_fc2", "kernel"))
+    sd["classifier.3.bias"] = g("classifier_fc2", "bias")
+    return _to_torch(sd)

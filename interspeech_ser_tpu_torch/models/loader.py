@@ -1,0 +1,119 @@
+"""Load a local HF-format speech checkpoint into the port's encoder.
+
+Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder``
+without transformers or safetensors: ``config.json`` is read with ``json``,
+weights come from ``pytorch_model.bin`` (``torch.load(weights_only=True)``)
+or ``model.safetensors`` (a small reader below), sharded or not. The
+positional conv's weight norm is folded into a plain kernel.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Tuple
+
+import torch
+
+from .speech import SpeechConfig, SpeechEncoderModel
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+# HF keys the inference encoder has no use for
+_UNUSED_KEYS = ("masked_spec_embed",)
+
+
+def resolve_dir(path_or_name: str) -> str:
+    """A local HF model directory; hub names resolve only as local paths."""
+    if os.path.isdir(path_or_name):
+        return path_or_name
+    raise FileNotFoundError(
+        f"{path_or_name!r} is not a local model directory: the port reads HF-format "
+        "directories (config.json + weights) only and has no hub access"
+    )
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read a ``.safetensors`` file: 8-byte little-endian header length, a
+    JSON header ``{name: {dtype, shape, data_offsets}}``, then raw bytes."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = meta["data_offsets"]
+        dt = _ST_DTYPES[meta["dtype"]]
+        count = (end - start) // torch.empty((), dtype=dt).element_size()
+        t = torch.frombuffer(data, dtype=dt, count=count, offset=start) if count else torch.empty(0, dtype=dt)
+        out[name] = t.reshape(meta["shape"])
+    return out
+
+
+def load_hf_state_dict(path_or_name: str) -> Dict[str, torch.Tensor]:
+    d = resolve_dir(path_or_name)
+    load_bin = lambda p: torch.load(p, map_location="cpu", weights_only=True)  # noqa: E731
+    for index_name, loader, single in (
+        ("model.safetensors.index.json", load_safetensors, "model.safetensors"),
+        ("pytorch_model.bin.index.json", load_bin, "pytorch_model.bin"),
+    ):
+        idx = os.path.join(d, index_name)
+        if os.path.exists(idx):
+            with open(idx) as f:
+                shards = sorted(set(json.load(f)["weight_map"].values()))
+            sd: Dict[str, torch.Tensor] = {}
+            for s in shards:
+                sd.update(loader(os.path.join(d, s)))
+            return sd
+        if os.path.exists(os.path.join(d, single)):
+            return loader(os.path.join(d, single))
+    raise FileNotFoundError(f"no model weights found under {d}")
+
+
+def _strip_prefix(sd: Dict[str, torch.Tensor], prefixes) -> Dict[str, torch.Tensor]:
+    for p in prefixes:
+        if any(k.startswith(p) for k in sd):
+            return {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+    return sd
+
+
+def fold_weight_norm(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """torch weight_norm(dim=2) conv params -> one plain ``{prefix}.weight``."""
+    sd = dict(sd)
+    for g_name, v_name in (
+        (f"{prefix}.parametrizations.weight.original0", f"{prefix}.parametrizations.weight.original1"),
+        (f"{prefix}.weight_g", f"{prefix}.weight_v"),
+    ):
+        if g_name in sd:
+            g = sd.pop(g_name).float()  # [1, 1, k]
+            v = sd.pop(v_name).float()  # [out, in/g, k]
+            norm = v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+            sd[f"{prefix}.weight"] = v * (g / norm.clamp_min(1e-12))
+    return sd
+
+
+def build_speech_encoder(
+    path_or_name: str, dtype: str = "float32"
+) -> Tuple[SpeechEncoderModel, SpeechConfig, bool]:
+    """-> (model in f32 on the CPU, config, do_normalize)."""
+    d = resolve_dir(path_or_name)
+    with open(os.path.join(d, "config.json")) as f:
+        cfg = SpeechConfig.from_hf(json.load(f), dtype=dtype)
+    sd = _strip_prefix(load_hf_state_dict(d), ("wavlm.", "wav2vec2.", "hubert."))
+    sd = fold_weight_norm(sd, "encoder.pos_conv_embed.conv")
+    sd = {k: v.float() for k, v in sd.items() if k not in _UNUSED_KEYS}
+    with torch.device("meta"):  # no throwaway random init of the weights
+        model = SpeechEncoderModel(cfg)
+    model.load_state_dict(sd, strict=True, assign=True)
+    model.eval()
+    do_normalize = True
+    pp = os.path.join(d, "preprocessor_config.json")
+    if os.path.exists(pp):
+        with open(pp) as f:
+            do_normalize = bool(json.load(f).get("do_normalize", True))
+    return model, cfg, do_normalize

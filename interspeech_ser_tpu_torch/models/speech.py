@@ -1,0 +1,378 @@
+"""WavLM-style speech SSL encoder (layer-norm frontend, stable-LN stack).
+
+Port of ``interspeech_ser_tpu/models/speech.py`` for the serving slice:
+WavLM-large and the other layer-norm, pre-LN checkpoints of that skeleton
+(7-layer strided conv frontend, hop 320 at 16 kHz -> feature projection ->
+grouped positional conv -> transformer stack, with WavLM's gated relative
+position bias). Group-norm (base) frontends and post-LN stacks are not
+ported yet and raise.
+
+Modules carry HF's state-dict key names (``feature_extractor.conv_layers.0.
+conv.weight``, ``encoder.layers.3.attention.q_proj.weight``, ...), so an HF
+checkpoint loads without a converter (``models/loader.py`` folds the
+positional conv's weight norm first).
+
+Compute dtype: f32 for parity, bf16 for throughput. Linear and conv layers
+run in the compute dtype; LayerNorms and the softmax run in f32. Padded
+frames are zeroed before the positional conv and masked out of attention,
+so a batched padded forward equals each utterance's batch-1 forward.
+
+On a CUDA tensor, layer 0 of the frontend runs through kernel K2 and every
+attention through kernel K1; on a CPU tensor both use their plain versions.
+``plain=True`` forces the plain versions (a reference run on the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention_core import dot_product_attention_btd
+from ..ops.kernels.conv_frontend import conv_frontend, conv_frontend_plain
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeechConfig:
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"  # 'group' (base) | 'layer' (large/XL)
+    do_stable_layer_norm: bool = False
+    attention_type: str = "standard"  # 'standard' | 'wavlm'
+    num_buckets: int = 320
+    max_distance: int = 800
+    num_conv_pos_embeddings: int = 128
+    conv_pos_groups: int = 16
+    layer_norm_eps: float = 1e-5
+    dtype: str = "float32"  # compute dtype; parameters load in f32
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def use_approx_gelu(self) -> bool:
+        """tanh GELU in bf16 (its error is below bf16 rounding), exact erf in f32."""
+        return self.dtype == "bfloat16"
+
+    @property
+    def gelu_mode(self) -> str:
+        return "tanh" if self.use_approx_gelu else "none"
+
+    @classmethod
+    def from_hf(cls, hf: Dict, dtype: str = "float32"):
+        """Build from an HF WavLM/Wav2Vec2/Hubert ``config.json`` dict."""
+        return cls(
+            hidden_size=hf["hidden_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=hf["num_attention_heads"],
+            intermediate_size=hf["intermediate_size"],
+            conv_dim=tuple(hf["conv_dim"]),
+            conv_kernel=tuple(hf["conv_kernel"]),
+            conv_stride=tuple(hf["conv_stride"]),
+            conv_bias=bool(hf.get("conv_bias", False)),
+            feat_extract_norm=hf.get("feat_extract_norm", "group"),
+            do_stable_layer_norm=bool(hf.get("do_stable_layer_norm", False)),
+            attention_type="wavlm" if hf.get("model_type") == "wavlm" else "standard",
+            num_buckets=hf.get("num_buckets", 320),
+            max_distance=hf.get("max_bucket_distance", 800),
+            num_conv_pos_embeddings=hf.get("num_conv_pos_embeddings", 128),
+            conv_pos_groups=hf.get("num_conv_pos_embedding_groups", 16),
+            layer_norm_eps=hf.get("layer_norm_eps", 1e-5),
+            dtype=dtype,
+        )
+
+    def to_hf(self) -> Dict:
+        """The ``config.json`` fields :meth:`from_hf` reads (WavLM flavour)."""
+        return {
+            "model_type": "wavlm" if self.attention_type == "wavlm" else "wav2vec2",
+            "hidden_size": self.hidden_size,
+            "num_hidden_layers": self.num_layers,
+            "num_attention_heads": self.num_heads,
+            "intermediate_size": self.intermediate_size,
+            "conv_dim": list(self.conv_dim),
+            "conv_kernel": list(self.conv_kernel),
+            "conv_stride": list(self.conv_stride),
+            "num_feat_extract_layers": len(self.conv_dim),
+            "conv_bias": self.conv_bias,
+            "feat_extract_norm": self.feat_extract_norm,
+            "do_stable_layer_norm": self.do_stable_layer_norm,
+            "num_buckets": self.num_buckets,
+            "max_bucket_distance": self.max_distance,
+            "num_conv_pos_embeddings": self.num_conv_pos_embeddings,
+            "num_conv_pos_embedding_groups": self.conv_pos_groups,
+            "layer_norm_eps": self.layer_norm_eps,
+        }
+
+
+def wavlm_large(dtype: str = "float32") -> SpeechConfig:
+    return SpeechConfig(
+        hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+        conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True,
+        attention_type="wavlm", dtype=dtype,
+    )
+
+
+def feat_extract_output_length(length, config: SpeechConfig):
+    """Conv-frontend output length (ints or integer tensors)."""
+    for k, s in zip(config.conv_kernel, config.conv_stride):
+        length = (length - k) // s + 1
+    return length
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dt), lin.weight.to(dt), None if lin.bias is None else lin.bias.to(dt))
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm in f32 on any input dtype (params upcast)."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
+
+
+class ConvLayer(nn.Module):
+    """One frontend layer (HF ``*LayerNormConvLayer``): conv -> LN -> GELU."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, s: int, bias: bool, eps: float):
+        super().__init__()
+        self.stride = s
+        self.conv = nn.Conv1d(in_ch, out_ch, k, stride=s, bias=bias)
+        self.layer_norm = nn.LayerNorm(out_ch, eps=eps)
+
+
+class ConvFeatureExtractor(nn.Module):
+    """7-layer strided conv frontend, layer-norm mode. Layer 0 (C_in = 1)
+    runs fused from the waveform (K2, or its plain version on the CPU)."""
+
+    def __init__(self, cfg: SpeechConfig):
+        super().__init__()
+        if cfg.feat_extract_norm != "layer":
+            raise NotImplementedError("only layer-norm conv frontends are ported")
+        self.cfg = cfg
+        chans = (1,) + tuple(cfg.conv_dim)
+        self.conv_layers = nn.ModuleList(
+            ConvLayer(chans[i], chans[i + 1], k, s, cfg.conv_bias, cfg.layer_norm_eps)
+            for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride))
+        )
+
+    def forward(self, wav: torch.Tensor, plain: bool = False) -> torch.Tensor:  # [B, L] -> [B, T, C]
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        l0 = self.conv_layers[0]
+        x = (conv_frontend_plain if plain else conv_frontend)(
+            wav.float().contiguous(), l0.conv.weight, l0.conv.bias, l0.layer_norm.weight,
+            l0.layer_norm.bias, l0.stride, dt, cfg.use_approx_gelu, cfg.layer_norm_eps,
+        )  # [B, T0, C] in dt
+        for layer in self.conv_layers[1:]:
+            conv = layer.conv
+            bias = None if conv.bias is None else conv.bias.to(dt)
+            y = F.conv1d(x.transpose(1, 2), conv.weight.to(dt), bias, stride=layer.stride)
+            x = F.gelu(_layer_norm(y.transpose(1, 2), layer.layer_norm).to(dt), approximate=cfg.gelu_mode)
+        return x
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, cfg: SpeechConfig):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
+        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+
+
+class PositionalConvEmbedding(nn.Module):
+    """Grouped conv positional embedding (k=128, 16 groups, SAME padding,
+    last frame dropped for an even kernel, GELU). The checkpoint's weight
+    norm is folded into ``conv.weight`` at load time."""
+
+    def __init__(self, cfg: SpeechConfig):
+        super().__init__()
+        self.cfg = cfg
+        k = cfg.num_conv_pos_embeddings
+        self.conv = nn.Conv1d(
+            cfg.hidden_size, cfg.hidden_size, k, padding=k // 2, groups=cfg.conv_pos_groups
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D]
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        k = cfg.num_conv_pos_embeddings
+        h = F.conv1d(
+            x.transpose(1, 2), self.conv.weight.to(dt), self.conv.bias.to(dt),
+            padding=k // 2, groups=cfg.conv_pos_groups,
+        )
+        if k % 2 == 0:
+            h = h[..., :-1]
+        return F.gelu(h.transpose(1, 2), approximate=cfg.gelu_mode)
+
+
+def relative_position_buckets(tq: int, tk: int, num_buckets: int, max_distance: int) -> np.ndarray:
+    """WavLM's bucketed relative positions (T5-style, bidirectional), [tq, tk]."""
+    relative = np.arange(tk)[None, :] - np.arange(tq)[:, None]
+    nb = num_buckets // 2
+    buckets = (relative > 0).astype(np.int64) * nb
+    rel_abs = np.abs(relative)
+    max_exact = nb // 2
+    is_small = rel_abs < max_exact
+    large = max_exact + (
+        np.log(np.maximum(rel_abs, 1) / max_exact)
+        / np.log(max_distance / max_exact)
+        * (nb - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, nb - 1)
+    return buckets + np.where(is_small, rel_abs, large)
+
+
+class SpeechSelfAttention(nn.Module):
+    """Self-attention; the WavLM flavour adds the gated relative position
+    bias (the embedding lives on layer 0 and is shared by every layer)."""
+
+    def __init__(self, cfg: SpeechConfig, has_relative_position_bias: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        D, H = cfg.hidden_size, cfg.num_heads
+        self.q_proj = nn.Linear(D, D)
+        self.k_proj = nn.Linear(D, D)
+        self.v_proj = nn.Linear(D, D)
+        self.out_proj = nn.Linear(D, D)
+        self.has_relative_position_bias = has_relative_position_bias
+        if cfg.attention_type == "wavlm":
+            self.gru_rel_pos_linear = nn.Linear(D // H, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H, 1, 1))
+            if has_relative_position_bias:
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H)
+
+    def forward(self, x, key_mask, position_bias, plain: bool = False):
+        cfg = self.cfg
+        D, H = cfg.hidden_size, cfg.num_heads
+        hd = D // H
+        dt = cfg.compute_dtype
+        B, T, _ = x.shape
+        q = _dense(x, self.q_proj, dt)
+        k = _dense(x, self.k_proj, dt)
+        v = _dense(x, self.v_proj, dt)
+        gate = None
+        if cfg.attention_type == "wavlm":
+            if self.has_relative_position_bias:
+                buckets = torch.from_numpy(
+                    relative_position_buckets(T, T, cfg.num_buckets, cfg.max_distance)
+                ).to(x.device)
+                # [H, T, T] in the compute dtype, built once, shared by every layer
+                position_bias = self.rel_attn_embed.weight[buckets].permute(2, 0, 1).to(dt).contiguous()
+            assert position_bias is not None, "layers > 0 need layer 0's position_bias"
+            # per-(batch, head, query) gate from the layer's input x, per head
+            gate_in = x.reshape(B, T, H, hd).transpose(1, 2)  # [B, H, T, hd]
+            proj = _dense(gate_in, self.gru_rel_pos_linear, dt).float()
+            gates = torch.sigmoid(proj.reshape(B, H, T, 2, 4).sum(-1))  # [B, H, T, 2]
+            const = self.gru_rel_pos_const.float().reshape(1, H, 1)
+            gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # [B, H, T]
+        out = dot_product_attention_btd(
+            q, k, v, H, key_mask=key_mask, gate=gate,
+            shared_bias=position_bias if cfg.attention_type == "wavlm" else None,
+            plain=plain,
+        )
+        return _dense(out, self.out_proj, dt), position_bias
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: SpeechConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        h = F.gelu(_dense(x, self.intermediate_dense, dt), approximate=self.cfg.gelu_mode)
+        return _dense(h, self.output_dense, dt)
+
+
+class EncoderLayer(nn.Module):
+    """Pre-LN (stable layer norm) transformer layer."""
+
+    def __init__(self, cfg: SpeechConfig, has_relative_position_bias: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.attention = SpeechSelfAttention(cfg, has_relative_position_bias)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.feed_forward = FeedForward(cfg)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, x, key_mask, position_bias, plain: bool = False):
+        dt = self.cfg.compute_dtype
+        h, position_bias = self.attention(
+            _layer_norm(x, self.layer_norm).to(dt), key_mask, position_bias, plain
+        )
+        x = x + h
+        x = x + self.feed_forward(_layer_norm(x, self.final_layer_norm).to(dt))
+        return x, position_bias
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: SpeechConfig):
+        super().__init__()
+        self.pos_conv_embed = PositionalConvEmbedding(cfg)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, has_relative_position_bias=(i == 0)) for i in range(cfg.num_layers)
+        )
+
+
+class SpeechEncoderModel(nn.Module):
+    """wav -> conv frontend -> projection -> transformer stack.
+
+    Returns ``hidden_states`` (num_layers + 1 entries, HF indexing: [0] the
+    post-positional-conv embeddings, [i] layer i-1's output, the last entry
+    carrying the closing LayerNorm), ``last_hidden_state`` and the frame-level
+    ``frame_mask``. ``keep`` (HF indices, negatives allowed) limits which
+    hidden states are kept; the others are ``None``.
+    """
+
+    def __init__(self, config: SpeechConfig):
+        super().__init__()
+        if not config.do_stable_layer_norm:
+            raise NotImplementedError("only stable-layer-norm (pre-LN) encoders are ported")
+        self.config = config
+        self.feature_extractor = ConvFeatureExtractor(config)
+        self.feature_projection = FeatureProjection(config)
+        self.encoder = Encoder(config)
+
+    def forward(
+        self,
+        wav: torch.Tensor,  # [B, L], already feature-extractor normalised
+        wav_mask: Optional[torch.Tensor] = None,  # [B, L], 1 = valid sample
+        keep: Optional[Iterable[int]] = None,
+        plain: bool = False,
+    ) -> Dict:
+        cfg = self.config
+        dt = cfg.compute_dtype
+        n = cfg.num_layers
+        keep = set(range(n + 1)) if keep is None else {i % (n + 1) for i in keep}
+        feats = self.feature_extractor(wav, plain)
+        B, T, _ = feats.shape
+        if wav_mask is not None:
+            lengths = feat_extract_output_length(wav_mask.sum(dim=-1).long(), cfg)
+            frame_mask = (torch.arange(T, device=wav.device)[None, :] < lengths[:, None]).float()
+        else:
+            frame_mask = torch.ones(B, T, device=wav.device)
+
+        fp = self.feature_projection
+        h = _dense(_layer_norm(feats, fp.layer_norm), fp.projection, dt)
+        h = h * frame_mask[:, :, None].to(dt)  # zero padded frames before the pos conv
+        h = h + self.encoder.pos_conv_embed(h)
+
+        hidden: List[Optional[torch.Tensor]] = [h if 0 in keep else None]
+        position_bias = None
+        for i, layer in enumerate(self.encoder.layers):
+            h, position_bias = layer(h, frame_mask, position_bias, plain)
+            hidden.append(h if i + 1 in keep else None)
+        h = _layer_norm(h, self.encoder.layer_norm).to(dt)
+        hidden[-1] = h if n in keep else None
+        return {"last_hidden_state": h, "hidden_states": hidden, "frame_mask": frame_mask}

@@ -1,0 +1,68 @@
+"""Scaled-dot-product attention core for the speech encoder.
+
+Port of ``interspeech_ser_tpu/ops/attention_core.py``. The bias comes
+FACTORED, ``gate [B,H,Tq] x shared_bias [H,Tq,Tk]`` (WavLM's gated
+relative-position bias); a plain additive bias is the case gate = 1. The
+softmax always runs in float32.
+
+``dot_product_attention_btd`` is the single dispatch point of the encoder:
+a CUDA tensor goes to kernel K1 (``ops/kernels/attention.py``), a CPU tensor
+to K1's plain version. K1 streams over keys, so it has no length limit and
+no fallback; the JAX package's TPU-only implementation choices are gone.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .kernels.attention import NEG_INF, attention_btd, attention_btd_plain
+
+
+def dot_product_attention_btd(
+    q: torch.Tensor,  # [B, Tq, D], D = H * hd
+    k: torch.Tensor,  # [B, Tk, D]
+    v: torch.Tensor,  # [B, Tk, D]
+    num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,  # [B, Tk], 1 = attend
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,  # [B, H, Tq]
+    shared_bias: Optional[torch.Tensor] = None,  # [H, Tq, Tk]
+    plain: bool = False,  # force the plain version (reference runs on the card)
+) -> torch.Tensor:  # [B, Tq, D]
+    fn = attention_btd_plain if plain else attention_btd
+    return fn(q, k, v, num_heads, key_mask=key_mask, scale=scale, gate=gate, pos_bias=shared_bias)
+
+
+def dot_product_attention(
+    q: torch.Tensor,  # [B, H, Tq, hd]
+    k: torch.Tensor,  # [B, H, Tk, hd]
+    v: torch.Tensor,  # [B, H, Tk, hd]
+    bias: Optional[torch.Tensor] = None,  # [B, H, Tq, Tk] pre-materialised
+    key_mask: Optional[torch.Tensor] = None,  # [B, Tk], 1 = attend
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,  # [B, H, Tq]
+    shared_bias: Optional[torch.Tensor] = None,  # [H, Tq, Tk]
+) -> torch.Tensor:
+    """Plain masked SDPA on [B, H, T, hd] with an optional (factored) bias.
+
+    As in the JAX package, bf16 inputs keep the score and bias chain in bf16
+    and only the softmax runs in f32; f32 inputs stay f32 throughout.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    assert bias is None or shared_bias is None
+    dt = q.dtype
+    scores = (q * scale) @ k.transpose(-1, -2)  # in dt (f32 accumulation)
+    if shared_bias is not None:
+        b = shared_bias[None].to(dt)
+        if gate is not None:
+            b = gate[..., None].to(dt) * b
+        scores = scores + b
+    elif bias is not None:
+        scores = scores + bias.to(dt)
+    if key_mask is not None:
+        scores = scores.float().masked_fill(~(key_mask > 0)[:, None, None, :], NEG_INF)
+    weights = torch.softmax(scores.float(), dim=-1).to(dt)
+    return (weights.float() @ v.float()).to(dt)

@@ -1,0 +1,127 @@
+"""K1 (attention on [B, T, D] panels): the port's plain version against the
+JAX package's Pallas kernel in interpret mode and its XLA attention.
+
+Inputs come from numpy with a seed and go to both frameworks. Tolerances:
+f32 max-abs <= 1e-5 (same math, other summation order); bf16 max-abs <=
+3e-2 and cosine >= 0.999, because q*scale, the bias and P are rounded to
+bf16 at points where the two frameworks' float32 sums then differ by a few
+bf16 ulps.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from interspeech_ser_tpu.ops.attention_core import dot_product_attention as jax_dpa
+from interspeech_ser_tpu.ops.pallas.flash_attention_short import attention_btd as jax_attention_btd
+from interspeech_ser_tpu_torch.ops.attention_core import dot_product_attention, dot_product_attention_btd
+from interspeech_ser_tpu_torch.ops.kernels.attention import attention_btd, attention_btd_plain
+
+torch.set_num_threads(2)
+
+B, D, H = 2, 64, 4
+
+
+def _inputs(seed, T, with_bias, with_mask):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, T, D)).astype(np.float32) for _ in range(3))
+    mask = None
+    if with_mask:  # ragged: row 1 keeps 19 of T keys (for T=130 the last two 64-key tiles are all masked)
+        mask = (np.arange(T)[None] < np.array([T, 19])[:, None]).astype(np.float32)
+    gate = bias = None
+    if with_bias:
+        gate = rng.uniform(0.5, 2.0, (B, H, T)).astype(np.float32)
+        bias = rng.standard_normal((H, T, T)).astype(np.float32)
+    return q, k, v, mask, gate, bias
+
+
+def _torch(x, dt=torch.float32):
+    return None if x is None else torch.from_numpy(x).to(dt)
+
+
+def _jax(x, dt=jnp.float32):
+    return None if x is None else jnp.asarray(x).astype(dt)
+
+
+def _cos(a, b):
+    a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+@pytest.mark.parametrize("T", [37, 130])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_interpret(T, with_bias, with_mask, dtype):
+    q, k, v, mask, gate, bias = _inputs(T + 2 * with_bias + with_mask, T, with_bias, with_mask)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref = jax_attention_btd(
+        _jax(q, jdt), _jax(k, jdt), _jax(v, jdt), H, key_mask=_jax(mask),
+        gate=_jax(gate), pos_bias=_jax(bias), interpret=True,
+    )
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = attention_btd_plain(
+        _torch(q, tdt), _torch(k, tdt), _torch(v, tdt), H, key_mask=_torch(mask),
+        gate=_torch(gate), pos_bias=_torch(bias),
+    )
+    assert out.dtype == tdt and out.shape == (B, T, D)
+    out = out.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    else:
+        assert np.abs(out - ref).max() <= 3e-2
+        assert _cos(out, ref) >= 0.999
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_plain_matches_xla_attention_f32(with_bias, with_mask):
+    T = 37
+    q, k, v, mask, gate, bias = _inputs(11, T, with_bias, with_mask)
+    bhtd = lambda x: jnp.asarray(x).reshape(B, T, H, D // H).transpose(0, 2, 1, 3)  # noqa: E731
+    ref = jax_dpa(bhtd(q), bhtd(k), bhtd(v), key_mask=_jax(mask), gate=_jax(gate), shared_bias=_jax(bias))
+    ref = np.asarray(ref).transpose(0, 2, 1, 3).reshape(B, T, D)
+    out = dot_product_attention_btd(
+        _torch(q), _torch(k), _torch(v), H, key_mask=_torch(mask), gate=_torch(gate),
+        shared_bias=_torch(bias),
+    )
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_bhtd_form_matches_xla_attention_f32():
+    T = 37
+    q, k, v, mask, gate, bias = _inputs(12, T, True, True)
+    bhtd = lambda x: x.reshape(B, T, H, D // H).transpose(0, 2, 1, 3)  # noqa: E731
+    ref = jax_dpa(*(jnp.asarray(bhtd(x)) for x in (q, k, v)), key_mask=_jax(mask),
+                  gate=_jax(gate), shared_bias=_jax(bias))
+    out = dot_product_attention(*(_torch(np.ascontiguousarray(bhtd(x))) for x in (q, k, v)),
+                                key_mask=_torch(mask), gate=_torch(gate), shared_bias=_torch(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+def test_all_negative_scores_stay_exact():
+    """Every real score far below 0 (anti-aligned q and k) and no mask: the
+    softmax must still normalise over the real keys only."""
+    T = 37
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, T, D)).astype(np.float32)
+    k = -3.0 * q
+    v = rng.standard_normal((1, T, D)).astype(np.float32)
+    ref = np.asarray(jax_attention_btd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H, interpret=True))
+    out = attention_btd_plain(_torch(q), _torch(k), _torch(v), H).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+def test_wrapper_runs_plain_version_on_cpu():
+    q, k, v, mask, gate, bias = _inputs(5, 37, True, True)
+    args = (_torch(q), _torch(k), _torch(v), H)
+    kw = dict(key_mask=_torch(mask), gate=_torch(gate), pos_bias=_torch(bias))
+    from interspeech_ser_tpu_torch.ops.kernels import attention as mod
+
+    before = mod.LAUNCHES
+    torch.testing.assert_close(attention_btd(*args, **kw), attention_btd_plain(*args, **kw), rtol=0, atol=0)
+    assert mod.LAUNCHES == before  # the CPU path launches nothing

@@ -1,0 +1,84 @@
+"""K1, K2 and K3 on the card against their plain versions, at small shapes.
+
+Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is False (a
+CUDA kernel has no CPU mode). On a machine with an H100:
+``python -m pytest -m gpu tests/test_torch_cuda_kernels.py``. The full-width
+parity and timing run is ``python3 chip_smoke.py``.
+"""
+
+import pytest
+import torch
+
+from interspeech_ser_tpu_torch.ops.kernels import attention as k_attn
+from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as k_conv
+from interspeech_ser_tpu_torch.ops.kernels import gru as k_gru
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("bias,masked", [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel(cuda, bias, masked, dtype):
+    B, T, H = 3, 150, 4
+    q, k, v = (torch.randn(B, T, 64 * H, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    kw = {}
+    if masked:  # row 2 leaves the last two 64-key tiles fully masked
+        kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([150, 77, 40], device="cuda")[:, None]).float()
+    if bias:
+        kw["gate"] = 1 + torch.rand(B, H, T, generator=cuda, device="cuda")
+        kw["pos_bias"] = torch.randn(H, T, T, generator=cuda, device="cuda")
+    before = k_attn.LAUNCHES
+    out = k_attn.attention_btd(q, k, v, H, **kw)
+    torch.cuda.synchronize()
+    assert k_attn.LAUNCHES == before + 1
+    ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+
+
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_frontend_kernel(cuda, approx, dtype):
+    wav = torch.randn(2, 16007, generator=cuda, device="cuda")
+    args = (wav, torch.randn(512, 1, 10, generator=cuda, device="cuda") / 3, torch.randn(512, generator=cuda, device="cuda"),
+            torch.ones(512, device="cuda"), torch.zeros(512, device="cuda"), 5, dtype, approx, 1e-5)
+    out = k_conv.conv_frontend(*args)
+    ref = k_conv.conv_frontend_plain(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+
+
+def test_gru_kernel(cuda):
+    B, T, H = 3, 40, 64
+    x = torch.randn(2 * B, T, 3 * H, generator=cuda, device="cuda")
+    w = (torch.rand(2, H, 3 * H, generator=cuda, device="cuda") - 0.5) / 4
+    b = (torch.rand(2, 3 * H, generator=cuda, device="cuda") - 0.5) / 4
+    m = (torch.arange(T, device="cuda")[None] < torch.tensor([40, 17, 3], device="cuda")[:, None]).float()
+    mask = torch.cat([m, m.flip(1)]).contiguous()
+    out = k_gru.gru_sequence_bidir(x, w, b, mask, B)
+    ref = k_gru.gru_bidir_carries_plain(x, w, b, mask) * mask[:, :, None]
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 8, 96, device="cuda")
+    with pytest.raises(NotImplementedError):
+        k_attn.attention_btd(q, q, q, 2)  # head dim 48
+    with pytest.raises(ValueError):
+        k_attn.attention_btd(q[:, :, :64].contiguous(), q[:, :, :64], q[:, :, :64], 1)  # non-contiguous k
+    with pytest.raises(ValueError):
+        k_gru.gru_bidir_carries(torch.randn(3, 4, 6, device="cuda"), torch.randn(2, 2, 6, device="cuda"),
+                                torch.randn(2, 6, device="cuda"), torch.ones(3, 4, device="cuda"))

@@ -1,0 +1,40 @@
+"""Every module of ``interspeech_ser_tpu_torch`` (and ``chip_smoke.py``)
+imports without jax, flax, pandas, transformers or safetensors, and without
+building or launching a kernel. Run in a fresh interpreter, because this
+test session has imported jax already (tests/conftest.py)."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+SCRIPT = r"""
+import importlib, json, pkgutil, sys
+import interspeech_ser_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+from interspeech_ser_tpu_torch.ops.kernels import _build, attention, conv_frontend, gru
+print(json.dumps({
+    "modules": mods,
+    "heavy": [m for m in ("jax", "flax", "pandas", "transformers", "safetensors") if m in sys.modules],
+    "library_loaded": _build.library.cache_info().currsize,
+    "launches": [attention.LAUNCHES, conv_frontend.LAUNCHES, gru.LAUNCHES],
+}))
+"""
+
+
+def test_port_imports_light():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(out["modules"]) >= 25, out["modules"]
+    assert out["heavy"] == []
+    assert out["library_loaded"] == 0
+    assert out["launches"] == [0, 0, 0]
