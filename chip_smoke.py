@@ -7,15 +7,20 @@ Runs from the root of a checkout on a machine with one CUDA card (built for
 an H100, ``sm_90a``) and needs nothing else: it builds the hand-written
 kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
-drives the serving path through its entry points at full width:
+drives the serving path and the training path through their entry points at
+full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
 3. kernel parity and timing, kernel vs plain version (median of 5 runs,
-   CUDA events, after a warm-up; TF32 off for the plain version):
+   CUDA events, after a warm-up; TF32 off), with each kernel's bound (bytes
+   or operations at the H100's published peaks) and one library call that
+   computes the same function where there is one:
    K1 attention at WavLM-large shapes (gated bias + ragged key mask, f32 and
-   bf16) and its no-bias / no-mask variants at Whisper-large shapes; K2 the
-   fused conv0 + LayerNorm + GELU on 10-s waveforms; K3 the BiGRU recurrence;
+   bf16; SDPA with a float mask) and its no-bias / no-mask variants at
+   Whisper-large shapes; K2 the fused conv0 + LayerNorm + GELU on 10-s
+   waveforms; K3 the BiGRU recurrence and K3b its backward at the fusion
+   trainer's batch (2B=128 rows, T=512, H=512; cuDNN ``nn.GRU``);
 4. extraction: a seeded random-init WavLM-large (24 layers, D=1024) written
    as an HF directory, 8 seeded wavs of 3-12 s, ``preprocess_cli.speech_main``
    in bf16 and in f32 (each run twice, cold then warm); shapes,
@@ -24,11 +29,19 @@ drives the serving path through its entry points at full width:
 5. scoring: the bimodal WavLM-large + RoBERTa-large config at full fusion
    width (H=512, feat dims 1024/1024), ``cli.eval_main`` and ``cli.test_main``
    over the extracted features; CSV format, and every logit against a
-   batch-1 plain forward on the CPU.
+   batch-1 plain forward on the CPU;
+6. training: the same config over 128 train and 64 dev seeded synthetic
+   utterances (speech [150-499, 1024], text [20-80, 1024]), ``cli.train_main``
+   for 2 epochs, then ``cli.eval_main`` on its checkpoint: finite losses, a
+   strict load, K3b launches = modalities x optimizer steps, the dev CSV;
+   then one train step's gradients through the kernels against the plain
+   path on the card, the median train-step time and a profile of 2 steps.
 
-The launch counters are zeroed just before phase 4 and read after phase 5.
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
+The launch counters are zeroed just before phase 4 and read after phase 5
+(the serving path), and zeroed again just before phase 6 and read after its
+eval (the training path). The line before the last is the kernels' JSON
+record; the last line is ``{"ok": true, "device": {...}}``. Any failure
+raises (non-zero exit).
 """
 
 from __future__ import annotations
@@ -54,6 +67,11 @@ from interspeech_ser_tpu_torch.ops.kernels import gru as k_gru
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 DEVICE = "cuda"
+# H100 SXM published peaks (dense): HBM bytes/s, FP32 (non-tensor-core) and
+# bf16 tensor-core operations/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 KERNELS = {
     "attention_btd": dict(
         module=k_attn, source="interspeech_ser_tpu_torch/csrc/attention_btd.cu",
@@ -66,6 +84,10 @@ KERNELS = {
     "gru_bidir": dict(
         module=k_gru, source="interspeech_ser_tpu_torch/csrc/gru_bidir.cu",
         replaces="interspeech_ser_tpu/ops/pallas/gru_kernel.py:357",
+    ),
+    "gru_bidir_bwd": dict(
+        module=k_gru, counter="BWD_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/gru_bidir_bwd.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/gru_kernel.py:297",
     ),
 }
 
@@ -100,6 +122,14 @@ def median_ms(fn, reps: int = 5) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def roofline_ms(nbytes: float, flops: float, peak_flops: float):
+    """The least time the card could take: the larger of bytes over HBM
+    bandwidth and operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def sync() -> None:
@@ -154,6 +184,20 @@ def _attention_inputs(g, B, T, D, H, lengths, bias: bool, dt):
     return (q, k, v, H), dict(key_mask=mask, gate=gate, pos_bias=pb)
 
 
+def _sdpa_yardstick(q, k, v, H, key_mask, gate, pos_bias, ref):
+    """``scaled_dot_product_attention`` with the additive float mask
+    gate * bias + key mask, which computes K1's function: its median ms
+    (mask built outside the timing) and its max-abs gap to the plain version."""
+    import torch.nn.functional as F
+
+    B, T, D = q.shape
+    heads = [t.view(B, T, H, D // H).transpose(1, 2) for t in (q, k, v)]
+    masked = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))
+    attn_mask = (gate[..., None] * pos_bias[None] + masked[:, None, None, :]).to(q.dtype)
+    out = F.scaled_dot_product_attention(*heads, attn_mask=attn_mask).transpose(1, 2).reshape(B, T, D)
+    return median_ms(lambda: F.scaled_dot_product_attention(*heads, attn_mask=attn_mask)), max_abs(out, ref)
+
+
 def check_attention(g, results) -> None:
     # WavLM-large layer: ragged lengths; length 400 leaves the last key tile
     # (448..498) fully masked for that row
@@ -166,14 +210,24 @@ def check_attention(g, results) -> None:
         err, cos = max_abs(out, ref), cosine(out, ref)
         ms = median_ms(lambda: k_attn.attention_btd(*args, **kw))
         plain_ms = median_ms(lambda: k_attn.attention_btd_plain(*args, **kw))
+        library_ms, lib_err = _sdpa_yardstick(*args, **kw, ref=ref)
         name = "f32" if dt == torch.float32 else "bf16"
+        q, k, v, H = args
+        B, T, D = q.shape
+        nbytes = q.element_size() * 4 * q.numel() + 4 * (kw["gate"].numel() + kw["pos_bias"].numel()
+                                                       + kw["key_mask"].numel())
+        flops = 4 * T * D * sum(lengths) + 8 * H * T * sum(lengths)  # QK^T, PV and the softmax over live keys
+        bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
         log(f"[parity] K1 attention_btd B8 T499 D1024 H16 bias+mask {name}: "
-            f"max_abs {err:.3e} cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"max_abs {err:.3e} cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA with float mask {library_ms:.3f} ms (vs plain max_abs {lib_err:.3e}); "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if dt == torch.float32:
             require(err <= 1e-4, f"K1 f32 max_abs {err} > 1e-4")
         else:
             require(cos >= 0.999, f"K1 bf16 cosine {cos} < 0.999")
-        main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms)
+        main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
     # Whisper-large shape: the no-bias and no-mask variants
     for bias, masked in ((True, False), (False, True), (False, False)):
         for dt in (torch.float32, torch.bfloat16):
@@ -209,38 +263,144 @@ def check_conv_frontend(g, results) -> None:
             ms = median_ms(lambda: k_conv.conv_frontend(*args))
             plain_ms = median_ms(lambda: k_conv.conv_frontend_plain(*args))
             name = ("f32" if dt == torch.float32 else "bf16") + ("_tanh" if approx else "_erf")
+            # conv (2 x 10 per output) + bias, LayerNorm and GELU (~30 per output)
+            nbytes = 4 * (wav.numel() + w.numel() + 3 * 512) + out.element_size() * out.numel()
+            bound_ms, bound_by = roofline_ms(nbytes, out.numel() * (2 * 10 + 30), PEAK_F32)
             log(f"[parity] K2 conv_frontend wav[8,160000] -> [8,31999,512] {name}: "
-                f"max_abs {err:.3e} cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                f"max_abs {err:.3e} cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+                f"bound {bound_ms:.4f} ms ({bound_by}); no single library call does conv+LN+GELU")
             if dt == torch.float32:
                 require(err <= 1e-4, f"K2 {name} max_abs {err} > 1e-4")
             else:
                 require(cos >= 0.999, f"K2 {name} cosine {cos} < 0.999")
-            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms)
+            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=bound_ms, bound_by=bound_by)
     results["conv_frontend"] = main
 
 
-def check_gru(g, results) -> None:
+def _gru_inputs(g, B: int, T: int, H: int):
+    """The fusion BiGRU at the main path's shapes: 2B stacked rows, ragged
+    lengths (prefix masks; the backward rows reversed in time)."""
     dev = "cuda"
-    B, T, H = 8, 500, 512
     bound = H ** -0.5
     x_proj = 0.5 * torch.randn(2 * B, T, 3 * H, generator=g, device=dev)
     w_hh2 = (torch.rand(2, H, 3 * H, generator=g, device=dev) * 2 - 1) * bound
     b_hh2 = (torch.rand(2, 3 * H, generator=g, device=dev) * 2 - 1) * bound
-    lengths = torch.randint(100, T + 1, (B,), generator=g, device=dev)
+    lengths = torch.randint(150, T + 1, (B,), generator=g, device=dev)
+    lengths[0] = T
     m = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
-    mask = torch.cat([m, m.flip(1)], dim=0).contiguous()  # backward rows time-reversed
+    mask = torch.cat([m, m.flip(1)], dim=0).contiguous()
+    return x_proj, w_hh2, b_hh2, mask, lengths
+
+
+def _cudnn_gru(x_proj, w_hh2, b_hh2, lengths):
+    """One cuDNN ``nn.GRU(6H -> H, bidirectional)`` that computes K3's function:
+    input [x_proj_f | x_proj_b un-reversed], W_ih = [I 0] and [0 I], b_ih = 0,
+    packed by lengths. Returns the module and its packed input."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    B = x_proj.shape[0] // 2
+    H = w_hh2.shape[1]
+    gru = torch.nn.GRU(6 * H, H, batch_first=True, bidirectional=True).cuda()
+    eye = torch.eye(3 * H, device="cuda")
+    zero = torch.zeros_like(eye)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.cat([eye, zero], 1))
+        gru.weight_ih_l0_reverse.copy_(torch.cat([zero, eye], 1))
+        gru.bias_ih_l0.zero_()
+        gru.bias_ih_l0_reverse.zero_()
+        for d, sfx in ((0, ""), (1, "_reverse")):
+            getattr(gru, f"weight_hh_l0{sfx}").copy_(w_hh2[d].t())
+            getattr(gru, f"bias_hh_l0{sfx}").copy_(b_hh2[d])
+    x = torch.cat([x_proj[:B], x_proj[B:].flip(1)], dim=-1).requires_grad_()
+    packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True, enforce_sorted=False)
+    return gru, x, packed
+
+
+def _unpack(gru_out, T: int) -> torch.Tensor:
+    from torch.nn.utils.rnn import pad_packed_sequence
+
+    return pad_packed_sequence(gru_out, batch_first=True, total_length=T)[0]
+
+
+def check_gru(g, results) -> None:
+    B, T, H = 64, 512, 512
+    x_proj, w_hh2, b_hh2, mask, lengths = _gru_inputs(g, B, T, H)
     args = (x_proj, w_hh2, b_hh2, mask, B)
-    out = k_gru.gru_sequence_bidir(*args)
-    ref = k_gru.gru_sequence_bidir(x_proj.cpu(), w_hh2.cpu(), b_hh2.cpu(), mask.cpu(), B)
-    ref_card = k_gru.gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None]
-    err, cos = max_abs(out, ref_card), cosine(out, ref_card)
-    err_cpu = max_abs(out.cpu(), ref)
-    ms = median_ms(lambda: k_gru.gru_sequence_bidir(*args))
-    plain_ms = median_ms(lambda: k_gru.gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None])
-    log(f"[parity] K3 gru_bidir x_proj[16,500,1536] H512 ragged f32: max_abs {err:.3e} "
-        f"(vs CPU plain {err_cpu:.3e}) cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    with torch.no_grad():
+        out = k_gru.gru_sequence_bidir(*args)
+        ref_card = k_gru.gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None]
+        err, cos = max_abs(out, ref_card), cosine(out, ref_card)
+        ms = median_ms(lambda: k_gru.gru_sequence_bidir(*args))
+        plain_ms = median_ms(lambda: k_gru.gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None])
+        gru, _, packed = _cudnn_gru(x_proj, w_hh2, b_hh2, lengths)
+        lib = _unpack(gru(packed)[0], T)
+        lib_err = max_abs(lib, torch.cat([out[:B], out[B:].flip(1)], dim=-1))
+        library_ms = median_ms(lambda: gru(packed))
+    valid = float(mask.sum())
+    nbytes = 4 * (x_proj.numel() + w_hh2.numel() + b_hh2.numel() + mask.numel() + out.numel())
+    bound_ms, bound_by = roofline_ms(nbytes, valid * (6 * H * H + 12 * H), PEAK_F32)
+    log(f"[parity] K3 gru_bidir x_proj[128,512,1536] H512 ragged f32: max_abs {err:.3e} cos {cos:.7f}; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN nn.GRU {library_ms:.3f} ms "
+        f"(incl. identity input projection; vs K3 max_abs {lib_err:.3e}); bound {bound_ms:.3f} ms ({bound_by})")
     require(err <= 1e-4, f"K3 f32 max_abs {err} > 1e-4")
-    results["gru_bidir"] = {"f32": dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms)}
+    require(lib_err <= 1e-3, f"cuDNN GRU yardstick differs from K3 by {lib_err}: not the same function")
+    results["gru_bidir"] = {"f32": dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms,
+                                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
+
+
+def check_gru_bwd(g, results) -> None:
+    """K3b against the plain backward on the card, on K3's carries and a
+    non-uniform upstream cotangent. Bars: dx_proj max-abs <= 1e-4 x
+    max(1, max|ref|); dW_hh2 and db_hh2 (sums over 64 x 512 row-steps)
+    max-abs <= 1e-4 x max|ref|."""
+    B, T, H = 64, 512, 512
+    x_proj, w_hh2, b_hh2, mask, lengths = _gru_inputs(g, B, T, H)
+    with torch.no_grad():
+        h = k_gru.gru_bidir_carries(x_proj, w_hh2, b_hh2, mask)
+        scale = 0.5 + torch.rand(2 * B, T, 1, generator=g, device="cuda")
+        gr = torch.randn(2 * B, T, H, generator=g, device="cuda") * scale
+        args = (x_proj, w_hh2, b_hh2, mask, h, gr)
+        out = k_gru.gru_bidir_carries_bwd(*args)
+        ref = k_gru.gru_bidir_carries_bwd_plain(*args)
+        dx_ref = float(ref[0].abs().max())
+        errs = {
+            "dx_proj": max_abs(out[0], ref[0]) / max(1.0, dx_ref),
+            "dW_hh2": max_abs(out[1], ref[1]) / float(ref[1].abs().max()),
+            "db_hh2": max_abs(out[2], ref[2]) / float(ref[2].abs().max()),
+        }
+        again = k_gru.gru_bidir_carries_bwd(*args)
+        deterministic = all(torch.equal(a, b) for a, b in zip(out, again))
+        ms = median_ms(lambda: k_gru.gru_bidir_carries_bwd(*args))
+        plain_ms = median_ms(lambda: k_gru.gru_bidir_carries_bwd_plain(*args))
+    # cuDNN's backward of the same function (it also differentiates its identity
+    # input projection: dX and dW_ih, two [N, 6H] x [6H, 3H]-sized products)
+    gru, x, packed = _cudnn_gru(x_proj, w_hh2, b_hh2, lengths)
+    lib_out = _unpack(gru(packed)[0], T)
+    gm = gr * mask[:, :, None]
+    g_lib = torch.cat([gm[:B], gm[B:].flip(1)], dim=-1)
+    wrt = [x] + list(gru.parameters())
+    lib_grads = torch.autograd.grad(lib_out, wrt, g_lib, retain_graph=True)
+    ref_m = k_gru.gru_bidir_carries_bwd_plain(x_proj, w_hh2, b_hh2, mask, h, gm)
+    lib_err = max_abs(lib_grads[0][..., : 3 * H], ref_m[0][:B]) / max(1.0, float(ref_m[0].abs().max()))
+    library_ms = median_ms(lambda: torch.autograd.grad(lib_out, wrt, g_lib, retain_graph=True))
+    del lib_out, lib_grads, gru, x, packed
+    valid = float(mask.sum())
+    nbytes = 4 * (x_proj.numel() + w_hh2.numel() + b_hh2.numel() + mask.numel() + h.numel()
+                  + gr.numel() + out[0].numel() + out[1].numel() + out[2].numel())
+    bound_ms, bound_by = roofline_ms(nbytes, valid * (18 * H * H + 30 * H), PEAK_F32)
+    log(f"[parity] K3b gru_bidir_bwd [128,512] H512 ragged f32: dx_proj max_abs/max(1,|ref|) "
+        f"{errs['dx_proj']:.3e} (max|ref| {dx_ref:.3f}), dW rel {errs['dW_hh2']:.3e}, "
+        f"db rel {errs['db_hh2']:.3e}; bit-identical rerun {deterministic}; kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, cuDNN nn.GRU backward {library_ms:.3f} ms (incl. the identity "
+        f"input projection's backward; dx vs plain {lib_err:.3e}); bound {bound_ms:.3f} ms ({bound_by})")
+    for name, e in errs.items():
+        require(e <= 1e-4, f"K3b {name} error {e} > 1e-4")
+    require(deterministic, "K3b gave different bits on a rerun")
+    require(lib_err <= 1e-3, f"cuDNN GRU backward differs from the plain backward by {lib_err}")
+    results["gru_bidir_bwd"] = {"f32": dict(
+        max_abs_err=max(errs.values()), rel_errs=errs, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
 
 
 # -- phases 4-5 -------------------------------------------------------------------
@@ -275,7 +435,12 @@ def write_wavlm_large(model_dir: str) -> None:
 
 
 def counts() -> dict:
-    return {name: spec["module"].LAUNCHES for name, spec in KERNELS.items()}
+    return {name: getattr(spec["module"], spec.get("counter", "LAUNCHES")) for name, spec in KERNELS.items()}
+
+
+def zero_counts() -> None:
+    for spec in KERNELS.values():
+        setattr(spec["module"], spec.get("counter", "LAUNCHES"), 0)
 
 
 def phase_extraction(tmp: str) -> dict:
@@ -307,7 +472,7 @@ def phase_extraction(tmp: str) -> dict:
         save = os.path.join(tmp, f"feats_{dtype}" + ("_cold" if rep == "cold" else ""))
         before = counts()
         stats = speech_main(["--ssl_type", model_dir, "--wav_dir", wav_dir, "--save_path", save,
-                             "--dtype", dtype])
+                             "--dtype", dtype, "--device", DEVICE])
         sync()
         delta = {k: v - before[k] for k, v in counts().items()}
         require(stats.n_utts == 8 and stats.n_failed == 0, f"{dtype}: {stats}")
@@ -385,8 +550,8 @@ def phase_scoring(tmp: str, extracted: dict) -> None:
     torch.save(model.state_dict(), os.path.join(model_path, "multimodal_ser.pt"))
 
     before = counts()["gru_bidir"]
-    dev_csv = cli.eval_main(["--config_path", config_path])
-    test_out = cli.test_main(["--config_path", config_path, "--test_df", test_csv])
+    dev_csv = cli.eval_main(["--config_path", config_path, "--device", DEVICE])
+    test_out = cli.test_main(["--config_path", config_path, "--test_df", test_csv, "--device", DEVICE])
     sync()
     require(counts()["gru_bidir"] > before, "K3 was not launched by scoring")
 
@@ -416,6 +581,172 @@ def phase_scoring(tmp: str, extracted: dict) -> None:
             f"max |logit - batch-1 CPU plain| = {worst:.2e}")
 
 
+# -- phase 6 ---------------------------------------------------------------------
+
+# the train phase's synthetic corpus and model: full fusion width (the
+# config's H=512 and 1024/1024 feature dims, batch 64), few utterances
+TRAIN_SHAPE = dict(n_train=128, n_dev=64, feat_dim=1024, speech_len=(150, 500), text_len=(20, 81),
+                   epochs=2, config={})
+
+
+def write_train_corpus(tmp: str) -> str:
+    """Seeded synthetic WavLM-large / RoBERTa-large ``.pt`` features, label and
+    transcript CSVs, and the bimodal config pointed at them -> config path."""
+    from interspeech_ser_tpu_torch.utils.labels import CLASSES
+
+    shape = TRAIN_SHAPE
+    rng = np.random.default_rng(SEED + 2)
+    dirs = [os.path.join(tmp, "train_speech"), os.path.join(tmp, "train_text")]
+    for d in dirs:
+        os.makedirs(d)
+    D = shape["feat_dim"]
+    means = rng.normal(scale=0.5, size=(8, D)).astype(np.float32)
+    rows = []
+    for i in range(shape["n_train"] + shape["n_dev"]):
+        cls, name = i % 8, f"train_utt{i:03d}.wav"
+        speech = rng.standard_normal((int(rng.integers(*shape["speech_len"])), D), dtype=np.float32) + means[cls]
+        text = rng.standard_normal((int(rng.integers(*shape["text_len"])), D), dtype=np.float32)
+        for d, f in zip(dirs, (speech, text)):
+            torch.save(torch.from_numpy(f), os.path.join(d, name.replace(".wav", ".pt")))
+        rows.append([name] + [float(c == cls) for c in range(8)]
+                    + ["Train" if i < shape["n_train"] else "Development"])
+    label_csv, transcripts = os.path.join(tmp, "train_labels.csv"), os.path.join(tmp, "train_transcripts.csv")
+    with open(label_csv, "w", newline="") as f:
+        csv.writer(f).writerows([["FileName"] + CLASSES + ["Split_Set"]] + rows)
+    with open(transcripts, "w", newline="") as f:
+        csv.writer(f).writerows([["FileName", "transcription"]] + [[r[0], "words"] for r in rows])
+    with open(os.path.join(ROOT, "configs", "config_cat_bimodal_lazy_lr1e4_head1.json")) as f:
+        cfg = json.load(f)
+    cfg.update(wav_dir=tmp, txt_dir=transcripts, lazy_dir1=dirs[0], lazy_dir2=dirs[1], label_path=label_csv,
+               feat1_dim=D, feat2_dim=D, epochs=shape["epochs"], model_path=os.path.join(tmp, "train_experiment"),
+               **shape["config"])
+    path = os.path.join(tmp, "train_config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_train(config_path: str) -> dict:
+    """``cli train`` for the config's epochs, then ``cli eval`` on the
+    checkpoint it wrote: finite losses, a strict load, K3b launched once per
+    modality and optimizer step, the dev CSV's format."""
+    from interspeech_ser_tpu_torch import cli
+    from interspeech_ser_tpu_torch.models.fusion import MultiModalEmotionClassifier
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+    from interspeech_ser_tpu_torch.utils.labels import CLASSES
+
+    cfg = load_fusion_config(config_path)
+    t0 = time.perf_counter()
+    best = cli.train_main(["--config_path", config_path, "--device", DEVICE])
+    sync()
+    train_s = time.perf_counter() - t0
+    dev_csv = cli.eval_main(["--config_path", config_path, "--device", DEVICE])
+    sync()
+    logged = []
+    for log_file in sorted(f for f in os.listdir(cfg.model_path) if f.startswith("loggingtxt-")):
+        with open(os.path.join(cfg.model_path, log_file)) as f:
+            logged += [float(v) for v in re.findall(r"(?:eval_loss|: loss) = (\S+)", f.read())]
+    require(len(logged) >= cfg.epochs + 1, f"expected per-epoch and eval losses in the logs, got {logged}")
+    require(all(np.isfinite(logged)), f"non-finite logged loss: {logged}")
+    model = MultiModalEmotionClassifier(cfg.feat_dims, cfg.fusion_hidden_dim)
+    model.load_state_dict(torch.load(os.path.join(cfg.model_path, "multimodal_ser.pt"), weights_only=True),
+                          strict=True)
+    with open(dev_csv, newline="") as f:
+        table = list(csv.reader(f))
+    four = re.compile(r"^-?\d+\.\d{4}$")
+    require(table[0] == ["Filename", "Prediction"] + [f"class_{i}_prob" for i in range(len(CLASSES))],
+            f"dev header {table[0]}")
+    require(len(table) == 1 + TRAIN_SHAPE["n_dev"], f"dev rows {len(table) - 1}")
+    require(all(all(four.match(v) for v in r[2:]) for r in table[1:]), "dev logits not 4-decimal")
+    steps = cfg.epochs * -(-TRAIN_SHAPE["n_train"] // cfg.batch_size)
+    log(f"[train] cli train {cfg.epochs} epochs x {steps // cfg.epochs} steps (batch {cfg.batch_size}, "
+        f"H={cfg.fusion_hidden_dim}, feat dims {cfg.feat_dims}) in {train_s:.2f} s incl. dev evals; "
+        f"best {best}; logged losses {logged}; {os.path.relpath(dev_csv, os.path.dirname(config_path))}: "
+        f"{len(table) - 1} rows")
+    return {"steps": steps, "n_modalities": len(cfg.feat_dims), "best": best, "train_s": train_s}
+
+
+def check_train_step(config_path: str) -> dict:
+    """One train step's gradients through the kernels (K3 + K3b) against the
+    same step through the plain path (autograd through ``gru_scan``) on the
+    same device, TF32 off, same init and dropout draws. Bar: per parameter
+    max|g_kernel - g_plain| <= 1e-4 x max(max|g_plain|, 1e-3 x the largest
+    gradient of the model); the floor covers parameters whose gradient is 0
+    in exact arithmetic (the pooling scorers' biases). Then the median of 5
+    timed train steps and a profile of 2."""
+    from interspeech_ser_tpu_torch.ops.gru import BiGRU
+    from interspeech_ser_tpu_torch.train.data import LazyFeatureDataset
+    from interspeech_ser_tpu_torch.train.engine import FusionEngine
+    from interspeech_ser_tpu_torch.utils import labels as L
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+
+    cfg = load_fusion_config(config_path)
+    train_rows = L.split(L.load_merged(cfg.label_path, cfg.txt_dir), "Train")
+    ds = LazyFeatureDataset(L.column(train_rows, "FileName"), L.matrix(train_rows), cfg.lazy_dirs, cfg.feat_dims)
+    batch = ds.collate(list(range(cfg.batch_size)), cfg.batch_size)
+    class_w = torch.from_numpy(L.class_weights(train_rows)).to(DEVICE)
+    grads = {}
+    for route in ("kernel", "plain"):
+        engine = FusionEngine(cfg, seed=SEED, device=DEVICE)
+        kernel_forward = BiGRU.forward
+        if route == "plain":
+            BiGRU.forward = BiGRU.forward_scan
+        try:
+            loss, _ = engine.accumulate_gradients(batch, class_w)
+        finally:
+            BiGRU.forward = kernel_forward
+        require(bool(torch.isfinite(loss)), f"{route} train-step loss {loss}")
+        grads[route] = {n: p.grad.detach().clone() for n, p in engine.model.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads["plain"].values())
+    errs = {n: max_abs(grads["kernel"][n], gp) / max(float(gp.abs().max()), 1e-3 * top)
+            for n, gp in grads["plain"].items()}
+    worst = max(errs, key=errs.get)
+    log(f"[train] one step's gradients, kernel path vs plain path on {DEVICE} (batch shapes "
+        f"{[tuple(f.shape) for f in batch.feats]}): worst {worst} {errs[worst]:.3e} (bar 1e-4); "
+        f"GRU weight_hh {errs['speech_gru.weight_hh_l0']:.3e}, speech projection "
+        f"{errs['speech_projection.weight']:.3e}")
+    require(errs[worst] <= 1e-4, f"train-step gradient {worst}: {errs[worst]} > 1e-4")
+    del grads
+
+    engine = FusionEngine(cfg, seed=SEED, device=DEVICE)
+    engine.optimizer = engine.make_optimizer()
+
+    def step():
+        engine.accumulate_gradients(batch, class_w)
+        engine.apply_gradients(cfg.lr)
+
+    step()
+    sync()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    out = {"train_step_ms": step_ms, "train_step_ms_runs": times, "grad_rel_err": errs[worst]}
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            step()
+            sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top8 = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        out["profile"] = {"wall_ms_2_steps": wall_ms, "device_busy_ms": busy_ms,
+                          "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top8]}
+        log(f"[train] profile of 2 steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms")
+        for name, ms, n in out["profile"]["top"]:
+            log(f"[train]   {ms:9.3f} ms  x{n:<4d} {name}")
+    log(f"[train] train step (batch {cfg.batch_size}, kernels, TF32 off): median {step_ms:.3f} ms "
+        f"of runs {[round(t, 3) for t in times]}")
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     set_tf32(False)
@@ -425,16 +756,29 @@ def main() -> None:
     check_attention(g, parity)
     check_conv_frontend(g, parity)
     check_gru(g, parity)
+    check_gru_bwd(g, parity)
 
-    for spec in KERNELS.values():
-        spec["module"].LAUNCHES = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        zero_counts()
         extracted = phase_extraction(tmp)
         phase_scoring(tmp, extracted)
-    launches = counts()
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
-    log(f"[main path] launches {launches}; extraction utt/s {extracted['utt_per_sec']}")
+        serving = counts()
+        for name in ("attention_btd", "conv_frontend", "gru_bidir"):
+            require(serving[name] > 0, f"kernel {name} was not launched on the serving path")
+        log(f"[serving path] launches {serving}; extraction utt/s {extracted['utt_per_sec']}")
+
+        config_path = write_train_corpus(tmp)
+        zero_counts()
+        trained = phase_train(config_path)
+        training = counts()
+        want_bwd = trained["n_modalities"] * trained["steps"]
+        require(training["gru_bidir"] > 0, "K3 was not launched on the training path")
+        require(training["gru_bidir_bwd"] == want_bwd,
+                f"K3b launches {training['gru_bidir_bwd']} != {trained['n_modalities']} modalities x "
+                f"{trained['steps']} optimizer steps")
+        log(f"[training path] launches {training}")
+        step = check_train_step(config_path)
+    launches = {name: serving[name] + training[name] for name in KERNELS}
 
     record = []
     for name, spec in KERNELS.items():
@@ -443,9 +787,13 @@ def main() -> None:
         record.append({
             "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
             "launches": launches[name], "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-            "plain_ms": f32["plain_ms"], "cases": cases,
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "library_ms": f32["library_ms"],
+            "launches_by_path": {"serving": serving[name], "training": training[name]}, "cases": cases,
         })
-    log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"]}))
+    log(f"[train] median train-step ms {step['train_step_ms']:.3f} (batch 64, H=512, {smi})")
+    log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
+                    "train": {**trained, **step}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -34,6 +34,7 @@ import torch
 from ..models.speech import feat_extract_output_length
 from ..utils import ptio
 from ..utils.audio import load_wav, normalize_waveform
+from ..utils.device import resolve_device
 from . import streaming
 
 BUCKET_QUANTUM = 16000  # batches pad to whole seconds of 16-kHz audio
@@ -81,11 +82,9 @@ class SpeechExtractionPipeline:
         token_budget: Optional[int] = None,  # samples per batch
         num_workers: int = 8,
         replicate_dir_count_bug: bool = False,
-        device: Optional[torch.device] = None,
+        device="cuda",  # "cpu" only when asked: no card raises
     ):
-        if device is None:
-            device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # bf16 mode: cast the frozen parameters once (norms still compute in
         # f32 on the bf16 values)
         model = model.to(self.device)

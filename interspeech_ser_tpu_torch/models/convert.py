@@ -113,4 +113,9 @@ def fusion_params_from_flax(params: Dict, n_mod: int) -> Dict[str, torch.Tensor]
     sd["classifier.0.bias"] = g("classifier_fc1", "bias")
     sd["classifier.3.weight"] = _t(g("classifier_fc2", "kernel"))
     sd["classifier.3.bias"] = g("classifier_fc2", "bias")
+    if "neutral_fc1" in params:  # the ranking trainers' neutral head
+        sd["neutral_classifier.0.weight"] = _t(g("neutral_fc1", "kernel"))
+        sd["neutral_classifier.0.bias"] = g("neutral_fc1", "bias")
+        sd["neutral_classifier.3.weight"] = _t(g("neutral_fc2", "kernel"))
+        sd["neutral_classifier.3.bias"] = g("neutral_fc2", "bias")
     return _to_torch(sd)

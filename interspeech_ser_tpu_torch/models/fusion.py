@@ -1,26 +1,38 @@
-"""Lazy-fusion emotion classifier (bimodal / trimodal), inference.
+"""Lazy-fusion emotion classifier (bimodal / trimodal, optional neutral head).
 
 Port of ``interspeech_ser_tpu/models/fusion.py::MultiModalEmotionClassifier``
-for the scoring path: masked inputs, no gender, MoE, gated or neutral head.
+with masked inputs; the gender, gated-pool and MoE variants are not ported.
 Module names are the reference's torch names, so a ``multimodal_ser.pt``
 from the reference or from the JAX ``FusionEngine`` loads with ``strict``:
 
 per modality  Linear(feat_dim -> H) -> LayerNorm -> BiGRU(H -> 2H)
 -> cross-modal MultiheadAttention (residual sum over the other modalities)
 -> softmax attention pooling -> concat -> LayerNorm -> Linear(-> H) -> ReLU
--> Dropout -> Linear(-> num_emotions) logits.
+-> Dropout -> Linear(-> num_emotions) logits
+[+ the ranking trainers' 1-logit ``neutral_classifier`` of the same shape].
+
+In training mode dropout (rate ``dropout``) acts on the attention weights
+and after each head's ReLU, with masks drawn from the ``generator`` passed
+to ``forward``. The heads keep ``nn.Sequential``'s numbering (``.0`` and
+``.3``) for the checkpoint's key names; their dropout runs through that
+generator rather than through the ``nn.Dropout`` at index 2.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from ..ops.attention import TorchMultiheadAttention, attention_pool
+from ..ops.attention_core import dropout as drop
 from ..ops.gru import BiGRU
 from .convert import MODALITY_NAMES
+
+
+def _head(d_in: int, hidden: int, d_out: int, dropout: float) -> nn.Sequential:
+    return nn.Sequential(nn.Linear(d_in, hidden), nn.ReLU(), nn.Dropout(dropout), nn.Linear(hidden, d_out))
 
 
 class MultiModalEmotionClassifier(nn.Module):
@@ -30,30 +42,39 @@ class MultiModalEmotionClassifier(nn.Module):
         fusion_hidden_dim: int = 512,
         num_emotions: int = 8,
         dropout: float = 0.5,
+        neutral_head: bool = False,
     ):
         super().__init__()
         n_mod = len(feat_dims)
         assert n_mod in (2, 3)
         H = fusion_hidden_dim
         self.names = MODALITY_NAMES[:n_mod]
+        self.dropout = dropout
         for name, d in zip(self.names, feat_dims):
             # reference head counts: 1, and 2 for the trimodal prosody attention
             heads = 2 if (n_mod == 3 and name == "prosody") else 1
             self.add_module(f"{name}_projection", nn.Linear(d, H))
             self.add_module(f"{name}_norm", nn.LayerNorm(H))
             self.add_module(f"{name}_gru", BiGRU(H, H))
-            self.add_module(f"{name}_attention", TorchMultiheadAttention(2 * H, heads))
+            self.add_module(f"{name}_attention", TorchMultiheadAttention(2 * H, heads, dropout))
             self.add_module(f"{name}_attn", nn.Linear(2 * H, 1))
         self.layer_norm = nn.LayerNorm(2 * H * n_mod)
-        self.classifier = nn.Sequential(
-            nn.Linear(2 * H * n_mod, H), nn.ReLU(), nn.Dropout(dropout), nn.Linear(H, num_emotions)
-        )
+        self.classifier = _head(2 * H * n_mod, H, num_emotions, dropout)
+        self.neutral_classifier = _head(2 * H * n_mod, H, 1, dropout) if neutral_head else None
+
+    def _run_head(self, head: nn.Sequential, x: torch.Tensor, generator) -> torch.Tensor:
+        h = torch.relu(head[0](x))
+        return head[3](drop(h, self.dropout if self.training else 0.0, generator))
 
     def forward(
         self,
         feats: Sequence[torch.Tensor],  # per modality [B, T_m, D_m]
         masks: Optional[Sequence[torch.Tensor]] = None,  # per modality [B, T_m]
-    ) -> torch.Tensor:  # [B, num_emotions]
+        output_dict: bool = False,
+        generator: Optional[torch.Generator] = None,  # dropout masks (training mode)
+    ) -> Union[torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
+        """Logits [B, num_emotions]; with ``output_dict`` a dict of ``logits``
+        and ``neutral`` ([B, 1], or None without the neutral head)."""
         n_mod = len(self.names)
         assert len(feats) == n_mod
         if masks is None:
@@ -68,6 +89,13 @@ class MultiModalEmotionClassifier(nn.Module):
             total = hidden[i]
             for j in range(n_mod):
                 if j != i:
-                    total = total + attn(hidden[i], hidden[j], hidden[j], key_mask=masks[j])
+                    total = total + attn(hidden[i], hidden[j], hidden[j], key_mask=masks[j], generator=generator)
             pooled.append(attention_pool(total, getattr(self, f"{name}_attn")(total), masks[i]))
-        return self.classifier(self.layer_norm(torch.cat(pooled, dim=-1)))
+        fused = self.layer_norm(torch.cat(pooled, dim=-1))
+        logits = self._run_head(self.classifier, fused, generator)
+        if not output_dict:
+            return logits
+        neutral = None
+        if self.neutral_classifier is not None:
+            neutral = self._run_head(self.neutral_classifier, fused, generator)
+        return {"logits": logits, "neutral": neutral}

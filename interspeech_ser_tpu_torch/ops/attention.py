@@ -5,8 +5,10 @@ package computes these with XLA einsums and no kernel (sequences of a few
 hundred frames, 1-2 heads).
 
 ``TorchMultiheadAttention`` reproduces torch ``nn.MultiheadAttention``
-(batch_first, inference) with its state-dict keys (``in_proj_weight``,
-``in_proj_bias``, ``out_proj.*``) and a key mask. ``attention_pool`` is the
+(batch_first) with its state-dict keys (``in_proj_weight``,
+``in_proj_bias``, ``out_proj.*``) and a key mask; in training mode it drops
+attention weights at rate ``dropout``, with the mask drawn from the
+``torch.Generator`` the caller passes. ``attention_pool`` is the
 reference's softmax pooling over time, with padded frames given no weight.
 """
 
@@ -21,11 +23,12 @@ from .attention_core import NEG_INF, dot_product_attention
 
 
 class TorchMultiheadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int = 1):
+    def __init__(self, embed_dim: int, num_heads: int = 1, dropout: float = 0.0):
         super().__init__()
         assert embed_dim % num_heads == 0
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -38,6 +41,7 @@ class TorchMultiheadAttention(nn.Module):
         key: torch.Tensor,  # [B, Tk, E]
         value: torch.Tensor,  # [B, Tk, E]
         key_mask: Optional[torch.Tensor] = None,  # [B, Tk], 1 = attend
+        generator: Optional[torch.Generator] = None,  # dropout's mask, training mode
     ) -> torch.Tensor:
         E, H = self.embed_dim, self.num_heads
         hd = E // H
@@ -52,7 +56,7 @@ class TorchMultiheadAttention(nn.Module):
 
         out = dot_product_attention(
             heads(query, wq, bq, Tq), heads(key, wk, bk, Tk), heads(value, wv, bv, Tk),
-            key_mask=key_mask,
+            key_mask=key_mask, dropout_p=self.dropout if self.training else 0.0, generator=generator,
         )
         out = out.transpose(1, 2).reshape(B, Tq, E)
         return out @ self.out_proj.weight.to(dt).t() + self.out_proj.bias.to(dt)

@@ -44,6 +44,8 @@ def dot_product_attention(
     scale: Optional[float] = None,
     gate: Optional[torch.Tensor] = None,  # [B, H, Tq]
     shared_bias: Optional[torch.Tensor] = None,  # [H, Tq, Tk]
+    dropout_p: float = 0.0,  # on the attention weights
+    generator: Optional[torch.Generator] = None,  # draws the dropout mask
 ) -> torch.Tensor:
     """Plain masked SDPA on [B, H, T, hd] with an optional (factored) bias.
 
@@ -64,5 +66,14 @@ def dot_product_attention(
         scores = scores + bias.to(dt)
     if key_mask is not None:
         scores = scores.float().masked_fill(~(key_mask > 0)[:, None, None, :], NEG_INF)
-    weights = torch.softmax(scores.float(), dim=-1).to(dt)
+    weights = dropout(torch.softmax(scores.float(), dim=-1), dropout_p, generator).to(dt)
     return (weights.float() @ v.float()).to(dt)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout (keep with probability 1 - p, scale by 1 / (1 - p))
+    with its mask drawn from ``generator``; the identity when p == 0."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)

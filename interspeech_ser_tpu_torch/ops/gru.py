@@ -13,8 +13,9 @@ output is zero there, so a padded batched run equals per-utterance runs.
 
 ``BiGRU`` on a CUDA tensor runs the input projection as one ``torch.matmul``
 per direction and the recurrence through kernel K3, both directions stacked
-along batch (the backward one reversed in time). On a CPU tensor it runs
-``gru_scan``, the plain version, once per direction.
+along batch (the backward one reversed in time); its gradient comes from
+kernel K3b through ``GruBidirCarries``. On a CPU tensor it runs ``gru_scan``,
+the plain version, once per direction, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -80,15 +81,19 @@ class BiGRU(nn.Module):
         return tuple(getattr(self, f"{n}_l0{sfx}") for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if x.is_cuda:
-            return self.forward_stacked(x, mask)
+        return self.forward_stacked(x, mask) if x.is_cuda else self.forward_scan(x, mask)
+
+    def forward_scan(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The plain path: ``gru_scan`` per direction, differentiated by
+        autograd (the CPU route, and the reference for the kernels' route)."""
         h0 = x.new_zeros(x.shape[0], self.hidden_size, dtype=torch.float32)
         fwd = gru_scan(x, h0, *self._direction(""), mask=mask)
         bwd = gru_scan(x, h0, *self._direction("_reverse"), mask=mask, reverse=True)
         return torch.cat([fwd, bwd], dim=-1)
 
     def forward_stacked(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Both directions in one K3 call (the plain version on a CPU tensor)."""
+        """Both directions in one differentiable K3 call (``GruBidirCarries``:
+        K3 forward, K3b backward; their plain versions on a CPU tensor)."""
         B, T, _ = x.shape
         (wi_f, wh_f, bi_f, bh_f), (wi_b, wh_b, bi_b, bh_b) = (
             self._direction(""), self._direction("_reverse")

@@ -27,7 +27,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("attention_btd.cu", "conv_frontend.cu", "gru_bidir.cu")
+SOURCES = ("attention_btd.cu", "conv_frontend.cu", "gru_bidir.cu", "gru_bidir_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +44,8 @@ SIGNATURES = {
     "ser_conv_frontend_bf16": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     # x_proj, w_hh2, b_hh2, mask, out, B2, T, H, threads, stream
     "ser_gru_bidir_f32": [_P] * 5 + [_I] * 4 + [_P],
+    # g, h, x_proj, mask, w_hh2, b_hh2, dxp, dhp scratch, dw, db, B2, T, H, threads, stream
+    "ser_gru_bidir_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
     "ser_cuda_error_string": [_I],
 }
 

@@ -1,29 +1,45 @@
-"""K3: masked bidirectional GRU recurrence, forward.
+"""K3 and K3b: masked bidirectional GRU recurrence, forward and backward.
 
 Port of ``interspeech_ser_tpu/ops/pallas/gru_kernel.py::gru_bidir_carries``
-(forward) and its entry ``gru_sequence_bidir``. The CUDA kernel is
-``csrc/gru_bidir.cu``; ``gru_bidir_carries_plain`` is the plain PyTorch
-version (a loop over T). ``gru_bidir_carries`` launches the kernel for a
-CUDA tensor and runs the plain version for a CPU tensor.
+(the forward, K3) and its custom-VJP backward ``_gru_bidir_bwd`` (K3b), with
+the entry ``gru_sequence_bidir``. The CUDA kernels are ``csrc/gru_bidir.cu``
+and ``csrc/gru_bidir_bwd.cu``; ``gru_bidir_carries_plain`` and
+``gru_bidir_carries_bwd_plain`` are the plain PyTorch versions (loops over
+T). Each launcher runs its kernel for a CUDA tensor and its plain version
+for a CPU tensor. ``GruBidirCarries`` is the ``torch.autograd.Function``
+that joins them: K3 forward, K3b backward. On a CUDA tensor it is the only
+way to K3 with gradients, since autograd cannot see into a kernel.
 
 Both directions ride one call, stacked along batch: rows ``[:half]`` are the
 forward direction, rows ``[half:]`` the backward direction with inputs and
 mask already reversed in time. Gates follow torch (r, z, n; ``b_hn`` inside
 the reset product); a masked step freezes the carry. The carries come back
-unmasked, and ``gru_sequence_bidir`` multiplies by the mask.
+unmasked, and ``gru_sequence_bidir`` multiplies by the mask outside the
+Function, as the JAX package does.
+
+The plain versions compute in float32, or in float64 for float64 inputs
+(so ``torch.autograd.gradcheck`` can hold the hand-derived backward to
+numerical derivatives).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from . import _build
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0  # K3 launches since the last reset (chip_smoke.py reads it)
+BWD_LAUNCHES = 0  # K3b launches since the last reset
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
 
 
 def gru_bidir_carries_plain(
-    x_proj: torch.Tensor,  # [2B, T, 3H] f32 input projections
+    x_proj: torch.Tensor,  # [2B, T, 3H] input projections
     w_hh2: torch.Tensor,  # [2, H, 3H]
     b_hh2: torch.Tensor,  # [2, 3H]
     mask: torch.Tensor,  # [2B, T]
@@ -31,10 +47,11 @@ def gru_bidir_carries_plain(
     B2, T, H3 = x_proj.shape
     H = H3 // 3
     half = B2 // 2
-    x_proj = x_proj.float()
-    w = w_hh2.float()
-    b = b_hh2.float()
-    m = mask.float()[:, :, None]
+    dt = _compute_dtype(x_proj)
+    x_proj = x_proj.to(dt)
+    w = w_hh2.to(dt)
+    b = b_hh2.to(dt)
+    m = mask.to(dt)[:, :, None]
     h = x_proj.new_zeros(B2, H)
     out = []
     for t in range(T):
@@ -49,13 +66,57 @@ def gru_bidir_carries_plain(
     return torch.stack(out, dim=1)
 
 
-def gru_bidir_carries(
-    x_proj: torch.Tensor, w_hh2: torch.Tensor, b_hh2: torch.Tensor, mask: torch.Tensor
-) -> torch.Tensor:
-    """K3 on a CUDA tensor, the plain version on a CPU tensor."""
-    if not x_proj.is_cuda:
-        return gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask)
-    global LAUNCHES
+def gru_bidir_carries_bwd_plain(
+    x_proj: torch.Tensor,  # [2B, T, 3H]
+    w_hh2: torch.Tensor,  # [2, H, 3H]
+    b_hh2: torch.Tensor,  # [2, 3H]
+    mask: torch.Tensor,  # [2B, T]
+    h: torch.Tensor,  # [2B, T, H] the forward's unmasked carries
+    g: torch.Tensor,  # [2B, T, H] cotangent of the carries
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:  # dx_proj, dW_hh2, db_hh2
+    """Reverse-time loop, line for line ``_gru_bidir_bwd_scan``."""
+    B2, T, H3 = x_proj.shape
+    H = H3 // 3
+    B = B2 // 2
+    dt = _compute_dtype(x_proj)
+
+    def tm(a: torch.Tensor, t: int) -> torch.Tensor:  # step t, direction-split [2, B, w]
+        return a[:, t].reshape(2, B, -1)
+
+    xs = x_proj.to(dt)
+    gs = g.to(dt)
+    hs = h.to(dt)
+    ms = mask.to(dt)[:, :, None]
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    whh = w_hh2.to(dt)  # [2, H, 3H]
+    bhh = b_hh2.to(dt)  # [2, 3H]
+    dh = xs.new_zeros(2, B, H)
+    dwhh = torch.zeros_like(whh)
+    dbhh = torch.zeros_like(bhh)
+    dxps = [None] * T
+    for t in reversed(range(T)):
+        g_t, hprev, xp_t, m_t = tm(gs, t), tm(h_prev, t), tm(xs, t), tm(ms, t)
+        hp = torch.bmm(hprev, whh) + bhh[:, None, :]
+        r = torch.sigmoid(xp_t[..., :H] + hp[..., :H])
+        z = torch.sigmoid(xp_t[..., H : 2 * H] + hp[..., H : 2 * H])
+        hn = hp[..., 2 * H :]
+        n = torch.tanh(xp_t[..., 2 * H :] + r * hn)
+        dht = g_t + dh
+        dh_new = dht * m_t
+        dh_skip = dht * (1.0 - m_t)
+        dn_pre = dh_new * (1.0 - z) * (1.0 - n * n)
+        dz_pre = dh_new * (hprev - n) * z * (1.0 - z)
+        dr_pre = dn_pre * hn * r * (1.0 - r)
+        dxp = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
+        dhp = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
+        dh = dh_skip + dh_new * z + torch.bmm(dhp, whh.transpose(1, 2))
+        dwhh = dwhh + torch.bmm(hprev.transpose(1, 2), dhp)
+        dbhh = dbhh + dhp.sum(dim=1)
+        dxps[t] = dxp.reshape(B2, H3)
+    return torch.stack(dxps, dim=1), dwhh, dbhh
+
+
+def _check_inputs(x_proj: torch.Tensor, w_hh2, b_hh2, mask, **more) -> Tuple[int, int, int]:
     B2, T, H3 = x_proj.shape
     H = H3 // 3
     if H3 != 3 * H or B2 % 2 != 0:
@@ -65,12 +126,38 @@ def gru_bidir_carries(
             f"w_hh2 {tuple(w_hh2.shape)}, b_hh2 {tuple(b_hh2.shape)}, mask "
             f"{tuple(mask.shape)} do not match x_proj {tuple(x_proj.shape)}"
         )
-    for name, t in (("x_proj", x_proj), ("w_hh2", w_hh2), ("b_hh2", b_hh2), ("mask", mask)):
+    for name, t in more.items():
+        if t.shape != (B2, T, H):
+            raise ValueError(f"{name} must be {(B2, T, H)}, got {tuple(t.shape)}")
+    tensors = {"x_proj": x_proj, "w_hh2": w_hh2, "b_hh2": b_hh2, "mask": mask, **more}
+    for name, t in tensors.items():
         if t.dtype != torch.float32 or t.device != x_proj.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x_proj.device}")
+    return B2, T, H
+
+
+def _threads(H: int) -> int:
     threads = min(1024, -(-H // 32) * 32)
     if H > 4 * threads:
-        raise NotImplementedError(f"gru_bidir kernel takes H <= 4096, got {H}")
+        raise NotImplementedError(f"gru_bidir kernels take H <= 4096, got {H}")
+    return threads
+
+
+def gru_bidir_carries(
+    x_proj: torch.Tensor, w_hh2: torch.Tensor, b_hh2: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """K3 on a CUDA tensor, the plain version on a CPU tensor. On the card,
+    inputs that need a gradient must come through ``GruBidirCarries``."""
+    if not x_proj.is_cuda:
+        return gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask)
+    global LAUNCHES
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, w_hh2, b_hh2)):
+        raise RuntimeError(
+            "gru_bidir_carries: autograd cannot see into the K3 kernel; "
+            "call GruBidirCarries.apply for inputs that require grad"
+        )
+    B2, T, H = _check_inputs(x_proj, w_hh2, b_hh2, mask)
+    threads = _threads(H)
     out = torch.empty(B2, T, H, device=x_proj.device, dtype=torch.float32)
     err = _build.library().ser_gru_bidir_f32(
         x_proj.data_ptr(), w_hh2.data_ptr(), b_hh2.data_ptr(), mask.data_ptr(),
@@ -79,6 +166,55 @@ def gru_bidir_carries(
     _build.check(err, "gru_bidir")
     LAUNCHES += 1
     return out
+
+
+def gru_bidir_carries_bwd(
+    x_proj: torch.Tensor,
+    w_hh2: torch.Tensor,
+    b_hh2: torch.Tensor,
+    mask: torch.Tensor,
+    h: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3b on a CUDA tensor, the plain version on a CPU tensor
+    -> (dx_proj [2B,T,3H], dW_hh2 [2,H,3H], db_hh2 [2,3H])."""
+    if not x_proj.is_cuda:
+        return gru_bidir_carries_bwd_plain(x_proj, w_hh2, b_hh2, mask, h, g)
+    global BWD_LAUNCHES
+    B2, T, H = _check_inputs(x_proj, w_hh2, b_hh2, mask, h=h, g=g)
+    threads = _threads(H)
+    if 6 * H * 4 > 48 * 1024:
+        raise NotImplementedError(f"gru_bidir_bwd kernel takes H <= 2048, got {H}")
+    dxp = torch.empty_like(x_proj)
+    dhp = torch.empty_like(x_proj)  # scratch: gate cotangents for dW / db
+    dw = torch.empty_like(w_hh2)
+    db = torch.empty_like(b_hh2)
+    err = _build.library().ser_gru_bidir_bwd_f32(
+        g.data_ptr(), h.data_ptr(), x_proj.data_ptr(), mask.data_ptr(), w_hh2.data_ptr(),
+        b_hh2.data_ptr(), dxp.data_ptr(), dhp.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        B2, T, H, threads, _build.stream_ptr(x_proj),
+    )
+    _build.check(err, "gru_bidir_bwd")
+    BWD_LAUNCHES += 1
+    return dxp, dw, db
+
+
+class GruBidirCarries(torch.autograd.Function):
+    """Differentiable K3: forward ``gru_bidir_carries``, backward
+    ``gru_bidir_carries_bwd``; saves ``(x_proj, w_hh2, b_hh2, mask, h)`` as
+    ``_gru_bidir_fwd`` does. The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh2, b_hh2, mask):
+        h = gru_bidir_carries(x_proj, w_hh2, b_hh2, mask)
+        ctx.save_for_backward(x_proj, w_hh2, b_hh2, mask, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        x_proj, w_hh2, b_hh2, mask, h = ctx.saved_tensors
+        dxp, dw, db = gru_bidir_carries_bwd(x_proj, w_hh2, b_hh2, mask, h, g.contiguous())
+        return dxp, dw, db, None
 
 
 def gru_sequence_bidir(
@@ -93,5 +229,5 @@ def gru_sequence_bidir(
             f"x_proj rows ({x_proj.shape[0]}) must be 2*half ({2 * half}): "
             "rows [:half] forward, [half:] time-reversed backward"
         )
-    mask = mask.float()
-    return gru_bidir_carries(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None]
+    mask = mask.to(_compute_dtype(x_proj))
+    return GruBidirCarries.apply(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None]

@@ -4,7 +4,8 @@
         --ssl_type <HF model dir> --wav_dir <wavs> --save_path <out> [--dtype bfloat16]
 
 Port of ``interspeech_ser_tpu/preprocess_cli.py::speech_main`` with the same
-flags. ``--ssl_type`` names a local HF-format directory (config.json +
+flags, plus ``--device`` (``cuda`` by default; ``cpu`` only when asked).
+``--ssl_type`` names a local HF-format directory (config.json +
 pytorch_model.bin or model.safetensors); there is no hub access. In float32
 mode TF32 is off for matmuls and cuDNN convolutions alike, so f32 means f32;
 ``--matmul_precision highest`` turns it off in bfloat16 mode too.
@@ -16,6 +17,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+from .utils.device import DEVICES
 
 
 def _speech_parser():
@@ -35,6 +38,8 @@ def _speech_parser():
                    help="reproduce the reference's hidden_states[len(os.listdir(save_path))] quirk")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="tensor-parallel degree (only 1 is supported for now)")
+    p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
+                   help="where the encoder runs; without a card 'cuda' raises")
     return p
 
 
@@ -83,6 +88,7 @@ def speech_main(argv=None):
     pipe = SpeechExtractionPipeline(
         model, cfg, n_layer=args.n_layer, use_average=average, do_normalize=do_normalize,
         num_workers=args.num_workers, replicate_dir_count_bug=args.replicate_dir_count_bug,
+        device=args.device,
     )
     stats = pipe.run(args.wav_dir, args.save_path, wav_names)
     print(

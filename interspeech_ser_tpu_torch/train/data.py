@@ -1,19 +1,24 @@
-"""Lazy cached-embedding dataset for fusion scoring.
+"""Lazy cached-embedding data pipeline for fusion training and scoring.
 
-Port of the scoring half of ``interspeech_ser_tpu/train/data.py``: each
-sample is one ``<utt>.pt`` feature file per modality (``lazy_dir{1,2,3}``)
-plus a one-hot label row. ``collate`` pads a batch to a bucketed time length
-with per-frame masks; files load on a thread pool.
+Port of ``interspeech_ser_tpu/train/data.py``: each sample is one
+``<utt>.pt`` feature file per modality (``lazy_dir{1,2,3}``) plus a one-hot
+label row. ``collate`` pads a batch to a bucketed time length and a fixed
+batch size, with per-frame masks and a per-row ``sample_mask``; files load
+on a thread pool. ``epoch_batches`` makes the same numpy ``Generator`` calls
+in the same order as the JAX package's, so one seed draws the same batches
+in both; ``PrefetchLoader`` collates the next batches on a thread while the
+card computes.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import os
+import queue
 import sys
 import threading
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -28,10 +33,13 @@ def bucket_length(t: int, quantum: int = 64, minimum: int = 64) -> int:
 @dataclass
 class Batch:
     """feats: per modality [B, T_m, D_m] f32; masks: per modality [B, T_m]
-    (all zero in padding rows)."""
+    (all zero in padding rows); labels: [B, C] one-hot rows (zero in padding
+    rows); sample_mask: [B], 0 for the padding rows that fill the batch."""
 
     feats: List[np.ndarray]
     masks: List[np.ndarray]
+    labels: np.ndarray
+    sample_mask: np.ndarray
 
 
 class LazyFeatureDataset:
@@ -51,6 +59,7 @@ class LazyFeatureDataset:
         self.num_workers = num_workers
         self._verbose_once = True
         self._echo_lock = threading.Lock()
+        self._primary_lengths: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.utt_names)
@@ -85,20 +94,91 @@ class LazyFeatureDataset:
         t_max = [bucket_length(max(f[m].shape[0] for f in per_sample), quantum) for m in range(n_mod)]
         feats = [np.zeros((B, t_max[m], self.feat_dims[m]), np.float32) for m in range(n_mod)]
         masks = [np.zeros((B, t_max[m]), np.float32) for m in range(n_mod)]
-        for row, fs in enumerate(per_sample):
+        labels = np.zeros((B, self.labels.shape[1]), np.float32)
+        sample_mask = np.zeros((B,), np.float32)
+        for row, (idx, fs) in enumerate(zip(indices, per_sample)):
             for m in range(n_mod):
                 t = fs[m].shape[0]
                 feats[m][row, :t] = fs[m]
                 masks[m][row, :t] = 1.0
-        return Batch(feats, masks)
+            labels[row] = self.labels[idx]
+            sample_mask[row] = 1.0
+        return Batch(feats, masks, labels, sample_mask)
 
     def primary_lengths(self) -> np.ndarray:
         """Per-utterance length proxy for sorting: the primary modality's
-        ``.pt`` file size (monotone in T at a fixed D)."""
-        sizes = np.zeros(len(self), dtype=np.int64)
-        for i in range(len(self)):
-            try:
-                sizes[i] = os.path.getsize(self.paths(i)[0])
-            except OSError:
-                sizes[i] = 0
-        return sizes
+        ``.pt`` file size (monotone in T at a fixed D), read once."""
+        if self._primary_lengths is None:
+            sizes = np.zeros(len(self), dtype=np.int64)
+            for i in range(len(self)):
+                try:
+                    sizes[i] = os.path.getsize(self.paths(i)[0])
+                except OSError:
+                    sizes[i] = 0
+            self._primary_lengths = sizes
+        return self._primary_lengths
+
+
+def weighted_sample_indices(weights: np.ndarray, num_samples: int, rng: np.random.Generator) -> np.ndarray:
+    """torch ``WeightedRandomSampler(replacement=True)`` semantics."""
+    p = np.asarray(weights, dtype=np.float64)
+    p = p / p.sum()
+    return rng.choice(len(p), size=num_samples, replace=True, p=p)
+
+
+def epoch_batches(
+    dataset: LazyFeatureDataset,
+    batch_size: int,
+    rng: np.random.Generator,
+    sample_weights: Optional[np.ndarray] = None,
+    bucket_window: int = 8,
+) -> List[List[int]]:
+    """Index batches for one epoch: the reference sampler's order (a
+    permutation, or weighted with replacement), then within each window of
+    ``bucket_window`` batches the samples sorted by length, so a batch's
+    lengths cluster while the global order stays random (1 = no sorting)."""
+    n = len(dataset)
+    if sample_weights is not None:
+        order = weighted_sample_indices(sample_weights, n, rng)
+    else:
+        order = rng.permutation(n)
+    if bucket_window > 1:
+        window = batch_size * bucket_window
+        lengths = dataset.primary_lengths()
+        chunks = [order[s : s + window] for s in range(0, n, window)]
+        chunks = [c[np.argsort(lengths[c], kind="stable")] for c in chunks]
+        order = np.concatenate(chunks) if chunks else order
+    return [list(order[i : i + batch_size]) for i in range(0, n, batch_size)]
+
+
+class PrefetchLoader:
+    """Collate the batches on a background thread, two ahead."""
+
+    def __init__(self, dataset: LazyFeatureDataset, batches: List[List[int]], batch_size: int, quantum: int = 64):
+        self.dataset = dataset
+        self.batches = batches
+        self.batch_size = batch_size
+        self.quantum = quantum
+        self.queue: "queue.Queue" = queue.Queue(maxsize=2)
+        self.thread = threading.Thread(target=self._produce, daemon=True)
+        self.thread.start()
+
+    def _produce(self) -> None:
+        try:
+            for idxs in self.batches:
+                self.queue.put(self.dataset.collate(idxs, self.batch_size, self.quantum))
+            self.queue.put(None)
+        except BaseException as e:  # handed to the consumer, which re-raises it
+            self.queue.put(e)
+
+    def __iter__(self):
+        while True:
+            item = self.queue.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    def __len__(self) -> int:
+        return len(self.batches)

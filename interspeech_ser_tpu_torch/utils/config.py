@@ -58,11 +58,16 @@ class FusionConfig:
         return (self.lazy_dir1, self.lazy_dir2)
 
 
-def load_fusion_config(config_path: str) -> FusionConfig:
-    """A config with ``lazy_dir3`` is trimodal (and then needs ``feat3_dim``)."""
+def load_fusion_config(config_path: str, trimodal: Optional[bool] = None) -> FusionConfig:
+    """``trimodal=None``: a config with ``lazy_dir3`` is trimodal (and then
+    needs ``feat3_dim``); ``trimodal=True`` requires ``lazy_dir3`` (the
+    trimodal trainers read it unconditionally); ``False`` ignores it."""
     with open(config_path, "r") as f:
         cfg = json.load(f)
-    use3 = "lazy_dir3" in cfg
+    has3 = "lazy_dir3" in cfg
+    if trimodal and not has3:
+        raise KeyError("lazy_dir3")
+    use3 = has3 if trimodal is None else trimodal
     return FusionConfig(
         wav_dir=cfg["wav_dir"],
         txt_dir=cfg["txt_dir"],

@@ -1,9 +1,9 @@
 """Label / transcript CSVs without pandas.
 
-Port of the scoring half of ``interspeech_ser_tpu/utils/labels.py``: the
-reference's left merge of the label CSV with the transcript CSV on
-``FileName``, the ``Split_Set`` filter, and the class order. Rows are dicts
-of strings, as ``csv.DictReader`` gives them.
+Port of ``interspeech_ser_tpu/utils/labels.py``: the reference's left merge
+of the label CSV with the transcript CSV on ``FileName``, the ``Split_Set``
+filter, the class order, and the trainers' class and sample weights. Rows
+are dicts of strings, as ``csv.DictReader`` gives them.
 """
 
 from __future__ import annotations
@@ -51,3 +51,35 @@ def column(rows: Rows, name: str) -> List[str]:
 def matrix(rows: Rows, names: Sequence[str] = CLASSES) -> np.ndarray:
     """[N, len(names)] float32 values of the named columns (one-hot labels)."""
     return np.asarray([[float(r[c]) for c in names] for r in rows], np.float32).reshape(len(rows), len(names))
+
+
+def _class_counts(rows: Rows) -> np.ndarray:
+    return np.asarray([[float(r[c]) for c in CLASSES] for r in rows], np.float64).reshape(-1, len(CLASSES)).sum(0)
+
+
+def class_weights(rows: Rows) -> np.ndarray:
+    """Inverse-frequency CE weights: ``N_total / (C * n_c)`` (0 if n_c==0)."""
+    freq = _class_counts(rows)
+    total = len(rows)
+    w = [total / (len(CLASSES) * float(f)) if f != 0 else 0.0 for f in freq]
+    return np.asarray(w, dtype=np.float32)
+
+
+def balanced_sample_weights(rows: Rows) -> np.ndarray:
+    """Per-sample weights for class-balanced sampling with replacement."""
+    cw = [1.0 / float(f) if f != 0 else 0.0 for f in _class_counts(rows)]
+    factor = len(cw) / sum(cw)
+    cw = [w * factor for w in cw]
+    idx = np.argmax(matrix(rows), axis=1)
+    return np.asarray([cw[i] for i in idx], dtype=np.float64)
+
+
+def neutral_balanced_sample_weights(rows: Rows) -> np.ndarray:
+    """Neutral-vs-rest balanced weights (ranking trainers)."""
+    is_neutral = np.asarray([float(r["Neutral"]) for r in rows], np.float64)
+    groups = np.stack([is_neutral, 1.0 - is_neutral], axis=1)
+    freq = groups.sum(axis=0)
+    gw = np.where(freq != 0, 1.0 / np.where(freq == 0, 1.0, freq), 0.0)
+    gw = gw * (len(gw) / gw.sum())
+    idx = np.argmax(groups, axis=1)
+    return gw[idx]

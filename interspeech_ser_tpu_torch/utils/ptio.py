@@ -27,5 +27,13 @@ def load_tensor(path: str) -> np.ndarray:
     return torch.load(path, map_location="cpu", weights_only=True).detach().numpy()
 
 
+def save_state_dict(sd: Dict[str, torch.Tensor], path: str) -> None:
+    """CPU copies of ``sd``'s tensors, written atomically (tmp + rename)."""
+    sd = {k: v.detach().cpu().clone() for k, v in sd.items()}
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(sd, tmp)
+    os.replace(tmp, path)
+
+
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)

@@ -1,4 +1,4 @@
-"""K1, K2 and K3 on the card against their plain versions, at small shapes.
+"""K1, K2, K3 and K3b on the card against their plain versions, at small shapes.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is False (a
 CUDA kernel has no CPU mode). On a machine with an H100:
@@ -71,6 +71,70 @@ def test_gru_kernel(cuda):
     out = k_gru.gru_sequence_bidir(x, w, b, mask, B)
     ref = k_gru.gru_bidir_carries_plain(x, w, b, mask) * mask[:, :, None]
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def _gru_bwd_inputs(gen, B=3, T=40, H=64):
+    x = torch.randn(2 * B, T, 3 * H, generator=gen, device="cuda")
+    w = (torch.rand(2, H, 3 * H, generator=gen, device="cuda") - 0.5) / 4
+    b = (torch.rand(2, 3 * H, generator=gen, device="cuda") - 0.5) / 4
+    m = (torch.arange(T, device="cuda")[None] < torch.tensor([40, 17, 3], device="cuda")[:, None]).float()
+    return x, w, b, torch.cat([m, m.flip(1)]).contiguous()
+
+
+def test_gru_bwd_kernel(cuda):
+    """K3b against the plain backward; dW/db in fixed order, so a rerun is bit-identical."""
+    x, w, b, mask = _gru_bwd_inputs(cuda)
+    h = k_gru.gru_bidir_carries(x, w, b, mask)
+    g = torch.randn(h.shape, generator=cuda, device="cuda")
+    before = k_gru.BWD_LAUNCHES
+    out = k_gru.gru_bidir_carries_bwd(x, w, b, mask, h, g)
+    torch.cuda.synchronize()
+    assert k_gru.BWD_LAUNCHES == before + 1
+    ref = k_gru.gru_bidir_carries_bwd_plain(x, w, b, mask, h, g)
+    for got, want in zip(out, ref):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert all(torch.equal(a, c) for a, c in zip(out, k_gru.gru_bidir_carries_bwd(x, w, b, mask, h, g)))
+
+
+def test_gru_function_grads_match_plain_autograd(cuda):
+    """The Function (K3 + K3b) against autograd through the plain forward."""
+    x, w, b, mask = _gru_bwd_inputs(cuda)
+    g = torch.randn(x.shape[0], x.shape[1], w.shape[1], generator=cuda, device="cuda")
+    grads = []
+    for fn in (k_gru.GruBidirCarries.apply, k_gru.gru_bidir_carries_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        out = fn(*leaves, mask) * mask[:, :, None]
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_bigru_gets_gradients_on_the_card(cuda):
+    """Every BiGRU parameter and the input get the CPU path's gradient (autograd through gru_scan)."""
+    from interspeech_ser_tpu_torch.ops.gru import BiGRU
+
+    torch.manual_seed(0)
+    cpu = BiGRU(24, 32)
+    card = BiGRU(24, 32).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 30, 24)
+    m = (torch.arange(30)[None] < torch.tensor([30, 11, 4])[:, None]).float()
+    gy = torch.randn(3, 30, 64)
+    xs = [x.clone().requires_grad_(), x.cuda().requires_grad_()]
+    before = k_gru.BWD_LAUNCHES
+    (cpu(xs[0], m) * gy).sum().backward()
+    (card(xs[1], m.cuda()) * gy.cuda()).sum().backward()
+    assert k_gru.BWD_LAUNCHES == before + 1
+    torch.testing.assert_close(xs[1].grad.cpu(), xs[0].grad, atol=1e-5, rtol=1e-4)
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        assert q.grad is not None, name
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_gru_launcher_refuses_grad(cuda):
+    x, w, b, mask = _gru_bwd_inputs(cuda)
+    with pytest.raises(RuntimeError, match="GruBidirCarries"):
+        k_gru.gru_bidir_carries(x.requires_grad_(), w, b, mask)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

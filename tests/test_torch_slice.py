@@ -20,6 +20,7 @@ import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+PORT_CPU = ["--device", "cpu"]  # the port's entry points run on the card unless asked
 torch.set_num_threads(2)
 
 
@@ -57,9 +58,9 @@ def extracted(tmp_path_factory):
     model_dir = root / "hf_wavlm"
     WavLMModel(hf_cfg).eval().save_pretrained(str(model_dir))
     dirs = {}
-    for name, main in (("jax", jax_cli.speech_main), ("port", port_cli.speech_main)):
+    for name, main, extra in (("jax", jax_cli.speech_main, []), ("port", port_cli.speech_main, PORT_CPU)):
         dirs[name] = str(root / f"feats_{name}")
-        stats = main(["--ssl_type", str(model_dir), "--wav_dir", str(wav_dir), "--save_path", dirs[name]])
+        stats = main(["--ssl_type", str(model_dir), "--wav_dir", str(wav_dir), "--save_path", dirs[name], *extra])
         assert stats.n_utts == 5 and stats.n_failed == 0
     return root, dirs
 
@@ -127,9 +128,9 @@ def test_scoring_csvs_match(extracted, tmp_path):
     engine.save_torch_checkpoint(os.path.join(cfg["model_path"], "multimodal_ser.pt"))
 
     outs = {}
-    for name, mod in (("jax", jax_cli), ("port", port_cli)):
-        dev = _read(mod.eval_main(argv=["--config_path", config_path]))
-        test = _read(mod.test_main(argv=["--config_path", config_path, "--test_df", str(test_csv)]))
+    for name, mod, extra in (("jax", jax_cli, []), ("port", port_cli, PORT_CPU)):
+        dev = _read(mod.eval_main(argv=["--config_path", config_path, *extra]))
+        test = _read(mod.test_main(argv=["--config_path", config_path, "--test_df", str(test_csv), *extra]))
         outs[name] = (dev, test)
     for (ref, ours), header in zip(zip(outs["jax"], outs["port"]), ("Filename", "FileName")):
         assert ours[0] == ref[0] and ours[0][0] == header
@@ -155,14 +156,14 @@ def test_layer_selection_flags_match_jax(extracted, tmp_path, flags):
 
     root, _ = extracted
     saves = {}
-    for name, main in (("jax", jax_cli.speech_main), ("port", port_cli.speech_main)):
+    for name, main, extra in (("jax", jax_cli.speech_main, []), ("port", port_cli.speech_main, PORT_CPU)):
         saves[name] = str(tmp_path / name)
         os.makedirs(saves[name])
         if "--replicate_dir_count_bug" in flags:
             for junk in ("junk1", "junk2"):
                 open(os.path.join(saves[name], junk), "w").close()
         main(["--ssl_type", str(root / "hf_wavlm"), "--wav_dir", str(root / "wavs"),
-              "--save_path", saves[name], *flags])
+              "--save_path", saves[name], *flags, *extra])
     for f in sorted(p for p in os.listdir(saves["jax"]) if p.endswith(".pt")):
         ref = torch.load(os.path.join(saves["jax"], f), weights_only=True).numpy()
         ours = torch.load(os.path.join(saves["port"], f), weights_only=True).numpy()
