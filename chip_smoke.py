@@ -7,8 +7,8 @@ Runs from the root of a checkout on a machine with one CUDA card (built for
 an H100, ``sm_90a``) and needs nothing else: it builds the hand-written
 kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
-drives the serving path and the training path through their entry points at
-full width:
+drives the serving path, the fusion training path and the LoRA fine-tuning
+path through their entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -20,7 +20,10 @@ full width:
    bf16; SDPA with a float mask) and its no-bias / no-mask variants at
    Whisper-large shapes; K2 the fused conv0 + LayerNorm + GELU on 10-s
    waveforms; K3 the BiGRU recurrence and K3b its backward at the fusion
-   trainer's batch (2B=128 rows, T=512, H=512; cuDNN ``nn.GRU``);
+   trainer's batch (2B=128 rows, T=512, H=512; cuDNN ``nn.GRU``); K4 the
+   attention backward at the Whisper-large fine-tune shape (B=8, T=1500, no
+   bias, no mask) and the WavLM-large one (gated bias + ragged mask), f32
+   and bf16, rerun bit-identical (autograd through SDPA);
 4. extraction: a seeded random-init WavLM-large (24 layers, D=1024) written
    as an HF directory, 8 seeded wavs of 3-12 s, ``preprocess_cli.speech_main``
    in bf16 and in f32 (each run twice, cold then warm); shapes,
@@ -35,11 +38,22 @@ full width:
    for 2 epochs, then ``cli.eval_main`` on its checkpoint: finite losses, a
    strict load, K3b launches = modalities x optimizer steps, the dev CSV;
    then one train step's gradients through the kernels against the plain
-   path on the card, the median train-step time and a profile of 2 steps.
+   path on the card, the median train-step time and a profile of 2 steps;
+7. LoRA: a seeded random-init Whisper-large-v3 (32 layers, D=1280, H=20,
+   FFN 5120, 128 mels) as an HF directory, ``preprocess_cli.whisper_main``
+   on 8 seeded wavs of 3-30 s in bf16 and f32 (frame counts, and utt0
+   against the plain path); then ``lora_cli`` (ft_lora's defaults: rank 8,
+   alpha 16, q/v, batch 8, f32) for 1 epoch over 16 train and 8 dev
+   utterances and ``whisper_pretrained_main`` with its checkpoint; the same
+   over WavLM-large and ``speech_pretrained_main``: finite losses, K4
+   launches = layers x steps, frame counts. Then one LoRA step's gradients
+   through K1 + K4 against the plain path (full width, 2 layers, Whisper and
+   WavLM), and the median bf16 Whisper LoRA step with a profile.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
-(the serving path), and zeroed again just before phase 6 and read after its
-eval (the training path). The line before the last is the kernels' JSON
+(the serving path), zeroed again just before phase 6 and read after its
+eval (the training path), and zeroed again just before phase 7's
+extraction and read after its last ``*_pretrained`` run (the LoRA path). The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Any failure
 raises (non-zero exit).
 """
@@ -76,6 +90,10 @@ KERNELS = {
     "attention_btd": dict(
         module=k_attn, source="interspeech_ser_tpu_torch/csrc/attention_btd.cu",
         replaces="interspeech_ser_tpu/ops/pallas/flash_attention_short.py:293",
+    ),
+    "attention_btd_bwd": dict(
+        module=k_attn, counter="BWD_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/attention_btd_bwd.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/attention_bwd.py:137",
     ),
     "conv_frontend": dict(
         module=k_conv, source="interspeech_ser_tpu_torch/csrc/conv_frontend.cu",
@@ -403,6 +421,80 @@ def check_gru_bwd(g, results) -> None:
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
 
 
+def _sdpa_bwd_yardstick(q, k, v, g, H, key_mask, gate, pos_bias, ref):
+    """Autograd through ``scaled_dot_product_attention`` (with the float mask
+    gate * bias + key mask where there is a bias, and its gradient then too):
+    the backward of K1's function. Its median ms (graph built once, outside
+    the timing) and its dq's max-abs gap to the plain backward's."""
+    import torch.nn.functional as F
+
+    B, T, D = q.shape
+    heads = [t.detach().view(B, T, H, D // H).transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    wrt, attn_mask = list(heads), None
+    if pos_bias is not None:
+        masked = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))
+        attn_mask = (gate[..., None] * pos_bias[None] + masked[:, None, None, :]).to(q.dtype).requires_grad_()
+        wrt.append(attn_mask)
+    out = F.scaled_dot_product_attention(*heads, attn_mask=attn_mask)
+    gh = g.view(B, T, H, D // H).transpose(1, 2)
+    dq = torch.autograd.grad(out, wrt, gh, retain_graph=True)[0].transpose(1, 2).reshape(B, T, D)
+    ms = median_ms(lambda: torch.autograd.grad(out, wrt, gh, retain_graph=True))
+    return ms, max_abs(dq, ref)
+
+
+def check_attention_bwd(g, results) -> None:
+    """K4 against the plain backward on the card, on K1's output and lse, at
+    the Whisper-large fine-tune shape (B=8, T=1500, D=1280, H=20, no bias, no
+    mask) and the WavLM-large shape (B=8, T=499, D=1024, H=16, gated bias
+    and ragged key mask, every cotangent asked for), f32 and bf16. Bars: f32
+    max-abs <= 1e-5 x max|ref| per output; bf16 cosine >= 0.999; a rerun
+    bit-identical."""
+    wavlm_lengths = [499, 480, 451, 400, 333, 250, 130, 64]
+    for shape, (B, T, D, H), lengths, bias in (("whisper", (8, 1500, 1280, 20), None, False),
+                                               ("wavlm", (8, 499, 1024, 16), wavlm_lengths, True)):
+        for dt in (torch.float32, torch.bfloat16):
+            (q, k, v, _), kw = _attention_inputs(g, B, T, D, H, lengths, bias, dt)
+            gr = torch.randn(B, T, D, generator=g, device="cuda").to(dt)
+            out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+            args = (q, k, v, gr, H)
+            got = k_attn.attention_btd_bwd(*args, **kw, out=out, lse=lse)
+            ref = k_attn.attention_btd_bwd_plain(*args, **kw)
+            again = k_attn.attention_btd_bwd(*args, **kw, out=out, lse=lse)
+            deterministic = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+            names = ("dq", "dk", "dv", "dgate", "dbias")
+            rel = {n: max_abs(a, b) / float(b.abs().max()) for n, a, b in zip(names, got, ref) if b is not None}
+            cos = {n: cosine(a, b) for n, a, b in zip(names, got, ref) if b is not None}
+            ms = median_ms(lambda: k_attn.attention_btd_bwd(*args, **kw, out=out, lse=lse))
+            plain_ms = median_ms(lambda: k_attn.attention_btd_bwd_plain(*args, **kw))
+            library_ms, lib_err = _sdpa_bwd_yardstick(*args, **kw, ref=ref[0])
+            live = B * T if lengths is None else sum(lengths)
+            item = q.element_size()
+            nbytes = item * 7 * q.numel()  # q, k, v, g in; dq, dk, dv out
+            if bias:
+                nbytes += 4 * (kw["key_mask"].numel() + 2 * kw["gate"].numel()) + (item + 4) * kw["pos_bias"].numel()
+            flops = 10 * H * T * (D // H) * live  # QK^T, dP = gV^T, dV, dQ, dK over live keys
+            bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+            name = ("f32" if dt == torch.float32 else "bf16") if shape == "whisper" else \
+                ("wavlm_f32" if dt == torch.float32 else "wavlm_bf16")
+            log(f"[parity] K4 attention_btd_bwd {shape} B{B} T{T} D{D} H{H} bias={bias} mask={lengths is not None} "
+                f"{name}: rel max-abs {', '.join(f'{n} {e:.2e}' for n, e in rel.items())}; cos min "
+                f"{min(cos.values()):.7f}; bit-identical rerun {deterministic}; kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms (dq vs plain {lib_err:.3e}); "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            if dt == torch.float32:
+                for n, e in rel.items():
+                    require(e <= 1e-5, f"K4 {shape} f32 {n} relative max-abs {e} > 1e-5")
+            else:
+                for n, c in cos.items():
+                    require(c >= 0.999, f"K4 {shape} bf16 {n} cosine {c} < 0.999")
+            require(deterministic, f"K4 {shape} {name} gave different bits on a rerun")
+            results.setdefault("attention_btd_bwd", {})[name] = dict(
+                max_abs_err=max(rel.values()), rel_errs=rel, cosine=min(cos.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            del got, ref, again, out, lse
+            torch.cuda.empty_cache()
+
+
 # -- phases 4-5 -------------------------------------------------------------------
 
 
@@ -413,6 +505,21 @@ def write_wav(path: str, samples: np.ndarray, sr: int = 16000) -> None:
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.tobytes())
+
+
+def write_wavs(wav_dir: str, n: int, seconds, seed: int, prefix: str = "utt") -> dict:
+    """``n`` seeded tones in noise of ``seconds`` (lo, hi) as ``<prefix><i>.wav``
+    -> {stem: samples}."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(wav_dir, exist_ok=True)
+    lengths = {}
+    for i in range(n):
+        m = int(rng.uniform(*seconds) * 16000)
+        t = np.arange(m) / 16000.0
+        write_wav(os.path.join(wav_dir, f"{prefix}{i}.wav"),
+                  0.3 * np.sin(2 * np.pi * rng.uniform(100, 300) * t) + 0.05 * rng.standard_normal(m))
+        lengths[f"{prefix}{i}"] = m
+    return lengths
 
 
 def write_wavlm_large(model_dir: str) -> None:
@@ -449,16 +556,8 @@ def phase_extraction(tmp: str) -> dict:
     from interspeech_ser_tpu_torch.preprocess_cli import speech_main
     from interspeech_ser_tpu_torch.utils.audio import load_wav, normalize_waveform
 
-    rng = np.random.default_rng(SEED)
     wav_dir = os.path.join(tmp, "wavs")
-    os.makedirs(wav_dir)
-    n_samples = {}
-    for i in range(8):
-        n = int(rng.uniform(3.0, 12.0) * 16000)
-        t = np.arange(n) / 16000.0
-        x = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 300) * t) + 0.05 * rng.standard_normal(n)
-        write_wav(os.path.join(wav_dir, f"utt{i}.wav"), x)
-        n_samples[f"utt{i}"] = n
+    n_samples = write_wavs(wav_dir, 8, (3.0, 12.0), SEED)
     model_dir = os.path.join(tmp, "wavlm-large")
     t0 = time.perf_counter()
     write_wavlm_large(model_dir)
@@ -747,6 +846,293 @@ def check_train_step(config_path: str) -> dict:
     return out
 
 
+# -- phase 7: LoRA fine-tuning ---------------------------------------------------
+
+# the fine-tune corpus: seeded wavs, the Train / Development split of a label
+# CSV; ft_lora's defaults (rank 8, alpha 16, q/v, batch 8) for one epoch
+LORA_SHAPE = dict(n_train=16, n_dev=8, seconds=(3.0, 12.0), bf16_steps=5)
+
+
+def write_whisper(model_dir: str, layers=None) -> None:
+    """Seeded random-init Whisper-large-v3 encoder (32 layers, D=1280, H=20,
+    FFN 5120, 128 mels; ``layers`` cuts the depth) as an HF directory."""
+    import dataclasses
+
+    from interspeech_ser_tpu_torch.models import whisper as mw
+
+    cfg = mw.whisper_large_v3()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        model = mw.WhisperEncoderModel(cfg)
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**cfg.to_hf(), "architectures": ["WhisperEncoder"]}, f, indent=1)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(model_dir, "pytorch_model.bin"))
+    del model
+
+
+def write_wavlm_layers(src_dir: str, model_dir: str, layers: int) -> None:
+    """The first ``layers`` layers of an HF WavLM directory, at its width."""
+    with open(os.path.join(src_dir, "config.json")) as f:
+        cfg = json.load(f)
+    sd = torch.load(os.path.join(src_dir, "pytorch_model.bin"), weights_only=True)
+    keep = {k: v for k, v in sd.items()
+            if not k.startswith("encoder.layers.") or int(k.split(".")[2]) < layers}
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**cfg, "num_hidden_layers": layers}, f, indent=1)
+    torch.save(keep, os.path.join(model_dir, "pytorch_model.bin"))
+
+
+def check_features(save: str, lengths: dict, frames, dim: int, what: str) -> None:
+    for stem, n in lengths.items():
+        feats = torch.load(os.path.join(save, f"{stem}.pt"), weights_only=True)
+        want = (frames(n), dim)
+        require(tuple(feats.shape) == want and feats.dtype == torch.float32,
+                f"{what} {stem}: {tuple(feats.shape)} {feats.dtype}, want {want} float32")
+        require(bool(torch.isfinite(feats).all()), f"{what} {stem}: non-finite values")
+
+
+def phase_whisper_extraction(tmp: str) -> dict:
+    """``preprocess_cli.whisper_main`` over 8 seeded wavs of 3-30 s, bf16 and
+    f32: frame counts min(ceil(n / 320), 1500), finiteness, K1 launches =
+    layers x batches, and utt0 in f32 against the plain path on the card."""
+    from interspeech_ser_tpu_torch.models import whisper as mw
+    from interspeech_ser_tpu_torch.models.loader import build_whisper_encoder
+    from interspeech_ser_tpu_torch.ops.mel import whisper_log_mel
+    from interspeech_ser_tpu_torch.preprocess_cli import whisper_main
+    from interspeech_ser_tpu_torch.utils.audio import load_wav
+
+    cfg = mw.whisper_large_v3()
+    wav_dir = os.path.join(tmp, "whisper_wavs")
+    lengths = write_wavs(wav_dir, 8, (3.0, 30.0), SEED + 3)
+    model_dir = os.path.join(tmp, "whisper-large-v3")
+    t0 = time.perf_counter()
+    write_whisper(model_dir)
+    log(f"[whisper] wrote seeded random-init Whisper-large-v3 ({cfg.encoder_layers} layers, D={cfg.d_model}) "
+        f"to {model_dir} in {time.perf_counter() - t0:.1f} s")
+    frames = lambda n: min(-(-n // 320), cfg.max_source_positions)  # noqa: E731
+    rates = {}
+    for dtype in ("bfloat16", "float32"):
+        save = os.path.join(tmp, f"whisper_feats_{dtype}")
+        before = counts()
+        stats = whisper_main(["--ssl_type", model_dir, "--wav_dir", wav_dir, "--save_path", save,
+                              "--dtype", dtype, "--device", DEVICE])
+        sync()
+        delta = {k: v - before[k] for k, v in counts().items()}
+        require(stats.n_utts == 8 and stats.n_failed == 0 and stats.n_batches == 1, f"whisper {dtype}: {stats}")
+        require(delta["attention_btd"] == cfg.encoder_layers * stats.n_batches and delta["attention_btd_bwd"] == 0,
+                f"whisper {dtype}: launches {delta}")
+        check_features(save, lengths, frames, cfg.d_model, f"whisper {dtype}")
+        rates[dtype] = stats.utts_per_sec
+        log(f"[whisper] extraction {dtype}: {stats.n_utts} utts, {stats.audio_seconds:.1f} audio-s in "
+            f"{stats.wall_seconds:.2f} s = {stats.utts_per_sec:.2f} utt/s; launches {delta}")
+    set_tf32(False)
+    model, _ = build_whisper_encoder(model_dir)
+    model = model.to(DEVICE).eval()
+    y, _ = load_wav(os.path.join(wav_dir, "utt0.wav"))
+    w30 = torch.zeros(1, 480000)
+    w30[0, : min(len(y), 480000)] = torch.from_numpy(y[:480000])
+    with torch.inference_mode():
+        ref = model(whisper_log_mel(w30.to(DEVICE), cfg.num_mel_bins), plain=True)["last_hidden_state"][0]
+    n = frames(lengths["utt0"])
+    got = torch.load(os.path.join(tmp, "whisper_feats_float32", "utt0.pt"), weights_only=True)
+    cos = cosine(got, ref[:n].cpu())
+    log(f"[whisper] utt0 float32 .pt vs plain f32 path on the card: cos {cos:.6f} max_abs "
+        f"{max_abs(got, ref[:n].cpu()):.3e}")
+    require(cos >= 0.999, f"whisper utt0 cosine {cos} < 0.999")
+    del model
+    return {"dir": model_dir, "wav_dir": wav_dir, "lengths": lengths, "utt_per_sec": rates}
+
+
+def write_lora_corpus(tmp: str) -> str:
+    """Seeded wavs and a label CSV with Train and Development rows -> its path."""
+    from interspeech_ser_tpu_torch.baseline.podcast import CAT_COLUMNS
+
+    shape = LORA_SHAPE
+    n = shape["n_train"] + shape["n_dev"]
+    write_wavs(os.path.join(tmp, "lora_wavs"), n, shape["seconds"], SEED + 4, prefix="ft")
+    path = os.path.join(tmp, "lora_labels.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["FileName"] + CAT_COLUMNS + ["Split_Set"])
+        for i in range(n):
+            w.writerow([f"ft{i}.wav"] + [float(c == i % 8) for c in range(8)]
+                       + ["Train" if i < shape["n_train"] else "Development"])
+    return path
+
+
+def fine_tune(tmp: str, model_dir: str, label_path: str, layers: int, name: str) -> str:
+    """The port's ft_lora (``lora_cli``) for one epoch with its defaults: finite
+    losses, K4 launches = layers x optimizer steps -> the checkpoint."""
+    from interspeech_ser_tpu_torch import lora_cli
+
+    steps = -(-LORA_SHAPE["n_train"] // 8)
+    before = counts()
+    t0 = time.perf_counter()
+    res = lora_cli.main(["--ssl_type", model_dir, "--label_path", label_path, "--wav_dir",
+                         os.path.join(tmp, "lora_wavs"), "--model_path", os.path.join(tmp, f"lora_{name}"),
+                         "--epochs", "1", "--device", DEVICE])
+    sync()
+    seconds = time.perf_counter() - t0
+    ckpt, logged = res["checkpoint"], res["losses"]
+    delta = {k: v - before[k] for k, v in counts().items()}
+    require(len(logged) == steps and all(np.isfinite(logged)), f"{name} fine-tune losses {logged}")
+    require(delta["attention_btd_bwd"] == layers * steps,
+            f"{name}: K4 launches {delta['attention_btd_bwd']} != {layers} layers x {steps} steps")
+    sd = torch.load(ckpt, weights_only=True)
+    n_factors = sum(k.endswith(".lora_A") for k in sd)
+    require(n_factors == 2 * layers and any(float(v.abs().max()) > 0 for k, v in sd.items() if k.endswith("lora_B")),
+            f"{name}: checkpoint has {n_factors} A factors (want {2 * layers}) or untrained B")
+    log(f"[lora] {name} ft_lora 1 epoch ({steps} steps, batch 8, rank 8, f32) in {seconds:.2f} s incl. load and "
+        f"the dev predict; losses {logged}; launches {delta}")
+    return ckpt
+
+
+def phase_lora(tmp: str, whisper: dict, wavlm_dir: str) -> dict:
+    """The LoRA path: ft_lora over Whisper-large-v3, whisper_pretrained_main
+    with its checkpoint, then the same over WavLM-large and
+    speech_pretrained_main."""
+    from interspeech_ser_tpu_torch.models import speech, whisper as mw
+    from interspeech_ser_tpu_torch.preprocess_cli import speech_pretrained_main, whisper_pretrained_main
+
+    wcfg, scfg = mw.whisper_large_v3(), speech.wavlm_large()
+    label_path = write_lora_corpus(tmp)
+    out = {}
+    for name, model_dir, layers, extract, frames, dim in (
+        ("whisper", whisper["dir"], wcfg.encoder_layers, whisper_pretrained_main,
+         lambda n: min(-(-n // 320), wcfg.max_source_positions), wcfg.d_model),
+        ("wavlm", wavlm_dir, scfg.num_layers, speech_pretrained_main,
+         lambda n: speech.feat_extract_output_length(n, scfg), scfg.hidden_size),
+    ):
+        ckpt = fine_tune(tmp, model_dir, label_path, layers, name)
+        save = os.path.join(tmp, f"{name}_pretrained_feats")
+        stats = extract(["--ssl_type", model_dir, "--wav_dir", whisper["wav_dir"], "--save_path", save,
+                         "--lora_ckpt", ckpt, "--device", DEVICE])
+        sync()
+        require(stats.n_utts == 8 and stats.n_failed == 0, f"{name} pretrained extraction: {stats}")
+        check_features(save, whisper["lengths"], frames, dim, f"{name}_pretrained")
+        log(f"[lora] {name}_pretrained_main: {stats.n_utts} utts in {stats.wall_seconds:.2f} s")
+        out[name] = ckpt
+    got = torch.load(os.path.join(tmp, "whisper_pretrained_feats", "utt0.pt"), weights_only=True)
+    base = torch.load(os.path.join(tmp, "whisper_feats_float32", "utt0.pt"), weights_only=True)
+    require(max_abs(got, base) > 0, "whisper_pretrained features equal the base encoder's: no LoRA merged")
+    return out
+
+
+def check_lora_grads(tmp: str, whisper: dict, wavlm_dir: str) -> dict:
+    """One LoRA step's gradients through K1 + K4 against the plain attention
+    path on the card: full width, 2 layers, f32, TF32 off, B factors drawn
+    non-zero (so A gets a gradient), head dropout off, a batch of 8
+    fine-tune utterances. Bar: per LoRA factor
+    and head parameter max|g_kernel - g_plain| <= 1e-4 x max|g_plain|."""
+    from interspeech_ser_tpu_torch.train.lora_engine import LoRAFTEngine
+
+    set_tf32(False)
+    whisper2 = os.path.join(tmp, "whisper-2layers")
+    wavlm2 = os.path.join(tmp, "wavlm-2layers")
+    write_whisper(whisper2, layers=2)
+    write_wavlm_layers(wavlm_dir, wavlm2, 2)
+    worst = {}
+    for name, model_dir in (("whisper", whisper2), ("wavlm", wavlm2)):
+        engine = LoRAFTEngine(model_dir, device=DEVICE)
+        engine.head.dropout_p = 0.0
+        gen = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for pair in engine.lora.values():
+                pair["lora_B"].copy_(0.01 * torch.randn(pair["lora_B"].shape, generator=gen))
+        batch = lora_batch(engine, os.path.join(tmp, "lora_wavs"))
+        grads = {}
+        for route in ("kernel", "plain"):
+            before = counts()["attention_btd_bwd"]
+            for t in engine.trainable():
+                t.grad = None
+            loss_t = engine.loss(*batch, plain=route == "plain")
+            loss_t.backward()
+            loss = loss_t.item()
+            sync()
+            require(np.isfinite(loss), f"{name} {route} loss {loss}")
+            launched = counts()["attention_btd_bwd"] - before
+            require(launched == (2 if route == "kernel" else 0), f"{name} {route}: {launched} K4 launches")
+            grads[route] = [t.grad.detach().clone() for t in engine.trainable()]
+        errs = [max_abs(a, b) / float(b.abs().max()) for a, b in zip(grads["kernel"], grads["plain"])]
+        log(f"[lora] {name} 2 layers full width, one step's gradients through K1+K4 vs the plain path: "
+            f"worst {max(errs):.3e} over {len(errs)} tensors (bar 1e-4); loss {loss:.6f}")
+        require(max(errs) <= 1e-4, f"{name} LoRA gradient relative error {max(errs)} > 1e-4")
+        worst[name] = max(errs)
+        del engine, grads
+    return worst
+
+
+def lora_batch(engine, wav_dir: str, n: int = 8):
+    """One training batch of ``n`` seeded wavs for ``engine``: (wav, mask, y, sample mask)."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.train.lora_engine import pad_batch
+    from interspeech_ser_tpu_torch.utils.audio import normalize_waveform
+
+    names = sorted(os.listdir(wav_dir))[:n]
+    wavs = [normalize_waveform(w, engine.do_normalize) for w in bdata.load_audio(wav_dir, names)]
+    wav, mask = pad_batch(wavs, n)
+    return wav, mask, np.arange(n) % 8, np.ones(n, np.float32)
+
+
+def time_bf16_steps(whisper: dict) -> dict:
+    """``LoRAFTEngine(dtype="bfloat16")`` on Whisper-large-v3, batch 8: the
+    median of timed optimizer steps after a warm-up, and a profile of 2 steps
+    (K4's share of device time, the device's idle share)."""
+    from interspeech_ser_tpu_torch.train.lora_engine import LoRAFTEngine
+
+    engine = LoRAFTEngine(whisper["dir"], dtype="bfloat16", device=DEVICE)
+    opt = torch.optim.AdamW(engine.trainable(), lr=5e-4, weight_decay=1e-2)
+    batch = lora_batch(engine, whisper["wav_dir"])
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = engine.loss(*batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    step()
+    sync()
+    times, losses = [], []
+    for _ in range(LORA_SHAPE["bf16_steps"]):
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    require(all(np.isfinite(losses)), f"bf16 step losses {losses}")
+    out = {"bf16_step_ms": statistics.median(times), "bf16_step_ms_runs": times, "bf16_losses": losses}
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            step()
+            sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        k4_ms = sum(e.self_device_time_total for e in kernels
+                    if any(n in e.key for n in ("dkdv_kernel", "dq_kernel", "delta_kernel", "dbias_reduce"))) / 1e3
+        k1_ms = sum(e.self_device_time_total for e in kernels if "attention_btd_kernel" in e.key) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        out["profile"] = {"wall_ms_2_steps": wall_ms, "device_busy_ms": busy_ms, "k4_ms": k4_ms, "k1_ms": k1_ms,
+                          "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+        log(f"[lora] bf16 profile of 2 steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), K4 {k4_ms:.1f} ms = {100 * k4_ms / busy_ms:.1f}% and "
+            f"K1 {k1_ms:.1f} ms = {100 * k1_ms / busy_ms:.1f}% of device time")
+        for name, ms, n in out["profile"]["top"]:
+            log(f"[lora]   {ms:9.3f} ms  x{n:<4d} {name}")
+    log(f"[lora] Whisper-large-v3 LoRA step bf16 batch 8: median {out['bf16_step_ms']:.3f} ms of runs "
+        f"{[round(t, 3) for t in times]}; losses {losses}")
+    del engine, opt
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     set_tf32(False)
@@ -757,6 +1143,7 @@ def main() -> None:
     check_conv_frontend(g, parity)
     check_gru(g, parity)
     check_gru_bwd(g, parity)
+    check_attention_bwd(g, parity)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         zero_counts()
@@ -778,7 +1165,18 @@ def main() -> None:
                 f"{trained['steps']} optimizer steps")
         log(f"[training path] launches {training}")
         step = check_train_step(config_path)
-    launches = {name: serving[name] + training[name] for name in KERNELS}
+
+        zero_counts()
+        whisper = phase_whisper_extraction(tmp)
+        phase_lora(tmp, whisper, os.path.join(tmp, "wavlm-large"))
+        lora_path = counts()
+        for name in ("attention_btd", "attention_btd_bwd", "conv_frontend"):
+            require(lora_path[name] > 0, f"kernel {name} was not launched on the LoRA path")
+        log(f"[lora path] launches {lora_path}; Whisper extraction utt/s {whisper['utt_per_sec']}")
+        lora_grads = check_lora_grads(tmp, whisper, os.path.join(tmp, "wavlm-large"))
+        bf16 = time_bf16_steps(whisper)
+    by_path = {"serving": serving, "training": training, "lora": lora_path}
+    launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
 
     record = []
     for name, spec in KERNELS.items():
@@ -789,11 +1187,14 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
             "library_ms": f32["library_ms"],
-            "launches_by_path": {"serving": serving[name], "training": training[name]}, "cases": cases,
+            "launches_by_path": {path: c[name] for path, c in by_path.items()}, "cases": cases,
         })
     log(f"[train] median train-step ms {step['train_step_ms']:.3f} (batch 64, H=512, {smi})")
+    log(f"[lora] Whisper-large-v3 LoRA step bf16 median {bf16['bf16_step_ms']:.3f} ms (batch 8, {smi})")
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
-                    "train": {**trained, **step}}))
+                    "train": {**trained, **step},
+                    "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
+                             **bf16}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

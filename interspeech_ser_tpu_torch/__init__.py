@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the tpu-ser serving path, for one NVIDIA H100.
+"""PyTorch + CUDA port of tpu-ser for one NVIDIA H100: extraction, fusion
+training and scoring, and LoRA fine-tuning.
 
 The JAX package ``interspeech_ser_tpu`` stays the reference. This package
 imports torch and never jax, flax, pandas, transformers or safetensors. Its

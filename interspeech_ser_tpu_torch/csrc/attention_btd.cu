@@ -26,6 +26,11 @@
 // Masked keys (key_mask == 0, or index >= Tk) get no weight at all: a tile
 // whose keys are all masked leaves the running max, denominator and
 // accumulator untouched, instead of adding exp(0) terms.
+//
+// With a non-null `lse` the kernel also writes each row's log-sum-exp
+// m + log(l) ([B, H, Tq] f32; -inf for a row whose keys are all masked), so
+// that K4 (attention_btd_bwd.cu) can recompute P = exp(s - lse) without a
+// second pass over the keys. Inference passes null and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +69,7 @@ __global__ void __launch_bounds__(BQ) attention_btd_kernel(
     const float* __restrict__ key_mask,  // [B, Tk] or null
     const float* __restrict__ gate,      // [B, H, Tq] or null (with bias)
     const T* __restrict__ bias,          // [H, Tq, Tk] or null
-    T* __restrict__ out, int Tq, int Tk, int H, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H, float scale) {
   __shared__ __align__(16) float kv[BK][HD];  // K tile, then V tile
   __shared__ float sc[BQ][BK + 1];            // bias tile, then scores
   __shared__ float valid[BK];
@@ -170,18 +175,19 @@ __global__ void __launch_bounds__(BQ) attention_btd_kernel(
     T* orow = out + ((size_t)b * Tq + qi) * D + h * HD;
 #pragma unroll
     for (int d = 0; d < HD; ++d) orow[d] = from_f<T>(acc[d] * inv);
+    if (lse != nullptr) lse[((size_t)b * H + h) * Tq + qi] = l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* key_mask,
-           const void* gate, const void* bias, void* out, int B, int Tq, int Tk,
-           int H, int hd, float scale, void* stream) {
+           const void* gate, const void* bias, void* out, void* lse, int B, int Tq,
+           int Tk, int H, int hd, float scale, void* stream) {
   if (hd != HD) return (int)cudaErrorInvalidValue;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   attention_btd_kernel<T><<<grid, BQ, 0, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)key_mask,
-      (const float*)gate, (const T*)bias, (T*)out, Tq, Tk, H, scale);
+      (const float*)gate, (const T*)bias, (T*)out, (float*)lse, Tq, Tk, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -193,17 +199,18 @@ extern "C" const char* ser_cuda_error_string(int err) {
 
 extern "C" int ser_attention_btd_f32(const void* q, const void* k, const void* v,
                                      const void* key_mask, const void* gate,
-                                     const void* bias, void* out, int B, int Tq,
-                                     int Tk, int H, int hd, float scale,
+                                     const void* bias, void* out, void* lse, int B,
+                                     int Tq, int Tk, int H, int hd, float scale,
                                      void* stream) {
-  return launch<float>(q, k, v, key_mask, gate, bias, out, B, Tq, Tk, H, hd, scale, stream);
+  return launch<float>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale,
+                       stream);
 }
 
 extern "C" int ser_attention_btd_bf16(const void* q, const void* k, const void* v,
                                       const void* key_mask, const void* gate,
-                                      const void* bias, void* out, int B, int Tq,
-                                      int Tk, int H, int hd, float scale,
+                                      const void* bias, void* out, void* lse, int B,
+                                      int Tq, int Tk, int H, int hd, float scale,
                                       void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, key_mask, gate, bias, out, B, Tq, Tk, H, hd,
-                               scale, stream);
+  return launch<__nv_bfloat16>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H,
+                               hd, scale, stream);
 }

@@ -1,8 +1,8 @@
 """Batched, bucketed embedding extraction on one device.
 
 Port of ``interspeech_ser_tpu/extract/pipeline.py::SpeechExtractionPipeline``
-(single device; the mesh, tensor-parallel and shard_map legs come with the
-multi-device slice):
+and ``WhisperExtractionPipeline`` (single device; the mesh, tensor-parallel
+and shard_map legs come with the multi-device slice):
 
   header-only batch plan (exact post-resample lengths, length-sorted
   token-budget batches, 1-s buckets)  ->  decoder threads + assembler
@@ -16,22 +16,28 @@ mean of the last 4 (``use_average``). ``replicate_dir_count_bug`` reproduces
 the reference's ``hidden_states[len(os.listdir(save_path))]`` quirk.
 ``SER_TPU_SKIP_EXISTING=1`` skips utterances whose ``.pt`` already exists.
 
+Whisper: fixed [8, 480000] batches (30 s, longer audio cut) in name order,
+raw waveforms, the log-mel computed on the device, and the output cut to
+``min(ceil(len / 320), 1500)`` frames.
+
 Output contract: ``save_path/<utt>.pt``, a float32 [T_valid, D] tensor.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import math
 import os
 import time
 from dataclasses import dataclass
 from functools import partial
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.speech import feat_extract_output_length
+from ..ops.mel import whisper_log_mel
 from ..utils import ptio
 from ..utils.audio import load_wav, normalize_waveform
 from ..utils.device import resolve_device
@@ -67,6 +73,65 @@ def _skip_existing(names: Sequence[str], save_path: str, stats: ExtractionStats)
     kept = [n for n in names if not done(n)]
     stats.n_skipped = len(names) - len(kept)
     return kept
+
+
+def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(x)
+    if dev.type == "cuda":
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=True)
+
+
+def _drive(
+    stream,
+    forward: Callable,  # ReadyBatch -> selected hidden state [B, T, D] on the device
+    n_frames: Callable[[int, int], int],  # (samples, T) -> valid frames
+    save_path: str,
+    stats: ExtractionStats,
+    num_workers: int,
+    cuda: bool,
+) -> None:
+    """The device loop: batch k is enqueued on the card, and its selected
+    hidden state starts an async copy into pinned host memory, before batch
+    k-1 is written out by the bounded writer threads."""
+    writer = streaming.BoundedWriter(num_workers=num_workers)
+
+    def fetch(sel: torch.Tensor):
+        """Start the device-to-host copy; return (host tensor, done event)."""
+        if not cuda:
+            return sel, None
+        host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=True)
+        host.copy_(sel, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def drain(rb, host, ev) -> None:
+        if ev is not None:
+            ev.synchronize()
+        feats = host.float()
+        for i, name in enumerate(rb.names):
+            stem = os.path.splitext(os.path.basename(name))[0]
+            n = n_frames(rb.lengths[i], feats.shape[1])
+            # save_tensor writes a compact clone of the row, not the batch's storage
+            writer.submit(ptio.save_tensor, feats[i, :n], os.path.join(save_path, f"{stem}.pt"))
+            stats.n_utts += 1
+            stats.audio_seconds += rb.lengths[i] / 16000.0
+
+    prev = None
+    for rb in stream:
+        stats.n_failed += rb.n_failed
+        if not rb.names:
+            continue
+        sel = forward(rb)
+        stats.n_batches += 1
+        cur = (rb, *fetch(sel))
+        if prev is not None:
+            drain(*prev)  # host writes of k-1 overlap the device work of k
+        prev = cur
+    if prev is not None:
+        drain(*prev)
+    writer.drain()
 
 
 class SpeechExtractionPipeline:
@@ -106,14 +171,7 @@ class SpeechExtractionPipeline:
     @torch.inference_mode()
     def _forward(self, wav: np.ndarray, mask: np.ndarray, n_layer: int) -> torch.Tensor:
         """Selected hidden state [B, T, D] in the compute dtype, on the device."""
-        dev = self.device
-        pin = dev.type == "cuda"
-        wav_t = torch.from_numpy(wav)
-        mask_t = torch.from_numpy(mask)
-        if pin:
-            wav_t, mask_t = wav_t.pin_memory(), mask_t.pin_memory()
-        wav_t = wav_t.to(dev, non_blocking=True)
-        mask_t = mask_t.to(dev, non_blocking=True)
+        wav_t, mask_t = _to_device(wav, self.device), _to_device(mask, self.device)
         keep = (-4, -3, -2, -1) if self.use_average else (n_layer,)
         hs = self.model(wav_t, mask_t, keep=keep)["hidden_states"]
         if self.use_average:
@@ -160,44 +218,70 @@ class SpeechExtractionPipeline:
         stream = streaming.BatchStream(
             partial(self._load_one, wav_dir), plan, BUCKET_QUANTUM, num_workers=self.num_workers,
         )
-        writer = streaming.BoundedWriter(num_workers=self.num_workers)
-        cuda = self.device.type == "cuda"
+        _drive(stream, lambda rb: self._forward(rb.wav, rb.mask, n_layer),
+               lambda n, T: feat_extract_output_length(n, self.config), save_path, stats,
+               self.num_workers, self.device.type == "cuda")
+        stats.wall_seconds = time.perf_counter() - t0
+        return stats
 
-        def fetch(sel: torch.Tensor):
-            """Start the device-to-host copy; return (host tensor, done event)."""
-            if not cuda:
-                return sel, None
-            host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=True)
-            host.copy_(sel, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-            return host, ev
 
-        def drain(rb, host, ev) -> None:
-            if ev is not None:
-                ev.synchronize()
-            feats = host.float()
-            for i, name in enumerate(rb.names):
-                stem = os.path.splitext(os.path.basename(name))[0]
-                n_frames = feat_extract_output_length(rb.lengths[i], self.config)
-                # save_tensor writes a compact clone of the row, not the batch's storage
-                writer.submit(ptio.save_tensor, feats[i, :n_frames], os.path.join(save_path, f"{stem}.pt"))
-                stats.n_utts += 1
-                stats.audio_seconds += rb.lengths[i] / 16000.0
+class WhisperExtractionPipeline:
+    """wav dir -> Whisper-encoder embeddings, cut to each utterance's frames."""
 
-        prev = None
-        for rb in stream:
-            stats.n_failed += rb.n_failed
-            if not rb.names:
-                continue
-            sel = self._forward(rb.wav, rb.mask, n_layer)
-            stats.n_batches += 1
-            cur = (rb, *fetch(sel))
-            if prev is not None:
-                drain(*prev)  # host writes of k-1 overlap the device work of k
-            prev = cur
-        if prev is not None:
-            drain(*prev)
-        writer.drain()
+    N_SAMPLES = 480000  # 30 s at 16 kHz
+
+    def __init__(
+        self,
+        model,  # WhisperEncoderModel, f32 parameters
+        config,  # WhisperEncoderConfig
+        n_layer: int = -1,
+        use_average: bool = False,
+        batch_size: int = 8,
+        num_workers: int = 8,
+        device="cuda",  # "cpu" only when asked: no card raises
+    ):
+        self.device = resolve_device(device)
+        model = model.to(self.device)
+        if config.compute_dtype == torch.bfloat16:
+            model = model.to(torch.bfloat16)  # cast once
+        self.model = model.eval()
+        self.config = config
+        self.n_layer = n_layer
+        self.use_average = use_average
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+
+    @torch.inference_mode()
+    def _forward(self, wav: np.ndarray) -> torch.Tensor:
+        mel = whisper_log_mel(_to_device(wav, self.device), self.config.num_mel_bins)
+        keep = (-4, -3, -2, -1) if self.use_average else (self.n_layer,)
+        hs = self.model(mel, keep=keep)["hidden_states"]
+        if self.use_average:
+            return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
+        return hs[self.n_layer]
+
+    def _load_one(self, wav_dir: str, name: str) -> Optional[np.ndarray]:
+        try:
+            return load_wav(os.path.join(wav_dir, name), target_sr=16000)[0]
+        except Exception as e:  # skip-and-log like the reference
+            print(f"Failed to process {name}: {e}")
+            return None
+
+    def run(self, wav_dir: str, save_path: str, wav_names: Optional[Sequence[str]] = None) -> ExtractionStats:
+        os.makedirs(save_path, exist_ok=True)
+        if wav_names is None:
+            wav_names = sorted(os.listdir(wav_dir))
+        stats = ExtractionStats()
+        t0 = time.perf_counter()
+        wav_names = _skip_existing(wav_names, save_path, stats)
+        bs = self.batch_size
+        plan = [streaming.PlannedBatch(list(wav_names[i: i + bs]), [0] * len(wav_names[i: i + bs]))
+                for i in range(0, len(wav_names), bs)]
+        stream = streaming.BatchStream(
+            partial(self._load_one, wav_dir), plan, self.N_SAMPLES, num_workers=self.num_workers,
+            fixed_len=self.N_SAMPLES, row_multiple=bs,
+        )
+        _drive(stream, lambda rb: self._forward(rb.wav), lambda n, T: min(math.ceil(n / 320), T),
+               save_path, stats, self.num_workers, self.device.type == "cuda")
         stats.wall_seconds = time.perf_counter() - t0
         return stats

@@ -102,7 +102,9 @@ class BatchStream:
 
     ``load_one(name) -> Optional[np.ndarray]`` runs on ``num_workers``
     threads with a sliding in-flight window; one assembler thread pads each
-    planned batch to its bucketed length and enqueues it. ``queue_depth``
+    planned batch to its bucketed length (or to ``fixed_len``, cutting longer
+    waveforms, which keep their true length for frame accounting; rows
+    rounded up to ``row_multiple``) and enqueues it. ``queue_depth``
     bounds assembled batches held in host RAM. Decode failures drop the row
     (skip-and-log lives in ``load_one``) and are counted per batch.
     """
@@ -116,11 +118,15 @@ class BatchStream:
         bucket_quantum: int,
         num_workers: int = 8,
         queue_depth: int = 2,
+        fixed_len: Optional[int] = None,
+        row_multiple: int = 1,
     ):
         self.load_one = load_one
         self.plan = plan
         self.bucket_quantum = bucket_quantum
         self.num_workers = num_workers
+        self.fixed_len = fixed_len
+        self.row_multiple = row_multiple
         self.q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
         self._err: Optional[BaseException] = None
         # set when the consumer abandons iteration (device error mid-run):
@@ -143,13 +149,18 @@ class BatchStream:
         if not ok:
             return ReadyBatch([], [], np.zeros((0, 0), np.float32),
                               np.zeros((0, 0), np.float32), n_failed)
-        tmax = max(len(w) for _, w in ok)
-        T = max(self.bucket_quantum, -(-tmax // self.bucket_quantum) * self.bucket_quantum)
-        wav = np.zeros((len(ok), T), np.float32)
-        mask = np.zeros((len(ok), T), np.float32)
+        if self.fixed_len is not None:
+            T = self.fixed_len
+        else:
+            tmax = max(len(w) for _, w in ok)
+            T = max(self.bucket_quantum, -(-tmax // self.bucket_quantum) * self.bucket_quantum)
+        B = -(-len(ok) // self.row_multiple) * self.row_multiple
+        wav = np.zeros((B, T), np.float32)
+        mask = np.zeros((B, T), np.float32)
         for i, (_, w) in enumerate(ok):
-            wav[i, : len(w)] = w
-            mask[i, : len(w)] = 1.0
+            m = min(len(w), T)
+            wav[i, :m] = w[:m]
+            mask[i, :m] = 1.0
         return ReadyBatch([n for n, _ in ok], [len(w) for _, w in ok],
                           wav, mask, n_failed)
 

@@ -6,6 +6,8 @@ nested dicts of numpy arrays and return the port's state dicts.
 - :func:`speech_params_from_flax` mirrors ``speech_flax_to_hf``
   (interspeech_ser_tpu/models/convert_hf.py) and yields HF key names, with
   the positional conv kept as one plain (folded) ``weight``.
+- :func:`whisper_params_from_flax` mirrors ``whisper_encoder_hf_to_flax``
+  in reverse and yields HF Whisper-encoder key names.
 - :func:`fusion_params_from_flax` mirrors ``convert_fusion.flax_to_torch``
   and yields the reference's ``multimodal_ser.pt`` names.
 
@@ -82,6 +84,31 @@ def speech_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
         for dense in ("intermediate_dense", "output_dense"):
             sd[f"{base}.feed_forward.{dense}.weight"] = _t(g(src, "feed_forward", dense, "kernel"))
             sd[f"{base}.feed_forward.{dense}.bias"] = g(src, "feed_forward", dense, "bias")
+    return _to_torch(sd)
+
+
+def whisper_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """JAX ``WhisperEncoderModel`` params -> the port's (HF-named) state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {}
+    for conv in ("conv1", "conv2"):
+        sd[f"{conv}.weight"] = _unconv(g(conv, "kernel"))
+        sd[f"{conv}.bias"] = g(conv, "bias")
+    sd["embed_positions.weight"] = g("embed_positions")
+    sd["layer_norm.weight"] = g("layer_norm", "scale")
+    sd["layer_norm.bias"] = g("layer_norm", "bias")
+    for i in range(config.encoder_layers):
+        base, src = f"layers.{i}", f"layer{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[f"{base}.self_attn.{proj}.weight"] = _t(g(src, "self_attn", proj, "kernel"))
+            if proj != "k_proj":
+                sd[f"{base}.self_attn.{proj}.bias"] = g(src, "self_attn", proj, "bias")
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[f"{base}.{ln}.weight"] = g(src, ln, "scale")
+            sd[f"{base}.{ln}.bias"] = g(src, ln, "bias")
+        for fc in ("fc1", "fc2"):
+            sd[f"{base}.{fc}.weight"] = _t(g(src, fc, "kernel"))
+            sd[f"{base}.{fc}.bias"] = g(src, fc, "bias")
     return _to_torch(sd)
 
 

@@ -1,7 +1,7 @@
-"""Load a local HF-format speech checkpoint into the port's encoder.
+"""Load a local HF-format speech or Whisper checkpoint into the port's encoders.
 
-Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder``
-without transformers or safetensors: ``config.json`` is read with ``json``,
+Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder`` and
+``build_whisper_encoder`` without transformers or safetensors: ``config.json`` is read with ``json``,
 weights come from ``pytorch_model.bin`` (``torch.load(weights_only=True)``)
 or ``model.safetensors`` (a small reader below), sharded or not. The
 positional conv's weight norm is folded into a plain kernel.
@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 
 from .speech import SpeechConfig, SpeechEncoderModel
+from .whisper import WhisperEncoderConfig, WhisperEncoderModel
 
 _ST_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -97,13 +98,18 @@ def fold_weight_norm(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torc
     return sd
 
 
+def read_config(path_or_name: str) -> Dict:
+    """The directory's ``config.json`` as a dict."""
+    with open(os.path.join(resolve_dir(path_or_name), "config.json")) as f:
+        return json.load(f)
+
+
 def build_speech_encoder(
     path_or_name: str, dtype: str = "float32"
 ) -> Tuple[SpeechEncoderModel, SpeechConfig, bool]:
     """-> (model in f32 on the CPU, config, do_normalize)."""
     d = resolve_dir(path_or_name)
-    with open(os.path.join(d, "config.json")) as f:
-        cfg = SpeechConfig.from_hf(json.load(f), dtype=dtype)
+    cfg = SpeechConfig.from_hf(read_config(d), dtype=dtype)
     sd = _strip_prefix(load_hf_state_dict(d), ("wavlm.", "wav2vec2.", "hubert."))
     sd = fold_weight_norm(sd, "encoder.pos_conv_embed.conv")
     sd = {k: v.float() for k, v in sd.items() if k not in _UNUSED_KEYS}
@@ -117,3 +123,21 @@ def build_speech_encoder(
         with open(pp) as f:
             do_normalize = bool(json.load(f).get("do_normalize", True))
     return model, cfg, do_normalize
+
+
+def build_whisper_encoder(
+    path_or_name: str, dtype: str = "float32"
+) -> Tuple[WhisperEncoderModel, WhisperEncoderConfig]:
+    """-> (encoder in f32 on the CPU, config). Takes a Whisper directory only;
+    keys under a ``model.encoder.`` or ``encoder.`` prefix are kept with the
+    prefix stripped (the decoder's are dropped), and the load is strict."""
+    d = resolve_dir(path_or_name)
+    hf = read_config(d)
+    if hf.get("model_type") != "whisper":
+        raise ValueError(f"{d}: model_type {hf.get('model_type')!r} is not 'whisper'")
+    cfg = WhisperEncoderConfig.from_hf(hf, dtype=dtype)
+    sd = _strip_prefix(load_hf_state_dict(d), ("model.encoder.", "encoder."))
+    with torch.device("meta"):
+        model = WhisperEncoderModel(cfg)
+    model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True, assign=True)
+    return model.eval(), cfg

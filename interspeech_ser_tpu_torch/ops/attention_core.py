@@ -5,10 +5,16 @@ FACTORED, ``gate [B,H,Tq] x shared_bias [H,Tq,Tk]`` (WavLM's gated
 relative-position bias); a plain additive bias is the case gate = 1. The
 softmax always runs in float32.
 
-``dot_product_attention_btd`` is the single dispatch point of the encoder:
-a CUDA tensor goes to kernel K1 (``ops/kernels/attention.py``), a CPU tensor
-to K1's plain version. K1 streams over keys, so it has no length limit and
-no fallback; the JAX package's TPU-only implementation choices are gone.
+``dot_product_attention_btd`` is the single dispatch point of the encoder
+(``ops/kernels/attention.py`` holds the kernels):
+- a CUDA tensor with grad enabled and an input that requires grad goes to
+  ``AttentionBtdTrain``, kernel K1 forward and kernel K4 backward;
+- any other CUDA tensor goes to K1;
+- a CPU tensor goes to K1's plain version, under ordinary autograd.
+K1 and K4 stream over keys, so they have no length limit and no fallback.
+The JAX package's TPU-only choices (the inference/training opt-ins, the
+bf16-only and ``Tk >= 1024`` gating of the training pair) are gone: they
+were measurements of a TPU.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .kernels.attention import NEG_INF, attention_btd, attention_btd_plain
+from .kernels.attention import NEG_INF, AttentionBtdTrain, attention_btd, attention_btd_plain
 
 
 def dot_product_attention_btd(
@@ -31,8 +37,13 @@ def dot_product_attention_btd(
     shared_bias: Optional[torch.Tensor] = None,  # [H, Tq, Tk]
     plain: bool = False,  # force the plain version (reference runs on the card)
 ) -> torch.Tensor:  # [B, Tq, D]
-    fn = attention_btd_plain if plain else attention_btd
-    return fn(q, k, v, num_heads, key_mask=key_mask, scale=scale, gate=gate, pos_bias=shared_bias)
+    if plain:
+        return attention_btd_plain(q, k, v, num_heads, key_mask, scale, gate, shared_bias)
+    if q.is_cuda and torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)
+    ):
+        return AttentionBtdTrain.apply(q, k, v, num_heads, key_mask, scale, gate, shared_bias)
+    return attention_btd(q, k, v, num_heads, key_mask=key_mask, scale=scale, gate=gate, pos_bias=shared_bias)
 
 
 def dot_product_attention(

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 All sources under ``interspeech_ser_tpu_torch/csrc/`` compile into one
-shared library with a plain C interface:
+shared library with a plain C interface: one nvcc per source, all started
+together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/<hash>/libser_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o build/kernels/<hash>/<source>.o csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o .../libser_kernels.so *.o
 
 The build runs at first use (never at import), into ``build/`` at the root
 of the checkout, keyed by a hash of the sources: an edited source builds a
@@ -27,18 +29,20 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("attention_btd.cu", "conv_frontend.cu", "gru_bidir.cu", "gru_bidir_bwd.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "conv_frontend.cu", "gru_bidir.cu", "gru_bidir_bwd.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
-    # q, k, v, key_mask, gate, bias, out, B, Tq, Tk, H, hd, scale, stream
-    "ser_attention_btd_f32": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "ser_attention_btd_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale, stream
+    "ser_attention_btd_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "ser_attention_btd_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # q, k, v, g, out, key_mask, gate, bias, lse, delta and dbias scratch,
+    # dq, dk, dv, dgate, dbias, B, Tq, Tk, H, hd, scale, stream
+    "ser_attention_btd_bwd_f32": [_P] * 16 + [_I] * 5 + [_F, _P],
+    "ser_attention_btd_bwd_bf16": [_P] * 16 + [_I] * 5 + [_F, _P],
     # wav, weight, bias, ln_w, ln_b, out, B, L, T0, C, k, stride, eps, approx_gelu, stream
     "ser_conv_frontend_f32": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "ser_conv_frontend_bf16": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
@@ -78,14 +82,29 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libser_kernels.so.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-    (out_dir / "build.log").write_text(log + f"\nseconds: {time.perf_counter() - t0:.2f}\n")
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    objs = [str(out_dir / f"{name}.{pid}.o") for name in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / name)] for name, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    log, failed = [], False
+    for cmd, proc in zip(cmds, procs):  # all compile at once; wait for each in turn
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        failed |= proc.returncode != 0
+    tmp = out_dir / f"libser_kernels.so.tmp{pid}"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        failed = res.returncode != 0
+    text = "\n".join(log)
+    (out_dir / "build.log").write_text(text + f"\nseconds: {time.perf_counter() - t0:.2f}\n")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, lib)  # atomic: a half-written library is never loaded
     return lib
 

@@ -1,10 +1,14 @@
-"""K1: masked SDPA on [B, T, D] projection panels with a factored gated bias.
+"""K1: masked SDPA on [B, T, D] projection panels with a factored gated bias,
+and K4, its backward.
 
 Port of ``interspeech_ser_tpu/ops/pallas/flash_attention_short.py::
-attention_btd``. The CUDA kernel is ``csrc/attention_btd.cu`` (its header
-says what bounds it and how it streams keys); ``attention_btd_plain`` is the
-plain PyTorch version of the same function. ``attention_btd`` launches the
-kernel for a CUDA tensor and runs the plain version for a CPU tensor.
+attention_btd`` (K1) and ``interspeech_ser_tpu/ops/pallas/attention_bwd.py::
+attention_btd_bwd`` (K4). The CUDA kernels are ``csrc/attention_btd.cu`` and
+``csrc/attention_btd_bwd.cu`` (their headers say what bounds them and how
+they stream); ``attention_btd_plain`` and ``attention_btd_bwd_plain`` are the
+plain PyTorch versions of the same functions. Each launcher runs its kernel
+for a CUDA tensor and its plain version for a CPU tensor.
+``AttentionBtdTrain`` is the differentiable pair: K1 forward, K4 backward.
 
 Semantics, shared by both versions and the TPU kernel: per head h (columns
 ``h*hd:(h+1)*hd`` of D), ``softmax(scale*q.kᵀ + gate[b,h,q]*bias[h,q,k] +
@@ -12,18 +16,22 @@ key mask) . v``; q*scale rounded to the compute dtype, the bias cast to the
 compute dtype, scores and softmax in f32, P rounded to v's dtype before P.V
 with f32 accumulation, the result divided by ``max(l, 1e-30)``. A query row
 whose keys are all masked is not defined (a real utterance has >= 1 frame).
+The backward keeps the TPU kernel's roundings: P is recomputed in f32 from
+q and k, rounded to the compute dtype before ``dV = Pᵀg``; dS is rounded to
+the compute dtype before ``dQ`` and ``dK``; ``dgate`` and ``dbias`` stay f32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 NEG_INF = -1e30
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0  # K1 launches since the last reset (chip_smoke.py reads it)
+BWD_LAUNCHES = 0  # K4 launches (one per backward: its four CUDA launches count once)
 
 
 def attention_btd_plain(
@@ -59,6 +67,112 @@ def attention_btd_plain(
     return o.to(dt).transpose(1, 2).reshape(B, Tq, D)
 
 
+def attention_btd_bwd_plain(
+    q: torch.Tensor,  # [B, Tq, D]
+    k: torch.Tensor,  # [B, Tk, D]
+    v: torch.Tensor,  # [B, Tk, D]
+    g: torch.Tensor,  # [B, Tq, D] cotangent of the output
+    num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,
+    pos_bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """-> (dq, dk, dv in q.dtype, dgate [B,H,Tq] f32 | None, dbias [H,Tq,Tk] f32 | None),
+    with P recomputed from q and k as ``attention_bwd._bwd_kernel`` does."""
+    B, Tq, D = q.shape
+    Tk = k.shape[1]
+    H = num_heads
+    hd = D // H
+    dt = q.dtype
+    if scale is None:
+        scale = hd ** -0.5
+
+    def heads(x, T):
+        return x.reshape(B, T, H, hd).transpose(1, 2).float()
+
+    qh, kh, vh, gh = heads(q, Tq), heads(k, Tk), heads(v, Tk), heads(g, Tq)
+    s = (qh @ kh.transpose(-1, -2)) * scale  # [B, H, Tq, Tk] f32
+    bias = gt = None
+    if pos_bias is not None:
+        gt = torch.ones(B, H, Tq, device=q.device) if gate is None else gate.float()
+        bias = pos_bias.to(dt).float()
+        s = s + gt[..., None] * bias[None]
+    if key_mask is not None:
+        s = s.masked_fill(~(key_mask > 0)[:, None, None, :], NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    P = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # f32
+    dv = P.to(dt).float().transpose(-1, -2) @ gh
+    dP = gh @ vh.transpose(-1, -2)
+    dS = P * (dP - (P * dP).sum(dim=-1, keepdim=True))  # f32
+    dSc = dS.to(dt).float()
+    dq = (dSc @ kh) * scale
+    dk = (dSc.transpose(-1, -2) @ qh) * scale
+
+    def merge(x, T):
+        return x.to(dt).transpose(1, 2).reshape(B, T, D)
+
+    dgate = dbias = None
+    if pos_bias is not None:
+        dgate = (dS * bias[None]).sum(dim=-1)
+        dbias = (gt[..., None] * dS).sum(dim=0)
+    return merge(dq, Tq), merge(dk, Tk), merge(dv, Tk), dgate, dbias
+
+
+def _prepare(q, k, v, num_heads, key_mask, gate, pos_bias):
+    """Check what the kernels take; -> (mask f32 | None, gate f32 | None, bias in q.dtype | None)."""
+    B, Tq, D = q.shape
+    Tk = k.shape[1]
+    H = num_heads
+    if D % H != 0 or D // H != 64:
+        raise NotImplementedError(f"attention_btd kernels need head dim 64, got D={D} H={H}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention_btd kernels take float32 or bfloat16, got {q.dtype}")
+    if k.shape != (B, Tk, D) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor on {q.device}")
+    mask = None
+    if key_mask is not None:
+        if key_mask.shape != (B, Tk):
+            raise ValueError(f"key_mask shape {tuple(key_mask.shape)} != {(B, Tk)}")
+        mask = key_mask.detach().to(device=q.device, dtype=torch.float32).contiguous()
+    bias = g = None
+    if pos_bias is not None:
+        if pos_bias.shape != (H, Tq, Tk):
+            raise ValueError(f"pos_bias shape {tuple(pos_bias.shape)} != {(H, Tq, Tk)}")
+        bias = pos_bias.detach().to(device=q.device, dtype=q.dtype).contiguous()
+        if gate is None:
+            g = torch.ones(B, H, Tq, device=q.device)
+        else:
+            if gate.shape != (B, H, Tq):
+                raise ValueError(f"gate shape {tuple(gate.shape)} != {(B, H, Tq)}")
+            g = gate.detach().to(device=q.device, dtype=torch.float32).contiguous()
+    return mask, g, bias
+
+
+def _launch_forward(q, k, v, num_heads, key_mask, scale, gate, pos_bias, with_lse: bool):
+    """K1 -> (out, lse [B, H, Tq] f32 or None)."""
+    global LAUNCHES
+    mask, g, bias = _prepare(q, k, v, num_heads, key_mask, gate, pos_bias)
+    B, Tq, _ = q.shape
+    if scale is None:
+        scale = 64 ** -0.5
+    out = torch.empty_like(q)
+    lse = torch.empty(B, num_heads, Tq, device=q.device, dtype=torch.float32) if with_lse else None
+    lib = _build.library()
+    fn = lib.ser_attention_btd_bf16 if q.dtype == torch.bfloat16 else lib.ser_attention_btd_f32
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(mask), _build.ptr(g),
+        _build.ptr(bias), out.data_ptr(), _build.ptr(lse), B, Tq, k.shape[1], num_heads, 64,
+        float(scale), _build.stream_ptr(q),
+    )
+    _build.check(err, "attention_btd")
+    LAUNCHES += 1
+    return out, lse
+
+
 def attention_btd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -69,48 +183,113 @@ def attention_btd(
     gate: Optional[torch.Tensor] = None,
     pos_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
+    """K1 on a CUDA tensor, the plain version on a CPU tensor. On the card,
+    inputs that need a gradient must come through ``AttentionBtdTrain``."""
     if not q.is_cuda:
         return attention_btd_plain(q, k, v, num_heads, key_mask, scale, gate, pos_bias)
-    global LAUNCHES
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, pos_bias)):
+        raise RuntimeError(
+            "attention_btd: autograd cannot see into the K1 kernel; "
+            "call AttentionBtdTrain.apply for inputs that require grad"
+        )
+    return _launch_forward(q, k, v, num_heads, key_mask, scale, gate, pos_bias, with_lse=False)[0]
+
+
+def attention_btd_fwd(
+    q, k, v, num_heads, key_mask=None, scale=None, gate=None, pos_bias=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 with its per-row log-sum-exp, the residual K4 reads (CUDA tensors only)."""
+    if not q.is_cuda:
+        raise ValueError("attention_btd_fwd launches K1: it takes CUDA tensors")
+    return _launch_forward(q, k, v, num_heads, key_mask, scale, gate, pos_bias, with_lse=True)
+
+
+def attention_btd_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,
+    pos_bias: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,  # K1's output   } the forward's residuals,
+    lse: Optional[torch.Tensor] = None,  # K1's lse     } needed by the kernel only
+    want_dgate: bool = True,
+    want_dbias: bool = True,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """K4 on a CUDA tensor, the plain version on a CPU tensor
+    -> (dq, dk, dv, dgate | None, dbias | None). ``want_dgate`` / ``want_dbias``
+    False let the kernel skip those cotangents (None then)."""
+    if not q.is_cuda:
+        dq, dk, dv, dgate, dbias = attention_btd_bwd_plain(q, k, v, g, num_heads, key_mask, scale, gate, pos_bias)
+        return dq, dk, dv, dgate if want_dgate else None, dbias if want_dbias else None
+    global BWD_LAUNCHES
+    mask, gt, bias = _prepare(q, k, v, num_heads, key_mask, gate, pos_bias)
     B, Tq, D = q.shape
     Tk = k.shape[1]
     H = num_heads
-    if D % H != 0 or D // H != 64:
-        raise NotImplementedError(f"attention_btd kernel needs head dim 64, got D={D} H={H}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"attention_btd kernel takes float32 or bfloat16, got {q.dtype}")
-    if k.shape != (B, Tk, D) or v.shape != k.shape:
-        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor on {q.device}")
-    mask = None
-    if key_mask is not None:
-        if key_mask.shape != (B, Tk):
-            raise ValueError(f"key_mask shape {tuple(key_mask.shape)} != {(B, Tk)}")
-        mask = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
-    bias = g = None
-    if pos_bias is not None:
-        if pos_bias.shape != (H, Tq, Tk):
-            raise ValueError(f"pos_bias shape {tuple(pos_bias.shape)} != {(H, Tq, Tk)}")
-        bias = pos_bias.to(device=q.device, dtype=q.dtype).contiguous()
-        if gate is None:
-            g = torch.ones(B, H, Tq, device=q.device)
-        else:
-            if gate.shape != (B, H, Tq):
-                raise ValueError(f"gate shape {tuple(gate.shape)} != {(B, H, Tq)}")
-            g = gate.to(device=q.device, dtype=torch.float32).contiguous()
+    for name, t, shape, dtype in (("g", g, q.shape, q.dtype), ("out", out, q.shape, q.dtype),
+                                  ("lse", lse, (B, H, Tq), torch.float32)):
+        if t is None or t.shape != shape or t.dtype != dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"attention_btd_bwd: {name} must be a contiguous {dtype} {tuple(shape)} tensor "
+                             f"on {q.device}")
     if scale is None:
         scale = 64 ** -0.5
-    out = torch.empty_like(q)
+    has_bias = bias is not None
+    f32 = dict(device=q.device, dtype=torch.float32)
+    delta = torch.empty(B, H, Tq, **f32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dgate = torch.empty(B, H, Tq, **f32) if has_bias and want_dgate else None
+    dbias = torch.empty(H, Tq, Tk, **f32) if has_bias and want_dbias else None
+    dbias_part = torch.empty(B, H, Tq, Tk, **f32) if dbias is not None else None
     lib = _build.library()
-    fn = lib.ser_attention_btd_bf16 if q.dtype == torch.bfloat16 else lib.ser_attention_btd_f32
+    fn = lib.ser_attention_btd_bwd_bf16 if q.dtype == torch.bfloat16 else lib.ser_attention_btd_bwd_f32
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(mask), _build.ptr(g),
-        _build.ptr(bias), out.data_ptr(), B, Tq, Tk, H, 64, float(scale),
-        _build.stream_ptr(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), _build.ptr(mask),
+        _build.ptr(gt), _build.ptr(bias), lse.data_ptr(), delta.data_ptr(), _build.ptr(dbias_part),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _build.ptr(dgate), _build.ptr(dbias),
+        B, Tq, Tk, H, 64, float(scale), _build.stream_ptr(q),
     )
-    _build.check(err, "attention_btd")
-    LAUNCHES += 1
-    return out
+    _build.check(err, "attention_btd_bwd")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv, dgate, dbias
+
+
+class AttentionBtdTrain(torch.autograd.Function):
+    """Differentiable K1: forward ``attention_btd`` (with its lse on the card),
+    backward ``attention_btd_bwd``. Saves ``(q, k, v, key_mask, gate,
+    pos_bias)`` as ``_diff_fwd`` does, plus K1's output and lse for the
+    kernel. Returns ``None`` for every input whose ``needs_input_grad`` is
+    False and tells K4 to skip ``dgate`` / ``dbias`` then; the mask gets no
+    gradient. On CPU tensors both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, key_mask, scale, gate, pos_bias):
+        if q.is_cuda:
+            out, lse = attention_btd_fwd(q, k, v, num_heads, key_mask, scale, gate, pos_bias)
+        else:
+            out, lse = attention_btd_plain(q, k, v, num_heads, key_mask, scale, gate, pos_bias), None
+        ctx.save_for_backward(q, k, v, key_mask, gate, pos_bias, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, gate, pos_bias, out, lse = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dq, dk, dv, dgate, dbias = attention_btd_bwd(
+            q, k, v, g.contiguous(), ctx.num_heads, key_mask, ctx.scale, gate, pos_bias, out=out, lse=lse,
+            want_dgate=need[6], want_dbias=need[7],
+        )
+        return (
+            dq if need[0] else None,
+            dk if need[1] else None,
+            dv if need[2] else None,
+            None,
+            None,
+            None,
+            dgate.to(gate.dtype) if need[6] and dgate is not None else None,  # None: no bias, no effect
+            dbias.to(pos_bias.dtype) if need[7] else None,
+        )

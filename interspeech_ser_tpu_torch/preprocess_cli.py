@@ -1,10 +1,18 @@
-"""Speech embedding extraction CLI.
+"""Speech and Whisper embedding extraction CLIs.
 
     python -m interspeech_ser_tpu_torch.preprocess_cli speech \
         --ssl_type <HF model dir> --wav_dir <wavs> --save_path <out> [--dtype bfloat16]
+    python -m interspeech_ser_tpu_torch.preprocess_cli whisper ...           (same flags)
+    python -m interspeech_ser_tpu_torch.preprocess_cli speech_pretrained \
+        ... --lora_ckpt whisper_lora_ser.pt [--lora_rank 8 --lora_alpha 16]
+    python -m interspeech_ser_tpu_torch.preprocess_cli whisper_pretrained ...  (same flags)
 
-Port of ``interspeech_ser_tpu/preprocess_cli.py::speech_main`` with the same
-flags, plus ``--device`` (``cuda`` by default; ``cpu`` only when asked).
+Port of ``interspeech_ser_tpu/preprocess_cli.py::speech_main``,
+``whisper_main``, ``speech_pretrained_main`` and ``whisper_pretrained_main``
+with the same flags, plus ``--device`` (``cuda`` by default; ``cpu`` only
+when asked). The ``*_pretrained`` CLIs merge a LoRA checkpoint (the port's
+or the JAX package's ``whisper_lora_ser.pt``, or a peft one) into the
+encoder before extracting.
 ``--ssl_type`` names a local HF-format directory (config.json +
 pytorch_model.bin or model.safetensors); there is no hub access. In float32
 mode TF32 is off for matmuls and cuDNN convolutions alike, so f32 means f32;
@@ -65,45 +73,120 @@ def set_precision(dtype: str, matmul_precision: str = "default") -> None:
     torch.backends.cudnn.allow_tf32 = allow
 
 
-def speech_main(argv=None):
-    args = _speech_parser().parse_args(argv)
+def _pretrained_parser():
+    p = _speech_parser()
+    p.add_argument("--lora_ckpt", type=str, default="whisper_lora_ser.pt")
+    p.add_argument("--lora_rank", type=int, default=8)
+    p.add_argument("--lora_alpha", type=float, default=16.0)
+    return p
+
+
+def _setup(args):
+    """Seed, precision and the missing-file audit -> the wav names (None on a missing file)."""
     if args.model_parallel != 1:
         raise NotImplementedError("--model_parallel > 1 comes with the multi-device port")
     import torch
 
     torch.manual_seed(args.seed)
     set_precision(args.dtype, args.matmul_precision)
-    average = args.use_average == "y"
-    print(f"Using average = {average}")
+    print(f"Using average = {args.use_average == 'y'}")
     wav_names = _audit_wavs(args.wav_dir)
     if wav_names is None:
         print("Something went wrong, make sure everything is correct before running again!")
+    return wav_names
+
+
+def _merge_checkpoint(model, args) -> None:
+    """Merge the LoRA factors of ``args.lora_ckpt`` into ``model``'s weights."""
+    from .models import lora
+    from .utils import ptio
+
+    factors = lora.lora_from_checkpoint(ptio.load_state_dict(args.lora_ckpt))
+    sd = model.state_dict()
+    merged = lora.merge_lora(lora.lora_targets(sd, factors), factors, args.lora_alpha, args.lora_rank)
+    if len(merged) != len(factors):
+        raise ValueError(f"{args.lora_ckpt}: {len(factors)} LoRA factors, {len(merged)} match the encoder")
+    model.load_state_dict(merged, strict=False)
+
+
+def _report(stats, device) -> None:
+    print(
+        f"extracted {stats.n_utts} utts ({stats.audio_seconds:.1f} audio-s) in "
+        f"{stats.wall_seconds:.1f}s = {stats.utts_per_sec:.1f} utt/s on {device}; "
+        f"{stats.n_failed} failed"
+    )
+
+
+def speech_main(argv=None, with_lora: bool = False):
+    args = (_pretrained_parser() if with_lora else _speech_parser()).parse_args(argv)
+    wav_names = _setup(args)
+    if wav_names is None:
         return None
 
     from .extract.pipeline import SpeechExtractionPipeline
     from .models.loader import build_speech_encoder
 
-    print(f"Extracting features using {args.ssl_type}")
+    print(f"Extracting features using {args.ssl_type}" + (f" + LoRA {args.lora_ckpt}" if with_lora else ""))
     model, cfg, do_normalize = build_speech_encoder(args.ssl_type, dtype=args.dtype)
+    if with_lora:
+        _merge_checkpoint(model, args)
     pipe = SpeechExtractionPipeline(
-        model, cfg, n_layer=args.n_layer, use_average=average, do_normalize=do_normalize,
+        model, cfg, n_layer=args.n_layer, use_average=args.use_average == "y", do_normalize=do_normalize,
         num_workers=args.num_workers, replicate_dir_count_bug=args.replicate_dir_count_bug,
         device=args.device,
     )
     stats = pipe.run(args.wav_dir, args.save_path, wav_names)
-    print(
-        f"extracted {stats.n_utts} utts ({stats.audio_seconds:.1f} audio-s) in "
-        f"{stats.wall_seconds:.1f}s = {stats.utts_per_sec:.1f} utt/s on {pipe.device}; "
-        f"{stats.n_failed} failed"
-    )
+    _report(stats, pipe.device)
     return stats
+
+
+def whisper_main(argv=None, with_lora: bool = False):
+    args = (_pretrained_parser() if with_lora else _speech_parser()).parse_args(argv)
+    wav_names = _setup(args)
+    if wav_names is None:
+        return None
+
+    from .extract.pipeline import WhisperExtractionPipeline
+    from .models.loader import build_whisper_encoder
+
+    print(f"Extracting features using {args.ssl_type}" + (f" + LoRA {args.lora_ckpt}" if with_lora else ""))
+    model, cfg = build_whisper_encoder(args.ssl_type, dtype=args.dtype)
+    if with_lora:
+        _merge_checkpoint(model, args)
+    pipe = WhisperExtractionPipeline(
+        model, cfg, n_layer=args.n_layer, use_average=args.use_average == "y",
+        num_workers=args.num_workers, device=args.device,
+    )
+    stats = pipe.run(args.wav_dir, args.save_path, wav_names)
+    _report(stats, pipe.device)
+    return stats
+
+
+def speech_pretrained_main(argv=None):
+    """LoRA-fine-tuned speech-encoder extraction (preprocess_speech_pretrained.py).
+    The reference extracts with peft's adapters active; the merged weights
+    give the same forward with dropout off."""
+    return speech_main(argv, with_lora=True)
+
+
+def whisper_pretrained_main(argv=None):
+    """LoRA-fine-tuned Whisper-encoder extraction (preprocess_whisper_pretrained.py)."""
+    return whisper_main(argv, with_lora=True)
+
+
+COMMANDS = {
+    "speech": speech_main,
+    "whisper": whisper_main,
+    "speech_pretrained": speech_pretrained_main,
+    "whisper_pretrained": whisper_pretrained_main,
+}
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    if not argv or argv[0] != "speech":
-        raise SystemExit("usage: python -m interspeech_ser_tpu_torch.preprocess_cli speech [flags]")
-    speech_main(argv[1:])
+    if not argv or argv[0] not in COMMANDS:
+        raise SystemExit(f"usage: python -m interspeech_ser_tpu_torch.preprocess_cli {{{'|'.join(COMMANDS)}}} [flags]")
+    COMMANDS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Fusion scoring engine and its lazy feature data pipeline."""
+"""Fusion training and scoring engine, its lazy feature data pipeline, and the LoRA fine-tune."""

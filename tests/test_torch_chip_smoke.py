@@ -13,6 +13,7 @@ the CLIs, the shape, launch-count, gradient and CSV checks. The card run is
 import os
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -87,3 +88,69 @@ def test_train_phase_on_cpu(tmp_path, monkeypatch):
     step = cs.check_train_step(config_path)
     assert step["grad_rel_err"] <= 1e-4 and len(step["train_step_ms_runs"]) == 5
     assert ops_gru.BiGRU.forward is ops_gru.BiGRU.forward_stacked  # the plain route is undone
+
+
+def test_lora_phases_on_cpu(tmp_path, monkeypatch):
+    """Phase 7 at a tiny size: Whisper extraction, ft_lora and the
+    *_pretrained CLIs for Whisper and WavLM, the gradient check and the
+    bf16 steps. Attention that needs a gradient goes through AttentionBtdTrain
+    (here with the plain backward, counted as K4), as it does on the card."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import speech, whisper
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka, conv_frontend as kc
+
+    def tiny_wavlm(dtype="float32"):
+        return speech.SpeechConfig(
+            hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+            conv_dim=(16,) * 3, conv_kernel=(10, 8, 8), conv_stride=(5, 8, 8), conv_bias=True,
+            feat_extract_norm="layer", do_stable_layer_norm=True, attention_type="wavlm",
+            num_conv_pos_embeddings=16, conv_pos_groups=4, dtype=dtype,
+        )
+
+    def tiny_whisper(dtype="float32"):
+        return whisper.WhisperEncoderConfig(num_mel_bins=16, d_model=128, encoder_layers=2,
+                                            encoder_attention_heads=2, encoder_ffn_dim=256, dtype=dtype)
+
+    real_bwd = ka.attention_btd_bwd
+
+    def counted_bwd(*args, **kw):
+        ka.BWD_LAUNCHES += 1
+        return real_bwd(*args, **kw)
+
+    def routed(q, k, v, H, key_mask=None, scale=None, gate=None, shared_bias=None, plain=False):
+        if plain:
+            return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+        ka.LAUNCHES += 1
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)):
+            return ka.AttentionBtdTrain.apply(q, k, v, H, key_mask, scale, gate, shared_bias)
+        return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+
+    def counting_conv(*args, **kw):
+        kc.LAUNCHES += 1
+        return kc.conv_frontend_plain(*args, **kw)
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "LORA_SHAPE", dict(n_train=16, n_dev=8, seconds=(0.5, 1.5), bf16_steps=2))
+    monkeypatch.setattr(speech, "wavlm_large", tiny_wavlm)
+    monkeypatch.setattr(whisper, "whisper_large_v3", tiny_whisper)
+    monkeypatch.setattr(ka, "attention_btd_bwd", counted_bwd)
+    for mod in (speech, whisper):
+        monkeypatch.setattr(mod, "dot_product_attention_btd", routed)
+    monkeypatch.setattr(speech, "conv_frontend", counting_conv)
+    for mod, counter in ((ka, "LAUNCHES"), (ka, "BWD_LAUNCHES"), (kc, "LAUNCHES")):
+        monkeypatch.setattr(mod, counter, 0)
+
+    tmp = str(tmp_path)
+    wavlm_dir = os.path.join(tmp, "wavlm-large")
+    cs.write_wavlm_large(wavlm_dir)
+    w = cs.phase_whisper_extraction(tmp)
+    assert set(w["utt_per_sec"]) == {"bfloat16", "float32"}
+    cs.phase_lora(tmp, w, wavlm_dir)
+    launches = cs.counts()
+    # K4: 2 layers x 2 steps for each fine-tune
+    assert launches["attention_btd_bwd"] == 2 * 2 + 2 * 2
+    assert launches["attention_btd"] > 0 and launches["conv_frontend"] > 0
+    grads = cs.check_lora_grads(tmp, w, wavlm_dir)
+    assert set(grads) == {"whisper", "wavlm"} and max(grads.values()) <= 1e-4
+    bf16 = cs.time_bf16_steps(w)
+    assert len(bf16["bf16_step_ms_runs"]) == 2 and all(np.isfinite(bf16["bf16_losses"]))

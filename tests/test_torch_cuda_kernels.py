@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K3b on the card against their plain versions, at small shapes.
+"""K1, K2, K3, K3b and K4 on the card against their plain versions, at small shapes.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is False (a
 CUDA kernel has no CPU mode). On a machine with an H100:
@@ -45,6 +45,93 @@ def test_attention_kernel(cuda, bias, masked, dtype):
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+
+
+def _attention_bwd_inputs(gen, bias, masked, dtype, B=3, T=150, H=4):
+    q, k, v, g = (torch.randn(B, T, 64 * H, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    kw = {}
+    if masked:  # row 2 leaves the last two 64-key tiles fully masked
+        kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([150, 77, 40], device="cuda")[:, None]).float()
+    if bias:
+        kw["gate"] = 1 + torch.rand(B, H, T, generator=gen, device="cuda")
+        kw["pos_bias"] = torch.randn(H, T, T, generator=gen, device="cuda")
+    return (q, k, v, g, H), kw
+
+
+@pytest.mark.parametrize("bias,masked", [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel(cuda, bias, masked, dtype):
+    """K4 (on K1's output and lse) against the plain backward; a rerun is bit-identical."""
+    (q, k, v, g, H), kw = _attention_bwd_inputs(cuda, bias, masked, dtype)
+    out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+    before = k_attn.BWD_LAUNCHES
+    got = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert k_attn.BWD_LAUNCHES == before + 1
+    ref = k_attn.attention_btd_bwd_plain(q, k, v, g, H, **kw)
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if b is None:
+            continue
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        else:
+            assert torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0) >= 0.999
+    again = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_attention_function_grads_match_plain_autograd(cuda):
+    """AttentionBtdTrain (K1 + K4) against autograd through the plain forward, every input
+    requiring grad; with the bias frozen its cotangent is None and K4 skips it."""
+    (q, k, v, g, H), kw = _attention_bwd_inputs(cuda, True, True, torch.float32)
+    grads = []
+    for fn in (k_attn.AttentionBtdTrain.apply, k_attn.attention_btd_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, kw["gate"], kw["pos_bias"])]
+        out = fn(*leaves[:3], H, kw["key_mask"], None, leaves[3], leaves[4])
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, kw["gate"])]
+    out = k_attn.AttentionBtdTrain.apply(*leaves[:3], H, kw["key_mask"], None, leaves[3], kw["pos_bias"])
+    dgate = torch.autograd.grad(out, leaves[3], g)[0]
+    torch.testing.assert_close(dgate, grads[1][3], atol=1e-5, rtol=1e-4)
+
+
+def test_attention_launcher_refuses_grad(cuda):
+    q = torch.randn(2, 10, 64, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="AttentionBtdTrain"):
+        k_attn.attention_btd(q, q.detach(), q.detach(), 1)
+
+
+def test_lora_factors_get_gradients_on_the_card(cuda):
+    """A 2-layer Whisper encoder on the card: every LoRA factor gets a non-zero
+    gradient through K1 + K4, equal to the plain path's."""
+    from interspeech_ser_tpu_torch.models import lora
+    from interspeech_ser_tpu_torch.models.whisper import WhisperEncoderConfig, WhisperEncoderModel
+
+    cfg = WhisperEncoderConfig(num_mel_bins=16, d_model=128, encoder_layers=2, encoder_attention_heads=2,
+                               encoder_ffn_dim=256, max_source_positions=150)
+    torch.manual_seed(0)
+    model = WhisperEncoderModel(cfg).cuda().requires_grad_(False)
+    factors = lora.init_lora(torch.Generator().manual_seed(0), model.state_dict(), lora.match_attention_qv, 4)
+    for pair in factors.values():
+        pair["lora_B"].normal_(std=0.1)
+    mel = torch.randn(2, 16, 300, generator=cuda, device="cuda")
+    gy = torch.randn(2, 150, 128, generator=cuda, device="cuda")
+    grads = []
+    for plain in (False, True):
+        leaves = {p: {n: t.detach().cuda().requires_grad_() for n, t in pair.items()} for p, pair in factors.items()}
+        before = k_attn.BWD_LAUNCHES
+        merged = lora.merge_lora(lora.lora_targets(model.state_dict(), leaves), leaves, 16.0, 4)
+        out = torch.func.functional_call(model, merged, (mel,), {"plain": plain})["last_hidden_state"]
+        (out * gy).sum().backward()
+        assert k_attn.BWD_LAUNCHES == before + (0 if plain else cfg.encoder_layers)
+        grads.append({(p, n): t.grad for p, pair in leaves.items() for n, t in pair.items()})
+    for key, got in grads[0].items():
+        want = grads[1][key]
+        assert got is not None and float(got.abs().max()) > 0, key
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), key
 
 
 @pytest.mark.parametrize("approx", [False, True])

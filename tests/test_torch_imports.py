@@ -22,7 +22,7 @@ print(json.dumps({
     "modules": mods,
     "heavy": [m for m in ("jax", "flax", "pandas", "transformers", "safetensors") if m in sys.modules],
     "library_loaded": _build.library.cache_info().currsize,
-    "launches": [attention.LAUNCHES, conv_frontend.LAUNCHES, gru.LAUNCHES, gru.BWD_LAUNCHES],
+    "launches": [attention.LAUNCHES, attention.BWD_LAUNCHES, conv_frontend.LAUNCHES, gru.LAUNCHES, gru.BWD_LAUNCHES],
 }))
 """
 
@@ -35,8 +35,10 @@ def test_port_imports_light():
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert len(out["modules"]) >= 25, out["modules"]
-    for m in ("train.losses", "train.checkpointing", "train.engine", "utils.seeding", "utils.device"):
+    for m in ("train.losses", "train.checkpointing", "train.engine", "utils.seeding", "utils.device",
+              "ops.mel", "models.whisper", "models.lora", "train.lora_engine", "lora_cli",
+              "baseline.podcast", "baseline.data"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
-    assert out["launches"] == [0, 0, 0, 0]
+    assert out["launches"] == [0, 0, 0, 0, 0]
