@@ -7,8 +7,8 @@ Runs from the root of a checkout on a machine with one CUDA card (built for
 an H100, ``sm_90a``) and needs nothing else: it builds the hand-written
 kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
-drives the serving path, the fusion training path and the LoRA fine-tuning
-path through their entry points at full width:
+drives the serving path, the fusion training path, the LoRA fine-tuning
+path and the text-extraction path through their entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -18,7 +18,10 @@ path through their entry points at full width:
    computes the same function where there is one:
    K1 attention at WavLM-large shapes (gated bias + ragged key mask, f32 and
    bf16; SDPA with a float mask) and its no-bias / no-mask variants at
-   Whisper-large shapes; K2 the fused conv0 + LayerNorm + GELU on 10-s
+   Whisper-large shapes; K7 (one-shot) and K6 (streaming) attention on
+   [B, H, T, 64] heads at RoBERTa-large's extraction shape (B=64, H=16, T=80,
+   ragged key mask) and the WavLM-large shape with the gated bias, K6 also at
+   B=8, H=20, T=1500 (f32 and bf16; SDPA with a float mask); K2 the fused conv0 + LayerNorm + GELU on 10-s
    waveforms; K3 the BiGRU recurrence and K3b its backward at the fusion
    trainer's batch (2B=128 rows, T=512, H=512; cuDNN ``nn.GRU``); K4 the
    attention backward at the Whisper-large fine-tune shape (B=8, T=1500, no
@@ -48,19 +51,33 @@ path through their entry points at full width:
    over WavLM-large and ``speech_pretrained_main``: finite losses, K4
    launches = layers x steps, frame counts. Then one LoRA step's gradients
    through K1 + K4 against the plain path (full width, 2 layers, Whisper and
-   WavLM), and the median bf16 Whisper LoRA step with a profile.
+   WavLM), and the median bf16 Whisper LoRA step with a profile;
+8. text: a seeded random-init RoBERTa-large (24 layers, D=1024, H=16, FFN
+   4096, vocab 50265) as an HF directory with synthetic ``vocab.json`` and
+   ``merges.txt``, and 256 seeded transcripts of 0-120 words;
+   ``preprocess_cli.roberta_main`` at ``--max_len 80`` in f32 and bf16 (cold
+   then warm) and once more in f32 with ``SER_TPU_ATTN_IMPL=flash``: shapes
+   [80, 1024], finiteness, K7 = layers x batches per default run, K6 on the
+   flash run and its files against the K7 run's, one text against the
+   plain path on the card; then ``preprocess_cli.deroberta_main`` on a
+   seeded DeBERTa-v2-xxlarge at full width (D=1536, H=24, FFN 6144, vocab
+   128100, 256 position buckets) cut to 2 layers, with a synthetic
+   ``spm.model``, in f32 and bf16: shapes [80, 1536], finiteness, one text
+   against a CPU forward of the same weights. Texts per second for each run.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
-eval (the training path), and zeroed again just before phase 7's
-extraction and read after its last ``*_pretrained`` run (the LoRA path). The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``. Any failure
-raises (non-zero exit).
+eval (the training path), zeroed again just before phase 7's extraction and
+read after its last ``*_pretrained`` run (the LoRA path), and zeroed again
+just before phase 8 and read after it (the text path). The line before the
+last is the kernels' JSON record; the last line is ``{"ok": true,
+"device": {...}}``. Any failure raises (non-zero exit).
 """
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import os
 import re
@@ -75,6 +92,7 @@ import torch
 
 from interspeech_ser_tpu_torch.ops.kernels import _build
 from interspeech_ser_tpu_torch.ops.kernels import attention as k_attn
+from interspeech_ser_tpu_torch.ops.kernels import attention_bhtd as k_bhtd
 from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as k_conv
 from interspeech_ser_tpu_torch.ops.kernels import gru as k_gru
 
@@ -94,6 +112,14 @@ KERNELS = {
     "attention_btd_bwd": dict(
         module=k_attn, counter="BWD_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/attention_btd_bwd.cu",
         replaces="interspeech_ser_tpu/ops/pallas/attention_bwd.py:137",
+    ),
+    "attention_bhtd": dict(
+        module=k_bhtd, source="interspeech_ser_tpu_torch/csrc/attention_bhtd.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/flash_attention_short.py:455",
+    ),
+    "flash_attention": dict(
+        module=k_bhtd, counter="FLASH_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/flash_attention.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/flash_attention.py:99",
     ),
     "conv_frontend": dict(
         module=k_conv, source="interspeech_ser_tpu_torch/csrc/conv_frontend.cu",
@@ -261,6 +287,92 @@ def check_attention(g, results) -> None:
             else:
                 require(cos >= 0.999, f"K1 variant bf16 cosine {cos} < 0.999")
     results["attention_btd"] = main
+
+
+def _bhtd_case(g, B, H, T, lengths, bias: bool, dt):
+    """[B, T, H*64] projections viewed as [B, H, T, 64] heads (the text path's
+    layout), a key mask from ``lengths`` and the factored gate * bias."""
+    dev = "cuda"
+    q, k, v = (torch.randn(B, T, H * 64, generator=g, device=dev).to(dt).view(B, T, H, 64).transpose(1, 2)
+               for _ in range(3))
+    kw = {}
+    if lengths is not None:
+        kw["key_mask"] = (torch.arange(T, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]).float()
+    if bias:
+        kw["gate"] = 1.0 + torch.rand(B, H, T, generator=g, device=dev)
+        kw["pos_bias"] = torch.randn(H, T, T, generator=g, device=dev)
+    return (q, k, v), kw
+
+
+def _sdpa_bhtd(q, k, v, key_mask=None, gate=None, pos_bias=None, bias_dtype=None):
+    """``scaled_dot_product_attention`` with the additive float mask (gate *
+    bias + key mask; none where there is neither) that computes the function
+    of K6 / K7; -> (its median ms with the mask built outside the timing, its
+    output)."""
+    import torch.nn.functional as F
+
+    B, Tk = q.shape[0], k.shape[2]
+    mask = None
+    if pos_bias is not None:
+        mask = gate[..., None] * pos_bias.to(bias_dtype).float()[None]
+    if key_mask is not None:
+        masked = torch.zeros(B, 1, 1, Tk, device=q.device).masked_fill(key_mask[:, None, None, :] == 0, float("-inf"))
+        mask = masked if mask is None else mask + masked
+    if mask is not None:
+        mask = mask.to(q.dtype)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)), out
+
+
+def check_attention_bhtd(g, results) -> None:
+    """K7 (one-shot) and K6 (streaming) against their plain versions: at
+    RoBERTa-large's extraction shape (B=64, H=16, T=80, ragged key mask), at
+    the WavLM-large shape with the factored gate * bias (B=8, H=16, T=499),
+    and K6 at a long shape (B=8, H=20, T=1500, no bias, no mask); f32 and
+    bf16. Bars: f32 max-abs <= 1e-5; bf16 cosine >= 0.9999."""
+    rng = np.random.default_rng(SEED)
+    roberta_lengths = [80] * 8 + [int(n) for n in rng.integers(3, 81, 56)]
+    wavlm_lengths = [499, 480, 451, 400, 333, 250, 130, 64]
+    cases = [("roberta", (64, 16, 80), roberta_lengths, False, ("attention_bhtd", "flash_attention")),
+             ("wavlm", (8, 16, 499), wavlm_lengths, True, ("attention_bhtd", "flash_attention")),
+             ("long", (8, 20, 1500), None, False, ("flash_attention",))]
+    for shape, (B, H, T), lengths, bias, kernels in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            args, kw = _bhtd_case(g, B, H, T, lengths, bias, dt)
+            dname = "f32" if dt == torch.float32 else "bf16"
+            for name in kernels:
+                fn = k_bhtd.attention_bhtd if name == "attention_bhtd" else k_bhtd.flash_attention
+                plain = k_bhtd.attention_bhtd_plain if name == "attention_bhtd" else k_bhtd.flash_attention_plain
+                out = fn(*args, **kw)
+                ref = plain(*args, **kw)
+                err, cos = max_abs(out, ref), cosine(out, ref)
+                ms = median_ms(lambda: fn(*args, **kw))
+                plain_ms = median_ms(lambda: plain(*args, **kw))
+                bias_dt = dt if name == "attention_bhtd" else torch.float32
+                library_ms, lib_out = _sdpa_bhtd(*args, **kw, bias_dtype=bias_dt)
+                lib_err = max_abs(lib_out, ref)
+                item = args[0].element_size()
+                nbytes = item * 4 * args[0].numel() + (4 * B * T if lengths is not None else 0)
+                if bias:
+                    nbytes += 4 * kw["gate"].numel() + (item if name == "attention_bhtd" else 4) * kw["pos_bias"].numel()
+                live = B * T if lengths is None else sum(lengths)
+                flops = 4 * H * T * 64 * live + 8 * H * T * live  # QK^T, PV and the softmax over live keys
+                bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+                log(f"[parity] {'K7' if name == 'attention_bhtd' else 'K6'} {name} {shape} B{B} H{H} T{T} "
+                    f"bias={bias} mask={lengths is not None} {dname}: max_abs {err:.3e} cos {cos:.7f}; "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with float mask {library_ms:.4f} ms "
+                    f"(vs plain max_abs {lib_err:.3e}); bound {bound_ms:.4f} ms ({bound_by})")
+                if dt == torch.float32:
+                    require(err <= 1e-5, f"{name} {shape} f32 max_abs {err} > 1e-5")
+                else:
+                    require(cos >= 0.9999, f"{name} {shape} bf16 cosine {cos} < 0.9999")
+                key = dname if shape == "roberta" else f"{shape}_{dname}"
+                results.setdefault(name, {})[key] = dict(
+                    max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+                del out, ref, lib_out
+            del args, kw
+            torch.cuda.empty_cache()
 
 
 def check_conv_frontend(g, results) -> None:
@@ -1133,6 +1245,308 @@ def time_bf16_steps(whisper: dict) -> dict:
     return out
 
 
+# -- phase 8: text extraction ------------------------------------------------------
+
+# the transcript corpus: seeded texts of 0-120 words drawn from a synthetic
+# vocabulary of N_WORDS words (plus a few outside it), extracted at --max_len 80
+TEXT_SHAPE = dict(n_texts=256, words=(0, 121), max_len=80, n_words=3000, deberta_layers=2)
+
+
+def write_text_model(model_dir: str, model_cls, cfg, architecture: str) -> None:
+    """A seeded random-init text encoder as an HF directory (the port's own
+    HF key names; no transformers on the card's machine)."""
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        model = model_cls(cfg)
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**cfg.to_hf(), "architectures": [architecture]}, f, indent=1)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(model_dir, "pytorch_model.bin"))
+    del model
+
+
+def synthetic_words(seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    return ["".join(rng.choice(letters, int(rng.integers(2, 9)))) for _ in range(TEXT_SHAPE["n_words"])]
+
+
+def write_bpe_files(model_dir: str, words: list, vocab_size: int) -> int:
+    """Synthetic byte-level BPE files: the specials, GPT-2's 256 byte
+    symbols, and for each word the merges that build it after a space
+    (``Ġ`` + its letters), while the ids stay below ``vocab_size``; -> the
+    vocabulary's size."""
+    from interspeech_ser_tpu_torch.utils.bpe import bytes_to_unicode
+
+    sym = bytes_to_unicode()
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>", "<mask>"])}
+    for b in range(256):
+        vocab[sym[b]] = len(vocab)
+    merges = []
+    for w in words:
+        prefix = sym[ord(" ")]
+        for ch in w:
+            if prefix + ch not in vocab:
+                if len(vocab) >= vocab_size:
+                    break
+                merges.append(f"{prefix} {ch}")
+                vocab[prefix + ch] = len(vocab)
+            prefix += ch
+    with open(os.path.join(model_dir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(model_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return len(vocab)
+
+
+def write_spm_file(model_dir: str, words: list) -> int:
+    """A synthetic SentencePiece unigram model: DeBERTa's control pieces,
+    ``▁`` + each word, and single letters; -> the number of pieces."""
+    from interspeech_ser_tpu_torch.utils.spm import CONTROL, NORMAL, UNKNOWN, serialize_spm_model
+
+    pieces = [("[PAD]", 0.0, CONTROL), ("[CLS]", 0.0, CONTROL), ("[SEP]", 0.0, CONTROL), ("[UNK]", 0.0, UNKNOWN),
+              ("▁", -2.0, NORMAL)]
+    pieces += [("▁" + w, -3.0 - i / len(words), NORMAL) for i, w in enumerate(dict.fromkeys(words))]
+    pieces += [(c, -8.0, NORMAL) for c in "abcdefghijklmnopqrstuvwxyz.,?!'"]
+    with open(os.path.join(model_dir, "spm.model"), "wb") as f:
+        f.write(serialize_spm_model(pieces))
+    return len(pieces)
+
+
+def write_transcripts(tmp: str, words: list) -> tuple:
+    """A transcript CSV of seeded texts (one empty; most words from ``words``,
+    some outside it, some punctuation) -> (path, names, texts)."""
+    rng = np.random.default_rng(SEED + 5)
+    names, texts = [], []
+    for i in range(TEXT_SHAPE["n_texts"]):
+        n = 0 if i == 1 else int(rng.integers(*TEXT_SHAPE["words"]))
+        toks = [words[int(j)] if rng.random() < 0.9 else "Zq" + words[int(j)][::-1]
+                for j in rng.integers(0, len(words), n)]
+        text = " ".join(toks)
+        if n and rng.random() < 0.5:
+            text = text.capitalize() + rng.choice([".", "?", "!", ", okay."])
+        names.append(f"text{i:04d}.wav")
+        texts.append(text)
+    path = os.path.join(tmp, "text_transcripts.csv")
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows([["FileName", "transcription"]] + [[n, t] for n, t in zip(names, texts)])
+    return path, names, texts
+
+
+def check_text_features(save: str, names: list, shape: tuple, what: str) -> None:
+    for n in names:
+        feats = torch.load(os.path.join(save, n.replace(".wav", ".pt")), weights_only=True)
+        require(tuple(feats.shape) == shape and feats.dtype == torch.float32,
+                f"{what} {n}: {tuple(feats.shape)} {feats.dtype}, want {shape} float32")
+        require(bool(torch.isfinite(feats).all()), f"{what} {n}: non-finite values")
+
+
+def _text_run(main, model_dir: str, csv_path: str, save: str, dtype: str, impl=None):
+    """One ``preprocess_cli`` text run -> (stats, launch deltas)."""
+    before = counts()
+    if impl is not None:
+        os.environ["SER_TPU_ATTN_IMPL"] = impl
+    try:
+        stats = main(["--roberta_type", model_dir, "--df_path", csv_path, "--save_path", save,
+                      "--max_len", str(TEXT_SHAPE["max_len"]), "--dtype", dtype, "--device", DEVICE])
+    finally:
+        os.environ.pop("SER_TPU_ATTN_IMPL", None)
+    sync()
+    return stats, {k: v - before[k] for k, v in counts().items()}
+
+
+def phase_text(tmp: str, smi: str) -> dict:
+    """``preprocess_cli roberta`` on a seeded random-init RoBERTa-large (full
+    width and depth) in f32 and bf16, cold then warm, and once more in f32
+    with SER_TPU_ATTN_IMPL=flash; then ``preprocess_cli deroberta`` on a
+    DeBERTa-v2-xxlarge at full width, cut to 2 layers (layer 0's conv branch
+    runs). Shapes, finiteness, K7 = layers x batches per default run and K6
+    on the flash run, the flash run's files against the K7 run's, and one
+    text of each model against a reference forward."""
+    from interspeech_ser_tpu_torch.models import text
+    from interspeech_ser_tpu_torch.models.loader import build_deberta_v2, build_roberta
+    from interspeech_ser_tpu_torch.preprocess_cli import deroberta_main, roberta_main
+    from interspeech_ser_tpu_torch.utils.spm import auto_tokenizer
+
+    max_len = TEXT_SHAPE["max_len"]
+    words = synthetic_words(SEED + 6)
+    csv_path, names, texts = write_transcripts(tmp, words)
+    rcfg = text.roberta_large()
+    rdir = os.path.join(tmp, "roberta-large")
+    t0 = time.perf_counter()
+    write_text_model(rdir, text.RobertaModel, rcfg, "RobertaModel")
+    n_vocab = write_bpe_files(rdir, words, rcfg.vocab_size)
+    log(f"[text] wrote seeded random-init RoBERTa-large ({rcfg.num_layers} layers, D={rcfg.hidden_size}) and a "
+        f"{n_vocab}-entry byte-level BPE in {time.perf_counter() - t0:.1f} s; {len(texts)} transcripts of "
+        f"{min(len(t.split()) for t in texts)}-{max(len(t.split()) for t in texts)} words")
+    n_batches = -(-len(texts) // 64)
+    rates, dirs = {}, {}
+    for dtype, rep, impl in (("float32", "cold", None), ("float32", "warm", None), ("bfloat16", "cold", None),
+                             ("bfloat16", "warm", None), ("float32", "flash", "flash")):
+        save = dirs[(dtype, rep)] = os.path.join(tmp, f"text_{dtype}_{rep}")
+        stats, delta = _text_run(roberta_main, rdir, csv_path, save, dtype, impl)
+        require(stats.n_utts == len(texts) and stats.n_batches == n_batches, f"roberta {dtype} {rep}: {stats}")
+        want = rcfg.num_layers * n_batches
+        got = (delta["attention_bhtd"], delta["flash_attention"])
+        require(got == ((0, want) if impl == "flash" else (want, 0)),
+                f"roberta {dtype} {rep}: K7, K6 launches {got}, want {(0, want) if impl else (want, 0)}")
+        check_text_features(save, names, (max_len, rcfg.hidden_size), f"roberta {dtype} {rep}")
+        rates[f"roberta_{dtype}_{rep}"] = stats.utts_per_sec
+        log(f"[text] roberta {dtype} {rep}: {stats.n_utts} texts, {stats.n_batches} batches of 64 in "
+            f"{stats.wall_seconds:.2f} s = {stats.utts_per_sec:.2f} texts/s ({smi}); launches {delta}")
+    worst = max(max_abs(torch.load(os.path.join(dirs[("float32", "flash")], n.replace(".wav", ".pt")),
+                                   weights_only=True),
+                        torch.load(os.path.join(dirs[("float32", "warm")], n.replace(".wav", ".pt")),
+                                   weights_only=True)) for n in names)
+    log(f"[text] roberta f32: the K6 run's .pt files vs the K7 run's: max_abs {worst:.3e} (bar 1e-5)")
+    require(worst <= 1e-5, f"K6 run differs from the K7 run by {worst}")
+
+    # one text against the plain path on the card, f32, TF32 off
+    set_tf32(False)
+    i_long = max(range(len(texts)), key=lambda i: len(texts[i]))
+    model, _ = build_roberta(rdir)
+    model = model.to(DEVICE)
+    toks = auto_tokenizer(rdir)([texts[i_long]], max_length=max_len)
+    with torch.inference_mode():
+        ids, mask = (torch.from_numpy(toks[k]).to(DEVICE) for k in ("input_ids", "attention_mask"))
+        ref = model(ids, mask, plain=True)["last_hidden_state"][0].cpu()
+    del model
+    stem = names[i_long].replace(".wav", ".pt")
+    for dtype, bar in (("float32", 1e-3), ("bfloat16", None)):
+        got = torch.load(os.path.join(dirs[(dtype, "warm")], stem), weights_only=True)
+        err, cos = max_abs(got, ref), cosine(got, ref)
+        log(f"[text] roberta {stem} ({int(toks['attention_mask'].sum())} tokens) {dtype} .pt vs the plain f32 "
+            f"path on the card: max_abs {err:.3e} cos {cos:.7f}")
+        if bar is not None:
+            require(err <= bar, f"roberta {dtype} {stem}: max_abs {err} > {bar}")
+
+    profile = profile_text(rdir, names, texts, tmp, smi)
+
+    # DeBERTa-v2-xxlarge at full width, cut to 2 layers
+    dcfg = dataclasses.replace(text.deberta_v2_xxlarge(), num_layers=TEXT_SHAPE["deberta_layers"])
+    ddir = os.path.join(tmp, "deberta-v2-xxlarge")
+    t0 = time.perf_counter()
+    write_text_model(ddir, text.DebertaV2Model, dcfg, "DebertaV2Model")
+    n_pieces = write_spm_file(ddir, words)
+    log(f"[text] wrote seeded random-init DeBERTa-v2-xxlarge at full width ({dcfg.num_layers} layers, "
+        f"D={dcfg.hidden_size}, H={dcfg.num_heads}, vocab {dcfg.vocab_size}) and a {n_pieces}-piece "
+        f"SentencePiece model in {time.perf_counter() - t0:.1f} s")
+    for dtype in ("float32", "bfloat16"):
+        save = dirs[(dtype, "deberta")] = os.path.join(tmp, f"deberta_{dtype}")
+        stats, delta = _text_run(deroberta_main, ddir, csv_path, save, dtype)
+        require(stats.n_utts == len(texts) and stats.n_batches == -(-len(texts) // 32), f"deberta {dtype}: {stats}")
+        check_text_features(save, names, (max_len, dcfg.hidden_size), f"deberta {dtype}")
+        rates[f"deberta_{dtype}"] = stats.utts_per_sec
+        log(f"[text] deberta {dtype}: {stats.n_utts} texts, {stats.n_batches} batches of 32 in "
+            f"{stats.wall_seconds:.2f} s = {stats.utts_per_sec:.2f} texts/s ({smi}); launches {delta}")
+    model, _ = build_deberta_v2(ddir)  # on the CPU
+    toks = auto_tokenizer(ddir)([texts[i_long]], max_length=max_len)
+    with torch.inference_mode():
+        ref = model(torch.from_numpy(toks["input_ids"]), torch.from_numpy(toks["attention_mask"]))
+        ref = ref["last_hidden_state"][0]
+    del model
+    got = torch.load(os.path.join(dirs[("float32", "deberta")], stem), weights_only=True)
+    err, cos = max_abs(got, ref), cosine(got, ref)
+    log(f"[text] deberta {stem} ({int(toks['attention_mask'].sum())} tokens) f32 .pt vs a CPU forward of the same "
+        f"weights: max_abs {err:.3e} cos {cos:.7f}")
+    require(err <= 1e-3, f"deberta {stem}: max_abs {err} > 1e-3 against the CPU forward")
+    return {"texts_per_sec": rates, "k6_vs_k7_max_abs": worst, "profile": profile}
+
+
+def host_profile(fn, n: int = 10) -> list:
+    """``fn()`` under cProfile: its wall and the ``n`` functions with the
+    most self time, logged and returned. From Python 3.12 cProfile counts
+    every thread (the ``.pt`` writers too); cProfile's per-call cost
+    inflates Python-heavy code, so it finds candidates and measures none."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    sync()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, ncalls, self s, cumulative s, callers)
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    rows = [(f"{name} ({os.path.basename(file)}:{line})", st[2] * 1e3, st[3] * 1e3, st[1])
+            for (file, line, name), st in top]
+    log(f"[text] host profile (cProfile) of the same run: wall {wall_ms:.1f} ms; by self time:")
+    for name, self_ms, cum_ms, calls in rows:
+        log(f"[text]   {self_ms:9.1f} ms self {cum_ms:9.1f} ms cum  x{calls:<6d} {name[:90]}")
+    return rows
+
+
+def profile_text(model_dir: str, names: list, texts: list, tmp: str, smi: str) -> dict:
+    """Where a RoBERTa-large extraction run's time goes: the host's BPE over
+    the corpus with a cold cache and the ``.pt`` writes alone, then (on the
+    card) a profile of one warm
+    ``TextExtractionPipeline.run`` in bf16 and in f32: wall, device busy,
+    K7's and the GEMMs' shares of device time, the top kernels."""
+    from interspeech_ser_tpu_torch.extract import streaming
+    from interspeech_ser_tpu_torch.extract.pipeline import TextExtractionPipeline
+    from interspeech_ser_tpu_torch.models.loader import build_roberta
+    from interspeech_ser_tpu_torch.preprocess_cli import set_precision
+    from interspeech_ser_tpu_torch.utils import ptio
+    from interspeech_ser_tpu_torch.utils.spm import auto_tokenizer
+
+    max_len = TEXT_SHAPE["max_len"]
+    tokenizer = auto_tokenizer(model_dir)
+    t0 = time.perf_counter()
+    tokenizer(texts, max_length=max_len)
+    out = {"tokenize_s": time.perf_counter() - t0}
+    rows = torch.randn(len(names), max_len, 1024)
+    save = os.path.join(tmp, "text_write_only")
+    os.makedirs(save)
+    t0 = time.perf_counter()
+    writer = streaming.BoundedWriter(num_workers=4)
+    for i, n in enumerate(names):
+        writer.submit(ptio.save_tensor, rows[i], os.path.join(save, n.replace(".wav", ".pt")))
+    writer.drain()
+    out["write_s"] = time.perf_counter() - t0
+    log(f"[text] host side alone: byte-level BPE of the {len(texts)} transcripts, cold cache, "
+        f"{out['tokenize_s']:.3f} s; writing {len(names)} [{max_len}, 1024] f32 .pt files through the "
+        f"pipeline's writer (4 threads) {out['write_s']:.3f} s")
+    if DEVICE != "cuda":
+        return out
+    from torch.profiler import ProfilerActivity, profile
+
+    def tokenize(batch):
+        return tokenizer(batch, max_length=max_len)
+
+    for dtype in ("bfloat16", "float32"):
+        set_precision(dtype)
+        model, cfg = build_roberta(model_dir, dtype=dtype)
+        pipe = TextExtractionPipeline(model, cfg, tokenize, num_workers=4, device=DEVICE)
+        pipe.run(names, texts, os.path.join(tmp, f"text_profile_warmup_{dtype}"))
+        sync()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe.run(names, texts, os.path.join(tmp, f"text_profile_{dtype}"))
+            sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        k7_ms = sum(e.self_device_time_total for e in kernels if "attention_bhtd_kernel" in e.key) / 1e3
+        gemm_ms = sum(e.self_device_time_total for e in kernels
+                      if any(n in e.key.lower() for n in ("gemm", "nvjet", "cutlass", "sm90_xmma"))) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        out[dtype] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "k7_ms": k7_ms, "gemm_ms": gemm_ms,
+                      "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+        log(f"[text] profile of one warm RoBERTa-large run, {len(texts)} texts, {dtype} ({smi}): wall "
+            f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle {100 * (1 - busy_ms / wall_ms):.1f}%), K7 "
+            f"{k7_ms:.2f} ms = {100 * k7_ms / busy_ms:.1f}% and GEMMs {gemm_ms:.1f} ms = "
+            f"{100 * gemm_ms / busy_ms:.1f}% of device time")
+        for name, ms, n in out[dtype]["top"]:
+            log(f"[text]   {ms:9.3f} ms  x{n:<4d} {name}")
+        if dtype == "bfloat16":  # the host side of the same run, main thread, by self time
+            out["host_top"] = host_profile(lambda: pipe.run(names, texts, os.path.join(tmp, "text_cprofile")))
+        del pipe, model
+    set_tf32(False)
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     set_tf32(False)
@@ -1140,6 +1554,7 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     parity: dict = {}
     check_attention(g, parity)
+    check_attention_bhtd(g, parity)
     check_conv_frontend(g, parity)
     check_gru(g, parity)
     check_gru_bwd(g, parity)
@@ -1175,7 +1590,17 @@ def main() -> None:
         log(f"[lora path] launches {lora_path}; Whisper extraction utt/s {whisper['utt_per_sec']}")
         lora_grads = check_lora_grads(tmp, whisper, os.path.join(tmp, "wavlm-large"))
         bf16 = time_bf16_steps(whisper)
-    by_path = {"serving": serving, "training": training, "lora": lora_path}
+
+        zero_counts()
+        text_run = phase_text(tmp, smi)
+        text_path = counts()
+        for name in ("attention_bhtd", "flash_attention"):
+            require(text_path[name] > 0, f"kernel {name} was not launched on the text path")
+        log(f"[text path] launches {text_path}; texts/s {text_run['texts_per_sec']}")
+    by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path}
+    for path in ("serving", "training", "lora"):  # the speech and fusion paths never reach K6 / K7
+        require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
+                f"K6 / K7 launched on the {path} path: {by_path[path]}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
 
     record = []
@@ -1194,7 +1619,8 @@ def main() -> None:
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
-                             **bf16}}))
+                             **bf16},
+                    "text": text_run}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

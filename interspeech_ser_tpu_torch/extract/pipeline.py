@@ -1,8 +1,9 @@
 """Batched, bucketed embedding extraction on one device.
 
-Port of ``interspeech_ser_tpu/extract/pipeline.py::SpeechExtractionPipeline``
-and ``WhisperExtractionPipeline`` (single device; the mesh, tensor-parallel
-and shard_map legs come with the multi-device slice):
+Port of ``interspeech_ser_tpu/extract/pipeline.py::SpeechExtractionPipeline``,
+``WhisperExtractionPipeline`` and ``TextExtractionPipeline`` (single
+device; the mesh, tensor-parallel and shard_map legs come with the
+multi-device slice):
 
   header-only batch plan (exact post-resample lengths, length-sorted
   token-budget batches, 1-s buckets)  ->  decoder threads + assembler
@@ -20,7 +21,13 @@ Whisper: fixed [8, 480000] batches (30 s, longer audio cut) in name order,
 raw waveforms, the log-mel computed on the device, and the output cut to
 ``min(ceil(len / 320), 1500)`` frames.
 
-Output contract: ``save_path/<utt>.pt``, a float32 [T_valid, D] tensor.
+Text: transcripts in CSV order, batches of ``batch_size`` tokenized to
+``max_length`` (``padding='max_length'``, truncation), through the same
+device loop; the output is the FULL padded [max_length, D] row. A
+transcription that is not a string tokenizes as ``""``.
+
+Output contract: ``save_path/<utt>.pt``, a float32 [T_valid, D] tensor
+(text: [max_length, D]).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import os
 import time
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -283,5 +290,81 @@ class WhisperExtractionPipeline:
         )
         _drive(stream, lambda rb: self._forward(rb.wav), lambda n, T: min(math.ceil(n / 320), T),
                save_path, stats, self.num_workers, self.device.type == "cuda")
+        stats.wall_seconds = time.perf_counter() - t0
+        return stats
+
+
+@dataclass
+class TextBatch:
+    """One tokenized batch, in the shape ``_drive`` reads."""
+
+    names: List[str]
+    ids: np.ndarray  # [B, max_length] int64
+    mask: np.ndarray  # [B, max_length] int64
+    lengths: List[int]  # no audio: zeros, so audio_seconds stays 0
+    n_failed: int = 0
+
+
+class TextExtractionPipeline:
+    """transcripts -> per-utterance text embeddings (RoBERTa / DeBERTa-v2).
+
+    Reference semantics (preprocessing/preprocess_roberta.py): tokenize with
+    ``padding='max_length'``, ``max_length`` (80) and truncation, and save
+    the full padded [max_length, D] hidden state (``n_layer``, HF indexing)
+    or the mean of the last 4, keyed by ``FileName``'s stem. Batches need no
+    padding to a static size: each row's forward depends on its own tokens
+    only."""
+
+    def __init__(
+        self,
+        model,  # RobertaModel or DebertaV2Model, f32 parameters
+        config,  # its config
+        tokenize: Callable[[List[str]], Dict[str, np.ndarray]],
+        n_layer: int = -1,
+        use_average: bool = False,
+        batch_size: int = 64,
+        num_workers: int = 8,
+        device="cuda",  # "cpu" only when asked: no card raises
+    ):
+        self.device = resolve_device(device)
+        model = model.to(self.device)
+        if config.compute_dtype == torch.bfloat16:
+            model = model.to(torch.bfloat16)  # cast once
+        self.model = model.eval()
+        self.config = config
+        self.tokenize = tokenize
+        self.n_layer = n_layer
+        self.use_average = use_average
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+
+    @torch.inference_mode()
+    def _forward(self, tb: TextBatch) -> torch.Tensor:
+        """Selected hidden state [B, max_length, D] in the compute dtype, on the device."""
+        ids, mask = _to_device(tb.ids, self.device), _to_device(tb.mask, self.device)
+        keep = (-4, -3, -2, -1) if self.use_average else (self.n_layer,)
+        hs = self.model(ids, mask, keep=keep)["hidden_states"]
+        if self.use_average:
+            return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
+        return hs[self.n_layer]
+
+    def _batches(self, names: Sequence[str], texts: Sequence):
+        bs = self.batch_size
+        for start in range(0, len(names), bs):
+            chunk = [t if isinstance(t, str) else "" for t in texts[start: start + bs]]
+            toks = self.tokenize(chunk)
+            yield TextBatch(list(names[start: start + bs]), np.asarray(toks["input_ids"], np.int64),
+                            np.asarray(toks["attention_mask"], np.int64), [0] * len(chunk))
+
+    def run(self, names: Sequence[str], texts: Sequence, save_path: str) -> ExtractionStats:
+        os.makedirs(save_path, exist_ok=True)
+        stats = ExtractionStats()
+        t0 = time.perf_counter()
+        kept = set(_skip_existing(names, save_path, stats))
+        if len(kept) < len(names):
+            pairs = [(n, t) for n, t in zip(names, texts) if n in kept]
+            names, texts = [n for n, _ in pairs], [t for _, t in pairs]
+        _drive(self._batches(names, texts), self._forward, lambda n, T: T, save_path, stats,
+               self.num_workers, self.device.type == "cuda")
         stats.wall_seconds = time.perf_counter() - t0
         return stats

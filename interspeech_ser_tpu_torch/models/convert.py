@@ -8,6 +8,9 @@ nested dicts of numpy arrays and return the port's state dicts.
   the positional conv kept as one plain (folded) ``weight``.
 - :func:`whisper_params_from_flax` mirrors ``whisper_encoder_hf_to_flax``
   in reverse and yields HF Whisper-encoder key names.
+- :func:`roberta_params_from_flax` and :func:`deberta_v2_params_from_flax`
+  mirror ``roberta_hf_to_flax`` and ``deberta_v2_hf_to_flax`` in reverse
+  and yield HF RobertaModel / DebertaV2Model key names (no prefix).
 - :func:`fusion_params_from_flax` mirrors ``convert_fusion.flax_to_torch``
   and yields the reference's ``multimodal_ser.pt`` names.
 
@@ -109,6 +112,56 @@ def whisper_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
         for fc in ("fc1", "fc2"):
             sd[f"{base}.{fc}.weight"] = _t(g(src, fc, "kernel"))
             sd[f"{base}.{fc}.bias"] = g(src, fc, "bias")
+    return _to_torch(sd)
+
+
+def _post_ln_layers(sd: Dict[str, np.ndarray], g, n_layers: int, projections) -> None:
+    """The BERT-layer keys shared by RoBERTa and DeBERTa-v2."""
+    for i in range(n_layers):
+        base, src = f"encoder.layer.{i}", f"layer{i}"
+        for proj in projections:
+            sd[f"{base}.attention.self.{proj}.weight"] = _t(g(src, "self", proj, "kernel"))
+            sd[f"{base}.attention.self.{proj}.bias"] = g(src, "self", proj, "bias")
+        for dst, name in (("attention.output.dense", "attn_output"), ("intermediate.dense", "intermediate"),
+                          ("output.dense", "output")):
+            sd[f"{base}.{dst}.weight"] = _t(g(src, name, "kernel"))
+            sd[f"{base}.{dst}.bias"] = g(src, name, "bias")
+        for dst, name in (("attention.output.LayerNorm", "attn_layer_norm"), ("output.LayerNorm", "output_layer_norm")):
+            sd[f"{base}.{dst}.weight"] = g(src, name, "scale")
+            sd[f"{base}.{dst}.bias"] = g(src, name, "bias")
+
+
+def roberta_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """JAX ``RobertaModel`` params -> the port's (HF-named) state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {
+        "embeddings.word_embeddings.weight": g("word_embeddings"),
+        "embeddings.position_embeddings.weight": g("position_embeddings"),
+        "embeddings.token_type_embeddings.weight": g("token_type_embeddings"),
+        "embeddings.LayerNorm.weight": g("emb_layer_norm", "scale"),
+        "embeddings.LayerNorm.bias": g("emb_layer_norm", "bias"),
+    }
+    _post_ln_layers(sd, g, config.num_layers, ("query", "key", "value"))
+    return _to_torch(sd)
+
+
+def deberta_v2_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """JAX ``DebertaV2Model`` params -> the port's (HF-named) state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {
+        "embeddings.word_embeddings.weight": g("word_embeddings"),
+        "embeddings.LayerNorm.weight": g("emb_layer_norm", "scale"),
+        "embeddings.LayerNorm.bias": g("emb_layer_norm", "bias"),
+        "encoder.rel_embeddings.weight": g("rel_embeddings"),
+        "encoder.LayerNorm.weight": g("rel_emb_layer_norm", "scale"),
+        "encoder.LayerNorm.bias": g("rel_emb_layer_norm", "bias"),
+    }
+    if config.conv_kernel_size > 0:
+        sd["encoder.conv.conv.weight"] = _unconv(g("conv", "kernel"))
+        sd["encoder.conv.conv.bias"] = g("conv", "bias")
+        sd["encoder.conv.LayerNorm.weight"] = g("conv_layer_norm", "scale")
+        sd["encoder.conv.LayerNorm.bias"] = g("conv_layer_norm", "bias")
+    _post_ln_layers(sd, g, config.num_layers, ("query_proj", "key_proj", "value_proj"))
     return _to_torch(sd)
 
 

@@ -1,7 +1,8 @@
-"""Load a local HF-format speech or Whisper checkpoint into the port's encoders.
+"""Load a local HF-format speech, Whisper or text checkpoint into the port's encoders.
 
-Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder`` and
-``build_whisper_encoder`` without transformers or safetensors: ``config.json`` is read with ``json``,
+Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder``,
+``build_whisper_encoder``, ``build_roberta`` and ``build_deberta_v2``
+without transformers or safetensors: ``config.json`` is read with ``json``,
 weights come from ``pytorch_model.bin`` (``torch.load(weights_only=True)``)
 or ``model.safetensors`` (a small reader below), sharded or not. The
 positional conv's weight norm is folded into a plain kernel.
@@ -16,6 +17,7 @@ from typing import Dict, Tuple
 import torch
 
 from .speech import SpeechConfig, SpeechEncoderModel
+from .text import DebertaV2Config, DebertaV2Model, RobertaConfig, RobertaModel
 from .whisper import WhisperEncoderConfig, WhisperEncoderModel
 
 _ST_DTYPES = {
@@ -25,6 +27,9 @@ _ST_DTYPES = {
 }
 # HF keys the inference encoder has no use for
 _UNUSED_KEYS = ("masked_spec_embed",)
+# HF text-model keys extraction has no use for (the pooler; older
+# checkpoints' position-id buffers)
+_UNUSED_TEXT_PREFIXES = ("pooler.", "embeddings.position_ids", "embeddings.token_type_ids")
 
 
 def resolve_dir(path_or_name: str) -> str:
@@ -141,3 +146,26 @@ def build_whisper_encoder(
         model = WhisperEncoderModel(cfg)
     model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True, assign=True)
     return model.eval(), cfg
+
+
+def _build_text(path_or_name: str, dtype: str, config_cls, model_cls, prefix: str):
+    d = resolve_dir(path_or_name)
+    cfg = config_cls.from_hf(read_config(d), dtype=dtype)
+    sd = _strip_prefix(load_hf_state_dict(d), (prefix,))
+    sd = {k: v.float() for k, v in sd.items() if not k.startswith(_UNUSED_TEXT_PREFIXES)}
+    with torch.device("meta"):
+        model = model_cls(cfg)
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.eval(), cfg
+
+
+def build_roberta(path_or_name: str, dtype: str = "float32") -> Tuple[RobertaModel, RobertaConfig]:
+    """-> (model in f32 on the CPU, config). Keys under ``roberta.`` are kept
+    with the prefix stripped (an ``lm_head`` is dropped); the load is strict."""
+    return _build_text(path_or_name, dtype, RobertaConfig, RobertaModel, "roberta.")
+
+
+def build_deberta_v2(path_or_name: str, dtype: str = "float32") -> Tuple[DebertaV2Model, DebertaV2Config]:
+    """-> (model in f32 on the CPU, config). Keys under ``deberta.`` are kept
+    with the prefix stripped; the load is strict."""
+    return _build_text(path_or_name, dtype, DebertaV2Config, DebertaV2Model, "deberta.")

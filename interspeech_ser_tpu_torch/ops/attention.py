@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .attention_core import NEG_INF, dot_product_attention
+from .attention_core import NEG_INF, dot_product_attention_plain
 
 
 class TorchMultiheadAttention(nn.Module):
@@ -54,7 +54,7 @@ class TorchMultiheadAttention(nn.Module):
         def heads(x, w, b, T):
             return (x @ w.t() + b).reshape(B, T, H, hd).transpose(1, 2)
 
-        out = dot_product_attention(
+        out = dot_product_attention_plain(
             heads(query, wq, bq, Tq), heads(key, wk, bk, Tk), heads(value, wv, bv, Tk),
             key_mask=key_mask, dropout_p=self.dropout if self.training else 0.0, generator=generator,
         )

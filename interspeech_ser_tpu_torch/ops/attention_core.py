@@ -1,12 +1,12 @@
-"""Scaled-dot-product attention core for the speech encoder.
+"""Scaled-dot-product attention core for the encoders.
 
 Port of ``interspeech_ser_tpu/ops/attention_core.py``. The bias comes
 FACTORED, ``gate [B,H,Tq] x shared_bias [H,Tq,Tk]`` (WavLM's gated
 relative-position bias); a plain additive bias is the case gate = 1. The
 softmax always runs in float32.
 
-``dot_product_attention_btd`` is the single dispatch point of the encoder
-(``ops/kernels/attention.py`` holds the kernels):
+``dot_product_attention_btd`` is the single dispatch point of the speech
+encoders on [B, T, D] panels (``ops/kernels/attention.py`` holds the kernels):
 - a CUDA tensor with grad enabled and an input that requires grad goes to
   ``AttentionBtdTrain``, kernel K1 forward and kernel K4 backward;
 - any other CUDA tensor goes to K1;
@@ -15,15 +15,29 @@ K1 and K4 stream over keys, so they have no length limit and no fallback.
 The JAX package's TPU-only choices (the inference/training opt-ins, the
 bf16-only and ``Tk >= 1024`` gating of the training pair) are gone: they
 were measurements of a TPU.
+
+``dot_product_attention`` is the dispatch point on [B, H, T, hd] heads
+(RoBERTa's self-attention; ``ops/kernels/attention_bhtd.py`` holds the
+kernels). ``pick_impl`` chooses, as the JAX package's does: ``force_impl``
+first (``oneshot``, ``flash`` or ``plain``), then ``SER_TPU_ATTN_IMPL``
+(``oneshot`` or ``flash``; any other value raises), else K7 (one-shot) up to
+``MAX_ONESHOT_TK`` keys and K6 (streaming) beyond. The chosen kernel's
+wrapper runs its plain version for a CPU tensor. Neither kernel has a
+backward or dropout: the fusion model's cross-attention, which needs both,
+calls ``dot_product_attention_plain`` and never reaches them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 from .kernels.attention import NEG_INF, AttentionBtdTrain, attention_btd, attention_btd_plain
+from .kernels.attention_bhtd import MAX_ONESHOT_TK, attention_bhtd, flash_attention
+
+KERNEL_IMPLS = ("oneshot", "flash")  # the SER_TPU_ATTN_IMPL values the port honours
 
 
 def dot_product_attention_btd(
@@ -46,7 +60,40 @@ def dot_product_attention_btd(
     return attention_btd(q, k, v, num_heads, key_mask=key_mask, scale=scale, gate=gate, pos_bias=shared_bias)
 
 
+def pick_impl(tk: int, force_impl: Optional[str] = None) -> str:
+    """``oneshot`` (K7), ``flash`` (K6) or ``plain`` for a key length ``tk``."""
+    if force_impl is not None:
+        if force_impl not in KERNEL_IMPLS + ("plain",):
+            raise ValueError(f"force_impl={force_impl!r}: expected one of {KERNEL_IMPLS + ('plain',)}")
+        return force_impl
+    env = os.environ.get("SER_TPU_ATTN_IMPL")
+    if env:
+        if env not in KERNEL_IMPLS:
+            raise ValueError(f"SER_TPU_ATTN_IMPL={env!r}: the port honours {'|'.join(KERNEL_IMPLS)}")
+        return env
+    return "oneshot" if tk <= MAX_ONESHOT_TK else "flash"
+
+
 def dot_product_attention(
+    q: torch.Tensor,  # [B, H, Tq, hd]
+    k: torch.Tensor,  # [B, H, Tk, hd]
+    v: torch.Tensor,  # [B, H, Tk, hd]
+    key_mask: Optional[torch.Tensor] = None,  # [B, Tk], 1 = attend
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,  # [B, H, Tq]
+    shared_bias: Optional[torch.Tensor] = None,  # [H, Tq, Tk]
+    force_impl: Optional[str] = None,  # 'oneshot' | 'flash' | 'plain'
+) -> torch.Tensor:  # [B, H, Tq, hd]
+    """Masked SDPA on [B, H, T, hd] through K7 or K6 (``pick_impl``)."""
+    impl = pick_impl(k.shape[2], force_impl)
+    if impl == "plain":
+        return dot_product_attention_plain(q, k, v, key_mask=key_mask, scale=scale, gate=gate,
+                                           shared_bias=shared_bias)
+    kernel = attention_bhtd if impl == "oneshot" else flash_attention
+    return kernel(q, k, v, key_mask=key_mask, scale=scale, gate=gate, pos_bias=shared_bias)
+
+
+def dot_product_attention_plain(
     q: torch.Tensor,  # [B, H, Tq, hd]
     k: torch.Tensor,  # [B, H, Tk, hd]
     v: torch.Tensor,  # [B, H, Tk, hd]

@@ -29,16 +29,25 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "conv_frontend.cu", "gru_bidir.cu", "gru_bidir_bwd.cu")
+SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "attention_bhtd.cu", "flash_attention.cu", "conv_frontend.cu",
+           "gru_bidir.cu", "gru_bidir_bwd.cu")
+HEADERS = ("attention_bhtd_common.cuh",)  # included by sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
     # q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale, stream
     "ser_attention_btd_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
     "ser_attention_btd_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # q, k, v, key_mask, gate, bias, out, strides (12 x int64: b, h, t of q, k, v,
+    # out), B, H, Tq, Tk, hd, scale, stream
+    "ser_attention_bhtd_f32": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
+    "ser_attention_bhtd_bf16": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
+    "ser_flash_attention_f32": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
+    "ser_flash_attention_bf16": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
     # q, k, v, g, out, key_mask, gate, bias, lse, delta and dbias scratch,
     # dq, dk, dv, dgate, dbias, B, Tq, Tk, H, hd, scale, stream
     "ser_attention_btd_bwd_f32": [_P] * 16 + [_I] * 5 + [_F, _P],
@@ -66,7 +75,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

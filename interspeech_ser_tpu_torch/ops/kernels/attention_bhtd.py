@@ -1,0 +1,171 @@
+"""K7 and K6: masked SDPA on [B, H, T, hd] heads with an optional factored bias.
+
+Port of ``interspeech_ser_tpu/ops/pallas/flash_attention_short.py::
+attention_bhtd`` (K7, one-shot, ``Tk <= MAX_ONESHOT_TK``) and
+``interspeech_ser_tpu/ops/pallas/flash_attention.py::flash_attention`` (K6,
+streaming, any length). The CUDA kernels are ``csrc/attention_bhtd.cu`` and
+``csrc/flash_attention.cu`` (their headers say what bounds them and how they
+tile); ``attention_bhtd_plain`` and ``flash_attention_plain`` are the plain
+PyTorch versions of the same functions. Each launcher runs its kernel for a
+CUDA tensor and its plain version for a CPU tensor. Neither kernel has a
+backward: the launchers raise for inputs that require grad.
+
+Semantics, shared by the kernels, their plain versions and the TPU kernels:
+``softmax(scale * q.kᵀ + gate[b,h,q] * bias[h,q,k], masked keys) . v`` with
+q.k accumulated in f32 and scaled after, scores and softmax in f32, a masked
+key's score set to ``NEG_INF = -1e30``, P rounded to v's dtype before P.V
+with f32 accumulation, and the result divided by ``max(l, 1e-30)``. So a
+query row whose keys are all masked gets the uniform mean of its Tk values
+(the TPU kernels' padded keys also enter that mean: they pad Tk to their
+block, 128 or 256 keys). K7 rounds the bias to the compute dtype, as its TPU
+kernel does; K6 adds it in f32 as given. The gate defaults to 1.
+
+The kernels take q, k, v as strided views (each row of hd contiguous), so
+[B, T, H*hd] projections viewed as [B, H, T, hd] go in without a copy, and
+they write their output in [B, T, H, hd] memory order (returned as its
+[B, H, T, hd] view), so the caller's transpose back is free.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+MAX_ONESHOT_TK = 2048  # flash_attention_short.py: K7's key-length limit
+LAUNCHES = 0  # K7 launches since the last reset (chip_smoke.py reads it)
+FLASH_LAUNCHES = 0  # K6 launches
+
+
+def _softmax_pv(q, k, v, key_mask, scale, gate, bias) -> torch.Tensor:
+    """The plain one-pass form both kernels compute; ``bias`` already in the
+    dtype its kernel adds it in."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale  # [B, H, Tq, Tk] f32
+    if bias is not None:
+        B, H, Tq = q.shape[:3]
+        g = torch.ones(B, H, Tq, device=q.device) if gate is None else gate.float()
+        s = s + g[..., None] * bias.float()[None]
+    if key_mask is not None:
+        s = s.masked_fill(~(key_mask > 0)[:, None, None, :], NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = p.to(v.dtype).float() @ v.float()
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def attention_bhtd_plain(
+    q: torch.Tensor,  # [B, H, Tq, hd]
+    k: torch.Tensor,  # [B, H, Tk, hd]
+    v: torch.Tensor,  # [B, H, Tk, hd]
+    key_mask: Optional[torch.Tensor] = None,  # [B, Tk], 1 = attend
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,  # [B, H, Tq]
+    pos_bias: Optional[torch.Tensor] = None,  # [H, Tq, Tk]
+) -> torch.Tensor:  # [B, H, Tq, hd] in q.dtype
+    """K7's function: the bias rounded to the compute dtype."""
+    bias = None if pos_bias is None else pos_bias.to(q.dtype)
+    return _softmax_pv(q, k, v, key_mask, scale, gate, bias)
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,
+    pos_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K6's function: the bias added as given (in f32)."""
+    return _softmax_pv(q, k, v, key_mask, scale, gate, pos_bias)
+
+
+def _launch(name: str, q, k, v, key_mask, scale, gate, pos_bias, bias_dtype) -> torch.Tensor:
+    """Check what the kernels take, allocate the output, launch ``ser_<name>_*``."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q, k, v must be [B, H, T, hd], got {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    B, H, Tq, hd = q.shape
+    Tk = k.shape[2]
+    if hd != 64 or k.shape[:2] != (B, H) or k.shape[3] != hd:
+        raise NotImplementedError(f"{name} kernel needs head dim 64 and matching q/k: "
+                                  f"q {tuple(q.shape)} k {tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {q.dtype}")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"{name}: {n} must be a {q.dtype} tensor on {q.device} with contiguous rows")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, pos_bias)):
+        raise RuntimeError(f"{name}: the kernel has no backward; inputs that require grad go to "
+                           "the plain attention")
+    mask = None
+    if key_mask is not None:
+        if key_mask.shape != (B, Tk):
+            raise ValueError(f"{name}: key_mask shape {tuple(key_mask.shape)} != {(B, Tk)}")
+        mask = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
+    bias = g = None
+    if pos_bias is not None:
+        if pos_bias.shape != (H, Tq, Tk):
+            raise ValueError(f"{name}: pos_bias shape {tuple(pos_bias.shape)} != {(H, Tq, Tk)}")
+        bias = pos_bias.to(device=q.device, dtype=bias_dtype).contiguous()
+        if gate is None:
+            g = torch.ones(B, H, Tq, device=q.device)
+        elif gate.shape != (B, H, Tq):
+            raise ValueError(f"{name}: gate shape {tuple(gate.shape)} != {(B, H, Tq)}")
+        else:
+            g = gate.to(device=q.device, dtype=torch.float32).contiguous()
+    if scale is None:
+        scale = hd ** -0.5
+    out = torch.empty(B, Tq, H, hd, device=q.device, dtype=q.dtype).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    lib = _build.library()
+    fn = getattr(lib, f"ser_{name}_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(mask), _build.ptr(g), _build.ptr(bias),
+             out.data_ptr(), strides, B, H, Tq, Tk, hd, float(scale), _build.stream_ptr(q))
+    _build.check(err, name)
+    return out
+
+
+def attention_bhtd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,
+    pos_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K7 on a CUDA tensor, the plain version on a CPU tensor. Raises above
+    ``MAX_ONESHOT_TK`` keys, as the TPU kernel asserts."""
+    if k.shape[2] > MAX_ONESHOT_TK:
+        raise ValueError(f"attention_bhtd: Tk={k.shape[2]} > {MAX_ONESHOT_TK}; use flash_attention")
+    if not q.is_cuda:
+        return attention_bhtd_plain(q, k, v, key_mask, scale, gate, pos_bias)
+    global LAUNCHES
+    out = _launch("attention_bhtd", q, k, v, key_mask, scale, gate, pos_bias, q.dtype)
+    LAUNCHES += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    gate: Optional[torch.Tensor] = None,
+    pos_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K6 on a CUDA tensor, the plain version on a CPU tensor."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, key_mask, scale, gate, pos_bias)
+    global FLASH_LAUNCHES
+    out = _launch("flash_attention", q, k, v, key_mask, scale, gate, pos_bias, torch.float32)
+    FLASH_LAUNCHES += 1
+    return out

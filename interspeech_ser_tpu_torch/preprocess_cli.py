@@ -1,4 +1,4 @@
-"""Speech and Whisper embedding extraction CLIs.
+"""Speech, Whisper and text embedding extraction CLIs.
 
     python -m interspeech_ser_tpu_torch.preprocess_cli speech \
         --ssl_type <HF model dir> --wav_dir <wavs> --save_path <out> [--dtype bfloat16]
@@ -6,14 +6,23 @@
     python -m interspeech_ser_tpu_torch.preprocess_cli speech_pretrained \
         ... --lora_ckpt whisper_lora_ser.pt [--lora_rank 8 --lora_alpha 16]
     python -m interspeech_ser_tpu_torch.preprocess_cli whisper_pretrained ...  (same flags)
+    python -m interspeech_ser_tpu_torch.preprocess_cli roberta \
+        --roberta_type <HF model dir> --df_path <csv> --save_path <out> [--use_average y] [--max_len 80]
+    python -m interspeech_ser_tpu_torch.preprocess_cli deroberta ...          (same flags)
 
 Port of ``interspeech_ser_tpu/preprocess_cli.py::speech_main``,
-``whisper_main``, ``speech_pretrained_main`` and ``whisper_pretrained_main``
-with the same flags, plus ``--device`` (``cuda`` by default; ``cpu`` only
-when asked). The ``*_pretrained`` CLIs merge a LoRA checkpoint (the port's
+``whisper_main``, ``speech_pretrained_main``, ``whisper_pretrained_main``,
+``roberta_main`` and ``deroberta_main`` with the same flags, plus
+``--device`` (``cuda`` by default; ``cpu`` only when asked). The ``*_pretrained`` CLIs merge a LoRA checkpoint (the port's
 or the JAX package's ``whisper_lora_ser.pt``, or a peft one) into the
 encoder before extracting.
-``--ssl_type`` names a local HF-format directory (config.json +
+``roberta`` / ``deroberta`` read the CSV's ``FileName`` and
+``transcription`` columns (with the ``csv`` module; a cell pandas would
+read as missing, such as an empty one or ``NA``, is the empty text) and
+write one full padded [max_len, D] ``.pt`` per row, in batches of 64
+(RoBERTa) or 32 (DeBERTa); the tokenizer comes from the model directory
+(``utils/spm.py::auto_tokenizer``).
+``--ssl_type`` / ``--roberta_type`` name a local HF-format directory (config.json +
 pytorch_model.bin or model.safetensors); there is no hub access. In float32
 mode TF32 is off for matmuls and cuDNN convolutions alike, so f32 means f32;
 ``--matmul_precision highest`` turns it off in bfloat16 mode too.
@@ -23,6 +32,7 @@ mode TF32 is off for matmuls and cuDNN convolutions alike, so f32 means f32;
 from __future__ import annotations
 
 import argparse
+import csv
 import os
 import sys
 
@@ -174,11 +184,81 @@ def whisper_pretrained_main(argv=None):
     return whisper_main(argv, with_lora=True)
 
 
+def _text_parser():
+    p = argparse.ArgumentParser()
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--roberta_type", type=str, default="roberta")
+    p.add_argument("--df_path", type=str, default="./")
+    p.add_argument("--save_path", type=str, default="./")
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--max_len", type=int, default=80)
+    p.add_argument("--use_average", type=str, default="n")
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
+                   help="where the encoder runs; without a card 'cuda' raises")
+    return p
+
+
+# the strings pandas.read_csv reads as a missing value (its default na_values)
+PANDAS_NA = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN",
+    "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+})
+
+
+def read_transcripts(path: str):
+    """-> (FileName list, transcription list); a missing cell is ``None``."""
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = list(csv.DictReader(f))
+    return ([r["FileName"] for r in rows],
+            [None if r["transcription"] in PANDAS_NA else r["transcription"] for r in rows])
+
+
+def _text_main(argv, family: str):
+    args = _text_parser().parse_args(argv)
+    import torch
+
+    from .extract.pipeline import TextExtractionPipeline
+    from .models.loader import build_deberta_v2, build_roberta
+    from .utils.spm import auto_tokenizer
+
+    torch.manual_seed(args.seed)
+    set_precision(args.dtype)
+    print(f"Using average = {args.use_average == 'y'}")
+    names, texts = read_transcripts(args.df_path)
+    model, cfg = (build_roberta if family == "roberta" else build_deberta_v2)(args.roberta_type, dtype=args.dtype)
+    tokenizer = auto_tokenizer(args.roberta_type)
+
+    def tokenize(batch):
+        return tokenizer(batch, padding="max_length", max_length=args.max_len, truncation=True, return_tensors="np")
+
+    pipe = TextExtractionPipeline(
+        model, cfg, tokenize, use_average=args.use_average == "y", num_workers=args.num_workers,
+        batch_size=32 if family == "deberta" else 64, device=args.device,
+    )
+    stats = pipe.run(names, texts, args.save_path)
+    print(f"extracted {stats.n_utts} texts in {stats.wall_seconds:.1f}s = {stats.utts_per_sec:.1f} texts/s "
+          f"on {pipe.device}; {stats.n_skipped} skipped")
+    return stats
+
+
+def roberta_main(argv=None):
+    """RoBERTa transcript embeddings (preprocess_roberta.py)."""
+    return _text_main(argv, "roberta")
+
+
+def deroberta_main(argv=None):
+    """DeBERTa-v2 transcript embeddings (preprocess_deroberta.py)."""
+    return _text_main(argv, "deberta")
+
+
 COMMANDS = {
     "speech": speech_main,
     "whisper": whisper_main,
     "speech_pretrained": speech_pretrained_main,
     "whisper_pretrained": whisper_pretrained_main,
+    "roberta": roberta_main,
+    "deroberta": deroberta_main,
 }
 
 

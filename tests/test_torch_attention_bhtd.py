@@ -1,0 +1,169 @@
+"""K6 and K7 (attention on [B, H, T, hd] heads): the port's plain versions
+against the JAX package's Pallas kernels in interpret mode, and the
+[B, H, T, hd] dispatcher.
+
+Inputs come from numpy with a seed and go to both frameworks. Tolerances:
+f32 max-abs <= 1e-5 (same math, other summation order); bf16 cosine >=
+0.999, because P is rounded to bf16 before P.V and the two frameworks' f32
+sums then differ by a few bf16 ulps. A fully masked query row gets the
+uniform mean of V; the TPU kernels also count their padded keys in that
+mean, so that case runs at Tk = 128, where neither pads.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from interspeech_ser_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+from interspeech_ser_tpu.ops.pallas.flash_attention_short import attention_bhtd as jax_oneshot
+from interspeech_ser_tpu_torch.ops import attention as fusion_attention
+from interspeech_ser_tpu_torch.ops import attention_core
+from interspeech_ser_tpu_torch.ops.kernels import attention_bhtd as kb
+
+torch.set_num_threads(2)
+
+B, H, HD = 2, 2, 64
+KERNELS = {  # name -> (JAX Pallas kernel, port wrapper, port plain version, counter)
+    "oneshot": (jax_oneshot, kb.attention_bhtd, kb.attention_bhtd_plain, "LAUNCHES"),
+    "flash": (jax_flash, kb.flash_attention, kb.flash_attention_plain, "FLASH_LAUNCHES"),
+}
+CASES = {  # name -> (Tq, Tk, key lengths or None, bias)
+    "unmasked": (80, 80, None, False),
+    "masked": (80, 80, [80, 23], False),
+    "bias_masked": (80, 80, [80, 51], True),
+    "bias_unmasked": (37, 37, None, True),
+    "unaligned": (37, 130, [130, 66], False),
+    "fully_masked_row": (40, 128, [128, 0], True),
+}
+
+
+def _inputs(seed, Tq, Tk, lengths, bias):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Tq, HD)).astype(np.float32)
+    k, v = (rng.standard_normal((B, H, Tk, HD)).astype(np.float32) for _ in range(2))
+    mask = None if lengths is None else (np.arange(Tk)[None] < np.array(lengths)[:, None]).astype(np.float32)
+    gate = pb = None
+    if bias:
+        gate = rng.uniform(0.5, 2.0, (B, H, Tq)).astype(np.float32)
+        pb = rng.standard_normal((H, Tq, Tk)).astype(np.float32)
+    return q, k, v, mask, gate, pb
+
+
+def _t(x, dt=torch.float32):
+    return None if x is None else torch.from_numpy(x).to(dt)
+
+
+def _j(x, dt=jnp.float32):
+    return None if x is None else jnp.asarray(x).astype(dt)
+
+
+def _cos(a, b):
+    a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kernel", list(KERNELS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_interpret(kernel, case, dtype):
+    jax_fn, _, plain, _ = KERNELS[kernel]
+    Tq, Tk, lengths, bias = CASES[case]
+    q, k, v, mask, gate, pb = _inputs(Tq + Tk + bias, Tq, Tk, lengths, bias)
+    tdt, jdt = (torch.float32, jnp.float32) if dtype == "float32" else (torch.bfloat16, jnp.bfloat16)
+    ref = jax_fn(_j(q, jdt), _j(k, jdt), _j(v, jdt), key_mask=_j(mask), gate=_j(gate), pos_bias=_j(pb),
+                 interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = plain(_t(q, tdt), _t(k, tdt), _t(v, tdt), key_mask=_t(mask), gate=_t(gate), pos_bias=_t(pb))
+    assert out.dtype == tdt and out.shape == (B, H, Tq, HD)
+    out = out.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    else:
+        assert _cos(out, ref) >= 0.999
+    if case == "fully_masked_row":  # the uniform mean of the row's values
+        want = v[1].mean(axis=1, keepdims=True) if dtype == "float32" else None
+        if want is not None:
+            np.testing.assert_allclose(out[1], np.broadcast_to(want, out[1].shape), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_wrapper_runs_plain_version_on_cpu(kernel, monkeypatch):
+    _, wrapper, plain, counter = KERNELS[kernel]
+    q, k, v, mask, gate, pb = _inputs(3, 40, 40, [40, 17], True)
+    args = [_t(x) for x in (q, k, v)]
+    kw = dict(key_mask=_t(mask), gate=_t(gate), pos_bias=_t(pb))
+    monkeypatch.setattr(kb, counter, 0)
+    torch.testing.assert_close(wrapper(*args, **kw), plain(*args, **kw), rtol=0, atol=0)
+    assert getattr(kb, counter) == 0  # the CPU path launches nothing
+
+
+def test_oneshot_refuses_long_keys():
+    q = torch.zeros(1, 1, 4, HD)
+    k = torch.zeros(1, 1, kb.MAX_ONESHOT_TK + 1, HD)
+    with pytest.raises(ValueError, match="flash_attention"):
+        kb.attention_bhtd(q, k, k)
+
+
+@pytest.mark.parametrize("tk,env,force,want", [
+    (80, None, None, "oneshot"),
+    (kb.MAX_ONESHOT_TK, None, None, "oneshot"),
+    (kb.MAX_ONESHOT_TK + 1, None, None, "flash"),
+    (80, "flash", None, "flash"),
+    (3000, "oneshot", None, "oneshot"),
+    (80, "flash", "oneshot", "oneshot"),
+    (80, "oneshot", "plain", "plain"),
+])
+def test_pick_impl(tk, env, force, want, monkeypatch):
+    if env is None:
+        monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("SER_TPU_ATTN_IMPL", env)
+    assert attention_core.pick_impl(tk, force) == want
+
+
+@pytest.mark.parametrize("env,force", [("oneshot2", None), ("xla", None), (None, "xla")])
+def test_pick_impl_raises_on_unknown_values(env, force, monkeypatch):
+    if env is None:
+        monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("SER_TPU_ATTN_IMPL", env)
+    with pytest.raises(ValueError, match="SER_TPU_ATTN_IMPL" if env else "force_impl"):
+        attention_core.pick_impl(80, force)
+
+
+@pytest.mark.parametrize("env,force,want", [(None, None, "oneshot"), ("flash", None, "flash"),
+                                            (None, "plain", "plain")])
+def test_dispatcher_routes(env, force, want, monkeypatch):
+    """dot_product_attention hands the inputs to the chosen wrapper, which
+    on these CPU tensors runs its plain version."""
+    routes = []
+    for name, fn in (("oneshot", "attention_bhtd"), ("flash", "flash_attention"),
+                     ("plain", "dot_product_attention_plain")):
+        real = getattr(attention_core, fn)
+        monkeypatch.setattr(attention_core, fn, lambda *a, _n=name, _f=real, **kw: routes.append(_n) or _f(*a, **kw))
+    if env is None:
+        monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("SER_TPU_ATTN_IMPL", env)
+    q, k, v, mask, gate, pb = _inputs(9, 30, 30, [30, 11], True)
+    args = [_t(x) for x in (q, k, v)]
+    out = attention_core.dot_product_attention(*args, key_mask=_t(mask), gate=_t(gate), shared_bias=_t(pb),
+                                               force_impl=force)
+    assert routes == [want]
+    ref = kb.attention_bhtd_plain(*args, key_mask=_t(mask), gate=_t(gate), pos_bias=_t(pb))
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def test_fusion_attention_never_reaches_the_dispatcher(monkeypatch):
+    """The fusion model's cross-attention (dropout, gradients) calls the plain
+    function directly: an unknown SER_TPU_ATTN_IMPL, which the dispatcher
+    refuses, leaves it working and differentiable."""
+    monkeypatch.setenv("SER_TPU_ATTN_IMPL", "not-a-kernel")
+    torch.manual_seed(0)
+    mha = fusion_attention.TorchMultiheadAttention(16, num_heads=2, dropout=0.1).train()
+    x = torch.randn(2, 7, 16, requires_grad=True)
+    out = mha(x, x, x, key_mask=torch.ones(2, 7), generator=torch.Generator().manual_seed(1))
+    out.sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()

@@ -1,5 +1,5 @@
-"""``chip_smoke.py``'s extraction, scoring and training phases, rehearsed on
-the CPU.
+"""``chip_smoke.py``'s extraction, scoring, training, LoRA and text phases,
+rehearsed on the CPU.
 
 The kernels have no CPU mode, so the wrappers are swapped for counting
 stand-ins that run the plain versions, the encoder is cut to 2 layers (with
@@ -154,3 +154,47 @@ def test_lora_phases_on_cpu(tmp_path, monkeypatch):
     assert set(grads) == {"whisper", "wavlm"} and max(grads.values()) <= 1e-4
     bf16 = cs.time_bf16_steps(w)
     assert len(bf16["bf16_step_ms_runs"]) == 2 and all(np.isfinite(bf16["bf16_losses"]))
+
+
+def test_text_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 8 at a tiny size (RoBERTa and DeBERTa at D=64, 20 transcripts,
+    one batch each): the HF directories, the synthetic BPE and SentencePiece
+    files, the CLIs, the launch counts (K7 through a counting plain
+    version; K6 likewise on the SER_TPU_ATTN_IMPL=flash run) and the checks
+    against the reference forwards."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import text
+    from interspeech_ser_tpu_torch.ops import attention_core
+    from interspeech_ser_tpu_torch.ops.kernels import attention_bhtd as kb
+
+    def tiny_roberta(dtype="float32"):
+        return text.RobertaConfig(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128, dtype=dtype)
+
+    def tiny_deberta(dtype="float32"):
+        return text.DebertaV2Config(vocab_size=4000, hidden_size=64, num_heads=4, intermediate_size=128, dtype=dtype)
+
+    def counting(counter, plain):
+        def launch(*args, **kw):
+            setattr(kb, counter, getattr(kb, counter) + 1)
+            return plain(*args, **kw)
+        return launch
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "TEXT_SHAPE", dict(n_texts=20, words=(0, 121), max_len=80, n_words=300,
+                                               deberta_layers=2))
+    monkeypatch.setattr(text, "roberta_large", tiny_roberta)
+    monkeypatch.setattr(text, "deberta_v2_xxlarge", tiny_deberta)
+    monkeypatch.setattr(attention_core, "attention_bhtd", counting("LAUNCHES", kb.attention_bhtd_plain))
+    monkeypatch.setattr(attention_core, "flash_attention", counting("FLASH_LAUNCHES", kb.flash_attention_plain))
+    monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
+    for counter in ("LAUNCHES", "FLASH_LAUNCHES"):
+        monkeypatch.setattr(kb, counter, 0)
+
+    out = cs.phase_text(str(tmp_path), "a card, 700 W")
+    assert set(out["texts_per_sec"]) == {"roberta_float32_cold", "roberta_float32_warm", "roberta_bfloat16_cold",
+                                         "roberta_bfloat16_warm", "roberta_float32_flash", "deberta_float32",
+                                         "deberta_bfloat16"}
+    launches = cs.counts()
+    assert (launches["attention_bhtd"], launches["flash_attention"]) == (4 * 2, 2)  # 4 default runs x 2 layers
+    assert out["k6_vs_k7_max_abs"] <= 1e-5
+    assert "SER_TPU_ATTN_IMPL" not in os.environ

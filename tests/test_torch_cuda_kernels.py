@@ -1,4 +1,4 @@
-"""K1, K2, K3, K3b and K4 on the card against their plain versions, at small shapes.
+"""K1, K2, K3, K3b, K4, K6 and K7 on the card against their plain versions, at small shapes.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is False (a
 CUDA kernel has no CPU mode). On a machine with an H100:
@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from interspeech_ser_tpu_torch.ops.kernels import attention as k_attn
+from interspeech_ser_tpu_torch.ops.kernels import attention_bhtd as k_bhtd
 from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as k_conv
 from interspeech_ser_tpu_torch.ops.kernels import gru as k_gru
 
@@ -233,3 +234,97 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         k_gru.gru_bidir_carries(torch.randn(3, 4, 6, device="cuda"), torch.randn(2, 2, 6, device="cuda"),
                                 torch.randn(2, 6, device="cuda"), torch.ones(3, 4, device="cuda"))
+
+
+BHTD = {"oneshot": (k_bhtd.attention_bhtd, k_bhtd.attention_bhtd_plain, "LAUNCHES"),
+        "flash": (k_bhtd.flash_attention, k_bhtd.flash_attention_plain, "FLASH_LAUNCHES")}
+
+
+@pytest.mark.parametrize("kernel", list(BHTD))
+@pytest.mark.parametrize("bias,masked", [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk", [(80, 80), (150, 217)])
+def test_bhtd_kernels(cuda, kernel, bias, masked, dtype, tq, tk):
+    """K7 / K6 on [B, H, T, 64] heads; row 2 of the mask leaves whole 64-key
+    tiles masked, row 3 masks every key (the uniform mean of V)."""
+    fn, plain, counter = BHTD[kernel]
+    B, H = 4, 3
+    q = torch.randn(B, H, tq, 64, generator=cuda, device="cuda").to(dtype)
+    k, v = (torch.randn(B, H, tk, 64, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    kw = {}
+    if masked:
+        kw["key_mask"] = (torch.arange(tk, device="cuda")[None]
+                          < torch.tensor([tk, tk - 9, 30, 0], device="cuda")[:, None]).float()
+    if bias:
+        kw["gate"] = 1 + torch.rand(B, H, tq, generator=cuda, device="cuda")
+        kw["pos_bias"] = torch.randn(H, tq, tk, generator=cuda, device="cuda")
+    before = getattr(k_bhtd, counter)
+    out = fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert getattr(k_bhtd, counter) == before + 1
+    ref = plain(q, k, v, **kw)
+    assert out.shape == ref.shape == (B, H, tq, 64) and out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.9999
+
+
+@pytest.mark.parametrize("kernel", list(BHTD))
+def test_bhtd_kernels_take_strided_projections(cuda, kernel):
+    """[B, T, H*64] projections viewed as [B, H, T, 64] (RoBERTa's layout) give
+    the same result as contiguous heads, and the output's transpose back to
+    [B, T, D] is a free view."""
+    fn, _, _ = BHTD[kernel]
+    B, T, H = 3, 80, 4
+    q, k, v = (torch.randn(B, T, H * 64, generator=cuda, device="cuda") for _ in range(3))
+    views = [t.view(B, T, H, 64).transpose(1, 2) for t in (q, k, v)]
+    out = fn(*views)
+    torch.testing.assert_close(out, fn(*(t.contiguous() for t in views)), atol=0, rtol=0)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+def test_bhtd_long_keys(cuda):
+    """K6 at a length K7 refuses, and K7 at its limit (bq drops to 16 rows)."""
+    q = torch.randn(1, 2, 70, 64, generator=cuda, device="cuda")
+    k, v = (torch.randn(1, 2, 2500, 64, generator=cuda, device="cuda") for _ in range(2))
+    torch.testing.assert_close(k_bhtd.flash_attention(q, k, v), k_bhtd.flash_attention_plain(q, k, v),
+                               atol=1e-5, rtol=0)
+    with pytest.raises(ValueError):
+        k_bhtd.attention_bhtd(q, k, v)
+    k, v = k[:, :, :2048], v[:, :, :2048]
+    torch.testing.assert_close(k_bhtd.attention_bhtd(q, k, v), k_bhtd.attention_bhtd_plain(q, k, v),
+                               atol=1e-5, rtol=0)
+
+
+def test_bhtd_launchers_refuse_grad_and_bad_shapes(cuda):
+    q = torch.randn(1, 2, 10, 64, device="cuda", requires_grad=True)
+    for fn, _, _ in BHTD.values():
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(q, q.detach(), q.detach())
+        with pytest.raises(NotImplementedError):
+            x = torch.randn(1, 2, 10, 32, device="cuda")
+            fn(x, x, x)  # head dim 32
+
+
+def test_roberta_on_the_card_matches_the_plain_path(cuda, monkeypatch):
+    """A 2-layer RoBERTa at head dim 64 on the card: K7 by default, K6 under
+    SER_TPU_ATTN_IMPL=flash, both against plain=True."""
+    from interspeech_ser_tpu_torch.models.text import RobertaConfig, RobertaModel
+
+    torch.manual_seed(0)
+    model = RobertaModel(RobertaConfig(vocab_size=100, hidden_size=256, num_layers=2, num_heads=4,
+                                       intermediate_size=512, max_position_embeddings=90)).cuda().eval()
+    ids = torch.randint(3, 100, (5, 80), generator=cuda, device="cuda")
+    mask = (torch.arange(80, device="cuda")[None] < torch.tensor([80, 41, 7, 64, 2], device="cuda")[:, None]).long()
+    ids = torch.where(mask > 0, ids, torch.ones_like(ids))
+    monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
+    with torch.inference_mode():
+        ref = model(ids, mask, plain=True)["last_hidden_state"]
+        before = (k_bhtd.LAUNCHES, k_bhtd.FLASH_LAUNCHES)
+        out7 = model(ids, mask)["last_hidden_state"]
+        monkeypatch.setenv("SER_TPU_ATTN_IMPL", "flash")
+        out6 = model(ids, mask)["last_hidden_state"]
+    assert (k_bhtd.LAUNCHES - before[0], k_bhtd.FLASH_LAUNCHES - before[1]) == (2, 2)
+    torch.testing.assert_close(out7, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out6, ref, atol=1e-4, rtol=0)

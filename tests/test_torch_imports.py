@@ -1,7 +1,8 @@
 """Every module of ``interspeech_ser_tpu_torch`` (and ``chip_smoke.py``)
-imports without jax, flax, pandas, transformers or safetensors, and without
-building or launching a kernel. Run in a fresh interpreter, because this
-test session has imported jax already (tests/conftest.py)."""
+imports without jax, flax, pandas, transformers, safetensors, tokenizers,
+regex or the JAX package, and without building or launching a kernel. Run
+in a fresh interpreter, because this test session has imported jax already
+(tests/conftest.py)."""
 
 import json
 import os
@@ -17,12 +18,14 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ 
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-from interspeech_ser_tpu_torch.ops.kernels import _build, attention, conv_frontend, gru
+from interspeech_ser_tpu_torch.ops.kernels import _build, attention, attention_bhtd, conv_frontend, gru
 print(json.dumps({
     "modules": mods,
-    "heavy": [m for m in ("jax", "flax", "pandas", "transformers", "safetensors") if m in sys.modules],
+    "heavy": [m for m in ("jax", "flax", "pandas", "transformers", "safetensors", "tokenizers", "regex",
+                          "interspeech_ser_tpu") if m in sys.modules],
     "library_loaded": _build.library.cache_info().currsize,
-    "launches": [attention.LAUNCHES, attention.BWD_LAUNCHES, conv_frontend.LAUNCHES, gru.LAUNCHES, gru.BWD_LAUNCHES],
+    "launches": [attention.LAUNCHES, attention.BWD_LAUNCHES, attention_bhtd.LAUNCHES, attention_bhtd.FLASH_LAUNCHES,
+                 conv_frontend.LAUNCHES, gru.LAUNCHES, gru.BWD_LAUNCHES],
 }))
 """
 
@@ -37,8 +40,9 @@ def test_port_imports_light():
     assert len(out["modules"]) >= 25, out["modules"]
     for m in ("train.losses", "train.checkpointing", "train.engine", "utils.seeding", "utils.device",
               "ops.mel", "models.whisper", "models.lora", "train.lora_engine", "lora_cli",
-              "baseline.podcast", "baseline.data"):
+              "baseline.podcast", "baseline.data", "ops.kernels.attention_bhtd", "models.text", "utils.spm",
+              "utils.bpe"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
-    assert out["launches"] == [0, 0, 0, 0, 0]
+    assert out["launches"] == [0] * 7
