@@ -8,7 +8,8 @@ an H100, ``sm_90a``) and needs nothing else: it builds the hand-written
 kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
 drives the serving path, the fusion training path, the LoRA fine-tuning
-path and the text-extraction path through their entry points at full width:
+path, the text-extraction path and the speech-encoder zoo through their
+entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -21,9 +22,15 @@ path and the text-extraction path through their entry points at full width:
    Whisper-large shapes; K7 (one-shot) and K6 (streaming) attention on
    [B, H, T, 64] heads at RoBERTa-large's extraction shape (B=64, H=16, T=80,
    ragged key mask) and the WavLM-large shape with the gated bias, K6 also at
-   B=8, H=20, T=1500 (f32 and bf16; SDPA with a float mask); K2 the fused conv0 + LayerNorm + GELU on 10-s
-   waveforms; K3 the BiGRU recurrence and K3b its backward at the fusion
-   trainer's batch (2B=128 rows, T=512, H=512; cuDNN ``nn.GRU``); K4 the
+   B=8, H=20, T=1500 (f32 and bf16; SDPA with a float mask); K1 also at
+   HuBERT-XL's and XLS-R-2B's head dims (80 and 120: B=16, T=499, ragged
+   key mask); K2 the fused frontend on 10-s waveforms at depths 1-7 (its
+   layer-0 kernel, and its later-layer kernel at depths 2-7); K5 the
+   fused FFN at the WavLM-large and XLS-R-2B layers (two ``F.linear`` and
+   ``F.gelu``); K8 the grouped positional conv at 120, 64 and 48 channels a
+   group (cuDNN ``F.conv1d``); K3 the BiGRU recurrence and K3b its backward
+   at the fusion trainer's batch (2B=128 rows, T=512, H=512; cuDNN
+   ``nn.GRU``); K9 one direction of it, forward and reverse (B=64); K4 the
    attention backward at the Whisper-large fine-tune shape (B=8, T=1500, no
    bias, no mask) and the WavLM-large one (gated bias + ragged mask), f32
    and bf16, rerun bit-identical (autograd through SDPA);
@@ -63,15 +70,29 @@ path and the text-extraction path through their entry points at full width:
    seeded DeBERTa-v2-xxlarge at full width (D=1536, H=24, FFN 6144, vocab
    128100, 256 position buckets) cut to 2 layers, with a synthetic
    ``spm.model``, in f32 and bf16: shapes [80, 1536], finiteness, one text
-   against a CPU forward of the same weights. Texts per second for each run.
+   against a CPU forward of the same weights. Texts per second for each run;
+9. the speech-encoder zoo: a seeded random-init wav2vec2-XLS-R-2B at full
+   width (D=1920, H=16, FFN 7680) cut to 8 layers as an HF directory,
+   ``preprocess_cli.speech_main`` in bf16 and f32 (cold, warm): shapes,
+   finiteness, K1 = layers x batches, K8 = batches, K5 = 0, and utt0 against
+   the plain f32 pipeline on the card; once more in bf16 under
+   ``SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3`` (K5 = layers x batches, K2's
+   later-layer kernel = 2 x batches, files within cosine 0.999 of the
+   default run); XLS-R-2B at full depth (48
+   layers) built on the card, one 160-s bf16 batch of 16 10-s wavs: utt/s,
+   peak device memory, a profile; HuBERT-XL at full width cut to 2 layers in
+   f32; the wavlm-base-plus shape (group-norm frontend, post-LN: no K2) in
+   bf16 and f32, then ``lora_cli`` over it for 1 epoch.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
 eval (the training path), zeroed again just before phase 7's extraction and
-read after its last ``*_pretrained`` run (the LoRA path), and zeroed again
-just before phase 8 and read after it (the text path). The line before the
-last is the kernels' JSON record; the last line is ``{"ok": true,
-"device": {...}}``. Any failure raises (non-zero exit).
+read after its last ``*_pretrained`` run (the LoRA path), zeroed again
+just before phase 8 and read after it (the text path), and zeroed again
+just before phase 9 and read after it (the zoo path). K9 has no path (none
+calls it in the JAX package either): phase 3 holds it to its plain version.
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 """
 
 from __future__ import annotations
@@ -81,6 +102,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -94,7 +116,9 @@ from interspeech_ser_tpu_torch.ops.kernels import _build
 from interspeech_ser_tpu_torch.ops.kernels import attention as k_attn
 from interspeech_ser_tpu_torch.ops.kernels import attention_bhtd as k_bhtd
 from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as k_conv
+from interspeech_ser_tpu_torch.ops.kernels import ffn_fused as k_ffn
 from interspeech_ser_tpu_torch.ops.kernels import gru as k_gru
+from interspeech_ser_tpu_torch.ops.kernels import pos_conv as k_pos
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
@@ -121,9 +145,13 @@ KERNELS = {
         module=k_bhtd, counter="FLASH_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/flash_attention.cu",
         replaces="interspeech_ser_tpu/ops/pallas/flash_attention.py:99",
     ),
-    "conv_frontend": dict(
+    "conv_frontend": dict(  # K2's layer-0 kernel, one launch a call
         module=k_conv, source="interspeech_ser_tpu_torch/csrc/conv_frontend.cu",
         replaces="interspeech_ser_tpu/ops/pallas/conv_frontend.py:134",
+    ),
+    "conv_frontend_layer": dict(  # K2's later-layer kernel, depth - 1 launches a call; times are the depth-2 call's
+        module=k_conv, counter="LAYER_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/conv_frontend.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/conv_frontend.py:134", headline="depth2_f32",
     ),
     "gru_bidir": dict(
         module=k_gru, source="interspeech_ser_tpu_torch/csrc/gru_bidir.cu",
@@ -132,6 +160,18 @@ KERNELS = {
     "gru_bidir_bwd": dict(
         module=k_gru, counter="BWD_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/gru_bidir_bwd.cu",
         replaces="interspeech_ser_tpu/ops/pallas/gru_kernel.py:297",
+    ),
+    "ffn_fused": dict(
+        module=k_ffn, source="interspeech_ser_tpu_torch/csrc/ffn_fused.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/ffn_fused.py:46",
+    ),
+    "pos_conv": dict(
+        module=k_pos, source="interspeech_ser_tpu_torch/csrc/pos_conv.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/pos_conv.py:43",
+    ),
+    "gru_sequence": dict(  # no path launches it (none does in the JAX package): a parity case
+        module=k_gru, counter="SEQ_LAUNCHES", source="interspeech_ser_tpu_torch/csrc/gru_bidir.cu",
+        replaces="interspeech_ser_tpu/ops/pallas/gru_kernel.py:82",
     ),
 }
 
@@ -230,14 +270,17 @@ def _attention_inputs(g, B, T, D, H, lengths, bias: bool, dt):
 
 def _sdpa_yardstick(q, k, v, H, key_mask, gate, pos_bias, ref):
     """``scaled_dot_product_attention`` with the additive float mask
-    gate * bias + key mask, which computes K1's function: its median ms
+    gate * bias + key mask (the key mask alone without a bias), which
+    computes K1's function: its median ms
     (mask built outside the timing) and its max-abs gap to the plain version."""
     import torch.nn.functional as F
 
     B, T, D = q.shape
     heads = [t.view(B, T, H, D // H).transpose(1, 2) for t in (q, k, v)]
-    masked = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))
-    attn_mask = (gate[..., None] * pos_bias[None] + masked[:, None, None, :]).to(q.dtype)
+    attn_mask = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))[:, None, None, :]
+    if pos_bias is not None:
+        attn_mask = gate[..., None] * pos_bias[None] + attn_mask
+    attn_mask = attn_mask.to(q.dtype)
     out = F.scaled_dot_product_attention(*heads, attn_mask=attn_mask).transpose(1, 2).reshape(B, T, D)
     return median_ms(lambda: F.scaled_dot_product_attention(*heads, attn_mask=attn_mask)), max_abs(out, ref)
 
@@ -286,6 +329,35 @@ def check_attention(g, results) -> None:
                 require(err <= 1e-4, f"K1 variant f32 max_abs {err} > 1e-4")
             else:
                 require(cos >= 0.999, f"K1 variant bf16 cosine {cos} < 0.999")
+    # HuBERT-XL (hd 80) and XLS-R-2B (hd 120) layers: B=16, T=499, ragged key
+    # mask, no bias (standard attention)
+    lengths16 = lengths + [499, 470, 402, 380, 310, 222, 160, 90]
+    for D in (1280, 1920):
+        for dt in (torch.float32, torch.bfloat16):
+            args, kw = _attention_inputs(g, 16, 499, D, 16, lengths16, False, dt)
+            out = k_attn.attention_btd(*args, **kw)
+            ref = k_attn.attention_btd_plain(*args, **kw)
+            err, cos = max_abs(out, ref), cosine(out, ref)
+            ms = median_ms(lambda: k_attn.attention_btd(*args, **kw))
+            plain_ms = median_ms(lambda: k_attn.attention_btd_plain(*args, **kw))
+            library_ms, lib_err = _sdpa_yardstick(*args, **kw, ref=ref)
+            q, _, _, H = args
+            B, T, _ = q.shape
+            nbytes = q.element_size() * 4 * q.numel() + 4 * kw["key_mask"].numel()
+            flops = 4 * T * D * sum(lengths16) + 8 * H * T * sum(lengths16)
+            bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+            name = f"hd{D // 16}_" + ("f32" if dt == torch.float32 else "bf16")
+            log(f"[parity] K1 attention_btd B16 T499 D{D} H16 (hd {D // 16}) mask {name}: max_abs {err:.3e} "
+                f"cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA with float mask "
+                f"{library_ms:.3f} ms (vs plain max_abs {lib_err:.3e}); bound {bound_ms:.4f} ms ({bound_by})")
+            if dt == torch.float32:
+                require(err <= 1e-4 * float(ref.abs().max()), f"K1 {name} max_abs {err} > 1e-4 x max|ref|")
+            else:
+                require(cos >= 0.999, f"K1 {name} cosine {cos} < 0.999")
+            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+            del args, kw, out, ref
+            torch.cuda.empty_cache()
     results["attention_btd"] = main
 
 
@@ -375,37 +447,191 @@ def check_attention_bhtd(g, results) -> None:
             torch.cuda.empty_cache()
 
 
-def check_conv_frontend(g, results) -> None:
+FRONTEND_KERNELS, FRONTEND_STRIDES = (10, 3, 3, 3, 3, 2, 2), (5, 2, 2, 2, 2, 2, 2)
+
+
+def _frontend_layers(g, depth: int) -> list:
+    """Seeded parameters of the layer-norm frontend's first ``depth`` layers
+    (conv0: 1 -> 512, k=10, s=5; then 512 -> 512)."""
     dev = "cuda"
-    wav = torch.randn(8, 160000, generator=g, device=dev)
-    w = torch.randn(512, 1, 10, generator=g, device=dev) / 10 ** 0.5
-    b = 0.1 * torch.randn(512, generator=g, device=dev)
-    lw = 1.0 + 0.1 * torch.randn(512, generator=g, device=dev)
-    lb = 0.1 * torch.randn(512, generator=g, device=dev)
-    main = {}
-    for dt in (torch.float32, torch.bfloat16):
-        for approx in (False, True):
-            args = (wav, w, b, lw, lb, 5, dt, approx, 1e-5)
+    layers = []
+    for i in range(depth):
+        c_in, k = (1 if i == 0 else 512), FRONTEND_KERNELS[i]
+        layers.append(k_conv.FrontendLayer(
+            torch.randn(512, c_in, k, generator=g, device=dev) / (c_in * k) ** 0.5,
+            0.1 * torch.randn(512, generator=g, device=dev), 1.0 + 0.1 * torch.randn(512, generator=g, device=dev),
+            0.1 * torch.randn(512, generator=g, device=dev), FRONTEND_STRIDES[i]))
+    return layers
+
+
+def check_conv_frontend(g, results) -> None:
+    """K2 on wav [8, 160000] (10 s) at depths 1-7: depth 1 in f32 and bf16,
+    each with the erf and the tanh GELU; depths 2-7 in f32 (erf) and bf16
+    (tanh), as the encoders run them. Depth 1 is the layer-0 kernel's case
+    (``conv_frontend``), depths 2-7 the later-layer kernel's
+    (``conv_frontend_layer``). Bars: f32 max-abs <= 1e-4 at depth 1 and
+    <= 1e-4 x max|ref| at depths 2-7, bf16 cosine >= 0.999. No one library call computes conv + LayerNorm +
+    GELU, so there is no yardstick; at depths >= 2 the default route for
+    the same layers (K2 at depth 1, then cuDNN convs in the compute dtype
+    with f32 LayerNorms, as ``ConvFeatureExtractor`` runs them) is timed
+    beside it as ``route_ms``."""
+    import torch.nn.functional as F
+
+    def default_route(wav, layers, dt, approx, eps):
+        x = k_conv.conv_frontend(wav, layers[:1], dt, approx, eps)
+        for layer in layers[1:]:
+            y = F.conv1d(x.transpose(1, 2), layer.weight.to(dt), layer.bias.to(dt), stride=layer.stride)
+            y = F.layer_norm(y.transpose(1, 2).float(), (512,), layer.ln_weight, layer.ln_bias, eps)
+            x = F.gelu(y.to(dt), approximate="tanh" if approx else "none")
+        return x
+
+    wav = torch.randn(8, 160000, generator=g, device="cuda")
+    all_layers = _frontend_layers(g, 7)
+    main, later = {}, {}
+    for depth in range(1, 8):
+        layers = all_layers[:depth]
+        variants = ([(torch.float32, False), (torch.float32, True), (torch.bfloat16, False), (torch.bfloat16, True)]
+                    if depth == 1 else [(torch.float32, False), (torch.bfloat16, True)])
+        for dt, approx in variants:
+            args = (wav, layers, dt, approx, 1e-5)
             out = k_conv.conv_frontend(*args)
             ref = k_conv.conv_frontend_plain(*args)
-            require(tuple(out.shape) == (8, 31999, 512), f"K2 output shape {tuple(out.shape)}")
             err, cos = max_abs(out, ref), cosine(out, ref)
             ms = median_ms(lambda: k_conv.conv_frontend(*args))
             plain_ms = median_ms(lambda: k_conv.conv_frontend_plain(*args))
-            name = ("f32" if dt == torch.float32 else "bf16") + ("_tanh" if approx else "_erf")
-            # conv (2 x 10 per output) + bias, LayerNorm and GELU (~30 per output)
-            nbytes = 4 * (wav.numel() + w.numel() + 3 * 512) + out.element_size() * out.numel()
-            bound_ms, bound_by = roofline_ms(nbytes, out.numel() * (2 * 10 + 30), PEAK_F32)
-            log(f"[parity] K2 conv_frontend wav[8,160000] -> [8,31999,512] {name}: "
-                f"max_abs {err:.3e} cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+            # conv products + bias, LayerNorm and GELU (~30 operations per output) for every layer
+            t, mm_flops, ew_flops, c_in = wav.shape[1], 0.0, 0.0, 1
+            for layer in layers:
+                k = layer.weight.shape[2]
+                t = (t - k) // layer.stride + 1
+                mm_flops += 2 * 8 * t * 512 * c_in * k
+                ew_flops += 30 * 8 * t * 512
+                c_in = 512
+            peak = PEAK_F32 if dt == torch.float32 else PEAK_BF16  # bf16 products: the input and weights are rounded
+            nbytes = 4 * (wav.numel() + sum(layer.weight.numel() + 3 * 512 for layer in layers)) \
+                + out.element_size() * out.numel()
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, (mm_flops / peak + ew_flops / PEAK_F32) * 1e3
+            bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+            dname = ("f32" if dt == torch.float32 else "bf16")
+            name = dname + ("_tanh" if approx else "_erf") if depth == 1 else f"depth{depth}_{dname}"
+            route = ""
+            if depth > 1:
+                route_ms = median_ms(lambda: default_route(*args))
+                route = f", the default route (K2 depth 1 + cuDNN) {route_ms:.3f} ms"
+            log(f"[parity] K2 conv_frontend depth {depth} wav[8,160000] -> {list(out.shape)} {name}: "
+                f"max_abs {err:.3e} cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{route}; "
                 f"bound {bound_ms:.4f} ms ({bound_by}); no single library call does conv+LN+GELU")
-            if dt == torch.float32:
+            if dt == torch.float32 and depth == 1:
                 require(err <= 1e-4, f"K2 {name} max_abs {err} > 1e-4")
+            elif dt == torch.float32:
+                require(err <= 1e-4 * float(ref.abs().max()), f"K2 {name} max_abs {err} > 1e-4 x max|ref|")
             else:
                 require(cos >= 0.999, f"K2 {name} cosine {cos} < 0.999")
-            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=None,
+            case = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bound_ms, bound_by=bound_by)
+            if depth > 1:
+                case["route_ms"] = route_ms
+            (main if depth == 1 else later)[name] = case
+            del out, ref
+        torch.cuda.empty_cache()
+    results["conv_frontend"], results["conv_frontend_layer"] = main, later
+
+
+def _ffn_inputs(g, M: int, K: int, Fd: int, dt):
+    dev = "cuda"
+    x = torch.randn(M, K, generator=g, device=dev).to(dt)
+    w_up = torch.randn(Fd, K, generator=g, device=dev) / K ** 0.5
+    b_up = 0.1 * torch.randn(Fd, generator=g, device=dev)
+    w_down = torch.randn(K, Fd, generator=g, device=dev) / Fd ** 0.5
+    b_down = 0.1 * torch.randn(K, generator=g, device=dev)
+    return x, w_up, b_up, w_down, b_down
+
+
+def check_ffn_fused(g, results) -> None:
+    """K5 at the WavLM-large layer (M = 32 x 499 frames, 1024 -> 4096 ->
+    1024) and the XLS-R-2B one (M = 16 x 499, 1920 -> 7680 -> 1920), f32
+    with the erf GELU and bf16 with the tanh form (as the encoders run
+    them). Bars: f32 max-abs <= 1e-4 x max|ref|, bf16 cosine >= 0.999.
+    Yardstick: two ``F.linear`` (cuBLAS) around ``F.gelu`` in the compute
+    dtype, the intermediate written to device memory."""
+    import torch.nn.functional as F
+
+    main = {}
+    for shape, (M, K, Fd) in (("xlsr_2b", (16 * 499, 1920, 7680)), ("wavlm", (32 * 499, 1024, 4096))):
+        for dt, approx in ((torch.float32, False), (torch.bfloat16, True)):
+            x, w_up, b_up, w_down, b_down = _ffn_inputs(g, M, K, Fd, dt)
+            args = (x, w_up, b_up, w_down, b_down, approx)
+            out = k_ffn.ffn_fused(*args)
+            ref = k_ffn.ffn_fused_plain(*args)
+            err, cos = max_abs(out, ref), cosine(out, ref)
+            again = torch.equal(out, k_ffn.ffn_fused(*args))
+            ms = median_ms(lambda: k_ffn.ffn_fused(*args))
+            plain_ms = median_ms(lambda: k_ffn.ffn_fused_plain(*args))
+            wu, wd, bu, bd = w_up.to(dt), w_down.to(dt), b_up.to(dt), b_down.to(dt)
+            gelu = "tanh" if approx else "none"
+            library_ms = median_ms(lambda: F.linear(F.gelu(F.linear(x, wu, bu), approximate=gelu), wd, bd))
+            lib_cos = cosine(F.linear(F.gelu(F.linear(x, wu, bu), approximate=gelu), wd, bd), ref)
+            item = x.element_size()
+            nbytes = item * (x.numel() + w_up.numel() + w_down.numel() + out.numel()) + 4 * (Fd + K)
+            bound_ms, bound_by = roofline_ms(nbytes, 2 * M * Fd * 2 * K, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+            name = ("f32" if dt == torch.float32 else "bf16") if shape == "xlsr_2b" else \
+                f"{shape}_" + ("f32" if dt == torch.float32 else "bf16")
+            log(f"[parity] K5 ffn_fused {shape} M{M} {K}->{Fd}->{K} {name}: max_abs {err:.3e} "
+                f"(max|ref| {float(ref.abs().max()):.3f}) cos {cos:.7f}; bit-identical rerun {again}; kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, two F.linear + F.gelu {library_ms:.3f} ms (cos vs plain "
+                f"{lib_cos:.7f}); bound {bound_ms:.4f} ms ({bound_by})")
+            if dt == torch.float32:
+                require(err <= 1e-4 * float(ref.abs().max()), f"K5 {name} max_abs {err} > 1e-4 x max|ref|")
+            else:
+                require(cos >= 0.999, f"K5 {name} cosine {cos} < 0.999")
+            require(again, f"K5 {name} gave different bits on a rerun")
+            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
-    results["conv_frontend"] = main
+            del x, w_up, w_down, out, ref, wu, wd
+            torch.cuda.empty_cache()
+    results["ffn_fused"] = main
+
+
+def check_pos_conv(g, results) -> None:
+    """K8, the grouped positional conv (K = 128 taps, 16 groups, T = 499
+    frames -> 500), at XLS-R-2B (C = 120 channels a group, B = 16),
+    WavLM-large (C = 64, B = 32) and the base encoders (C = 48, B = 32), f32
+    and bf16. Bars: f32 max-abs <= 1e-4 x max|ref|, bf16 cosine >= 0.999.
+    Yardstick: cuDNN ``F.conv1d(groups=16)`` in the compute dtype on [B, D, T]."""
+    import torch.nn.functional as F
+
+    main = {}
+    for shape, (B, C) in (("xlsr_2b", (16, 120)), ("wavlm", (32, 64)), ("base", (32, 48))):
+        D, T, K = 16 * C, 499, 128
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(B, T, D, generator=g, device="cuda").to(dt)
+            w = torch.randn(D, C, K, generator=g, device="cuda") / (C * K) ** 0.5
+            out = k_pos.pos_conv(x, w, 16)
+            ref = k_pos.pos_conv_plain(x, w, 16)
+            err, cos = max_abs(out, ref), cosine(out, ref)
+            ms = median_ms(lambda: k_pos.pos_conv(x, w, 16))
+            plain_ms = median_ms(lambda: k_pos.pos_conv_plain(x, w, 16))
+            xt, wt = x.transpose(1, 2).contiguous(), w.to(dt)
+            library_ms = median_ms(lambda: F.conv1d(xt, wt, padding=K // 2, groups=16))
+            lib_cos = cosine(F.conv1d(xt, wt, padding=K // 2, groups=16).transpose(1, 2), ref)
+            nbytes = x.element_size() * (x.numel() + w.numel() + out.numel())
+            flops = 2 * B * (T + 1) * D * K * C
+            bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+            dname = "f32" if dt == torch.float32 else "bf16"
+            name = dname if shape == "xlsr_2b" else f"{shape}_{dname}"
+            log(f"[parity] K8 pos_conv {shape} B{B} T{T} D{D} C{C} K{K} {dname}: max_abs {err:.3e} "
+                f"(max|ref| {float(ref.abs().max()):.3f}) cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"cuDNN F.conv1d(groups=16) {library_ms:.3f} ms (cos vs plain {lib_cos:.7f}); "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            if dt == torch.float32:
+                require(err <= 1e-4 * float(ref.abs().max()), f"K8 {name} max_abs {err} > 1e-4 x max|ref|")
+            else:
+                require(cos >= 0.999, f"K8 {name} cosine {cos} < 0.999")
+            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+            del x, xt, out, ref
+            torch.cuda.empty_cache()
+    results["pos_conv"] = main
 
 
 def _gru_inputs(g, B: int, T: int, H: int):
@@ -477,6 +703,64 @@ def check_gru(g, results) -> None:
     require(lib_err <= 1e-3, f"cuDNN GRU yardstick differs from K3 by {lib_err}: not the same function")
     results["gru_bidir"] = {"f32": dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms,
                                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
+
+
+def check_gru_sequence(g, results) -> None:
+    """K9, one direction of the masked GRU, forward and reverse, at B=64,
+    T=512, H=512 with ragged prefix masks. Bar: f32 max-abs <= 1e-5 (the
+    outputs lie in [-1, 1]). Yardstick: one cuDNN unidirectional
+    ``nn.GRU(3H -> H)`` with an identity input projection, packed by
+    lengths; for the reverse case each row's valid prefix is reversed
+    before it (outside the timing), which is what K9's reverse order does
+    with a prefix mask."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    B, T, H = 64, 512, 512
+    dev = "cuda"
+    bound = H ** -0.5
+    x_proj = 0.5 * torch.randn(B, T, 3 * H, generator=g, device=dev)
+    w_hh = (torch.rand(H, 3 * H, generator=g, device=dev) * 2 - 1) * bound
+    b_hh = (torch.rand(3 * H, generator=g, device=dev) * 2 - 1) * bound
+    lengths = torch.randint(150, T + 1, (B,), generator=g, device=dev)
+    lengths[0] = T
+    steps = torch.arange(T, device=dev)[None]
+    mask = (steps < lengths[:, None]).float()
+    # row b's valid prefix reversed: position i holds step len_b - 1 - i
+    rev = torch.where(steps < lengths[:, None], lengths[:, None] - 1 - steps, steps)
+    gru = torch.nn.GRU(3 * H, H, batch_first=True).cuda()
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.eye(3 * H, device=dev))
+        gru.bias_ih_l0.zero_()
+        gru.weight_hh_l0.copy_(w_hh.t())
+        gru.bias_hh_l0.copy_(b_hh)
+    main = {}
+    with torch.no_grad():
+        for reverse in (False, True):
+            args = (x_proj, w_hh, b_hh, mask, reverse)
+            out = k_gru.gru_sequence(*args)
+            ref = k_gru.gru_sequence_plain(*args)
+            err, cos = max_abs(out, ref), cosine(out, ref)
+            ms = median_ms(lambda: k_gru.gru_sequence(*args))
+            plain_ms = median_ms(lambda: k_gru.gru_sequence_plain(*args))
+            xin = torch.gather(x_proj, 1, rev[:, :, None].expand(-1, -1, 3 * H)) if reverse else x_proj
+            packed = pack_padded_sequence(xin, lengths.cpu(), batch_first=True, enforce_sorted=False)
+            lib = _unpack(gru(packed)[0], T)
+            if reverse:
+                lib = torch.gather(lib, 1, rev[:, :, None].expand(-1, -1, H))
+            lib_err = max_abs(lib, out)
+            library_ms = median_ms(lambda: gru(packed))
+            valid = float(mask.sum())
+            nbytes = 4 * (x_proj.numel() + w_hh.numel() + b_hh.numel() + mask.numel() + out.numel())
+            bound_ms, bound_by = roofline_ms(nbytes, valid * (6 * H * H + 12 * H), PEAK_F32)
+            name = "reverse_f32" if reverse else "f32"
+            log(f"[parity] K9 gru_sequence x_proj[64,512,1536] H512 ragged {name}: max_abs {err:.3e} cos "
+                f"{cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN nn.GRU {library_ms:.3f} ms "
+                f"(incl. identity input projection; vs K9 max_abs {lib_err:.3e}); bound {bound_ms:.3f} ms ({bound_by})")
+            require(err <= 1e-5, f"K9 {name} max_abs {err} > 1e-5")
+            require(lib_err <= 1e-3, f"cuDNN GRU yardstick differs from K9 by {lib_err}: not the same function")
+            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    results["gru_sequence"] = main
 
 
 def check_gru_bwd(g, results) -> None:
@@ -634,23 +918,29 @@ def write_wavs(wav_dir: str, n: int, seconds, seed: int, prefix: str = "utt") ->
     return lengths
 
 
-def write_wavlm_large(model_dir: str) -> None:
-    """Seeded random-init WavLM-large as an HF directory (the port's own
+def write_speech_model(model_dir: str, cfg, architecture: str, do_normalize: bool = True) -> None:
+    """A seeded random-init speech encoder as an HF directory (the port's own
     HF key names; no transformers on the card's machine)."""
-    from interspeech_ser_tpu_torch.models.speech import SpeechEncoderModel, wavlm_large
+    from interspeech_ser_tpu_torch.models.speech import SpeechEncoderModel
 
-    cfg = wavlm_large()
     torch.manual_seed(SEED)
     with torch.device(DEVICE):
         model = SpeechEncoderModel(cfg)
     os.makedirs(model_dir, exist_ok=True)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump({**cfg.to_hf(), "architectures": ["WavLMModel"]}, f, indent=1)
+        json.dump({**cfg.to_hf(), "architectures": [architecture]}, f, indent=1)
     with open(os.path.join(model_dir, "preprocessor_config.json"), "w") as f:
-        json.dump({"do_normalize": True, "sampling_rate": 16000}, f)
+        json.dump({"do_normalize": do_normalize, "sampling_rate": 16000}, f)
     torch.save({k: v.cpu() for k, v in model.state_dict().items()},
                os.path.join(model_dir, "pytorch_model.bin"))
     del model
+
+
+def write_wavlm_large(model_dir: str) -> None:
+    """Seeded random-init WavLM-large as an HF directory."""
+    from interspeech_ser_tpu_torch.models.speech import wavlm_large
+
+    write_speech_model(model_dir, wavlm_large(), "WavLMModel")
 
 
 def counts() -> dict:
@@ -1547,6 +1837,237 @@ def profile_text(model_dir: str, names: list, texts: list, tmp: str, smi: str) -
     return out
 
 
+# -- phase 9: the speech-encoder zoo -------------------------------------------
+
+# XLS-R-2B at full width cut to ``xlsr_layers`` layers through the CLI, then at
+# full depth from the seed; HuBERT-XL at full width cut to ``hubert_layers``;
+# the wavlm-base-plus shape whole. ``n_wavs`` seeded wavs of ``seconds`` for
+# the CLI runs, ``full_wavs`` of ``full_seconds`` for the full-depth run.
+ZOO_SHAPE = dict(xlsr_layers=8, hubert_layers=2, n_wavs=8, seconds=(3.0, 12.0), full_wavs=16, full_seconds=10.0)
+
+
+def wavlm_base_plus(dtype: str = "float32"):
+    """``microsoft/wavlm-base-plus``'s shape (``lora_cli``'s default
+    ``--ssl_type``): D=768, 12 layers, 12 heads, FFN 3072, a group-norm
+    frontend without conv biases, a post-LN stack, WavLM's gated bias."""
+    from interspeech_ser_tpu_torch.models.speech import SpeechConfig
+
+    return SpeechConfig(attention_type="wavlm", dtype=dtype)
+
+
+def _speech_cli(model_dir: str, wav_dir: str, save: str, dtype: str, env=None):
+    """One ``preprocess_cli speech`` run -> (stats, launch deltas)."""
+    from interspeech_ser_tpu_torch.preprocess_cli import speech_main
+
+    before = counts()
+    os.environ.update(env or {})
+    try:
+        stats = speech_main(["--ssl_type", model_dir, "--wav_dir", wav_dir, "--save_path", save,
+                             "--dtype", dtype, "--device", DEVICE])
+    finally:
+        for key in env or {}:
+            os.environ.pop(key, None)
+    sync()
+    return stats, {k: v - before[k] for k, v in counts().items()}
+
+
+def _plain_pipeline_run(model_dir: str, wav_dir: str, save: str) -> None:
+    """The extraction pipeline in f32 with every kernel swapped for its plain
+    version (the model's ``plain=True``), on the same batches as the CLI, so
+    that a group-norm frontend sees the same padding."""
+    import functools
+
+    from interspeech_ser_tpu_torch.extract.pipeline import SpeechExtractionPipeline
+    from interspeech_ser_tpu_torch.models.loader import build_speech_encoder
+
+    set_tf32(False)
+    model, cfg, do_norm = build_speech_encoder(model_dir)
+    pipe = SpeechExtractionPipeline(model, cfg, do_normalize=do_norm, num_workers=4, device=DEVICE)
+    pipe.model.forward = functools.partial(pipe.model.forward, plain=True)
+    before = counts()
+    pipe.run(wav_dir, save)
+    sync()
+    require(counts() == before, f"the plain run launched kernels: {before} -> {counts()}")
+    del pipe, model
+
+
+def _compare_dirs(got_dir: str, ref_dir: str, stems) -> tuple:
+    """-> (min cosine, max max-abs) of the ``.pt`` files of ``stems``."""
+    cos, err = 1.0, 0.0
+    for stem in stems:
+        a, b = (torch.load(os.path.join(d, f"{stem}.pt"), weights_only=True) for d in (got_dir, ref_dir))
+        cos, err = min(cos, cosine(a, b)), max(err, max_abs(a, b))
+    return cos, err
+
+
+def _zoo_cli_runs(tmp: str, name: str, cfg, model_dir: str, wav_dir: str, lengths: dict, dtypes, smi: str,
+                  frontend: int) -> dict:
+    """``preprocess_cli speech`` over the zoo wavs in each of ``dtypes`` (cold
+    then warm for a model cut in depth, once otherwise): shapes, finiteness,
+    K1 = layers x batches, K8 = batches, K2 = batches when ``frontend``
+    (layer 0 only), K5 = 0; then utt0 of the f32 run against the plain pipeline."""
+    from interspeech_ser_tpu_torch.models.speech import feat_extract_output_length
+
+    frames = lambda n: feat_extract_output_length(n, cfg)  # noqa: E731
+    rates = {}
+    for dtype, rep in dtypes:
+        save = os.path.join(tmp, f"zoo_{name}_{dtype}_{rep}")
+        stats, delta = _speech_cli(model_dir, wav_dir, save, dtype)
+        nb = stats.n_batches
+        require(stats.n_utts == len(lengths) and stats.n_failed == 0, f"{name} {dtype} {rep}: {stats}")
+        want = {"attention_btd": cfg.num_layers * nb, "pos_conv": nb, "conv_frontend": nb if frontend else 0,
+                "conv_frontend_layer": 0, "ffn_fused": 0}
+        require({k: delta[k] for k in want} == want, f"{name} {dtype} {rep}: launches {delta}, want {want}")
+        check_features(save, lengths, frames, cfg.hidden_size, f"{name} {dtype} {rep}")
+        rates[f"{dtype}_{rep}"] = stats.utts_per_sec
+        log(f"[zoo] {name} {dtype} {rep}: {stats.n_utts} utts, {nb} batches, {stats.audio_seconds:.1f} audio-s in "
+            f"{stats.wall_seconds:.2f} s = {stats.utts_per_sec:.2f} utt/s ({smi}); launches {delta}")
+    plain = os.path.join(tmp, f"zoo_{name}_plain")
+    _plain_pipeline_run(model_dir, wav_dir, plain)
+    last = dtypes[-1][1]  # the warm run where there are two
+    for dtype, bar in (("float32", 0.999), ("bfloat16", None)):
+        if (dtype, last) in dtypes:
+            cos, err = _compare_dirs(os.path.join(tmp, f"zoo_{name}_{dtype}_{last}"), plain, ["zoo0"])
+            log(f"[zoo] {name} utt0 {dtype} .pt vs the plain f32 pipeline on the card: cos {cos:.7f} "
+                f"max_abs {err:.3e}")
+            if bar is not None:
+                require(cos >= bar, f"{name} utt0 {dtype} cosine {cos} < {bar}")
+    return {"utt_per_sec": rates}
+
+
+def profile_xlsr_full_depth(tmp: str, smi: str) -> dict:
+    """XLS-R-2B at full width and depth (48 layers), built on the card from
+    the seed, bf16: one warm ``SpeechExtractionPipeline.run`` over 16 seeded
+    10-s wavs (one 160-s batch) timed, peak device memory, and a profile of
+    another: device busy, the kernels' shares, the top device ops."""
+    from interspeech_ser_tpu_torch.extract.pipeline import SpeechExtractionPipeline
+    from interspeech_ser_tpu_torch.models.speech import SpeechEncoderModel, wav2vec2_xlsr_2b
+    from interspeech_ser_tpu_torch.preprocess_cli import set_precision
+
+    shape = ZOO_SHAPE
+    wav_dir = os.path.join(tmp, "zoo_wavs_10s")
+    write_wavs(wav_dir, shape["full_wavs"], (shape["full_seconds"],) * 2, SEED + 8)
+    cfg = wav2vec2_xlsr_2b("bfloat16")
+    set_precision("bfloat16")
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        model = SpeechEncoderModel(wav2vec2_xlsr_2b())
+    pipe = SpeechExtractionPipeline(model, cfg, num_workers=4, device=DEVICE)
+    del model
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    log(f"[zoo] XLS-R-2B full depth ({cfg.num_layers} layers, D={cfg.hidden_size}, {n_params / 1e9:.3f} B "
+        f"parameters) built on the card in bf16 in {time.perf_counter() - t0:.1f} s")
+    pipe.run(wav_dir, os.path.join(tmp, "zoo_full_warmup"))
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    stats = pipe.run(wav_dir, os.path.join(tmp, "zoo_full"))
+    sync()
+    delta = {k: v - before[k] for k, v in counts().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else float("nan")
+    require(stats.n_utts == shape["full_wavs"] and stats.n_batches == 1, f"XLS-R-2B full depth: {stats}")
+    require(delta["attention_btd"] == cfg.num_layers and delta["pos_conv"] == 1, f"full depth launches {delta}")
+    out = {"utt_per_sec": stats.utts_per_sec, "wall_s": stats.wall_seconds, "peak_gb": peak_gb}
+    log(f"[zoo] XLS-R-2B full depth bf16: {stats.n_utts} x {shape['full_seconds']:.0f}-s utts in one batch, "
+        f"{stats.wall_seconds:.3f} s = {stats.utts_per_sec:.2f} utt/s; peak device memory {peak_gb:.2f} GB ({smi}); "
+        f"launches {delta}")
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe.run(wav_dir, os.path.join(tmp, "zoo_full_profile"))
+            sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+        def share(*names):
+            return sum(e.self_device_time_total for e in kernels if any(n in e.key for n in names)) / 1e3
+
+        parts = {"K1": share("attention_btd_kernel"), "K8": share("pos_conv"),
+                 "K2": share("conv_frontend_kernel", "conv_layer_kernel"),
+                 "GEMMs": sum(e.self_device_time_total for e in kernels
+                              if any(n in e.key.lower() for n in ("gemm", "nvjet", "cutlass", "sm90_xmma"))) / 1e3}
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        out["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "parts_ms": parts,
+                          "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+        log(f"[zoo] profile of one warm full-depth run: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%); "
+            + ", ".join(f"{k} {v:.1f} ms = {100 * v / busy_ms:.1f}%" for k, v in parts.items()))
+        for name, ms, n in out["profile"]["top"]:
+            log(f"[zoo]   {ms:9.3f} ms  x{n:<4d} {name}")
+        for e in kernels:  # every conv kernel, whatever its share, to check the parts' name matching
+            if "conv" in e.key.lower():
+                log(f"[zoo]   conv kernel {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    set_tf32(False)
+    del pipe
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo(tmp: str, smi: str) -> dict:
+    """The zoo: XLS-R-2B (hd 120, C = 120 channels a pos-conv group) at full
+    width cut to 8 layers through ``preprocess_cli speech`` in bf16 and f32,
+    cold then warm, then bf16 under SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3
+    (K5 = layers x batches, K2 at depth 3, files within cosine 0.999 of the
+    default run); XLS-R-2B at full depth (``profile_xlsr_full_depth``);
+    HuBERT-XL (hd 80) at full width cut to 2 layers in f32; the
+    wavlm-base-plus shape (group norm, post-LN: no K2) whole, in bf16 and
+    f32, then ``lora_cli`` over it for 1 epoch with ft_lora's defaults."""
+    from interspeech_ser_tpu_torch.models.speech import hubert_xlarge, wav2vec2_xlsr_2b
+
+    shape = ZOO_SHAPE
+    wav_dir = os.path.join(tmp, "zoo_wavs")
+    lengths = write_wavs(wav_dir, shape["n_wavs"], shape["seconds"], SEED + 7, prefix="zoo")
+    out = {}
+    both = (("bfloat16", "cold"), ("bfloat16", "warm"), ("float32", "cold"), ("float32", "warm"))
+
+    xcfg = dataclasses.replace(wav2vec2_xlsr_2b(), num_layers=shape["xlsr_layers"])
+    xdir = os.path.join(tmp, "wav2vec2-xls-r-2b")
+    t0 = time.perf_counter()
+    write_speech_model(xdir, xcfg, "Wav2Vec2Model")
+    log(f"[zoo] wrote seeded random-init XLS-R-2B at full width ({xcfg.num_layers} layers, D={xcfg.hidden_size}, "
+        f"H={xcfg.num_heads}, FFN {xcfg.intermediate_size}) in {time.perf_counter() - t0:.1f} s")
+    out["xlsr_2b"] = _zoo_cli_runs(tmp, "xlsr_2b", xcfg, xdir, wav_dir, lengths, both, smi, frontend=1)
+    save = os.path.join(tmp, "zoo_xlsr_2b_k5")
+    stats, delta = _speech_cli(xdir, wav_dir, save, "bfloat16", {"SER_TPU_FFN_KERNEL": "1", "SER_TPU_FRONTEND": "3"})
+    nb = stats.n_batches
+    want = {"ffn_fused": xcfg.num_layers * nb, "conv_frontend": nb, "conv_frontend_layer": 2 * nb, "pos_conv": nb}
+    require({k: delta[k] for k in want} == want, f"xlsr_2b K5 run: launches {delta}, want {want}")
+    cos, err = _compare_dirs(save, os.path.join(tmp, "zoo_xlsr_2b_bfloat16_warm"), lengths)
+    log(f"[zoo] xlsr_2b bf16 under SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3: {stats.utts_per_sec:.2f} utt/s, "
+        f"launches {delta}; files vs the default bf16 run: min cos {cos:.7f} max_abs {err:.3e}")
+    require(cos >= 0.999, f"K5 + K2 depth 3 run: cosine {cos} < 0.999 against the default run")
+    out["xlsr_2b"].update(k5_utt_per_sec=stats.utts_per_sec, k5_min_cos=cos)
+    shutil.rmtree(xdir)  # 1.6 GB of weights
+
+    out["xlsr_2b_full"] = profile_xlsr_full_depth(tmp, smi)
+
+    hcfg = dataclasses.replace(hubert_xlarge(), num_layers=shape["hubert_layers"])
+    hdir = os.path.join(tmp, "hubert-xlarge")
+    write_speech_model(hdir, hcfg, "HubertModel")
+    out["hubert_xl"] = _zoo_cli_runs(tmp, "hubert_xl", hcfg, hdir, wav_dir, lengths, (("float32", "once"),), smi,
+                                     frontend=1)
+
+    bcfg = wavlm_base_plus()
+    bdir = os.path.join(tmp, "wavlm-base-plus")
+    write_speech_model(bdir, bcfg, "WavLMModel", do_normalize=False)
+    out["wavlm_base_plus"] = _zoo_cli_runs(tmp, "wavlm_base_plus", bcfg, bdir, wav_dir, lengths,
+                                           (("bfloat16", "once"), ("float32", "once")), smi, frontend=0)
+    label_path = os.path.join(tmp, "lora_labels.csv")
+    if not os.path.exists(label_path):
+        label_path = write_lora_corpus(tmp)
+    out["wavlm_base_plus"]["lora_ckpt"] = fine_tune(tmp, bdir, label_path, bcfg.num_layers, "wavlm_base_plus")
+    return out
+
+
+T0 = time.perf_counter()
+
+
 def main() -> None:
     smi = phase_device()
     set_tf32(False)
@@ -1556,9 +2077,13 @@ def main() -> None:
     check_attention(g, parity)
     check_attention_bhtd(g, parity)
     check_conv_frontend(g, parity)
+    check_ffn_fused(g, parity)
+    check_pos_conv(g, parity)
     check_gru(g, parity)
+    check_gru_sequence(g, parity)
     check_gru_bwd(g, parity)
     check_attention_bwd(g, parity)
+    log(f"[parity] phase 3 done at {time.perf_counter() - T0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         zero_counts()
@@ -1597,8 +2122,16 @@ def main() -> None:
         for name in ("attention_bhtd", "flash_attention"):
             require(text_path[name] > 0, f"kernel {name} was not launched on the text path")
         log(f"[text path] launches {text_path}; texts/s {text_run['texts_per_sec']}")
-    by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path}
-    for path in ("serving", "training", "lora"):  # the speech and fusion paths never reach K6 / K7
+
+        zero_counts()
+        zoo = phase_zoo(tmp, smi)
+        zoo_path = counts()
+        for name in ("attention_btd", "attention_btd_bwd", "conv_frontend", "conv_frontend_layer", "ffn_fused",
+                     "pos_conv"):
+            require(zoo_path[name] > 0, f"kernel {name} was not launched on the zoo path")
+        log(f"[zoo path] launches {zoo_path}")
+    by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path}
+    for path in ("serving", "training", "lora", "zoo"):  # the speech and fusion paths never reach K6 / K7
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
@@ -1606,7 +2139,7 @@ def main() -> None:
     record = []
     for name, spec in KERNELS.items():
         cases = parity[name]
-        f32 = cases.get("f32") or cases["f32_erf"]
+        f32 = cases[spec["headline"]] if "headline" in spec else (cases.get("f32") or cases["f32_erf"])
         record.append({
             "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
             "launches": launches[name], "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
@@ -1614,13 +2147,14 @@ def main() -> None:
             "library_ms": f32["library_ms"],
             "launches_by_path": {path: c[name] for path, c in by_path.items()}, "cases": cases,
         })
+    log(f"[chip_smoke] {time.perf_counter() - T0:.1f} s")
     log(f"[train] median train-step ms {step['train_step_ms']:.3f} (batch 64, H=512, {smi})")
     log(f"[lora] Whisper-large-v3 LoRA step bf16 median {bf16['bf16_step_ms']:.3f} ms (batch 8, {smi})")
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
                              **bf16},
-                    "text": text_run}))
+                    "text": text_run, "zoo": zoo, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

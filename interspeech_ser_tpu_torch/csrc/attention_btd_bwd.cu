@@ -50,7 +50,8 @@
 
 namespace {
 
-constexpr int HD = 64;    // head dim (WavLM, HuBERT, w2v2, Whisper)
+constexpr int HD = 64;    // head dim: WavLM-large, the base encoders, Whisper (not HuBERT-XL's
+                          // 80 or XLS-R-2B's 120, which K1 serves and this kernel does not yet)
 constexpr int HH = HD / 2;  // each of a row's two threads owns one half of the head dim
 constexpr int SP = HD + 8;  // padded shared row: half 1 starts 4 words after half 0 ends
 constexpr int ROWS = 64;    // keys (key-major) or queries (query-major) per block

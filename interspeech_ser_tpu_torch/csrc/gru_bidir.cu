@@ -26,6 +26,16 @@
 // latency of the two block barriers per step. Several rows per block (one
 // w_hh read shared by a whole direction), clusters, or w_hh kept in
 // registers across a persistent grid are later work.
+//
+// K9: one direction of the same masked GRU, with a `reverse` flag.
+//
+// Replaces interspeech_ser_tpu/ops/pallas/gru_kernel.py (gru_sequence ->
+// _kernel). Rows are independent sequences; with reverse = 1 the step
+// order runs from T-1 down to 0, which is the TPU kernel's flip of the
+// inputs, forward run and flip of the outputs in one pass. The kernel
+// writes h * m for every step (0 at a masked step, where the carry is
+// frozen), as the TPU kernel does. It is K3's one-block-per-row recurrence
+// with w_hh shared by every row, and is bound the same way.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,6 +93,53 @@ __global__ void gru_bidir_kernel(const float* __restrict__ x_proj,  // [2B, T, 3
   }
 }
 
+
+__global__ void gru_sequence_kernel(const float* __restrict__ x_proj,  // [B, T, 3H]
+                                    const float* __restrict__ w_hh,    // [H, 3H]
+                                    const float* __restrict__ b_hh,    // [3H]
+                                    const float* __restrict__ mask,    // [B, T]
+                                    float* __restrict__ out,           // [B, T, H]
+                                    int T, int H, int reverse) {
+  extern __shared__ float h_s[];  // [H]
+  const int row = blockIdx.x;
+  const int H3 = 3 * H;
+  for (int j = threadIdx.x; j < H; j += blockDim.x) h_s[j] = 0.f;
+  __syncthreads();
+
+  for (int step = 0; step < T; ++step) {
+    const int t = reverse ? T - 1 - step : step;
+    const float m = mask[(size_t)row * T + t];
+    const float* xp = x_proj + ((size_t)row * T + t) * H3;
+    float* o = out + ((size_t)row * T + t) * H;
+    float h_next[4];  // at most 4 hidden units per thread (checked by the wrapper)
+    int n_own = 0;
+    for (int j = threadIdx.x; j < H; j += blockDim.x, ++n_own) {
+      float ar = b_hh[j], az = b_hh[H + j], an = b_hh[2 * H + j];
+#pragma unroll 4
+      for (int i = 0; i < H; ++i) {
+        const float hi = h_s[i];
+        const float* wr = w_hh + (size_t)i * H3;
+        ar = fmaf(hi, wr[j], ar);
+        az = fmaf(hi, wr[H + j], az);
+        an = fmaf(hi, wr[2 * H + j], an);
+      }
+      const float r = sigmoidf_(xp[j] + ar);
+      const float z = sigmoidf_(xp[H + j] + az);
+      const float n = tanhf(xp[2 * H + j] + r * an);
+      const float hp = h_s[j];
+      const float hn = (1.f - z) * n + z * hp;
+      h_next[n_own] = m * hn + (1.f - m) * hp;
+    }
+    __syncthreads();  // every thread has read h_s for this step
+    n_own = 0;
+    for (int j = threadIdx.x; j < H; j += blockDim.x, ++n_own) {
+      h_s[j] = h_next[n_own];
+      o[j] = h_next[n_own] * m;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int ser_gru_bidir_f32(const void* x_proj, const void* w_hh2, const void* b_hh2,
@@ -93,5 +150,15 @@ extern "C" int ser_gru_bidir_f32(const void* x_proj, const void* w_hh2, const vo
   gru_bidir_kernel<<<B2, threads, H * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)x_proj, (const float*)w_hh2, (const float*)b_hh2, (const float*)mask,
       (float*)out, B2 / 2, T, H);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ser_gru_sequence_f32(const void* x_proj, const void* w_hh, const void* b_hh,
+                                    const void* mask, void* out, int B, int T, int H, int reverse,
+                                    int threads, void* stream) {
+  if (threads < 32 || threads > 1024 || H > 4 * threads) return (int)cudaErrorInvalidValue;
+  gru_sequence_kernel<<<B, threads, H * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)x_proj, (const float*)w_hh, (const float*)b_hh, (const float*)mask,
+      (float*)out, T, H, reverse);
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,7 @@ Output contract: ``save_path/<utt>.pt``, a float32 [T_valid, D] tensor
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import math
 import os
 import time
@@ -43,7 +44,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.speech import feat_extract_output_length
+from ..models.speech import feat_extract_output_length, with_config
 from ..ops.mel import whisper_log_mel
 from ..utils import ptio
 from ..utils.audio import load_wav, normalize_waveform
@@ -142,7 +143,12 @@ def _drive(
 
 
 class SpeechExtractionPipeline:
-    """wav dir -> per-utterance SSL embeddings (WavLM-style encoders)."""
+    """wav dir -> per-utterance SSL embeddings (WavLM, wav2vec2, HuBERT).
+
+    Batches pad to whole seconds as in the JAX pipeline; a group-norm
+    frontend's statistics then take in the padded samples, as the JAX
+    package's do, so a batched utterance may differ from its batch-1 run
+    there (a layer-norm frontend normalises each frame on its own)."""
 
     def __init__(
         self,
@@ -157,6 +163,11 @@ class SpeechExtractionPipeline:
         device="cuda",  # "cpu" only when asked: no card raises
     ):
         self.device = resolve_device(device)
+        # extraction is inference only: the no-backward kernels (K8, and K5
+        # under SER_TPU_FFN_KERNEL=1) on a copy of the config, the same
+        # parameters, and K2's depth from default_fused_frontend
+        config = dataclasses.replace(config, inference_kernels=True)
+        model = with_config(model, config)
         # bf16 mode: cast the frozen parameters once (norms still compute in
         # f32 on the bf16 values)
         model = model.to(self.device)

@@ -5,7 +5,8 @@ nested dicts of numpy arrays and return the port's state dicts.
 
 - :func:`speech_params_from_flax` mirrors ``speech_flax_to_hf``
   (interspeech_ser_tpu/models/convert_hf.py) and yields HF key names, with
-  the positional conv kept as one plain (folded) ``weight``.
+  the positional conv kept as one plain (folded) ``weight``: layer-norm and
+  group-norm frontends, with or without conv biases.
 - :func:`whisper_params_from_flax` mirrors ``whisper_encoder_hf_to_flax``
   in reverse and yields HF Whisper-encoder key names.
 - :func:`roberta_params_from_flax` and :func:`deberta_v2_params_from_flax`
@@ -56,8 +57,12 @@ def speech_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
         sd[f"{base}.conv.weight"] = _unconv(g("feature_extractor", f"conv{i}", "kernel"))
         if config.conv_bias:
             sd[f"{base}.conv.bias"] = g("feature_extractor", f"conv{i}", "bias")
-        sd[f"{base}.layer_norm.weight"] = g("feature_extractor", f"conv_ln{i}", "scale")
-        sd[f"{base}.layer_norm.bias"] = g("feature_extractor", f"conv_ln{i}", "bias")
+        if config.feat_extract_norm == "layer":
+            sd[f"{base}.layer_norm.weight"] = g("feature_extractor", f"conv_ln{i}", "scale")
+            sd[f"{base}.layer_norm.bias"] = g("feature_extractor", f"conv_ln{i}", "bias")
+        elif i == 0:  # group mode: one GroupNorm, on layer 0 (named layer_norm in HF)
+            sd[f"{base}.layer_norm.weight"] = g("feature_extractor", "group_norm", "scale")
+            sd[f"{base}.layer_norm.bias"] = g("feature_extractor", "group_norm", "bias")
     sd["feature_projection.layer_norm.weight"] = g("fp_layer_norm", "scale")
     sd["feature_projection.layer_norm.bias"] = g("fp_layer_norm", "bias")
     sd["feature_projection.projection.weight"] = _t(g("fp_projection", "kernel"))

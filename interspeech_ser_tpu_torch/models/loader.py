@@ -112,7 +112,12 @@ def read_config(path_or_name: str) -> Dict:
 def build_speech_encoder(
     path_or_name: str, dtype: str = "float32"
 ) -> Tuple[SpeechEncoderModel, SpeechConfig, bool]:
-    """-> (model in f32 on the CPU, config, do_normalize)."""
+    """-> (model in f32 on the CPU, config, do_normalize). Takes a WavLM,
+    wav2vec2 or HuBERT directory, layer-norm (large / XL) or group-norm
+    (base) frontend, pre- or post-LN stack; keys under a ``wavlm.``,
+    ``wav2vec2.`` or ``hubert.`` prefix are kept with the prefix stripped,
+    ``masked_spec_embed`` (pre-training only) is dropped, and the load is
+    strict."""
     d = resolve_dir(path_or_name)
     cfg = SpeechConfig.from_hf(read_config(d), dtype=dtype)
     sd = _strip_prefix(load_hf_state_dict(d), ("wavlm.", "wav2vec2.", "hubert."))

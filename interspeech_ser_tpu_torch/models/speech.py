@@ -1,11 +1,15 @@
-"""WavLM-style speech SSL encoder (layer-norm frontend, stable-LN stack).
+"""Speech SSL encoders: WavLM, wav2vec2 (XLS-R) and HuBERT in one skeleton.
 
-Port of ``interspeech_ser_tpu/models/speech.py`` for the serving slice:
-WavLM-large and the other layer-norm, pre-LN checkpoints of that skeleton
-(7-layer strided conv frontend, hop 320 at 16 kHz -> feature projection ->
-grouped positional conv -> transformer stack, with WavLM's gated relative
-position bias). Group-norm (base) frontends and post-LN stacks are not
-ported yet and raise.
+Port of ``interspeech_ser_tpu/models/speech.py``: 7-layer strided conv
+frontend (hop 320 at 16 kHz) -> feature projection -> grouped positional
+conv -> transformer stack. The families differ in attention (WavLM adds a
+gated relative position bias), in the frontend's norm (``'layer'``: a
+LayerNorm over channels after every conv, the large / XL checkpoints;
+``'group'``: a per-channel GroupNorm over time on layer 0 only, the base
+checkpoints) and in where the stack normalises (``do_stable_layer_norm``:
+pre-LN with a closing LayerNorm; otherwise post-LN with the encoder's
+LayerNorm before the first layer). Presets: ``wavlm_large``,
+``wav2vec2_xlsr_2b``, ``hubert_xlarge``.
 
 Modules carry HF's state-dict key names (``feature_extractor.conv_layers.0.
 conv.weight``, ``encoder.layers.3.attention.q_proj.weight``, ...), so an HF
@@ -17,14 +21,25 @@ run in the compute dtype; LayerNorms and the softmax run in f32. Padded
 frames are zeroed before the positional conv and masked out of attention,
 so a batched padded forward equals each utterance's batch-1 forward.
 
-On a CUDA tensor, layer 0 of the frontend runs through kernel K2 and every
-attention through kernel K1; on a CPU tensor both use their plain versions.
-``plain=True`` forces the plain versions (a reference run on the card).
+Kernels on a CUDA tensor (each falls to its plain version on a CPU tensor,
+and ``plain=True`` forces the plain versions, a reference run on the card):
+- K1, every attention (K1 + K4 when a gradient is needed);
+- K2, the first ``fused_frontend`` layers of a layer-norm frontend
+  (``default_fused_frontend``: ``SER_TPU_FRONTEND``, else 1; a group-norm
+  frontend runs no K2, its GroupNorm needs the whole sequence);
+- K8, the positional conv, and K5, each feed-forward pair under
+  ``SER_TPU_FFN_KERNEL=1`` (``default_ffn_kernel``), only with
+  ``inference_kernels`` set: neither kernel has a backward, so the
+  extraction pipeline sets it on a copy of the config and training leaves
+  it off.
+Both environment variables are read once, when the model is built, so a
+model's routes stay fixed for its life.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -33,7 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention_core import dot_product_attention_btd
-from ..ops.kernels.conv_frontend import conv_frontend, conv_frontend_plain
+from ..ops.kernels.conv_frontend import FrontendLayer, conv_frontend, conv_frontend_plain
+from ..ops.kernels.ffn_fused import ffn_fused, ffn_fused_plain
+from ..ops.kernels.pos_conv import pos_conv, pos_conv_plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +66,10 @@ class SpeechConfig:
     feat_extract_norm: str = "group"  # 'group' (base) | 'layer' (large/XL)
     do_stable_layer_norm: bool = False
     attention_type: str = "standard"  # 'standard' | 'wavlm'
+    model_type: str = "wav2vec2"  # HF family of a standard-attention encoder: 'wav2vec2' | 'hubert'
+    # the no-backward kernels K8 and K5: the extraction pipeline sets this on
+    # a copy of the config; training leaves it off
+    inference_kernels: bool = False
     num_buckets: int = 320
     max_distance: int = 800
     num_conv_pos_embeddings: int = 128
@@ -84,6 +105,7 @@ class SpeechConfig:
             feat_extract_norm=hf.get("feat_extract_norm", "group"),
             do_stable_layer_norm=bool(hf.get("do_stable_layer_norm", False)),
             attention_type="wavlm" if hf.get("model_type") == "wavlm" else "standard",
+            model_type="hubert" if hf.get("model_type") == "hubert" else "wav2vec2",
             num_buckets=hf.get("num_buckets", 320),
             max_distance=hf.get("max_bucket_distance", 800),
             num_conv_pos_embeddings=hf.get("num_conv_pos_embeddings", 128),
@@ -93,9 +115,9 @@ class SpeechConfig:
         )
 
     def to_hf(self) -> Dict:
-        """The ``config.json`` fields :meth:`from_hf` reads (WavLM flavour)."""
+        """The ``config.json`` fields :meth:`from_hf` reads."""
         return {
-            "model_type": "wavlm" if self.attention_type == "wavlm" else "wav2vec2",
+            "model_type": "wavlm" if self.attention_type == "wavlm" else self.model_type,
             "hidden_size": self.hidden_size,
             "num_hidden_layers": self.num_layers,
             "num_attention_heads": self.num_heads,
@@ -123,6 +145,43 @@ def wavlm_large(dtype: str = "float32") -> SpeechConfig:
     )
 
 
+def wav2vec2_xlsr_2b(dtype: str = "float32") -> SpeechConfig:
+    return SpeechConfig(
+        hidden_size=1920, num_layers=48, num_heads=16, intermediate_size=7680,
+        conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True,
+        attention_type="standard", model_type="wav2vec2", dtype=dtype,
+    )
+
+
+def hubert_xlarge(dtype: str = "float32") -> SpeechConfig:
+    return SpeechConfig(
+        hidden_size=1280, num_layers=48, num_heads=16, intermediate_size=5120,
+        conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True,
+        attention_type="standard", model_type="hubert", dtype=dtype,
+    )
+
+
+FRONTEND_DEPTHS = tuple(str(n) for n in range(1, 8))  # the SER_TPU_FRONTEND values the port honours
+
+
+def default_fused_frontend(cfg: SpeechConfig) -> int:
+    """How many frontend layers K2 runs: ``SER_TPU_FRONTEND=<n>`` (1..7; any
+    other value raises), else 1, for a layer-norm frontend; 0 for a
+    group-norm one, whose GroupNorm needs the whole sequence."""
+    env = os.environ.get("SER_TPU_FRONTEND")
+    if env is not None and env not in FRONTEND_DEPTHS:
+        raise ValueError(f"SER_TPU_FRONTEND={env!r}: the port honours {'|'.join(FRONTEND_DEPTHS)}")
+    if cfg.feat_extract_norm != "layer":
+        return 0
+    return min(int(env or 1), len(cfg.conv_dim))
+
+
+def default_ffn_kernel(cfg: SpeechConfig) -> bool:
+    """Whether each feed-forward pair runs K5: ``SER_TPU_FFN_KERNEL=1`` with
+    ``inference_kernels`` set."""
+    return cfg.inference_kernels and os.environ.get("SER_TPU_FFN_KERNEL") == "1"
+
+
 def feat_extract_output_length(length, config: SpeechConfig):
     """Conv-frontend output length (ints or integer tensors)."""
     for k, s in zip(config.conv_kernel, config.conv_stride):
@@ -140,43 +199,70 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 
 class ConvLayer(nn.Module):
-    """One frontend layer (HF ``*LayerNormConvLayer``): conv -> LN -> GELU."""
+    """One frontend layer: conv -> norm -> GELU. HF's ``*LayerNormConvLayer``
+    (``norm='layer'``), ``*GroupNormConvLayer`` (``'group'``: GroupNorm with
+    one group per channel, named ``layer_norm`` as in HF) or
+    ``*NoLayerNormConvLayer`` (``None``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, k: int, s: int, bias: bool, eps: float):
+    def __init__(self, in_ch: int, out_ch: int, k: int, s: int, bias: bool, eps: float, norm: Optional[str]):
         super().__init__()
         self.stride = s
         self.conv = nn.Conv1d(in_ch, out_ch, k, stride=s, bias=bias)
-        self.layer_norm = nn.LayerNorm(out_ch, eps=eps)
+        if norm == "layer":
+            self.layer_norm = nn.LayerNorm(out_ch, eps=eps)
+        elif norm == "group":
+            self.layer_norm = nn.GroupNorm(out_ch, out_ch, eps=1e-5)
+
+    def fused(self) -> FrontendLayer:
+        return FrontendLayer(self.conv.weight, self.conv.bias, self.layer_norm.weight, self.layer_norm.bias,
+                             self.stride)
 
 
 class ConvFeatureExtractor(nn.Module):
-    """7-layer strided conv frontend, layer-norm mode. Layer 0 (C_in = 1)
-    runs fused from the waveform (K2, or its plain version on the CPU)."""
+    """7-layer strided conv frontend. Its first ``depth`` layers (layer-norm
+    mode) run fused from the waveform (K2, or its plain version on the CPU);
+    the rest run layer by layer, layer 0 as a patch matmul."""
 
     def __init__(self, cfg: SpeechConfig):
         super().__init__()
-        if cfg.feat_extract_norm != "layer":
-            raise NotImplementedError("only layer-norm conv frontends are ported")
+        if cfg.feat_extract_norm not in ("layer", "group"):
+            raise ValueError(f"feat_extract_norm {cfg.feat_extract_norm!r}: expected 'layer' or 'group'")
         self.cfg = cfg
         chans = (1,) + tuple(cfg.conv_dim)
+        layer_mode = cfg.feat_extract_norm == "layer"
         self.conv_layers = nn.ModuleList(
-            ConvLayer(chans[i], chans[i + 1], k, s, cfg.conv_bias, cfg.layer_norm_eps)
+            ConvLayer(chans[i], chans[i + 1], k, s, cfg.conv_bias, cfg.layer_norm_eps,
+                      "layer" if layer_mode else ("group" if i == 0 else None))
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride))
         )
 
-    def forward(self, wav: torch.Tensor, plain: bool = False) -> torch.Tensor:  # [B, L] -> [B, T, C]
+    def forward(self, wav: torch.Tensor, depth: int, plain: bool = False) -> torch.Tensor:  # [B, L] -> [B, T, C]
         cfg = self.cfg
         dt = cfg.compute_dtype
-        l0 = self.conv_layers[0]
-        x = (conv_frontend_plain if plain else conv_frontend)(
-            wav.float().contiguous(), l0.conv.weight, l0.conv.bias, l0.layer_norm.weight,
-            l0.layer_norm.bias, l0.stride, dt, cfg.use_approx_gelu, cfg.layer_norm_eps,
-        )  # [B, T0, C] in dt
-        for layer in self.conv_layers[1:]:
+        x = wav
+        if depth:  # layer-norm frontends only (default_fused_frontend)
+            x = (conv_frontend_plain if plain else conv_frontend)(
+                wav.float().contiguous(), [layer.fused() for layer in self.conv_layers[:depth]], dt,
+                cfg.use_approx_gelu, cfg.layer_norm_eps,
+            )  # [B, T, C] in dt
+        for i in range(depth, len(self.conv_layers)):
+            layer = self.conv_layers[i]
             conv = layer.conv
             bias = None if conv.bias is None else conv.bias.to(dt)
-            y = F.conv1d(x.transpose(1, 2), conv.weight.to(dt), bias, stride=layer.stride)
-            x = F.gelu(_layer_norm(y.transpose(1, 2), layer.layer_norm).to(dt), approximate=cfg.gelu_mode)
+            if i == 0:  # C_in = 1: the patch matmul, as the JAX package runs it
+                C, _, k = conv.weight.shape
+                y = wav.to(dt).unfold(1, k, layer.stride) @ conv.weight.reshape(C, k).to(dt).t()
+                if bias is not None:
+                    y = y + bias
+            else:
+                y = F.conv1d(x.transpose(1, 2), conv.weight.to(dt), bias, stride=layer.stride).transpose(1, 2)
+            if cfg.feat_extract_norm == "layer":
+                y = _layer_norm(y, layer.layer_norm).to(dt)
+            elif i == 0:  # per-channel statistics over the whole (padded) sequence, f32
+                gn = layer.layer_norm
+                y = F.group_norm(y.float().transpose(1, 2), gn.num_groups, gn.weight.float(), gn.bias.float(),
+                                 gn.eps).transpose(1, 2).to(dt)
+            x = F.gelu(y, approximate=cfg.gelu_mode)
         return x
 
 
@@ -200,17 +286,21 @@ class PositionalConvEmbedding(nn.Module):
             cfg.hidden_size, cfg.hidden_size, k, padding=k // 2, groups=cfg.conv_pos_groups
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D]
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:  # [B, T, D]
         cfg = self.cfg
         dt = cfg.compute_dtype
         k = cfg.num_conv_pos_embeddings
-        h = F.conv1d(
-            x.transpose(1, 2), self.conv.weight.to(dt), self.conv.bias.to(dt),
-            padding=k // 2, groups=cfg.conv_pos_groups,
-        )
+        if cfg.inference_kernels:  # K8, then the bias outside the kernel as in the JAX package
+            h = (pos_conv_plain if plain else pos_conv)(x.to(dt), self.conv.weight, cfg.conv_pos_groups)
+            h = h + self.conv.bias.to(dt)
+        else:
+            h = F.conv1d(
+                x.transpose(1, 2), self.conv.weight.to(dt), self.conv.bias.to(dt),
+                padding=k // 2, groups=cfg.conv_pos_groups,
+            ).transpose(1, 2)
         if k % 2 == 0:
-            h = h[..., :-1]
-        return F.gelu(h.transpose(1, 2), approximate=cfg.gelu_mode)
+            h = h[:, :-1]
+        return F.gelu(h, approximate=cfg.gelu_mode)
 
 
 def relative_position_buckets(tq: int, tk: int, num_buckets: int, max_distance: int) -> np.ndarray:
@@ -282,46 +372,60 @@ class SpeechSelfAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg: SpeechConfig):
+    def __init__(self, cfg: SpeechConfig, fused: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.fused = fused  # K5 (default_ffn_kernel)
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.compute_dtype
-        h = F.gelu(_dense(x, self.intermediate_dense, dt), approximate=self.cfg.gelu_mode)
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        if self.fused:  # K5
+            up, down = self.intermediate_dense, self.output_dense
+            out = (ffn_fused_plain if plain else ffn_fused)(
+                x.to(dt).reshape(-1, x.shape[-1]), up.weight, up.bias, down.weight, down.bias, cfg.use_approx_gelu,
+            )
+            return out.reshape(x.shape)
+        h = F.gelu(_dense(x, self.intermediate_dense, dt), approximate=cfg.gelu_mode)
         return _dense(h, self.output_dense, dt)
 
 
 class EncoderLayer(nn.Module):
-    """Pre-LN (stable layer norm) transformer layer."""
+    """Transformer layer: pre-LN (``do_stable_layer_norm``) or post-LN."""
 
-    def __init__(self, cfg: SpeechConfig, has_relative_position_bias: bool = False):
+    def __init__(self, cfg: SpeechConfig, has_relative_position_bias: bool = False, ffn_kernel: bool = False):
         super().__init__()
         self.cfg = cfg
         self.attention = SpeechSelfAttention(cfg, has_relative_position_bias)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.feed_forward = FeedForward(cfg)
+        self.feed_forward = FeedForward(cfg, ffn_kernel)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x, key_mask, position_bias, plain: bool = False):
         dt = self.cfg.compute_dtype
-        h, position_bias = self.attention(
-            _layer_norm(x, self.layer_norm).to(dt), key_mask, position_bias, plain
-        )
-        x = x + h
-        x = x + self.feed_forward(_layer_norm(x, self.final_layer_norm).to(dt))
-        return x, position_bias
+        if self.cfg.do_stable_layer_norm:
+            h, position_bias = self.attention(
+                _layer_norm(x, self.layer_norm).to(dt), key_mask, position_bias, plain
+            )
+            x = x + h
+            x = x + self.feed_forward(_layer_norm(x, self.final_layer_norm).to(dt), plain)
+            return x, position_bias
+        h, position_bias = self.attention(x, key_mask, position_bias, plain)
+        x = _layer_norm(x + h, self.layer_norm).to(dt)
+        x = x + self.feed_forward(x, plain)
+        return _layer_norm(x, self.final_layer_norm).to(dt), position_bias
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: SpeechConfig):
+    def __init__(self, cfg: SpeechConfig, ffn_kernel: bool = False):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(
-            EncoderLayer(cfg, has_relative_position_bias=(i == 0)) for i in range(cfg.num_layers)
+            EncoderLayer(cfg, has_relative_position_bias=(i == 0), ffn_kernel=ffn_kernel)
+            for i in range(cfg.num_layers)
         )
 
 
@@ -329,20 +433,24 @@ class SpeechEncoderModel(nn.Module):
     """wav -> conv frontend -> projection -> transformer stack.
 
     Returns ``hidden_states`` (num_layers + 1 entries, HF indexing: [0] the
-    post-positional-conv embeddings, [i] layer i-1's output, the last entry
-    carrying the closing LayerNorm), ``last_hidden_state`` and the frame-level
-    ``frame_mask``. ``keep`` (HF indices, negatives allowed) limits which
-    hidden states are kept; the others are ``None``.
+    post-positional-conv embeddings (after the encoder's LayerNorm for a
+    post-LN stack), [i] layer i-1's output, the last entry carrying the
+    closing LayerNorm of a pre-LN stack), ``last_hidden_state`` and the
+    frame-level ``frame_mask``. ``keep`` (HF indices, negatives allowed)
+    limits which hidden states are kept; the others are ``None``.
+    ``fused_frontend`` is K2's depth, from ``default_fused_frontend``, and
+    ``ffn_kernel`` whether the feed-forward pairs run K5, from
+    ``default_ffn_kernel``; both are fixed when the model is built.
     """
 
     def __init__(self, config: SpeechConfig):
         super().__init__()
-        if not config.do_stable_layer_norm:
-            raise NotImplementedError("only stable-layer-norm (pre-LN) encoders are ported")
         self.config = config
+        self.fused_frontend = default_fused_frontend(config)
+        self.ffn_kernel = default_ffn_kernel(config)
         self.feature_extractor = ConvFeatureExtractor(config)
         self.feature_projection = FeatureProjection(config)
-        self.encoder = Encoder(config)
+        self.encoder = Encoder(config, self.ffn_kernel)
 
     def forward(
         self,
@@ -355,7 +463,7 @@ class SpeechEncoderModel(nn.Module):
         dt = cfg.compute_dtype
         n = cfg.num_layers
         keep = set(range(n + 1)) if keep is None else {i % (n + 1) for i in keep}
-        feats = self.feature_extractor(wav, plain)
+        feats = self.feature_extractor(wav, self.fused_frontend, plain)
         B, T, _ = feats.shape
         if wav_mask is not None:
             lengths = feat_extract_output_length(wav_mask.sum(dim=-1).long(), cfg)
@@ -366,13 +474,26 @@ class SpeechEncoderModel(nn.Module):
         fp = self.feature_projection
         h = _dense(_layer_norm(feats, fp.layer_norm), fp.projection, dt)
         h = h * frame_mask[:, :, None].to(dt)  # zero padded frames before the pos conv
-        h = h + self.encoder.pos_conv_embed(h)
+        h = h + self.encoder.pos_conv_embed(h, plain)
+        if not cfg.do_stable_layer_norm:
+            h = _layer_norm(h, self.encoder.layer_norm).to(dt)
 
         hidden: List[Optional[torch.Tensor]] = [h if 0 in keep else None]
         position_bias = None
         for i, layer in enumerate(self.encoder.layers):
             h, position_bias = layer(h, frame_mask, position_bias, plain)
             hidden.append(h if i + 1 in keep else None)
-        h = _layer_norm(h, self.encoder.layer_norm).to(dt)
-        hidden[-1] = h if n in keep else None
+        if cfg.do_stable_layer_norm:
+            h = _layer_norm(h, self.encoder.layer_norm).to(dt)
+            hidden[-1] = h if n in keep else None
         return {"last_hidden_state": h, "hidden_states": hidden, "frame_mask": frame_mask}
+
+
+def with_config(model: SpeechEncoderModel, config: SpeechConfig) -> SpeechEncoderModel:
+    """The same parameters (shared, not copied) under another config, with
+    K2's depth and K5's route from ``default_fused_frontend`` and
+    ``default_ffn_kernel`` of that config."""
+    with torch.device("meta"):
+        out = SpeechEncoderModel(config)
+    out.load_state_dict(model.state_dict(), strict=True, assign=True)
+    return out.train(model.training)

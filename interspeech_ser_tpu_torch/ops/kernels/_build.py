@@ -30,7 +30,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "attention_bhtd.cu", "flash_attention.cu", "conv_frontend.cu",
-           "gru_bidir.cu", "gru_bidir_bwd.cu")
+           "gru_bidir.cu", "gru_bidir_bwd.cu", "ffn_fused.cu", "pos_conv.cu")
 HEADERS = ("attention_bhtd_common.cuh",)  # included by sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,8 +55,19 @@ SIGNATURES = {
     # wav, weight, bias, ln_w, ln_b, out, B, L, T0, C, k, stride, eps, approx_gelu, stream
     "ser_conv_frontend_f32": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "ser_conv_frontend_bf16": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    # x, weight, bias, ln_w, ln_b, out, B, T_in, T_out, C_in, C, k, stride, eps, approx_gelu, stream
+    "ser_conv_layer_f32": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    "ser_conv_layer_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # x, w_up, b_up, w_down, b_down, out, M, K, F, N, approx_gelu, stream
+    "ser_ffn_fused_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "ser_ffn_fused_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # x, w, y, B, T, G, C, K, stream
+    "ser_pos_conv_f32": [_P] * 3 + [_I] * 5 + [_P],
+    "ser_pos_conv_bf16": [_P] * 3 + [_I] * 5 + [_P],
     # x_proj, w_hh2, b_hh2, mask, out, B2, T, H, threads, stream
     "ser_gru_bidir_f32": [_P] * 5 + [_I] * 4 + [_P],
+    # x_proj, w_hh, b_hh, mask, out, B, T, H, reverse, threads, stream
+    "ser_gru_sequence_f32": [_P] * 5 + [_I] * 5 + [_P],
     # g, h, x_proj, mask, w_hh2, b_hh2, dxp, dhp scratch, dw, db, B2, T, H, threads, stream
     "ser_gru_bidir_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
     "ser_cuda_error_string": [_I],

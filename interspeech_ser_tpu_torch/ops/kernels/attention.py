@@ -119,13 +119,17 @@ def attention_btd_bwd_plain(
     return merge(dq, Tq), merge(dk, Tk), merge(dv, Tk), dgate, dbias
 
 
-def _prepare(q, k, v, num_heads, key_mask, gate, pos_bias):
+K1_HEAD_DIMS = (64, 80, 120)  # WavLM-large / base / Whisper, HuBERT-XL, XLS-R-2B
+K4_HEAD_DIMS = (64,)
+
+
+def _prepare(q, k, v, num_heads, key_mask, gate, pos_bias, head_dims=K1_HEAD_DIMS):
     """Check what the kernels take; -> (mask f32 | None, gate f32 | None, bias in q.dtype | None)."""
     B, Tq, D = q.shape
     Tk = k.shape[1]
     H = num_heads
-    if D % H != 0 or D // H != 64:
-        raise NotImplementedError(f"attention_btd kernels need head dim 64, got D={D} H={H}")
+    if D % H != 0 or D // H not in head_dims:
+        raise NotImplementedError(f"attention_btd kernels take head dims {head_dims}, got D={D} H={H}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention_btd kernels take float32 or bfloat16, got {q.dtype}")
     if k.shape != (B, Tk, D) or v.shape != k.shape:
@@ -156,16 +160,17 @@ def _launch_forward(q, k, v, num_heads, key_mask, scale, gate, pos_bias, with_ls
     """K1 -> (out, lse [B, H, Tq] f32 or None)."""
     global LAUNCHES
     mask, g, bias = _prepare(q, k, v, num_heads, key_mask, gate, pos_bias)
-    B, Tq, _ = q.shape
+    B, Tq, D = q.shape
+    hd = D // num_heads
     if scale is None:
-        scale = 64 ** -0.5
+        scale = hd ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty(B, num_heads, Tq, device=q.device, dtype=torch.float32) if with_lse else None
     lib = _build.library()
     fn = lib.ser_attention_btd_bf16 if q.dtype == torch.bfloat16 else lib.ser_attention_btd_f32
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(mask), _build.ptr(g),
-        _build.ptr(bias), out.data_ptr(), _build.ptr(lse), B, Tq, k.shape[1], num_heads, 64,
+        _build.ptr(bias), out.data_ptr(), _build.ptr(lse), B, Tq, k.shape[1], num_heads, hd,
         float(scale), _build.stream_ptr(q),
     )
     _build.check(err, "attention_btd")
@@ -226,7 +231,7 @@ def attention_btd_bwd(
         dq, dk, dv, dgate, dbias = attention_btd_bwd_plain(q, k, v, g, num_heads, key_mask, scale, gate, pos_bias)
         return dq, dk, dv, dgate if want_dgate else None, dbias if want_dbias else None
     global BWD_LAUNCHES
-    mask, gt, bias = _prepare(q, k, v, num_heads, key_mask, gate, pos_bias)
+    mask, gt, bias = _prepare(q, k, v, num_heads, key_mask, gate, pos_bias, K4_HEAD_DIMS)
     B, Tq, D = q.shape
     Tk = k.shape[1]
     H = num_heads
@@ -267,6 +272,12 @@ class AttentionBtdTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, key_mask, scale, gate, pos_bias):
+        hd = q.shape[-1] // num_heads
+        if q.is_cuda and hd not in K4_HEAD_DIMS:
+            raise NotImplementedError(
+                f"AttentionBtdTrain: K4 (attention_btd_bwd) takes head dims {K4_HEAD_DIMS}, got {hd}; "
+                "a gradient through attention at this width is not ported to the card yet"
+            )
         if q.is_cuda:
             out, lse = attention_btd_fwd(q, k, v, num_heads, key_mask, scale, gate, pos_bias)
         else:

@@ -1,98 +1,141 @@
-"""K2: conv0 + bias + LayerNorm(channels) + GELU, fused from the waveform.
+"""K2: the first n layers of the waveform frontend, each conv + bias +
+LayerNorm(channels) + GELU, fused from the waveform (n = 1..7).
 
 Port of ``interspeech_ser_tpu/ops/pallas/conv_frontend.py::
-fused_conv_frontend`` at depth 1 (the inference default for layer-norm
-models). The CUDA kernel is ``csrc/conv_frontend.cu``;
-``conv_frontend_plain`` is the plain PyTorch version (conv0 as an
-unfold/patch matmul, LayerNorm with the fast variance, GELU).
-``conv_frontend`` launches the kernel for a CUDA tensor and runs the plain
-version for a CPU tensor.
+fused_conv_frontend`` at every depth of the layer-norm frontends. The CUDA
+kernels are ``csrc/conv_frontend.cu``: one for layer 0 straight from the
+waveform, one for each later 512 -> 512 layer, chained through the compute
+dtype. ``conv_frontend_plain`` is the plain PyTorch version (conv0 as an
+unfold/patch matmul, the later layers as ``F.conv1d``, LayerNorm with the
+fast variance, GELU). ``conv_frontend`` launches the kernels for a CUDA
+tensor and runs the plain version for a CPU tensor. Each launch is
+counted where it is made: the layer-0 kernel in ``LAUNCHES`` (one a call),
+the later-layer kernel in ``LAYER_LAUNCHES`` (depth - 1 a call).
 
-Semantics (as the TPU kernel): the waveform and the conv weight are rounded
-to the compute dtype and multiplied with f32 accumulation; the bias is added
-in f32; LayerNorm in f32 with ``var = E[y²] - E[y]²``; the normalised value is
-cast to the compute dtype, then GELU (exact erf, or the tanh form when
-``approx_gelu``). Deeper fused prefixes (depth 2-7) are not ported.
+Semantics (as the TPU kernel): a layer's input and conv weight are rounded
+to the compute dtype and multiplied with f32 accumulation (layer 0 reads
+the f32 waveform); the bias is added in f32; LayerNorm in f32 with
+``var = E[y²] - E[y]²``; the normalised value is cast to the compute dtype,
+then GELU (exact erf, or the tanh form when ``approx_gelu``), and the
+result, in the compute dtype, feeds the next layer. The depth is
+``len(layers)``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0  # layer-0 kernel launches since the last reset (chip_smoke.py reads it)
+LAYER_LAUNCHES = 0  # later-layer kernel launches since the last reset
+CHANNELS = 512  # every layer-norm frontend of the zoo
+
+
+class FrontendLayer(NamedTuple):
+    weight: torch.Tensor  # [C, C_in, k] (Conv1d layout)
+    bias: Optional[torch.Tensor]  # [C]
+    ln_weight: torch.Tensor  # [C]
+    ln_bias: torch.Tensor  # [C]
+    stride: int
+
+
+def _norm_gelu(y: torch.Tensor, layer: FrontendLayer, dtype, approx_gelu: bool, eps: float) -> torch.Tensor:
+    """+ bias, LayerNorm (fast variance, f32), cast, GELU."""
+    if layer.bias is not None:
+        y = y + layer.bias.float()
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y * y).mean(dim=-1, keepdim=True) - mean * mean
+    y = (y - mean) * torch.rsqrt(var.clamp_min(0.0) + eps)
+    y = y * layer.ln_weight.float() + layer.ln_bias.float()
+    return F.gelu(y.to(dtype), approximate="tanh" if approx_gelu else "none")
 
 
 def conv_frontend_plain(
     wav: torch.Tensor,  # [B, L] f32
-    weight: torch.Tensor,  # [C, 1, k] (Conv1d layout)
-    bias: Optional[torch.Tensor],  # [C]
-    ln_weight: torch.Tensor,  # [C]
-    ln_bias: torch.Tensor,  # [C]
-    stride: int,
+    layers: Sequence[FrontendLayer],  # the first ``depth`` frontend layers
     dtype: torch.dtype,
     approx_gelu: bool,
     eps: float = 1e-5,
-) -> torch.Tensor:  # [B, T0, C] in dtype
-    C, _, k = weight.shape
-    patches = wav.float().unfold(1, k, stride)  # [B, T0, k]
-    y = patches.to(dtype).float() @ weight.reshape(C, k).to(dtype).float().t()
-    if bias is not None:
-        y = y + bias.float()
-    mean = y.mean(dim=-1, keepdim=True)
-    var = (y * y).mean(dim=-1, keepdim=True) - mean * mean
-    y = (y - mean) * torch.rsqrt(var.clamp_min(0.0) + eps)
-    y = y * ln_weight.float() + ln_bias.float()
-    return F.gelu(y.to(dtype), approximate="tanh" if approx_gelu else "none")
+) -> torch.Tensor:  # [B, T_depth, C] in dtype
+    l0 = layers[0]
+    C, _, k = l0.weight.shape
+    patches = wav.float().unfold(1, k, l0.stride)  # [B, T0, k]
+    y = patches.to(dtype).float() @ l0.weight.reshape(C, k).to(dtype).float().t()
+    x = _norm_gelu(y, l0, dtype, approx_gelu, eps)
+    for layer in layers[1:]:
+        y = F.conv1d(x.float().transpose(1, 2), layer.weight.to(dtype).float(), stride=layer.stride)
+        x = _norm_gelu(y.transpose(1, 2), layer, dtype, approx_gelu, eps)
+    return x
+
+
+def _f32(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    """A small parameter as a contiguous f32 tensor on ``device``."""
+    return None if t is None else t.detach().to(device=device, dtype=torch.float32).contiguous()
 
 
 def conv_frontend(
     wav: torch.Tensor,
-    weight: torch.Tensor,
-    bias: Optional[torch.Tensor],
-    ln_weight: torch.Tensor,
-    ln_bias: torch.Tensor,
-    stride: int,
+    layers: Sequence[FrontendLayer],
     dtype: torch.dtype,
     approx_gelu: bool,
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """K2 on a CUDA tensor, the plain version on a CPU tensor."""
     if not wav.is_cuda:
-        return conv_frontend_plain(
-            wav, weight, bias, ln_weight, ln_bias, stride, dtype, approx_gelu, eps
-        )
-    global LAUNCHES
+        return conv_frontend_plain(wav, layers, dtype, approx_gelu, eps)
+    global LAUNCHES, LAYER_LAUNCHES
     if wav.dim() != 2 or wav.dtype != torch.float32 or not wav.is_contiguous():
         raise ValueError("conv_frontend kernel takes a contiguous float32 [B, L] waveform")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv_frontend kernel computes in float32 or bfloat16, got {dtype}")
-    C, c_in, k = weight.shape
-    if c_in != 1 or C != 512 or k > 16:
-        raise NotImplementedError(
-            f"conv_frontend kernel takes C_in=1, C=512, k<=16; got {tuple(weight.shape)}"
-        )
+    if not 1 <= len(layers) <= 7:
+        raise ValueError(f"conv_frontend fuses 1 to 7 layers, got {len(layers)}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for layer in layers for t in layer[:4]):
+        raise RuntimeError("conv_frontend: the K2 kernels have no backward; run the plain path for gradients")
+    for i, layer in enumerate(layers):
+        C, c_in, k = layer.weight.shape
+        if C != CHANNELS or c_in != (1 if i == 0 else CHANNELS) or (i == 0 and k > 16):
+            raise NotImplementedError(
+                f"conv_frontend kernels take C_in=1, k<=16 on layer 0 and 512 -> 512 channels after it; "
+                f"layer {i} has weight {tuple(layer.weight.shape)}"
+            )
     B, L = wav.shape
-    T0 = (L - k) // stride + 1
-    if T0 < 1:
-        raise ValueError(f"waveform of {L} samples is shorter than the {k}-tap conv")
-
-    def prep(t):  # small [C]-sized parameters, f32 on the waveform's device
-        return None if t is None else t.detach().to(device=wav.device, dtype=torch.float32).contiguous()
-
-    w, b, lw, lb = prep(weight.reshape(C, k)), prep(bias), prep(ln_weight), prep(ln_bias)
-    out = torch.empty(B, T0, C, device=wav.device, dtype=dtype)
     lib = _build.library()
-    fn = lib.ser_conv_frontend_bf16 if dtype == torch.bfloat16 else lib.ser_conv_frontend_f32
-    err = fn(
-        wav.data_ptr(), w.data_ptr(), _build.ptr(b), lw.data_ptr(), lb.data_ptr(),
-        out.data_ptr(), B, L, T0, C, k, stride, float(eps), int(bool(approx_gelu)),
-        _build.stream_ptr(wav),
+    bf16 = dtype == torch.bfloat16
+    stream = _build.stream_ptr(wav)
+
+    l0 = layers[0]
+    k, s = l0.weight.shape[2], l0.stride
+    T = (L - k) // s + 1
+    if T < 1:
+        raise ValueError(f"waveform of {L} samples is shorter than the {k}-tap conv")
+    w, b, lw, lb = (_f32(t, wav.device) for t in (l0.weight.reshape(CHANNELS, k), l0.bias, l0.ln_weight, l0.ln_bias))
+    x = torch.empty(B, T, CHANNELS, device=wav.device, dtype=dtype)
+    err = (lib.ser_conv_frontend_bf16 if bf16 else lib.ser_conv_frontend_f32)(
+        wav.data_ptr(), w.data_ptr(), _build.ptr(b), lw.data_ptr(), lb.data_ptr(), x.data_ptr(),
+        B, L, T, CHANNELS, k, s, float(eps), int(bool(approx_gelu)), stream,
     )
     _build.check(err, "conv_frontend")
     LAUNCHES += 1
-    return out
+    for layer in layers[1:]:
+        k, s = layer.weight.shape[2], layer.stride
+        T_out = (T - k) // s + 1
+        if T_out < 1:
+            raise ValueError(f"a {T}-frame input is shorter than the {k}-tap conv")
+        # rows tap * 512 + i, column c: frame t's window is k * 512 contiguous values
+        w = layer.weight.detach().to(device=wav.device, dtype=dtype).float().permute(2, 1, 0)
+        w = w.reshape(k * CHANNELS, CHANNELS).contiguous()
+        b, lw, lb = (_f32(t, wav.device) for t in (layer.bias, layer.ln_weight, layer.ln_bias))
+        y = torch.empty(B, T_out, CHANNELS, device=wav.device, dtype=dtype)
+        err = (lib.ser_conv_layer_bf16 if bf16 else lib.ser_conv_layer_f32)(
+            x.data_ptr(), w.data_ptr(), _build.ptr(b), lw.data_ptr(), lb.data_ptr(), y.data_ptr(),
+            B, T, T_out, CHANNELS, CHANNELS, k, s, float(eps), int(bool(approx_gelu)), stream,
+        )
+        _build.check(err, "conv_frontend layer")
+        LAYER_LAUNCHES += 1
+        x, T = y, T_out
+    return x

@@ -1,4 +1,5 @@
-"""K3 and K3b: masked bidirectional GRU recurrence, forward and backward.
+"""K3 and K3b: masked bidirectional GRU recurrence, forward and backward;
+K9: one direction of the same recurrence.
 
 Port of ``interspeech_ser_tpu/ops/pallas/gru_kernel.py::gru_bidir_carries``
 (the forward, K3) and its custom-VJP backward ``_gru_bidir_bwd`` (K3b), with
@@ -17,6 +18,12 @@ the reset product); a masked step freezes the carry. The carries come back
 unmasked, and ``gru_sequence_bidir`` multiplies by the mask outside the
 Function, as the JAX package does.
 
+K9 is the port of ``gru_kernel.py::gru_sequence``: one direction with a
+``reverse`` flag, the outputs zero at masked steps. No path of the package
+calls it (nor does the JAX package's); ``gru_sequence`` launches
+``csrc/gru_bidir.cu``'s one-direction kernel for a CUDA tensor and runs
+``gru_sequence_plain`` for a CPU tensor.
+
 The plain versions compute in float32, or in float64 for float64 inputs
 (so ``torch.autograd.gradcheck`` can hold the hand-derived backward to
 numerical derivatives).
@@ -24,7 +31,7 @@ numerical derivatives).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +39,7 @@ from . import _build
 
 LAUNCHES = 0  # K3 launches since the last reset (chip_smoke.py reads it)
 BWD_LAUNCHES = 0  # K3b launches since the last reset
+SEQ_LAUNCHES = 0  # K9 launches since the last reset
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -231,3 +239,64 @@ def gru_sequence_bidir(
         )
     mask = mask.to(_compute_dtype(x_proj))
     return GruBidirCarries.apply(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None]
+
+
+def gru_sequence_plain(
+    x_proj: torch.Tensor,  # [B, T, 3H] input projections
+    w_hh: torch.Tensor,  # [H, 3H]
+    b_hh: torch.Tensor,  # [3H]
+    mask: Optional[torch.Tensor] = None,  # [B, T]
+    reverse: bool = False,
+) -> torch.Tensor:  # [B, T, H], zeros at masked steps
+    B, T, H3 = x_proj.shape
+    H = H3 // 3
+    dt = _compute_dtype(x_proj)
+    xs = x_proj.to(dt)
+    w, b = w_hh.to(dt), b_hh.to(dt)
+    m = (x_proj.new_ones(B, T) if mask is None else mask).to(dt)[:, :, None]
+    h = xs.new_zeros(B, H)
+    out = [None] * T
+    for t in (reversed(range(T)) if reverse else range(T)):
+        hp = h @ w + b
+        xp = xs[:, t]
+        r = torch.sigmoid(xp[:, :H] + hp[:, :H])
+        z = torch.sigmoid(xp[:, H : 2 * H] + hp[:, H : 2 * H])
+        n = torch.tanh(xp[:, 2 * H :] + r * hp[:, 2 * H :])
+        h = m[:, t] * ((1.0 - z) * n + z * h) + (1.0 - m[:, t]) * h
+        out[t] = h * m[:, t]
+    return torch.stack(out, dim=1)
+
+
+def gru_sequence(
+    x_proj: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+) -> torch.Tensor:
+    """K9 on a CUDA tensor, the plain version on a CPU tensor. Forward only,
+    as in the JAX package: the launcher raises for inputs that require grad."""
+    if not x_proj.is_cuda:
+        return gru_sequence_plain(x_proj, w_hh, b_hh, mask, reverse)
+    global SEQ_LAUNCHES
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, w_hh, b_hh)):
+        raise RuntimeError("gru_sequence: the K9 kernel has no backward")
+    B, T, H3 = x_proj.shape
+    H = H3 // 3
+    if mask is None:
+        mask = torch.ones(B, T, device=x_proj.device)
+    if H3 != 3 * H or w_hh.shape != (H, H3) or b_hh.shape != (H3,) or mask.shape != (B, T):
+        raise ValueError(f"x_proj {tuple(x_proj.shape)}, w_hh {tuple(w_hh.shape)}, b_hh {tuple(b_hh.shape)}, "
+                         f"mask {tuple(mask.shape)} do not fit together")
+    for name, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("mask", mask)):
+        if t.dtype != torch.float32 or t.device != x_proj.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {x_proj.device}")
+    threads = _threads(H)
+    out = torch.empty(B, T, H, device=x_proj.device, dtype=torch.float32)
+    err = _build.library().ser_gru_sequence_f32(
+        x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        B, T, H, int(bool(reverse)), threads, _build.stream_ptr(x_proj),
+    )
+    _build.check(err, "gru_sequence")
+    SEQ_LAUNCHES += 1
+    return out

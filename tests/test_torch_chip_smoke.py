@@ -198,3 +198,93 @@ def test_text_phase_on_cpu(tmp_path, monkeypatch):
     assert (launches["attention_bhtd"], launches["flash_attention"]) == (4 * 2, 2)  # 4 default runs x 2 layers
     assert out["k6_vs_k7_max_abs"] <= 1e-5
     assert "SER_TPU_ATTN_IMPL" not in os.environ
+
+
+def test_zoo_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 9 at a tiny size: XLS-R-2B-, HuBERT-XL- and wavlm-base-plus-shaped
+    encoders (head dims 120, 80 and 64; layer-norm and group-norm frontends,
+    pre- and post-LN stacks) through ``preprocess_cli speech``, the
+    SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3 run, the plain-pipeline
+    comparisons, the full-depth run and ``lora_cli`` over the base shape.
+    K1, K2, K5 and K8 go through counting plain versions, attention that
+    needs a gradient through AttentionBtdTrain (its backward counted as K4)."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka, conv_frontend as kc, ffn_fused as kf
+    from interspeech_ser_tpu_torch.ops.kernels import pos_conv as kp
+
+    narrow = dict(conv_dim=(32,) * 4, conv_kernel=(10, 4, 4, 4), conv_stride=(5, 4, 4, 4), num_conv_pos_embeddings=16,
+                  conv_pos_groups=4, num_buckets=32, max_distance=64)
+
+    def tiny_xlsr(dtype="float32"):
+        return dataclasses.replace(speech.SpeechConfig(
+            hidden_size=240, num_layers=2, num_heads=2, intermediate_size=480, conv_bias=True,
+            feat_extract_norm="layer", do_stable_layer_norm=True, **narrow), dtype=dtype)
+
+    def tiny_hubert(dtype="float32"):
+        return dataclasses.replace(tiny_xlsr(dtype), hidden_size=160, intermediate_size=320, model_type="hubert")
+
+    def tiny_base(dtype="float32"):
+        return speech.SpeechConfig(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                                   attention_type="wavlm", dtype=dtype, **narrow)
+
+    def counting(mod, plain):
+        def launch(*args, **kw):
+            mod.LAUNCHES += 1
+            return plain(*args, **kw)
+        return launch
+
+    real_bwd = ka.attention_btd_bwd
+
+    def counted_bwd(*args, **kw):
+        ka.BWD_LAUNCHES += 1
+        return real_bwd(*args, **kw)
+
+    def routed(q, k, v, H, key_mask=None, scale=None, gate=None, shared_bias=None, plain=False):
+        if plain:
+            return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+        ka.LAUNCHES += 1
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)):
+            return ka.AttentionBtdTrain.apply(q, k, v, H, key_mask, scale, gate, shared_bias)
+        return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+
+    def counting_conv(wav, layers, *args, **kw):  # K2 launches its layer-0 kernel, then one per later layer
+        kc.LAUNCHES += 1
+        kc.LAYER_LAUNCHES += len(layers) - 1
+        return kc.conv_frontend_plain(wav, layers, *args, **kw)
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "ZOO_SHAPE", dict(xlsr_layers=2, hubert_layers=1, n_wavs=4, seconds=(0.5, 1.5),
+                                              full_wavs=2, full_seconds=1.0))
+    monkeypatch.setattr(cs, "LORA_SHAPE", dict(n_train=16, n_dev=8, seconds=(0.5, 1.5), bf16_steps=2))
+    monkeypatch.setattr(cs, "wavlm_base_plus", tiny_base)
+    monkeypatch.setattr(speech, "wav2vec2_xlsr_2b", tiny_xlsr)
+    monkeypatch.setattr(speech, "hubert_xlarge", tiny_hubert)
+    monkeypatch.setattr(speech, "dot_product_attention_btd", routed)
+    monkeypatch.setattr(ka, "attention_btd_bwd", counted_bwd)
+    monkeypatch.setattr(speech, "conv_frontend", counting_conv)
+    monkeypatch.setattr(speech, "ffn_fused", counting(kf, kf.ffn_fused_plain))
+    monkeypatch.setattr(speech, "pos_conv", counting(kp, kp.pos_conv_plain))
+    for mod, counter in ((ka, "LAUNCHES"), (ka, "BWD_LAUNCHES"), (kc, "LAUNCHES"), (kc, "LAYER_LAUNCHES"),
+                         (kf, "LAUNCHES"), (kp, "LAUNCHES")):
+        monkeypatch.setattr(mod, counter, 0)
+    for key in ("SER_TPU_FFN_KERNEL", "SER_TPU_FRONTEND"):
+        monkeypatch.delenv(key, raising=False)
+
+    out = cs.phase_zoo(str(tmp_path), "a card, 700 W")
+    assert set(out["xlsr_2b"]["utt_per_sec"]) == {"bfloat16_cold", "bfloat16_warm", "float32_cold", "float32_warm"}
+    assert out["xlsr_2b"]["k5_min_cos"] >= 0.999
+    assert out["xlsr_2b_full"]["utt_per_sec"] > 0
+    assert set(out["hubert_xl"]["utt_per_sec"]) == {"float32_once"}
+    launches = cs.counts()
+    # K5: 2 layers x 1 batch on the SER_TPU_FFN_KERNEL=1 run; K4: 2 layers x 2 steps of lora_cli
+    assert launches["ffn_fused"] == 2 and launches["attention_btd_bwd"] == 2 * 2
+    # K8 once a batch of every extraction (5 XLS-R CLI runs, 2 full-depth runs, 1 HuBERT run, 2 base
+    # runs; training leaves it off); K2 on every layer-norm run, never on the base shape, its later
+    # layers only on the SER_TPU_FRONTEND=3 run (2 layers x 1 batch)
+    assert launches["pos_conv"] == 5 + 2 + 1 + 2 and launches["conv_frontend"] == 5 + 2 + 1
+    assert launches["conv_frontend_layer"] == 2
+    assert os.path.exists(out["wavlm_base_plus"]["lora_ckpt"])
+    assert not any(k in os.environ for k in ("SER_TPU_FFN_KERNEL", "SER_TPU_FRONTEND"))

@@ -1,4 +1,4 @@
-"""K1, K2, K3, K3b, K4, K6 and K7 on the card against their plain versions, at small shapes.
+"""K1-K9 on the card against their plain versions, at small shapes.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is False (a
 CUDA kernel has no CPU mode). On a machine with an H100:
@@ -12,7 +12,9 @@ import torch
 from interspeech_ser_tpu_torch.ops.kernels import attention as k_attn
 from interspeech_ser_tpu_torch.ops.kernels import attention_bhtd as k_bhtd
 from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as k_conv
+from interspeech_ser_tpu_torch.ops.kernels import ffn_fused as k_ffn
 from interspeech_ser_tpu_torch.ops.kernels import gru as k_gru
+from interspeech_ser_tpu_torch.ops.kernels import pos_conv as k_pos
 
 pytestmark = pytest.mark.gpu
 
@@ -135,18 +137,127 @@ def test_lora_factors_get_gradients_on_the_card(cuda):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), key
 
 
+def _frontend_layers(gen, depth):
+    """The zoo's frontend geometry at 512 channels: conv0 (k=10, s=5) then
+    k = 3,3,3,3,2,2 with s = 2, conv biases on."""
+    kernels, strides = (10, 3, 3, 3, 3, 2, 2), (5, 2, 2, 2, 2, 2, 2)
+    layers = []
+    for i in range(depth):
+        c_in, k = (1 if i == 0 else 512), kernels[i]
+        layers.append(k_conv.FrontendLayer(
+            torch.randn(512, c_in, k, generator=gen, device="cuda") / (c_in * k) ** 0.5,
+            0.1 * torch.randn(512, generator=gen, device="cuda"),
+            1 + 0.1 * torch.randn(512, generator=gen, device="cuda"),
+            0.1 * torch.randn(512, generator=gen, device="cuda"), strides[i]))
+    return layers
+
+
+@pytest.mark.parametrize("depth", range(1, 8))
 @pytest.mark.parametrize("approx", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_frontend_kernel(cuda, approx, dtype):
+def test_conv_frontend_kernel(cuda, approx, dtype, depth):
     wav = torch.randn(2, 16007, generator=cuda, device="cuda")
-    args = (wav, torch.randn(512, 1, 10, generator=cuda, device="cuda") / 3, torch.randn(512, generator=cuda, device="cuda"),
-            torch.ones(512, device="cuda"), torch.zeros(512, device="cuda"), 5, dtype, approx, 1e-5)
+    args = (wav, _frontend_layers(cuda, depth), dtype, approx, 1e-5)
+    before = (k_conv.LAUNCHES, k_conv.LAYER_LAUNCHES)
     out = k_conv.conv_frontend(*args)
+    torch.cuda.synchronize()
+    assert (k_conv.LAUNCHES, k_conv.LAYER_LAUNCHES) == (before[0] + 1, before[1] + depth - 1)
     ref = k_conv.conv_frontend_plain(*args)
+    assert out.shape == ref.shape and out.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+
+
+@pytest.mark.parametrize("hd", [80, 120])
+@pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_wide_heads(cuda, hd, bias, masked, dtype):
+    """K1 at HuBERT-XL's and XLS-R-2B's head dims (two threads per query row)."""
+    B, T, H = 3, 150, 2
+    q, k, v = (torch.randn(B, T, hd * H, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    kw = {}
+    if masked:
+        kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([150, 77, 40], device="cuda")[:, None]).float()
+    if bias:
+        kw["gate"] = 1 + torch.rand(B, H, T, generator=cuda, device="cuda")
+        kw["pos_bias"] = torch.randn(H, T, T, generator=cuda, device="cuda")
+    out = k_attn.attention_btd(q, k, v, H, **kw)
+    ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+    out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)  # the lse is the row's, written once
+    assert lse.shape == (B, H, T)
+    if not bias and not masked and dtype == torch.float32:
+        s = (q.view(B, T, H, hd).transpose(1, 2) * hd ** -0.5) @ k.view(B, T, H, hd).permute(0, 2, 3, 1)
+        torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-4, rtol=0)
+
+
+def test_attention_train_refuses_wide_heads(cuda):
+    q = torch.randn(1, 10, 240, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K4"):
+        k_attn.AttentionBtdTrain.apply(q, q.detach(), q.detach(), 2, None, None, None, None)
+
+
+@pytest.mark.parametrize("n", k_ffn.WIDTHS)
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_fused_kernel(cuda, n, approx, dtype):
+    """K5 with M, K and F off its tiles (37 rows, 96 inputs, 300 hidden)."""
+    M, K, Fd = 37, 96, 300
+    x = torch.randn(M, K, generator=cuda, device="cuda").to(dtype)
+    w_up = torch.randn(Fd, K, generator=cuda, device="cuda") / K ** 0.5
+    b_up = 0.1 * torch.randn(Fd, generator=cuda, device="cuda")
+    w_down = torch.randn(n, Fd, generator=cuda, device="cuda") / Fd ** 0.5
+    b_down = 0.1 * torch.randn(n, generator=cuda, device="cuda")
+    args = (x, w_up, b_up, w_down, b_down, approx)
+    before = k_ffn.LAUNCHES
+    out = k_ffn.ffn_fused(*args)
+    torch.cuda.synchronize()
+    assert k_ffn.LAUNCHES == before + 1
+    ref = k_ffn.ffn_fused_plain(*args)
+    assert out.shape == (M, n) and out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+    assert torch.equal(out, k_ffn.ffn_fused(*args))  # no atomics: a rerun is bit-identical
+
+
+@pytest.mark.parametrize("c", k_pos.GROUP_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [3, 150])
+def test_pos_conv_kernel(cuda, c, dtype, T):
+    """K8 at 16 groups of each width it takes, K = 128 taps (T = 3: fewer frames than taps)."""
+    D, K = 16 * c, 128
+    x = torch.randn(2, T, D, generator=cuda, device="cuda").to(dtype)
+    w = torch.randn(D, c, K, generator=cuda, device="cuda") / (c * K) ** 0.5
+    before = k_pos.LAUNCHES
+    out = k_pos.pos_conv(x, w, 16)
+    torch.cuda.synchronize()
+    assert k_pos.LAUNCHES == before + 1
+    ref = k_pos.pos_conv_plain(x, w, 16)
+    assert out.shape == ref.shape == (2, T + 1, D) and out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+
+
+def test_inference_kernels_refuse_grad(cuda):
+    x = torch.randn(4, 96, device="cuda", requires_grad=True)
+    w = torch.randn(768, 96, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        k_ffn.ffn_fused(x, w, torch.zeros(768, device="cuda"), w, torch.zeros(768, device="cuda"), False)
+    y = torch.randn(1, 5, 768, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k_pos.pos_conv(y, torch.randn(768, 48, 128, device="cuda"), 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k_gru.gru_sequence(torch.randn(2, 5, 12, device="cuda", requires_grad=True), torch.randn(4, 12, device="cuda"),
+                           torch.zeros(12, device="cuda"))
 
 
 def test_gru_kernel(cuda):
@@ -159,6 +270,22 @@ def test_gru_kernel(cuda):
     out = k_gru.gru_sequence_bidir(x, w, b, mask, B)
     ref = k_gru.gru_bidir_carries_plain(x, w, b, mask) * mask[:, :, None]
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_sequence_kernel(cuda, reverse):
+    """K9, one direction, ragged prefix masks (row 2 runs 3 of 40 steps)."""
+    B, T, H = 3, 40, 64
+    x = torch.randn(B, T, 3 * H, generator=cuda, device="cuda")
+    w = (torch.rand(H, 3 * H, generator=cuda, device="cuda") - 0.5) / 4
+    b = (torch.rand(3 * H, generator=cuda, device="cuda") - 0.5) / 4
+    m = (torch.arange(T, device="cuda")[None] < torch.tensor([40, 17, 3], device="cuda")[:, None]).float()
+    before = k_gru.SEQ_LAUNCHES
+    out = k_gru.gru_sequence(x, w, b, m, reverse)
+    torch.cuda.synchronize()
+    assert k_gru.SEQ_LAUNCHES == before + 1
+    torch.testing.assert_close(out, k_gru.gru_sequence_plain(x, w, b, m, reverse), atol=1e-5, rtol=0)
+    assert float(out[2, 3:].abs().max()) == 0.0
 
 
 def _gru_bwd_inputs(gen, B=3, T=40, H=64):
@@ -328,3 +455,37 @@ def test_roberta_on_the_card_matches_the_plain_path(cuda, monkeypatch):
     assert (k_bhtd.LAUNCHES - before[0], k_bhtd.FLASH_LAUNCHES - before[1]) == (2, 2)
     torch.testing.assert_close(out7, ref, atol=1e-4, rtol=0)
     torch.testing.assert_close(out6, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("preset", ["xlsr_2b", "base"])
+def test_zoo_encoder_on_the_card_matches_the_plain_path(cuda, preset, monkeypatch):
+    """Two layers of XLS-R-2B at full width (K2 at depth 3, K1 at hd 120, K8
+    at 120 channels a group, K5) and of the base shape (group norm, post-LN,
+    no conv bias: no K2, K1 at hd 64, K8 at 48 channels), inference_kernels
+    on, f32, against plain=True."""
+    import dataclasses
+
+    from interspeech_ser_tpu_torch.models import speech
+
+    if preset == "xlsr_2b":
+        cfg = dataclasses.replace(speech.wav2vec2_xlsr_2b(), num_layers=2, inference_kernels=True)
+    else:
+        cfg = speech.SpeechConfig(num_layers=2, attention_type="wavlm", inference_kernels=True)
+    monkeypatch.setenv("SER_TPU_FFN_KERNEL", "1")
+    monkeypatch.setenv("SER_TPU_FRONTEND", "3")
+    torch.manual_seed(0)
+    model = speech.SpeechEncoderModel(cfg).cuda().eval()
+    wav = torch.randn(2, 32000, generator=cuda, device="cuda")
+    mask = (torch.arange(32000, device="cuda")[None] < torch.tensor([32000, 20011], device="cuda")[:, None]).float()
+    counters = [(k_attn, "LAUNCHES"), (k_conv, "LAUNCHES"), (k_conv, "LAYER_LAUNCHES"), (k_pos, "LAUNCHES"),
+                (k_ffn, "LAUNCHES")]
+    before = [getattr(m, c) for m, c in counters]
+    with torch.inference_mode():
+        res = model(wav, mask)
+        torch.cuda.synchronize()
+        launched = [getattr(m, c) - b for (m, c), b in zip(counters, before)]
+        ref = model(wav, mask, plain=True)["last_hidden_state"]
+    assert launched == [2, 1, 2, 1, 2] if preset == "xlsr_2b" else [2, 0, 0, 1, 2]
+    out, valid = res["last_hidden_state"], res["frame_mask"] > 0
+    err = float((out - ref).abs()[valid].max()) / float(ref.abs()[valid].max())
+    assert err <= 1e-4, err

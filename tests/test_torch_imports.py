@@ -18,14 +18,15 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ 
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-from interspeech_ser_tpu_torch.ops.kernels import _build, attention, attention_bhtd, conv_frontend, gru
+from interspeech_ser_tpu_torch.ops.kernels import _build, attention, attention_bhtd, conv_frontend, ffn_fused, gru, pos_conv
 print(json.dumps({
     "modules": mods,
     "heavy": [m for m in ("jax", "flax", "pandas", "transformers", "safetensors", "tokenizers", "regex",
                           "interspeech_ser_tpu") if m in sys.modules],
     "library_loaded": _build.library.cache_info().currsize,
     "launches": [attention.LAUNCHES, attention.BWD_LAUNCHES, attention_bhtd.LAUNCHES, attention_bhtd.FLASH_LAUNCHES,
-                 conv_frontend.LAUNCHES, gru.LAUNCHES, gru.BWD_LAUNCHES],
+                 conv_frontend.LAUNCHES, conv_frontend.LAYER_LAUNCHES, gru.LAUNCHES, gru.BWD_LAUNCHES, gru.SEQ_LAUNCHES,
+                 ffn_fused.LAUNCHES, pos_conv.LAUNCHES],
 }))
 """
 
@@ -41,8 +42,8 @@ def test_port_imports_light():
     for m in ("train.losses", "train.checkpointing", "train.engine", "utils.seeding", "utils.device",
               "ops.mel", "models.whisper", "models.lora", "train.lora_engine", "lora_cli",
               "baseline.podcast", "baseline.data", "ops.kernels.attention_bhtd", "models.text", "utils.spm",
-              "utils.bpe"):
+              "utils.bpe", "ops.kernels.ffn_fused", "ops.kernels.pos_conv"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
-    assert out["launches"] == [0] * 7
+    assert out["launches"] == [0] * 11
