@@ -32,13 +32,17 @@ entry points at full width:
    at the fusion trainer's batch (2B=128 rows, T=512, H=512; cuDNN
    ``nn.GRU``); K9 one direction of it, forward and reverse (B=64); K4 the
    attention backward at the Whisper-large fine-tune shape (B=8, T=1500, no
-   bias, no mask) and the WavLM-large one (gated bias + ragged mask), f32
-   and bf16, rerun bit-identical (autograd through SDPA);
+   bias, no mask), the WavLM-large one (gated bias + ragged mask) and
+   HuBERT-XL's and XLS-R-2B's head dims (80, 120: B=16, T=499, ragged mask,
+   with and without the gated bias), f32 and bf16, rerun bit-identical
+   (autograd through SDPA); then bf16 K1 + K4 (the tensor-core kernels) at
+   every head dim and T = 499 and 1500 with a fully masked row;
 4. extraction: a seeded random-init WavLM-large (24 layers, D=1024) written
    as an HF directory, 8 seeded wavs of 3-12 s, ``preprocess_cli.speech_main``
    in bf16 and in f32 (each run twice, cold then warm); shapes,
    finiteness, launch counts, and one f32 utterance against the plain path
-   on the card;
+   on the card; then one bf16 batch of 32 10-s wavs (the default budget)
+   timed and profiled (device idle share, K1's share);
 5. scoring: the bimodal WavLM-large + RoBERTa-large config at full fusion
    width (H=512, feat dims 1024/1024), ``cli.eval_main`` and ``cli.test_main``
    over the extracted features; CSV format, and every logit against a
@@ -81,8 +85,11 @@ entry points at full width:
    default run); XLS-R-2B at full depth (48
    layers) built on the card, one 160-s bf16 batch of 16 10-s wavs: utt/s,
    peak device memory, a profile; HuBERT-XL at full width cut to 2 layers in
-   f32; the wavlm-base-plus shape (group-norm frontend, post-LN: no K2) in
-   bf16 and f32, then ``lora_cli`` over it for 1 epoch.
+   f32; ``lora_cli`` over HuBERT-XL and XLS-R-2B at full width cut to 2
+   layers (head dims 80, 120: K4 = layers x steps), each with one step's
+   gradients through K1 + K4 against the plain path; the wavlm-base-plus
+   shape (group-norm frontend, post-LN: no K2) in bf16 and f32, then
+   ``lora_cli`` over it for 1 epoch.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -174,6 +181,9 @@ KERNELS = {
         replaces="interspeech_ser_tpu/ops/pallas/gru_kernel.py:82",
     ),
 }
+# the profiler's names of K1's and K4's CUDA kernels (the f32 and the bf16 ones)
+K1_EVENTS = ("attention_btd_kernel", "attention_btd_mma_kernel")
+K4_EVENTS = ("delta_kernel", "dkdv_kernel", "dkdv_mma_kernel", "dq_kernel", "dq_mma_kernel", "dbias_reduce")
 
 
 def log(msg: str) -> None:
@@ -819,7 +829,8 @@ def check_gru_bwd(g, results) -> None:
 
 def _sdpa_bwd_yardstick(q, k, v, g, H, key_mask, gate, pos_bias, ref):
     """Autograd through ``scaled_dot_product_attention`` (with the float mask
-    gate * bias + key mask where there is a bias, and its gradient then too):
+    gate * bias + key mask where there is a bias, and its gradient then too;
+    the key mask alone without a bias):
     the backward of K1's function. Its median ms (graph built once, outside
     the timing) and its dq's max-abs gap to the plain backward's."""
     import torch.nn.functional as F
@@ -827,10 +838,14 @@ def _sdpa_bwd_yardstick(q, k, v, g, H, key_mask, gate, pos_bias, ref):
     B, T, D = q.shape
     heads = [t.detach().view(B, T, H, D // H).transpose(1, 2).requires_grad_() for t in (q, k, v)]
     wrt, attn_mask = list(heads), None
+    if key_mask is not None:
+        attn_mask = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))[:, None, None, :]
     if pos_bias is not None:
-        masked = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))
-        attn_mask = (gate[..., None] * pos_bias[None] + masked[:, None, None, :]).to(q.dtype).requires_grad_()
+        attn_mask = (gate[..., None] * pos_bias[None] + (0 if attn_mask is None else attn_mask)).to(q.dtype)
+        attn_mask.requires_grad_()
         wrt.append(attn_mask)
+    elif attn_mask is not None:
+        attn_mask = attn_mask.to(q.dtype)
     out = F.scaled_dot_product_attention(*heads, attn_mask=attn_mask)
     gh = g.view(B, T, H, D // H).transpose(1, 2)
     dq = torch.autograd.grad(out, wrt, gh, retain_graph=True)[0].transpose(1, 2).reshape(B, T, D)
@@ -841,13 +856,20 @@ def _sdpa_bwd_yardstick(q, k, v, g, H, key_mask, gate, pos_bias, ref):
 def check_attention_bwd(g, results) -> None:
     """K4 against the plain backward on the card, on K1's output and lse, at
     the Whisper-large fine-tune shape (B=8, T=1500, D=1280, H=20, no bias, no
-    mask) and the WavLM-large shape (B=8, T=499, D=1024, H=16, gated bias
-    and ragged key mask, every cotangent asked for), f32 and bf16. Bars: f32
+    mask), the WavLM-large shape (B=8, T=499, D=1024, H=16, gated bias
+    and ragged key mask, every cotangent asked for) and HuBERT-XL's and
+    XLS-R-2B's head dims (80 and 120: B=16, T=499, D=1280 / 1920, H=16,
+    ragged key mask, with and without the gated bias), f32 and bf16. Bars: f32
     max-abs <= 1e-5 x max|ref| per output; bf16 cosine >= 0.999; a rerun
     bit-identical."""
     wavlm_lengths = [499, 480, 451, 400, 333, 250, 130, 64]
+    zoo_lengths = wavlm_lengths + [499, 470, 402, 380, 310, 222, 160, 90]
     for shape, (B, T, D, H), lengths, bias in (("whisper", (8, 1500, 1280, 20), None, False),
-                                               ("wavlm", (8, 499, 1024, 16), wavlm_lengths, True)):
+                                               ("wavlm", (8, 499, 1024, 16), wavlm_lengths, True),
+                                               ("hd80", (16, 499, 1280, 16), zoo_lengths, False),
+                                               ("hd80_bias", (16, 499, 1280, 16), zoo_lengths, True),
+                                               ("hd120", (16, 499, 1920, 16), zoo_lengths, False),
+                                               ("hd120_bias", (16, 499, 1920, 16), zoo_lengths, True)):
         for dt in (torch.float32, torch.bfloat16):
             (q, k, v, _), kw = _attention_inputs(g, B, T, D, H, lengths, bias, dt)
             gr = torch.randn(B, T, D, generator=g, device="cuda").to(dt)
@@ -871,7 +893,7 @@ def check_attention_bwd(g, results) -> None:
             flops = 10 * H * T * (D // H) * live  # QK^T, dP = gV^T, dV, dQ, dK over live keys
             bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
             name = ("f32" if dt == torch.float32 else "bf16") if shape == "whisper" else \
-                ("wavlm_f32" if dt == torch.float32 else "wavlm_bf16")
+                f"{shape}_" + ("f32" if dt == torch.float32 else "bf16")
             log(f"[parity] K4 attention_btd_bwd {shape} B{B} T{T} D{D} H{H} bias={bias} mask={lengths is not None} "
                 f"{name}: rel max-abs {', '.join(f'{n} {e:.2e}' for n, e in rel.items())}; cos min "
                 f"{min(cos.values()):.7f}; bit-identical rerun {deterministic}; kernel {ms:.3f} ms, plain "
@@ -888,6 +910,57 @@ def check_attention_bwd(g, results) -> None:
                 max_abs_err=max(rel.values()), rel_errs=rel, cosine=min(cos.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
             del got, ref, again, out, lse
+            torch.cuda.empty_cache()
+
+
+def check_attention_tensor_cores(g, results) -> None:
+    """K1 and K4 in bf16 (the tensor-core kernels) against their plain
+    versions at every head dim (64, 80, 120; H=16) and both lengths (T=499
+    and 1500, neither a multiple of the 64-key tile), with a ragged key mask
+    in which row 1 has no live key at all. That row is not defined by the
+    plain version (a uniform softmax over masked keys); the kernels give it
+    an output of 0, lse -inf and no gradient, which is checked exactly; the
+    other rows are held to the plain versions: cosine >= 0.999 per output,
+    and a rerun of K4 bit-identical. Gated bias at T=499 (WavLM's case)."""
+    for hd in (64, 80, 120):
+        for T in (499, 1500):
+            B, H = (4, 16) if T == 499 else (2, 16)
+            lengths = [T, 0, T - 77, 130][:B] if B == 4 else [T - 3, 0]
+            D = H * hd
+            bias = T == 499
+            (q, k, v, _), kw = _attention_inputs(g, B, T, D, H, lengths, bias, torch.bfloat16)
+            gr = torch.randn(B, T, D, generator=g, device="cuda").to(torch.bfloat16)
+            out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+            ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
+            live = [b for b in range(B) if lengths[b] > 0]
+            cos_fwd = cosine(out[live], ref[live])
+            dead_ok = bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
+            kw_live = dict(kw)
+            if bias:  # K4's dbias sums over b: compare it with the plain one over the live rows
+                kw_live["gate"] = kw["gate"][live]
+            ref_b = k_attn.attention_btd_bwd_plain(q[live], k[live], v[live], gr[live], H,
+                                                   kw["key_mask"][live], None, kw_live["gate"], kw["pos_bias"])
+            got = k_attn.attention_btd_bwd(q, k, v, gr, H, **kw, out=out, lse=lse)
+            again = k_attn.attention_btd_bwd(q, k, v, gr, H, **kw, out=out, lse=lse)
+            same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+            cos_bwd = {}
+            for n, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, ref_b):
+                if b is None:
+                    continue
+                cos_bwd[n] = cosine(a, b) if n == "dbias" else cosine(a[live], b)
+            dead_ok = dead_ok and all(float(a[1].abs().max()) == 0 for a in got[:3])
+            name = f"tc_hd{hd}_T{T}"
+            log(f"[parity] K1 + K4 bf16 tensor cores hd {hd} B{B} T{T} H{H} bias={bias} row 1 fully masked: "
+                f"K1 cos {cos_fwd:.7f}; K4 cos {', '.join(f'{n} {c:.7f}' for n, c in cos_bwd.items())}; "
+                f"masked row zero {dead_ok}; K4 rerun bit-identical {same}")
+            require(cos_fwd >= 0.999, f"K1 {name} cosine {cos_fwd} < 0.999")
+            for n, c in cos_bwd.items():
+                require(c >= 0.999, f"K4 {name} {n} cosine {c} < 0.999")
+            require(dead_ok, f"{name}: the fully masked row is not 0 (output, lse, gradients)")
+            require(same, f"K4 {name} gave different bits on a rerun")
+            results.setdefault("attention_btd", {})[name] = dict(cosine=cos_fwd)
+            results.setdefault("attention_btd_bwd", {})[name] = dict(cosine=min(cos_bwd.values()))
+            del q, k, v, gr, out, lse, ref, ref_b, got, again
             torch.cuda.empty_cache()
 
 
@@ -952,7 +1025,7 @@ def zero_counts() -> None:
         setattr(spec["module"], spec.get("counter", "LAUNCHES"), 0)
 
 
-def phase_extraction(tmp: str) -> dict:
+def phase_extraction(tmp: str, smi: str) -> dict:
     from interspeech_ser_tpu_torch.models.loader import build_speech_encoder
     from interspeech_ser_tpu_torch.models.speech import feat_extract_output_length, wavlm_large
     from interspeech_ser_tpu_torch.preprocess_cli import speech_main
@@ -1008,8 +1081,66 @@ def phase_extraction(tmp: str) -> dict:
         if bar is not None:
             require(cos >= bar, f"{dtype} utt0 cosine {cos} < {bar}")
     del model
+    profile = profile_wavlm_large(tmp, model_dir, smi)
     return {"utt_per_sec": rates, "feats_dir": os.path.join(tmp, "feats_float32"),
-            "names": sorted(n_samples)}
+            "names": sorted(n_samples), "b32_bf16": profile}
+
+
+# bf16 WavLM-large extraction at the default token budget: 32 x 10 s = 320 s, one batch
+WAVLM_B32_SHAPE = dict(n_wavs=32, seconds=10.0)
+
+
+def profile_wavlm_large(tmp: str, model_dir: str, smi: str) -> dict:
+    """WavLM-large extraction in bf16 at the default token budget: 32 seeded
+    10-s wavs in one B=32 batch through ``SpeechExtractionPipeline.run``,
+    built as ``preprocess_cli speech`` builds it. One warm run timed (utt/s),
+    then a profile of another: device busy and idle share, K1's share, the
+    top device ops."""
+    from interspeech_ser_tpu_torch.extract.pipeline import SpeechExtractionPipeline
+    from interspeech_ser_tpu_torch.models.loader import build_speech_encoder
+    from interspeech_ser_tpu_torch.preprocess_cli import set_precision
+
+    n, seconds = WAVLM_B32_SHAPE["n_wavs"], WAVLM_B32_SHAPE["seconds"]
+    wav_dir = os.path.join(tmp, "wavs_10s")
+    write_wavs(wav_dir, n, (seconds, seconds), SEED + 9)
+    set_precision("bfloat16")
+    model, cfg, do_norm = build_speech_encoder(model_dir, dtype="bfloat16")
+    pipe = SpeechExtractionPipeline(model, cfg, do_normalize=do_norm, num_workers=4, device=DEVICE)
+    pipe.run(wav_dir, os.path.join(tmp, "b32_warmup"))
+    sync()
+    before = counts()
+    stats = pipe.run(wav_dir, os.path.join(tmp, "b32"))
+    sync()
+    delta = {k: v - before[k] for k, v in counts().items()}
+    require(stats.n_utts == n and stats.n_batches == 1, f"WavLM-large B=32: {stats}")
+    require(delta["attention_btd"] == cfg.num_layers, f"WavLM-large B=32 launches {delta}")
+    out = {"utt_per_sec": stats.utts_per_sec, "wall_s": stats.wall_seconds}
+    log(f"[extract] WavLM-large bf16 B=32 x 10 s, one batch: {stats.wall_seconds:.3f} s = "
+        f"{stats.utts_per_sec:.2f} utt/s ({smi})")
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe.run(wav_dir, os.path.join(tmp, "b32_profile"))
+            sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        k1_ms = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K1_EVENTS)) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        out["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "k1_ms": k1_ms,
+                          "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+        log(f"[extract] profile of one warm B=32 bf16 run: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), K1 {k1_ms:.1f} ms = {100 * k1_ms / busy_ms:.1f}% "
+            f"of device time")
+        for name, ms, n in out["profile"]["top"]:
+            log(f"[extract]   {ms:9.3f} ms  x{n:<4d} {name}")
+    set_tf32(False)
+    del pipe, model
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_scoring(tmp: str, extracted: dict) -> None:
@@ -1426,46 +1557,52 @@ def phase_lora(tmp: str, whisper: dict, wavlm_dir: str) -> dict:
 
 def check_lora_grads(tmp: str, whisper: dict, wavlm_dir: str) -> dict:
     """One LoRA step's gradients through K1 + K4 against the plain attention
-    path on the card: full width, 2 layers, f32, TF32 off, B factors drawn
-    non-zero (so A gets a gradient), head dropout off, a batch of 8
-    fine-tune utterances. Bar: per LoRA factor
-    and head parameter max|g_kernel - g_plain| <= 1e-4 x max|g_plain|."""
-    from interspeech_ser_tpu_torch.train.lora_engine import LoRAFTEngine
-
-    set_tf32(False)
+    path on the card (``lora_grad_check``) for Whisper-large-v3 and
+    WavLM-large, each at full width cut to 2 layers."""
     whisper2 = os.path.join(tmp, "whisper-2layers")
     wavlm2 = os.path.join(tmp, "wavlm-2layers")
     write_whisper(whisper2, layers=2)
     write_wavlm_layers(wavlm_dir, wavlm2, 2)
-    worst = {}
-    for name, model_dir in (("whisper", whisper2), ("wavlm", wavlm2)):
-        engine = LoRAFTEngine(model_dir, device=DEVICE)
-        engine.head.dropout_p = 0.0
-        gen = torch.Generator().manual_seed(SEED)
-        with torch.no_grad():
-            for pair in engine.lora.values():
-                pair["lora_B"].copy_(0.01 * torch.randn(pair["lora_B"].shape, generator=gen))
-        batch = lora_batch(engine, os.path.join(tmp, "lora_wavs"))
-        grads = {}
-        for route in ("kernel", "plain"):
-            before = counts()["attention_btd_bwd"]
-            for t in engine.trainable():
-                t.grad = None
-            loss_t = engine.loss(*batch, plain=route == "plain")
-            loss_t.backward()
-            loss = loss_t.item()
-            sync()
-            require(np.isfinite(loss), f"{name} {route} loss {loss}")
-            launched = counts()["attention_btd_bwd"] - before
-            require(launched == (2 if route == "kernel" else 0), f"{name} {route}: {launched} K4 launches")
-            grads[route] = [t.grad.detach().clone() for t in engine.trainable()]
-        errs = [max_abs(a, b) / float(b.abs().max()) for a, b in zip(grads["kernel"], grads["plain"])]
-        log(f"[lora] {name} 2 layers full width, one step's gradients through K1+K4 vs the plain path: "
-            f"worst {max(errs):.3e} over {len(errs)} tensors (bar 1e-4); loss {loss:.6f}")
-        require(max(errs) <= 1e-4, f"{name} LoRA gradient relative error {max(errs)} > 1e-4")
-        worst[name] = max(errs)
-        del engine, grads
-    return worst
+    return {name: lora_grad_check(tmp, name, model_dir, 2)
+            for name, model_dir in (("whisper", whisper2), ("wavlm", wavlm2))}
+
+
+def lora_grad_check(tmp: str, name: str, model_dir: str, layers: int) -> float:
+    """One LoRA step's gradients through K1 + K4 against the plain attention
+    path on the card: f32, TF32 off, B factors drawn non-zero (so A gets a
+    gradient), head dropout off, a batch of 8 fine-tune utterances; K4
+    launches once a layer on the kernel route and never on the plain one.
+    Bar: per LoRA factor and head parameter max|g_kernel - g_plain| <= 1e-4 x
+    max|g_plain| -> the worst such ratio."""
+    from interspeech_ser_tpu_torch.train.lora_engine import LoRAFTEngine
+
+    set_tf32(False)
+    engine = LoRAFTEngine(model_dir, device=DEVICE)
+    engine.head.dropout_p = 0.0
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for pair in engine.lora.values():
+            pair["lora_B"].copy_(0.01 * torch.randn(pair["lora_B"].shape, generator=gen))
+    batch = lora_batch(engine, os.path.join(tmp, "lora_wavs"))
+    grads = {}
+    for route in ("kernel", "plain"):
+        before = counts()["attention_btd_bwd"]
+        for t in engine.trainable():
+            t.grad = None
+        loss_t = engine.loss(*batch, plain=route == "plain")
+        loss_t.backward()
+        loss = loss_t.item()
+        sync()
+        require(np.isfinite(loss), f"{name} {route} loss {loss}")
+        launched = counts()["attention_btd_bwd"] - before
+        require(launched == (layers if route == "kernel" else 0), f"{name} {route}: {launched} K4 launches")
+        grads[route] = [t.grad.detach().clone() for t in engine.trainable()]
+    errs = [max_abs(a, b) / float(b.abs().max()) for a, b in zip(grads["kernel"], grads["plain"])]
+    log(f"[lora] {name} {layers} layers full width, one step's gradients through K1+K4 vs the plain path: "
+        f"worst {max(errs):.3e} over {len(errs)} tensors (bar 1e-4); loss {loss:.6f}")
+    require(max(errs) <= 1e-4, f"{name} LoRA gradient relative error {max(errs)} > 1e-4")
+    del engine, grads
+    return max(errs)
 
 
 def lora_batch(engine, wav_dir: str, n: int = 8):
@@ -1519,8 +1656,8 @@ def time_bf16_steps(whisper: dict) -> dict:
         kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         k4_ms = sum(e.self_device_time_total for e in kernels
-                    if any(n in e.key for n in ("dkdv_kernel", "dq_kernel", "delta_kernel", "dbias_reduce"))) / 1e3
-        k1_ms = sum(e.self_device_time_total for e in kernels if "attention_btd_kernel" in e.key) / 1e3
+                    if any(n in e.key for n in K4_EVENTS)) / 1e3
+        k1_ms = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K1_EVENTS)) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
         out["profile"] = {"wall_ms_2_steps": wall_ms, "device_busy_ms": busy_ms, "k4_ms": k4_ms, "k1_ms": k1_ms,
                           "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
@@ -1987,7 +2124,7 @@ def profile_xlsr_full_depth(tmp: str, smi: str) -> dict:
         def share(*names):
             return sum(e.self_device_time_total for e in kernels if any(n in e.key for n in names)) / 1e3
 
-        parts = {"K1": share("attention_btd_kernel"), "K8": share("pos_conv"),
+        parts = {"K1": share(*K1_EVENTS), "K8": share("pos_conv"),
                  "K2": share("conv_frontend_kernel", "conv_layer_kernel"),
                  "GEMMs": sum(e.self_device_time_total for e in kernels
                               if any(n in e.key.lower() for n in ("gemm", "nvjet", "cutlass", "sm90_xmma"))) / 1e3}
@@ -2015,9 +2152,12 @@ def phase_zoo(tmp: str, smi: str) -> dict:
     cold then warm, then bf16 under SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3
     (K5 = layers x batches, K2 at depth 3, files within cosine 0.999 of the
     default run); XLS-R-2B at full depth (``profile_xlsr_full_depth``);
-    HuBERT-XL (hd 80) at full width cut to 2 layers in f32; the
-    wavlm-base-plus shape (group norm, post-LN: no K2) whole, in bf16 and
-    f32, then ``lora_cli`` over it for 1 epoch with ft_lora's defaults."""
+    HuBERT-XL (hd 80) at full width cut to 2 layers in f32; ``lora_cli``
+    over that HuBERT-XL and over XLS-R-2B (hd 120) at full width cut to 2
+    layers (K4 = layers x steps), each with one step's gradients through
+    K1 + K4 against the plain path; the wavlm-base-plus shape (group norm,
+    post-LN: no K2) whole, in bf16 and f32, then ``lora_cli`` over it for 1
+    epoch with ft_lora's defaults."""
     from interspeech_ser_tpu_torch.models.speech import hubert_xlarge, wav2vec2_xlsr_2b
 
     shape = ZOO_SHAPE
@@ -2053,14 +2193,24 @@ def phase_zoo(tmp: str, smi: str) -> dict:
     out["hubert_xl"] = _zoo_cli_runs(tmp, "hubert_xl", hcfg, hdir, wav_dir, lengths, (("float32", "once"),), smi,
                                      frontend=1)
 
+    # LoRA of HuBERT-XL (hd 80) and XLS-R-2B (hd 120) at full width, 2 layers:
+    # lora_cli through K1 + K4, then one step's gradients against the plain path
+    label_path = os.path.join(tmp, "lora_labels.csv")
+    if not os.path.exists(label_path):
+        label_path = write_lora_corpus(tmp)
+    x2cfg = dataclasses.replace(wav2vec2_xlsr_2b(), num_layers=shape["hubert_layers"])
+    x2dir = os.path.join(tmp, "wav2vec2-xls-r-2b-2layers")
+    write_speech_model(x2dir, x2cfg, "Wav2Vec2Model")
+    for name, cfg_l, model_dir in (("hubert_xl", hcfg, hdir), ("xlsr_2b", x2cfg, x2dir)):
+        out[name]["lora_ckpt"] = fine_tune(tmp, model_dir, label_path, cfg_l.num_layers, f"{name}_lora")
+        out[name]["lora_grad_rel_err"] = lora_grad_check(tmp, name, model_dir, cfg_l.num_layers)
+    shutil.rmtree(x2dir)
+
     bcfg = wavlm_base_plus()
     bdir = os.path.join(tmp, "wavlm-base-plus")
     write_speech_model(bdir, bcfg, "WavLMModel", do_normalize=False)
     out["wavlm_base_plus"] = _zoo_cli_runs(tmp, "wavlm_base_plus", bcfg, bdir, wav_dir, lengths,
                                            (("bfloat16", "once"), ("float32", "once")), smi, frontend=0)
-    label_path = os.path.join(tmp, "lora_labels.csv")
-    if not os.path.exists(label_path):
-        label_path = write_lora_corpus(tmp)
     out["wavlm_base_plus"]["lora_ckpt"] = fine_tune(tmp, bdir, label_path, bcfg.num_layers, "wavlm_base_plus")
     return out
 
@@ -2083,11 +2233,12 @@ def main() -> None:
     check_gru_sequence(g, parity)
     check_gru_bwd(g, parity)
     check_attention_bwd(g, parity)
+    check_attention_tensor_cores(g, parity)
     log(f"[parity] phase 3 done at {time.perf_counter() - T0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         zero_counts()
-        extracted = phase_extraction(tmp)
+        extracted = phase_extraction(tmp, smi)
         phase_scoring(tmp, extracted)
         serving = counts()
         for name in ("attention_btd", "conv_frontend", "gru_bidir"):

@@ -12,30 +12,44 @@
 //
 // Head dims: 64 (WavLM-large, wav2vec2 / HuBERT / WavLM base, Whisper),
 // 80 (HuBERT-XL, D=1280 over 16 heads) and 120 (wav2vec2-XLS-R-2B, D=1920
-// over 16 heads). The TPU kernel served the odd widths by padding lanes to
-// lcm(hd, 128); here hd is a template parameter.
+// over 16 heads), a template parameter. The TPU kernel held a whole
+// [Tk, D] K/V panel in VMEM (about 4 MB at Tk=499, D=1024 in f32), far over
+// the 227 KB of shared memory a block may use; both kernels here stream K/V
+// tiles of 64 keys with an online softmax (running max and denominator in
+// f32), so they have no length limit. One block owns (b, h, 64 queries).
 //
-// What bounds it on an H100: the TPU kernel held a whole [Tk, D] K/V panel
-// in VMEM (about 4 MB at Tk=499, D=1024 in f32), far over the 227 KB of
-// shared memory a block may use. This kernel instead streams K/V tiles of
-// 64 keys with an online softmax (running max and denominator in f32), so
-// it has no length limit. One block owns (b, h, 64 queries). At hd=64 each
-// of its 64 threads owns one query row and keeps q and the accumulator in
-// registers (128 floats). At hd=80 and 120 one row's q and accumulator
-// would be 160 and 240 floats, over what a thread can hold without spilling,
-// so P=2 neighbouring threads share a row: each owns hd/2 columns of q and
-// of the accumulator, the two partial dot products meet in one xor-shuffle,
-// and both keep the same running max and denominator. Threads read the K/V
-// tile from shared memory as float4 broadcasts. Scores and P.V run on the
-// FP32 pipes (no tensor cores yet), so at WavLM shapes the kernel is bound
-// by shared-memory issue rate and FP32 throughput, not by device memory:
-// q/k/v/out are read or written once, and the shared [H, Tq, Tk] bias
-// (16 MB in f32 at T=499) stays in the 50 MB L2 across the batch. wgmma,
-// TMA and warp specialisation are later work.
+// bf16, on the tensor cores (attention_btd_mma_kernel): 4 warps, each
+// owning 16 query rows. K and V tiles are staged by cp.async into padded
+// shared rows and double-buffered, the bias tile and the key flags travel
+// through registers, so tile j+1 loads while tile j is computed.
+// S = round_bf16(q*scale) . K^T runs on mma.sync.m16n8k16 (bf16 in, f32
+// out; fragments by ldmatrix), hd 120 zero-padded to a depth of 128 in
+// shared memory only; bias, gate and mask are applied in the accumulator's
+// fragment layout, the online softmax stays in f32 registers (exp2 of
+// log2e-scaled scores), and P, rounded to bf16, is used straight from its
+// accumulator registers as the A operand of P.V, with V's fragments by
+// ldmatrix.trans, hd in n8 steps (8, 10, 15). A tile whose keys are all
+// masked is skipped by the whole block. What bounds it: at WavLM shapes the
+// products are ~5 GFLOP, 5 us at the bf16 peak, and q/k/v/out are read or
+// written once (15 MB, 4.4 us at 3.35 TB/s); the kernel is bound by
+// mma.sync issue (wgmma, which needs 64-row warpgroup tiles and TMA-fed
+// shared operands, is later work), by the f32 softmax between the two
+// products and by the 2-byte bias loads (a bias row of Tk bf16 values
+// starts on any 2-byte boundary, so cp.async cannot stage it).
+//
+// f32 (attention_btd_kernel), the parity mode with TF32 off, stays on the
+// FP32 pipes: at hd=64 each of 64 threads owns one query row, q and the
+// accumulator in registers (128 floats); at hd=80 and 120 P=2 neighbouring
+// threads share a row (hd/2 columns each; the two partial dot products meet
+// in one xor-shuffle), reading K/V tiles from shared memory as float4
+// broadcasts. It is bound by FP32 issue and shared-memory bandwidth; the
+// shared [H, Tq, Tk] bias (16 MB in f32 at T=499) stays in the 50 MB L2
+// across the batch.
 //
 // Masked keys (key_mask == 0, or index >= Tk) get no weight at all: a tile
 // whose keys are all masked leaves the running max, denominator and
-// accumulator untouched, instead of adding exp(0) terms.
+// accumulator untouched, instead of adding exp(0) terms; a row with no live
+// key gets an output of 0 and lse -inf.
 //
 // With a non-null `lse` the kernel also writes each row's log-sum-exp
 // m + log(l) ([B, H, Tq] f32; -inf for a row whose keys are all masked), so
@@ -46,13 +60,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
 constexpr int BQ = 64;  // queries per block
 constexpr int BK = 64;  // keys per tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
@@ -67,10 +82,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // HD: head dim; P: threads per query row (each owns HD / P columns)
 template <typename T, int HD, int P>
@@ -200,6 +211,223 @@ __global__ void __launch_bounds__(BQ * P) attention_btd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores. Block: (b, h, 64 queries), 4 warps, warp w owns
+// query rows 16w .. 16w+15. Key tiles of 64: K, V by cp.async and the bias
+// tile and key flags through registers, both double-buffered, so tile j+1
+// loads while tile j is computed.
+
+constexpr int MMA_THREADS = 128;
+constexpr int BIAS_STR = BK + 8;  // bias tile row stride: the 8 rows of a fragment read hit 8 bank groups
+
+template <int HD, bool BIAS>
+struct FwdSmem {
+  typedef attn_mma::Dims<HD> Dm;
+  static constexpr size_t q_elems = (size_t)BQ * Dm::STR;
+  static constexpr size_t kv_elems = (size_t)BK * Dm::STR;  // one stage of K (or V)
+  static constexpr size_t bias_elems = BIAS ? (size_t)BQ * BIAS_STR : 0;
+  static constexpr size_t bytes =
+      (q_elems + 4 * kv_elems + 2 * bias_elems) * sizeof(__nv_bfloat16) + 2 * BK * sizeof(float);
+};
+
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(MMA_THREADS) attention_btd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_mask,
+    const float* __restrict__ gate, const __nv_bfloat16* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H, float scale) {
+  using namespace attn_mma;
+  typedef Dims<HD> Dm;
+  typedef FwdSmem<HD, BIAS> Sm;
+  constexpr int STR = Dm::STR, NT = Dm::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + Sm::q_elems;        // [2][BK][STR]
+  bf16* vs = ks + 2 * Sm::kv_elems;   // [2][BK][STR]
+  bf16* bs = vs + 2 * Sm::kv_elems;   // [2][BQ][BIAS_STR]
+  float* valid = reinterpret_cast<float*>(bs + 2 * Sm::bias_elems);  // [2][BK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int D = H * HD;
+  const bf16* kb = k + (size_t)b * Tk * D;
+  const bf16* vb = v + (size_t)b * Tk * D;
+
+  zero_pad<HD, MMA_THREADS>(qs, BQ, tid);
+  zero_pad<HD, MMA_THREADS>(ks, 2 * BK, tid);
+  zero_pad<HD, MMA_THREADS>(vs, 2 * BK, tid);
+
+  // q * scale rounded to bf16 (the scale rounded first), as the f32-pipe kernel does
+  const float sc = round_to<__nv_bfloat16>(scale);
+  for (int idx = tid; idx < BQ * Dm::CH; idx += MMA_THREADS) {
+    const int r = idx / Dm::CH, c = (idx % Dm::CH) * 8;
+    const int qi = q0 + r;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (qi < Tq) raw = *reinterpret_cast<const uint4*>(q + ((size_t)b * Tq + qi) * D + h * HD + c);
+    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(p2[e]);
+      p2[e] = __floats2bfloat162_rn(f.x * sc, f.y * sc);
+    }
+    *reinterpret_cast<uint4*>(qs + r * STR + c) = raw;
+  }
+
+  // the next tile's bias and key flags travel through registers
+  TileRegs<BQ, BK, MMA_THREADS> bpre;
+  const bf16* bias_h = bias + (size_t)h * Tq * Tk;
+  float vpre = 0.f;
+  auto prefetch = [&](int k0) {
+    if constexpr (BIAS) bpre.load(bias_h, q0, k0, Tq, Tk, Tk, tid);
+    if (tid < BK) {
+      const int kj = k0 + tid;
+      vpre = (kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f)) ? 1.f : 0.f;
+    }
+  };
+  auto commit_prefetch = [&](int st) {
+    if constexpr (BIAS) bpre.store(bs + st * Sm::bias_elems, BIAS_STR, tid);
+    if (tid < BK) valid[st * BK + tid] = vpre;
+  };
+
+  const int nt = (Tk + BK - 1) / BK;
+  stage_rows<HD, BK, MMA_THREADS>(ks, kb, 0, Tk, D, h, tid);
+  stage_rows<HD, BK, MMA_THREADS>(vs, vb, 0, Tk, D, h, tid);
+  cp_async_commit();
+  prefetch(0);
+  commit_prefetch(0);
+
+  const int r_lo = warp * 16 + g;  // this thread's two rows: r_lo and r_lo + 8
+  float gr[2] = {0.f, 0.f};
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + r_lo + 8 * i;
+      gr[i] = qi < Tq ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
+    }
+  }
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the denominator
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int j = 0; j < nt; ++j) {
+    const int st = j & 1;
+    if (j + 1 < nt) {
+      stage_rows<HD, BK, MMA_THREADS>(ks + (st ^ 1) * Sm::kv_elems, kb, (j + 1) * BK, Tk, D, h, tid);
+      stage_rows<HD, BK, MMA_THREADS>(vs + (st ^ 1) * Sm::kv_elems, vb, (j + 1) * BK, Tk, D, h, tid);
+      cp_async_commit();
+      prefetch((j + 1) * BK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // a tile whose keys are all masked changes nothing: the block skips it
+    const int any = __syncthreads_or(tid < BK && valid[st * BK + tid] > 0.f);
+    if (any) {
+      // S = round(q*scale) K^T: Q's fragments are reloaded from shared memory
+      // each tile, which keeps registers for the accumulators
+      float s[BK / 8][4];
+      mma_rows_nk<HD, BK / 8>(s, qs + warp * 16 * STR, ks + st * Sm::kv_elems, lane);
+      // bias, mask and the row max, in the accumulator's layout
+      const float* vt = valid + st * BK;
+      const bf16* bt = bs + st * Sm::bias_elems;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
+          float x = s[n][e];
+          if constexpr (BIAS) x += gr[i] * bf(bt[(r_lo + 8 * i) * BIAS_STR + c]);
+          x = vt[c] > 0.f ? x * LOG2E : -INFINITY;
+          s[n][e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        // a row with no live key yet: o and l are 0 and stay 0 (exp2(-inf) = 0)
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[i] - m_use);
+        l[i] *= alpha;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          o[n][2 * i] *= alpha;
+          o[n][2 * i + 1] *= alpha;
+        }
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          const float p0 = exp2f(s[n][2 * i] - m_use), p1 = exp2f(s[n][2 * i + 1] - m_use);
+          l[i] += p0 + p1;
+          s[n][2 * i] = p0;
+          s[n][2 * i + 1] = p1;
+        }
+        m[i] = m_new;
+      }
+      // O += round_bf16(P) . V: P's accumulator fragments are the A operand
+      const bf16* vt2 = vs + st * Sm::kv_elems;
+#pragma unroll
+      for (int kc2 = 0; kc2 < BK / 16; ++kc2) {
+        uint32_t a[4];
+        c_to_a(a, s[2 * kc2], s[2 * kc2 + 1]);
+        mma_a_xkn<HD, STR>(o, a, vt2, kc2 * 16, lane);
+      }
+    }
+    if (j + 1 < nt) commit_prefetch(st ^ 1);
+    __syncthreads();  // stage st is rewritten by tile j + 2
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qi = q0 + r_lo + 8 * i;
+    if (qi >= Tq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = out + ((size_t)b * Tq + qi) * D + h * HD;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * H + h) * Tq + qi] = l[i] > 0.f ? m[i] * LN2 + logf(l[i]) : -INFINITY;
+  }
+}
+
+template <int HD, bool BIAS>
+int launch_mma(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+               const void* bias, void* out, void* lse, int B, int Tq, int Tk, int H, float scale,
+               void* stream) {
+  constexpr size_t bytes = FwdSmem<HD, BIAS>::bytes;
+  static bool configured = false;  // the attribute is per kernel and per process
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(attention_btd_mma_kernel<HD, BIAS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  attention_btd_mma_kernel<HD, BIAS><<<grid, MMA_THREADS, bytes, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const float*)key_mask,
+      (const float*)gate, (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, (float*)lse, Tq, Tk, H, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_mma_hd(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                  const void* bias, void* out, void* lse, int B, int Tq, int Tk, int H, float scale,
+                  void* stream) {
+  return bias != nullptr
+             ? launch_mma<HD, true>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream)
+             : launch_mma<HD, false>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+}
+
+// f32 on the FP32 pipes: HD the head dim, P threads a query row
 template <typename T, int HD, int P>
 int launch_hd(const void* q, const void* k, const void* v, const void* key_mask,
               const void* gate, const void* bias, void* out, void* lse, int B, int Tq,
@@ -211,17 +439,31 @@ int launch_hd(const void* q, const void* k, const void* v, const void* key_mask,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* key_mask,
-           const void* gate, const void* bias, void* out, void* lse, int B, int Tq,
-           int Tk, int H, int hd, float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, const void* key_mask,
+               const void* gate, const void* bias, void* out, void* lse, int B, int Tq,
+               int Tk, int H, int hd, float scale, void* stream) {
   switch (hd) {
     case 64:
-      return launch_hd<T, 64, 1>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+      return launch_hd<float, 64, 1>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
     case 80:
-      return launch_hd<T, 80, 2>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+      return launch_hd<float, 80, 2>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
     case 120:
-      return launch_hd<T, 120, 2>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+      return launch_hd<float, 120, 2>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask,
+                const void* gate, const void* bias, void* out, void* lse, int B, int Tq,
+                int Tk, int H, int hd, float scale, void* stream) {
+  switch (hd) {
+    case 64:
+      return launch_mma_hd<64>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+    case 80:
+      return launch_mma_hd<80>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+    case 120:
+      return launch_mma_hd<120>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -238,8 +480,7 @@ extern "C" int ser_attention_btd_f32(const void* q, const void* k, const void* v
                                      const void* bias, void* out, void* lse, int B,
                                      int Tq, int Tk, int H, int hd, float scale,
                                      void* stream) {
-  return launch<float>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale,
-                       stream);
+  return launch_f32(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale, stream);
 }
 
 extern "C" int ser_attention_btd_bf16(const void* q, const void* k, const void* v,
@@ -247,6 +488,5 @@ extern "C" int ser_attention_btd_bf16(const void* q, const void* k, const void* 
                                       const void* bias, void* out, void* lse, int B,
                                       int Tq, int Tk, int H, int hd, float scale,
                                       void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H,
-                               hd, scale, stream);
+  return launch_bf16(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale, stream);
 }

@@ -25,8 +25,9 @@ Kernels on a CUDA tensor (each falls to its plain version on a CPU tensor,
 and ``plain=True`` forces the plain versions, a reference run on the card):
 - K1, every attention (K1 + K4 when a gradient is needed);
 - K2, the first ``fused_frontend`` layers of a layer-norm frontend
-  (``default_fused_frontend``: ``SER_TPU_FRONTEND``, else 1; a group-norm
-  frontend runs no K2, its GroupNorm needs the whole sequence);
+  (``default_fused_frontend``: ``SER_TPU_FRONTEND``, else 1; ``xla`` or
+  ``0`` runs no K2, as in the JAX package; a group-norm frontend runs no
+  K2, its GroupNorm needs the whole sequence);
 - K8, the positional conv, and K5, each feed-forward pair under
   ``SER_TPU_FFN_KERNEL=1`` (``default_ffn_kernel``), only with
   ``inference_kernels`` set: neither kernel has a backward, so the
@@ -161,17 +162,18 @@ def hubert_xlarge(dtype: str = "float32") -> SpeechConfig:
     )
 
 
-FRONTEND_DEPTHS = tuple(str(n) for n in range(1, 8))  # the SER_TPU_FRONTEND values the port honours
+FRONTEND_DEPTHS = ("xla",) + tuple(str(n) for n in range(0, 8))  # the SER_TPU_FRONTEND values the port honours
 
 
 def default_fused_frontend(cfg: SpeechConfig) -> int:
-    """How many frontend layers K2 runs: ``SER_TPU_FRONTEND=<n>`` (1..7; any
+    """How many frontend layers K2 runs: ``SER_TPU_FRONTEND=<n>`` (0..7; ``xla``
+    means 0, every conv layer on the cuDNN route, as in the JAX package; any
     other value raises), else 1, for a layer-norm frontend; 0 for a
     group-norm one, whose GroupNorm needs the whole sequence."""
     env = os.environ.get("SER_TPU_FRONTEND")
     if env is not None and env not in FRONTEND_DEPTHS:
         raise ValueError(f"SER_TPU_FRONTEND={env!r}: the port honours {'|'.join(FRONTEND_DEPTHS)}")
-    if cfg.feat_extract_norm != "layer":
+    if cfg.feat_extract_norm != "layer" or env == "xla":
         return 0
     return min(int(env or 1), len(cfg.conv_dim))
 

@@ -10,7 +10,10 @@ encoders on [B, T, D] panels (``ops/kernels/attention.py`` holds the kernels):
 - a CUDA tensor with grad enabled and an input that requires grad goes to
   ``AttentionBtdTrain``, kernel K1 forward and kernel K4 backward;
 - any other CUDA tensor goes to K1;
-- a CPU tensor goes to K1's plain version, under ordinary autograd.
+- a CPU tensor goes to K1's plain version, under ordinary autograd;
+- under ``SER_TPU_ATTN_IMPL=xla`` every tensor goes to the plain attention
+  on [B, H, T, hd] heads, as the JAX package's XLA route does (a route the
+  user asks for, not a fallback).
 K1 and K4 stream over keys, so they have no length limit and no fallback.
 The JAX package's TPU-only choices (the inference/training opt-ins, the
 bf16-only and ``Tk >= 1024`` gating of the training pair) are gone: they
@@ -20,7 +23,8 @@ were measurements of a TPU.
 (RoBERTa's self-attention; ``ops/kernels/attention_bhtd.py`` holds the
 kernels). ``pick_impl`` chooses, as the JAX package's does: ``force_impl``
 first (``oneshot``, ``flash`` or ``plain``), then ``SER_TPU_ATTN_IMPL``
-(``oneshot`` or ``flash``; any other value raises), else K7 (one-shot) up to
+(``oneshot``, ``flash``, or ``xla`` for ``plain``; any other value raises,
+in both dispatchers), else K7 (one-shot) up to
 ``MAX_ONESHOT_TK`` keys and K6 (streaming) beyond. The chosen kernel's
 wrapper runs its plain version for a CPU tensor. Neither kernel has a
 backward or dropout: the fusion model's cross-attention, which needs both,
@@ -37,7 +41,16 @@ import torch
 from .kernels.attention import NEG_INF, AttentionBtdTrain, attention_btd, attention_btd_plain
 from .kernels.attention_bhtd import MAX_ONESHOT_TK, attention_bhtd, flash_attention
 
-KERNEL_IMPLS = ("oneshot", "flash")  # the SER_TPU_ATTN_IMPL values the port honours
+KERNEL_IMPLS = ("oneshot", "flash")
+ENV_IMPLS = KERNEL_IMPLS + ("xla",)  # the SER_TPU_ATTN_IMPL values the port honours
+
+
+def env_impl() -> Optional[str]:
+    """``SER_TPU_ATTN_IMPL`` when set (one of ``ENV_IMPLS``, else it raises), or None."""
+    env = os.environ.get("SER_TPU_ATTN_IMPL")
+    if env and env not in ENV_IMPLS:
+        raise ValueError(f"SER_TPU_ATTN_IMPL={env!r}: the port honours {'|'.join(ENV_IMPLS)}")
+    return env or None
 
 
 def dot_product_attention_btd(
@@ -53,6 +66,12 @@ def dot_product_attention_btd(
 ) -> torch.Tensor:  # [B, Tq, D]
     if plain:
         return attention_btd_plain(q, k, v, num_heads, key_mask, scale, gate, shared_bias)
+    if env_impl() == "xla":  # the JAX package's XLA route: plain attention on heads
+        B, Tq, D = q.shape
+        heads = [t.reshape(B, t.shape[1], num_heads, D // num_heads).transpose(1, 2) for t in (q, k, v)]
+        out = dot_product_attention_plain(*heads, key_mask=key_mask, scale=scale, gate=gate,
+                                          shared_bias=shared_bias)
+        return out.transpose(1, 2).reshape(B, Tq, D)
     if q.is_cuda and torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)
     ):
@@ -66,11 +85,9 @@ def pick_impl(tk: int, force_impl: Optional[str] = None) -> str:
         if force_impl not in KERNEL_IMPLS + ("plain",):
             raise ValueError(f"force_impl={force_impl!r}: expected one of {KERNEL_IMPLS + ('plain',)}")
         return force_impl
-    env = os.environ.get("SER_TPU_ATTN_IMPL")
+    env = env_impl()
     if env:
-        if env not in KERNEL_IMPLS:
-            raise ValueError(f"SER_TPU_ATTN_IMPL={env!r}: the port honours {'|'.join(KERNEL_IMPLS)}")
-        return env
+        return "plain" if env == "xla" else env
     return "oneshot" if tk <= MAX_ONESHOT_TK else "flash"
 
 

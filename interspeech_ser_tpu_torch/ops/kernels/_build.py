@@ -31,7 +31,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "attention_bhtd.cu", "flash_attention.cu", "conv_frontend.cu",
            "gru_bidir.cu", "gru_bidir_bwd.cu", "ffn_fused.cu", "pos_conv.cu")
-HEADERS = ("attention_bhtd_common.cuh",)  # included by sources: part of the hash
+HEADERS = ("attention_bhtd_common.cuh", "attention_mma.cuh")  # included by sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,10 +48,10 @@ SIGNATURES = {
     "ser_attention_bhtd_bf16": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
     "ser_flash_attention_f32": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
     "ser_flash_attention_bf16": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
-    # q, k, v, g, out, key_mask, gate, bias, lse, delta and dbias scratch,
-    # dq, dk, dv, dgate, dbias, B, Tq, Tk, H, hd, scale, stream
-    "ser_attention_btd_bwd_f32": [_P] * 16 + [_I] * 5 + [_F, _P],
-    "ser_attention_btd_bwd_bf16": [_P] * 16 + [_I] * 5 + [_F, _P],
+    # q, k, v, g, out, key_mask, gate, bias, lse, delta, q*scale and dbias
+    # scratch, dq, dk, dv, dgate, dbias, B, Tq, Tk, H, hd, scale, stream
+    "ser_attention_btd_bwd_f32": [_P] * 17 + [_I] * 5 + [_F, _P],
+    "ser_attention_btd_bwd_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
     # wav, weight, bias, ln_w, ln_b, out, B, L, T0, C, k, stride, eps, approx_gelu, stream
     "ser_conv_frontend_f32": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "ser_conv_frontend_bf16": [_P] * 6 + [_I] * 6 + [_F, _I, _P],

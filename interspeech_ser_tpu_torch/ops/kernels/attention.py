@@ -9,16 +9,25 @@ they stream); ``attention_btd_plain`` and ``attention_btd_bwd_plain`` are the
 plain PyTorch versions of the same functions. Each launcher runs its kernel
 for a CUDA tensor and its plain version for a CPU tensor.
 ``AttentionBtdTrain`` is the differentiable pair: K1 forward, K4 backward.
+Both kernels take head dims 64, 80 and 120 (a template parameter). In bf16
+every product runs on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulation); in f32 on the FP32 pipes, TF32 never.
 
 Semantics, shared by both versions and the TPU kernel: per head h (columns
 ``h*hd:(h+1)*hd`` of D), ``softmax(scale*q.kᵀ + gate[b,h,q]*bias[h,q,k] +
-key mask) . v``; q*scale rounded to the compute dtype, the bias cast to the
-compute dtype, scores and softmax in f32, P rounded to v's dtype before P.V
-with f32 accumulation, the result divided by ``max(l, 1e-30)``. A query row
-whose keys are all masked is not defined (a real utterance has >= 1 frame).
-The backward keeps the TPU kernel's roundings: P is recomputed in f32 from
-q and k, rounded to the compute dtype before ``dV = Pᵀg``; dS is rounded to
-the compute dtype before ``dQ`` and ``dK``; ``dgate`` and ``dbias`` stay f32.
+key mask) . v`` with ``scale = hd ** -0.5`` unless given; q*scale rounded to
+the compute dtype, the bias cast to the compute dtype, scores and softmax in
+f32, P rounded to v's dtype before P.V with f32 accumulation, the result
+divided by ``max(l, 1e-30)``. A query row whose keys are all masked is not
+defined (a real utterance has >= 1 frame). The backward keeps the TPU
+kernel's roundings: P is recomputed in f32, rounded to the compute dtype
+before ``dV = Pᵀg``; dS is rounded to the compute dtype before ``dQ`` and
+``dK``; ``dgate`` and ``dbias`` stay f32. K4 forms its scores exactly as K1
+does, from the rounded q*scale, so that ``exp(s - lse)`` with K1's lse is
+K1's P at every head dim; it takes ``dK = dSᵀ (q*scale)`` from the same
+operand and ``dQ = scale * dS k``. The plain backward forms
+``scale * (q.kᵀ)`` as the TPU kernel does; the two differ by the rounding
+of q*scale.
 """
 
 from __future__ import annotations
@@ -120,7 +129,7 @@ def attention_btd_bwd_plain(
 
 
 K1_HEAD_DIMS = (64, 80, 120)  # WavLM-large / base / Whisper, HuBERT-XL, XLS-R-2B
-K4_HEAD_DIMS = (64,)
+K4_HEAD_DIMS = K1_HEAD_DIMS
 
 
 def _prepare(q, k, v, num_heads, key_mask, gate, pos_bias, head_dims=K1_HEAD_DIMS):
@@ -156,10 +165,19 @@ def _prepare(q, k, v, num_heads, key_mask, gate, pos_bias, head_dims=K1_HEAD_DIM
     return mask, g, bias
 
 
+def _check_aligned(**tensors) -> None:
+    """The bf16 kernels copy rows in 16-byte units (``cp.async``): their
+    panels must start on 16 bytes (rows then do too, D being a multiple of 8)."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16 != 0:
+            raise ValueError(f"attention_btd kernels: bf16 {name} must start on a 16-byte boundary")
+
+
 def _launch_forward(q, k, v, num_heads, key_mask, scale, gate, pos_bias, with_lse: bool):
     """K1 -> (out, lse [B, H, Tq] f32 or None)."""
     global LAUNCHES
     mask, g, bias = _prepare(q, k, v, num_heads, key_mask, gate, pos_bias)
+    _check_aligned(q=q, k=k, v=v)
     B, Tq, D = q.shape
     hd = D // num_heads
     if scale is None:
@@ -240,11 +258,14 @@ def attention_btd_bwd(
         if t is None or t.shape != shape or t.dtype != dtype or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"attention_btd_bwd: {name} must be a contiguous {dtype} {tuple(shape)} tensor "
                              f"on {q.device}")
+    hd = D // H
     if scale is None:
-        scale = 64 ** -0.5
+        scale = hd ** -0.5
+    _check_aligned(q=q, k=k, v=v, g=g, out=out)
     has_bias = bias is not None
     f32 = dict(device=q.device, dtype=torch.float32)
     delta = torch.empty(B, H, Tq, **f32)
+    qs = torch.empty_like(q) if q.dtype == torch.bfloat16 else None  # q * scale, the bf16 passes' operand
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dgate = torch.empty(B, H, Tq, **f32) if has_bias and want_dgate else None
     dbias = torch.empty(H, Tq, Tk, **f32) if has_bias and want_dbias else None
@@ -253,9 +274,9 @@ def attention_btd_bwd(
     fn = lib.ser_attention_btd_bwd_bf16 if q.dtype == torch.bfloat16 else lib.ser_attention_btd_bwd_f32
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), _build.ptr(mask),
-        _build.ptr(gt), _build.ptr(bias), lse.data_ptr(), delta.data_ptr(), _build.ptr(dbias_part),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _build.ptr(dgate), _build.ptr(dbias),
-        B, Tq, Tk, H, 64, float(scale), _build.stream_ptr(q),
+        _build.ptr(gt), _build.ptr(bias), lse.data_ptr(), delta.data_ptr(), _build.ptr(qs),
+        _build.ptr(dbias_part), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _build.ptr(dgate),
+        _build.ptr(dbias), B, Tq, Tk, H, hd, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, "attention_btd_bwd")
     BWD_LAUNCHES += 1
@@ -272,12 +293,6 @@ class AttentionBtdTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, key_mask, scale, gate, pos_bias):
-        hd = q.shape[-1] // num_heads
-        if q.is_cuda and hd not in K4_HEAD_DIMS:
-            raise NotImplementedError(
-                f"AttentionBtdTrain: K4 (attention_btd_bwd) takes head dims {K4_HEAD_DIMS}, got {hd}; "
-                "a gradient through attention at this width is not ported to the card yet"
-            )
         if q.is_cuda:
             out, lse = attention_btd_fwd(q, k, v, num_heads, key_mask, scale, gate, pos_bias)
         else:

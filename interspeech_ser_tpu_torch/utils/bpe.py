@@ -5,6 +5,11 @@ The JAX package tokenizes RoBERTa transcripts with transformers'
 transformers, so the port carries the same behaviour, read from the model
 directory's ``vocab.json`` and ``merges.txt``:
 
+0. split the text on the special tokens of ``vocab.json`` (``<s>``, ``</s>``,
+   ``<pad>``, ``<unk>``, ``<mask>``), leftmost first, as transformers' split
+   on added tokens does; each is emitted as its own id, and ``<mask>``
+   takes the whitespace on its left with it (``lstrip``, as
+   ``RobertaTokenizer`` declares it). Steps 1-3 run on the text between;
 1. split the text as GPT-2's pattern
    ``'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+``
    does. The standard ``re`` has no ``\\p{L}`` / ``\\p{N}``, so
@@ -21,16 +26,16 @@ truncation keeping the first ``max_length - 2`` pieces, ``<pad>`` to
 ``max_length``, attention mask 1 on the real tokens. ``add_prefix_space``
 is read from ``tokenizer_config.json`` where it is set.
 
-Known differences from transformers: a special-token string inside a text
-(``<mask>``, ``</s>``, ...) is tokenized as text, not as the special token;
-and a character that Python's Unicode database (older than the ``regex``
-module's) does not know as a letter or number counts as "other".
+Known difference from transformers: a character that Python's Unicode
+database (older than the ``regex`` module's) does not know as a letter or
+number counts as "other".
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import unicodedata
 from typing import Dict, List, Sequence, Tuple
 
@@ -39,6 +44,8 @@ import numpy as np
 BPE_FILES = ("vocab.json", "merges.txt")
 _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
 _NOT_SPACE = "\x1c\x1d\x1e\x1f"  # str.isspace() but not the regex module's \s
+SPECIAL_TOKENS = ("<s>", "</s>", "<pad>", "<unk>", "<mask>")
+_LSTRIP = ("<mask>",)  # special tokens that take the whitespace on their left
 
 
 def bytes_to_unicode() -> Dict[int, str]:
@@ -118,6 +125,8 @@ class RobertaBpeTokenizer:
             raise KeyError(f"vocab.json lacks the special tokens {missing}")
         self.bos_id, self.eos_id = vocab["<s>"], vocab["</s>"]
         self.pad_id, self.unk_id = vocab["<pad>"], vocab["<unk>"]
+        specials = [t for t in SPECIAL_TOKENS if t in vocab]  # none is a prefix of another
+        self._specials = re.compile("|".join(map(re.escape, specials)))
         self._cache: Dict[str, List[str]] = {}
 
     @classmethod
@@ -157,13 +166,31 @@ class RobertaBpeTokenizer:
         self._cache[token] = word
         return word
 
+    def split_specials(self, text: str) -> List[Tuple[str, bool]]:
+        """``text`` cut at its special tokens -> [(piece, is_special)], the text
+        left of an ``lstrip`` token stripped of trailing whitespace, empty
+        pieces dropped."""
+        parts: List[Tuple[str, bool]] = []
+        start = 0
+        for m in self._specials.finditer(text):
+            left = text[start:m.start()]
+            parts.append((left.rstrip() if m.group() in _LSTRIP else left, False))
+            parts.append((m.group(), True))
+            start = m.end()
+        parts.append((text[start:], False))
+        return [(piece, special) for piece, special in parts if piece]
+
     def tokenize(self, text: str) -> List[int]:
         if self.add_prefix_space and text and not text[0].isspace():
             text = " " + text
         ids: List[int] = []
-        for piece in pretokenize(text):
-            mapped = "".join(self.byte_encoder[b] for b in piece.encode("utf-8"))
-            ids.extend(self.encoder.get(sym, self.unk_id) for sym in self.bpe(mapped))
+        for part, special in self.split_specials(text):
+            if special:
+                ids.append(self.encoder[part])
+                continue
+            for piece in pretokenize(part):
+                mapped = "".join(self.byte_encoder[b] for b in piece.encode("utf-8"))
+                ids.extend(self.encoder.get(sym, self.unk_id) for sym in self.bpe(mapped))
         return ids
 
     def __call__(

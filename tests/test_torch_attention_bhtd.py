@@ -114,6 +114,9 @@ def test_oneshot_refuses_long_keys():
     (3000, "oneshot", None, "oneshot"),
     (80, "flash", "oneshot", "oneshot"),
     (80, "oneshot", "plain", "plain"),
+    (80, "xla", None, "plain"),  # the JAX package's XLA route
+    (3000, "xla", None, "plain"),
+    (80, "xla", "flash", "flash"),
 ])
 def test_pick_impl(tk, env, force, want, monkeypatch):
     if env is None:
@@ -123,7 +126,7 @@ def test_pick_impl(tk, env, force, want, monkeypatch):
     assert attention_core.pick_impl(tk, force) == want
 
 
-@pytest.mark.parametrize("env,force", [("oneshot2", None), ("xla", None), (None, "xla")])
+@pytest.mark.parametrize("env,force", [("oneshot2", None), ("XLA", None), (None, "xla")])
 def test_pick_impl_raises_on_unknown_values(env, force, monkeypatch):
     if env is None:
         monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
@@ -134,7 +137,7 @@ def test_pick_impl_raises_on_unknown_values(env, force, monkeypatch):
 
 
 @pytest.mark.parametrize("env,force,want", [(None, None, "oneshot"), ("flash", None, "flash"),
-                                            (None, "plain", "plain")])
+                                            (None, "plain", "plain"), ("xla", None, "plain")])
 def test_dispatcher_routes(env, force, want, monkeypatch):
     """dot_product_attention hands the inputs to the chosen wrapper, which
     on these CPU tensors runs its plain version."""

@@ -3,11 +3,13 @@ package: ``attention_bwd.attention_btd_bwd`` (the Pallas kernel, interpret
 mode) and ``jax.grad`` of ``oneshot_attention_train`` (its custom VJP).
 
 Inputs come from numpy with a seed. B=2, T=37 (the JAX kernel pads queries
-and keys to 128, so padded queries are exercised), D=128, H=2, a ragged
-mask that keeps 19 of 37 keys in row 1. Bars: f32 max-abs <= 1e-5 (same
-math, other summation order); bf16 cosine >= 0.999 per output, because
-q, k, v, g, P and dS are rounded to bf16 at points where the float32 sums
-of the two frameworks then differ by a few bf16 ulps.
+and keys to 128, so padded queries are exercised), H=2 and D=128, 160 or
+240, i.e. the three head dims the kernels take (64, 80, 120), a ragged
+mask that keeps 19 of 37 keys in row 1, the scale given or left to its
+default ``hd ** -0.5``. Bars: f32 max-abs <= 1e-5 (same math, other
+summation order); bf16 cosine >= 0.999 per output, because q, k, v, g, P
+and dS are rounded to bf16 at points where the float32 sums of the two
+frameworks then differ by a few bf16 ulps.
 """
 
 import numpy as np
@@ -25,9 +27,10 @@ from interspeech_ser_tpu_torch.ops.kernels import attention as ka
 torch.set_num_threads(2)
 
 B, T, D, H = 2, 37, 128, 2
+HEAD_DIMS = (64, 80, 120)
 
 
-def _inputs(seed, with_bias, with_mask):
+def _inputs(seed, with_bias, with_mask, D=D):
     rng = np.random.default_rng(seed)
     q, k, v, g = (rng.standard_normal((B, T, D)).astype(np.float32) for _ in range(4))
     mask = (np.arange(T)[None] < np.array([T, 19])[:, None]).astype(np.float32) if with_mask else None
@@ -53,14 +56,15 @@ def _cos(a, b):
 
 @pytest.mark.parametrize("with_bias,with_mask", [(True, True), (True, False), (False, True), (False, False)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_backward_matches_pallas_interpret(with_bias, with_mask, dtype):
-    q, k, v, g, mask, gate, bias = _inputs(3 + 2 * with_bias + with_mask, with_bias, with_mask)
+@pytest.mark.parametrize("hd,scale", [(64, 0.125), (80, None), (80, 0.1), (120, None), (120, 0.125)])
+def test_plain_backward_matches_pallas_interpret(with_bias, with_mask, dtype, hd, scale):
+    q, k, v, g, mask, gate, bias = _inputs(3 + 2 * with_bias + with_mask, with_bias, with_mask, D=H * hd)
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
-    want = jax_bwd(*(_j(x, jdt) for x in (q, k, v, g)), H, _j(mask), 0.125, _j(gate), _j(bias, jdt),
-                   interpret=True)
+    want = jax_bwd(*(_j(x, jdt) for x in (q, k, v, g)), H, _j(mask), hd ** -0.5 if scale is None else scale,
+                   _j(gate), _j(bias, jdt), interpret=True)
     before = ka.BWD_LAUNCHES
-    got = ka.attention_btd_bwd(*(_t(x, tdt) for x in (q, k, v, g)), H, _t(mask), 0.125, _t(gate), _t(bias, tdt))
+    got = ka.attention_btd_bwd(*(_t(x, tdt) for x in (q, k, v, g)), H, _t(mask), scale, _t(gate), _t(bias, tdt))
     assert ka.BWD_LAUNCHES == before  # a CPU tensor runs the plain version
     for name, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, want):
         assert (a is None) == (b is None) == (not with_bias and name in ("dgate", "dbias")), name
@@ -77,11 +81,13 @@ def test_plain_backward_matches_pallas_interpret(with_bias, with_mask, dtype):
 
 
 @pytest.mark.parametrize("with_bias", [True, False])
-def test_autograd_pair_matches_jax_grad(with_bias):
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_autograd_pair_matches_jax_grad(with_bias, hd):
     """Torch autograd through AttentionBtdTrain on the CPU (plain forward and
-    backward) against jax.grad of the JAX custom VJP in interpret mode."""
-    q, k, v, _, mask, gate, bias = _inputs(11, with_bias, True)
-    wy = np.random.default_rng(12).standard_normal((B, T, D)).astype(np.float32)
+    backward) against jax.grad of the JAX custom VJP in interpret mode, the
+    scale left to its default on both sides."""
+    q, k, v, _, mask, gate, bias = _inputs(11, with_bias, True, D=H * hd)
+    wy = np.random.default_rng(12).standard_normal((B, T, H * hd)).astype(np.float32)
     diff = [q, k, v] + ([gate, bias] if with_bias else [])
 
     def loss(*xs):
@@ -129,6 +135,63 @@ class _CudaLike(torch.Tensor):
     @property
     def is_cuda(self):
         return True
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each K4 entry's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_launcher_passes_head_dim_and_default_scale(hd, dtype, monkeypatch):
+    """On a card tensor K4 takes every head dim K1 takes; its kernel gets the
+    real head dim and, with no scale given, hd ** -0.5, the scale K1 used
+    (not 64 ** -0.5: at hd 80 that is another softmax, a wrong gradient);
+    bf16 also gets a q*scale scratch. AttentionBtdTrain no longer refuses
+    hd 80 / 120, and its backward hands K4 the forward's scale."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(ka._build, "library", lambda: lib)
+    monkeypatch.setattr(ka._build, "stream_ptr", lambda t: 0)
+    assert ka.K4_HEAD_DIMS == ka.K1_HEAD_DIMS
+    Dh = H * hd
+
+    def card(*shape):
+        return torch.randn(*shape).to(dtype).as_subclass(_CudaLike)
+
+    q, k, v, g, out = (card(B, T, Dh) for _ in range(5))
+    lse = torch.zeros(B, H, T).as_subclass(_CudaLike)
+    ka.attention_btd_bwd(q, k, v, g, H, out=out, lse=lse)
+    name, args = lib.calls[-1]
+    assert name == ("ser_attention_btd_bwd_bf16" if dtype == torch.bfloat16 else "ser_attention_btd_bwd_f32")
+    assert args[21] == hd and args[22] == pytest.approx(hd ** -0.5)
+    assert (args[10] is not None) == (dtype == torch.bfloat16)  # the q*scale scratch
+    ka.attention_btd_bwd(q, k, v, g, H, scale=0.3, out=out, lse=lse)
+    assert lib.calls[-1][1][22] == pytest.approx(0.3)
+
+    monkeypatch.setattr(ka, "attention_btd_fwd", lambda q, *a, **kw: (q.detach().clone(), lse))
+    leaf = q.detach().clone().requires_grad_()
+    ka.AttentionBtdTrain.apply(leaf, k, v, H, None, None, None, None).backward(g)
+    name, args = lib.calls[-1]
+    assert name.startswith("ser_attention_btd_bwd") and args[21] == hd and args[22] == pytest.approx(hd ** -0.5)
+
+
+def test_card_launchers_refuse_misaligned_bf16(monkeypatch):
+    """The bf16 kernels stage rows by 16-byte copies: a bf16 panel that does
+    not start on 16 bytes is refused before anything is launched."""
+    monkeypatch.setattr(ka._build, "library", lambda: pytest.fail("launched"))
+    flat = torch.randn(T * D + 1).to(torch.bfloat16)
+    odd = flat[1:].view(1, T, D).as_subclass(_CudaLike)  # contiguous, 2 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        ka.attention_btd(odd, odd, odd, H)
+    lse = torch.zeros(1, H, T).as_subclass(_CudaLike)
+    with pytest.raises(ValueError, match="16-byte"):
+        ka.attention_btd_bwd(odd, odd, odd, odd, H, out=odd, lse=lse)
 
 
 def test_raw_k1_launcher_refuses_inputs_that_require_grad(monkeypatch):

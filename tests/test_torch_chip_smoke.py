@@ -50,12 +50,14 @@ def test_main_path_phases_on_cpu(tmp_path, monkeypatch):
     for mod in (ka, kc, kg):
         monkeypatch.setattr(mod, "LAUNCHES", 0)
 
-    extracted = cs.phase_extraction(str(tmp_path))
+    monkeypatch.setattr(cs, "WAVLM_B32_SHAPE", dict(n_wavs=3, seconds=1.0))
+    extracted = cs.phase_extraction(str(tmp_path), "card")
     assert set(extracted["utt_per_sec"]) == {"bfloat16_cold", "bfloat16_warm", "float32_cold", "float32_warm"}
+    assert extracted["b32_bf16"]["utt_per_sec"] > 0
     cs.phase_scoring(str(tmp_path), extracted)
     launches = cs.counts()
-    assert launches["attention_btd"] == 4 * 2  # 4 runs x 2 layers x 1 batch
-    assert launches["conv_frontend"] == 4 and launches["gru_bidir"] > 0
+    assert launches["attention_btd"] == 6 * 2  # 4 CLI runs + the B=32 warm-up and timed run, x 2 layers x 1 batch
+    assert launches["conv_frontend"] == 6 and launches["gru_bidir"] > 0
     assert launches["gru_bidir_bwd"] == 0  # scoring runs no backward
 
 
@@ -205,7 +207,9 @@ def test_zoo_phase_on_cpu(tmp_path, monkeypatch):
     encoders (head dims 120, 80 and 64; layer-norm and group-norm frontends,
     pre- and post-LN stacks) through ``preprocess_cli speech``, the
     SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3 run, the plain-pipeline
-    comparisons, the full-depth run and ``lora_cli`` over the base shape.
+    comparisons, the full-depth run, ``lora_cli`` and a kernel-vs-plain
+    gradient step over the HuBERT-XL and XLS-R-2B shapes, and ``lora_cli``
+    over the base shape.
     K1, K2, K5 and K8 go through counting plain versions, attention that
     needs a gradient through AttentionBtdTrain (its backward counted as K4)."""
     import dataclasses
@@ -278,13 +282,16 @@ def test_zoo_phase_on_cpu(tmp_path, monkeypatch):
     assert out["xlsr_2b"]["k5_min_cos"] >= 0.999
     assert out["xlsr_2b_full"]["utt_per_sec"] > 0
     assert set(out["hubert_xl"]["utt_per_sec"]) == {"float32_once"}
+    assert out["hubert_xl"]["lora_grad_rel_err"] <= 1e-4 and out["xlsr_2b"]["lora_grad_rel_err"] <= 1e-4
     launches = cs.counts()
-    # K5: 2 layers x 1 batch on the SER_TPU_FFN_KERNEL=1 run; K4: 2 layers x 2 steps of lora_cli
-    assert launches["ffn_fused"] == 2 and launches["attention_btd_bwd"] == 2 * 2
+    # K5: 2 layers x 1 batch on the SER_TPU_FFN_KERNEL=1 run; K4: 1 layer x 2 steps of lora_cli and
+    # 1 layer of the gradient check over each of HuBERT-XL and XLS-R-2B, 2 layers x 2 steps over the base
+    assert launches["ffn_fused"] == 2 and launches["attention_btd_bwd"] == 2 * (1 * 2 + 1) + 2 * 2
     # K8 once a batch of every extraction (5 XLS-R CLI runs, 2 full-depth runs, 1 HuBERT run, 2 base
-    # runs; training leaves it off); K2 on every layer-norm run, never on the base shape, its later
-    # layers only on the SER_TPU_FRONTEND=3 run (2 layers x 1 batch)
-    assert launches["pos_conv"] == 5 + 2 + 1 + 2 and launches["conv_frontend"] == 5 + 2 + 1
+    # runs; training leaves it off); K2 on every layer-norm run (the extractions, and each of the two
+    # layer-norm fine-tunes' 2 steps, dev batch and kernel-route gradient step), never on the base
+    # shape, its later layers only on the SER_TPU_FRONTEND=3 run (2 layers x 1 batch)
+    assert launches["pos_conv"] == 5 + 2 + 1 + 2 and launches["conv_frontend"] == 5 + 2 + 1 + 2 * (2 + 1 + 1)
     assert launches["conv_frontend_layer"] == 2
     assert os.path.exists(out["wavlm_base_plus"]["lora_ckpt"])
     assert not any(k in os.environ for k in ("SER_TPU_FFN_KERNEL", "SER_TPU_FRONTEND"))

@@ -50,8 +50,8 @@ def test_attention_kernel(cuda, bias, masked, dtype):
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
 
 
-def _attention_bwd_inputs(gen, bias, masked, dtype, B=3, T=150, H=4):
-    q, k, v, g = (torch.randn(B, T, 64 * H, generator=gen, device="cuda").to(dtype) for _ in range(4))
+def _attention_bwd_inputs(gen, bias, masked, dtype, B=3, T=150, H=4, hd=64):
+    q, k, v, g = (torch.randn(B, T, hd * H, generator=gen, device="cuda").to(dtype) for _ in range(4))
     kw = {}
     if masked:  # row 2 leaves the last two 64-key tiles fully masked
         kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([150, 77, 40], device="cuda")[:, None]).float()
@@ -196,10 +196,66 @@ def test_attention_kernel_wide_heads(cuda, hd, bias, masked, dtype):
         torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-4, rtol=0)
 
 
-def test_attention_train_refuses_wide_heads(cuda):
-    q = torch.randn(1, 10, 240, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K4"):
-        k_attn.AttentionBtdTrain.apply(q, q.detach(), q.detach(), 2, None, None, None, None)
+@pytest.mark.parametrize("hd", [80, 120])
+def test_attention_train_takes_wide_heads(cuda, hd):
+    """AttentionBtdTrain (K1 + K4) at HuBERT-XL's and XLS-R-2B's head dims,
+    scale left to its default hd ** -0.5, against autograd through the plain
+    forward (f32)."""
+    (q, k, v, g, _), kw = _attention_bwd_inputs(cuda, True, True, torch.float32, H=2, hd=hd)
+    grads = []
+    for fn in (k_attn.AttentionBtdTrain.apply, k_attn.attention_btd_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, kw["gate"], kw["pos_bias"])]
+        out = fn(*leaves[:3], 2, kw["key_mask"], None, leaves[3], leaves[4])
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("hd", [80, 120])
+@pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_wide_heads(cuda, hd, bias, masked, dtype):
+    """K4 at head dims 80 and 120 (four threads a row on the FP32 pipes in f32,
+    the tensor cores in bf16) against the plain backward; a rerun is bit-identical."""
+    (q, k, v, g, H), kw = _attention_bwd_inputs(cuda, bias, masked, dtype, H=2, hd=hd)
+    out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+    got = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
+    ref = k_attn.attention_btd_bwd_plain(q, k, v, g, H, **kw)
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if b is None:
+            continue
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        else:
+            assert torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0) >= 0.999
+    again = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("hd", [64, 80, 120])
+@pytest.mark.parametrize("T", [499, 1500])
+def test_attention_tensor_cores_main_shapes(cuda, hd, T):
+    """bf16 K1 and K4 (the tensor-core kernels) at every head dim and both
+    lengths (neither a multiple of the 64-key tile), gated bias, H=16, with
+    row 1's keys all masked: the live rows against the plain versions
+    (cosine >= 0.999), the dead row exactly 0 (output, gradients) with lse -inf."""
+    B, H = 3, 16
+    (q, k, v, g, _), kw = _attention_bwd_inputs(cuda, True, False, torch.bfloat16, B=B, T=T, H=H, hd=hd)
+    kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([T, 0, T // 3], device="cuda")[:, None]).float()
+    out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+    ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
+    live = [0, 2]
+    cos = torch.nn.functional.cosine_similarity
+    assert cos(out[live].float().flatten(), ref[live].float().flatten(), dim=0) >= 0.999
+    assert bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
+    got = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
+    want = k_attn.attention_btd_bwd_plain(q[live], k[live], v[live], g[live], H, kw["key_mask"][live], None,
+                                          kw["gate"][live], kw["pos_bias"])
+    for name, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, want):
+        a_live = a if name == "dbias" else a[live]
+        assert cos(a_live.float().flatten(), b.float().flatten(), dim=0) >= 0.999, name
+    assert all(float(a[1].abs().max()) == 0 for a in got[:4])
 
 
 @pytest.mark.parametrize("n", k_ffn.WIDTHS)
@@ -358,6 +414,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         k_attn.attention_btd(q, q, q, 2)  # head dim 48
     with pytest.raises(ValueError):
         k_attn.attention_btd(q[:, :, :64].contiguous(), q[:, :, :64], q[:, :, :64], 1)  # non-contiguous k
+    flat = torch.randn(8 * 64 + 1, device="cuda").to(torch.bfloat16)
+    odd = flat[1:].view(1, 8, 64)  # contiguous, but 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        k_attn.attention_btd(odd, odd, odd, 1)
     with pytest.raises(ValueError):
         k_gru.gru_bidir_carries(torch.randn(3, 4, 6, device="cuda"), torch.randn(2, 2, 6, device="cuda"),
                                 torch.randn(2, 6, device="cuda"), torch.ones(3, 4, device="cuda"))

@@ -1,11 +1,15 @@
 """The port's LoRA fine-tune against the JAX package: the merge, peft
 parsing, the checkpoint in both directions, one train step (loss and every
 gradient) for Whisper and WavLM, the batch order and the plateau scheduler,
-and the CLI chain ft_lora -> *_pretrained extraction.
+and the CLI chain ft_lora -> *_pretrained extraction. Also the JAX
+package's ``xla`` route values (``SER_TPU_ATTN_IMPL``, ``SER_TPU_FRONTEND``)
+on the speech path.
 
 Tiny HF directories written by transformers (used by this test only):
 Whisper 2 layers, D=128, 2 heads, 16 mels; WavLM 2 layers, D=128, 2 heads,
-2 conv layers. Both engines load the same directory; the LoRA factors (B
+2 conv layers; a HuBERT-XL-shaped HubertModel (D=160 over 2 heads: head
+dim 80) and an XLS-R-2B-shaped Wav2Vec2Model (D=240 over 2 heads: head dim
+120), both with stable layer norm, 2 layers and 2 conv layers. Both engines load the same directory; the LoRA factors (B
 drawn non-zero, so that A gets a gradient) and the head are carried from
 the JAX engine to the port. Bars: merged weights within 1e-6 (one rank-r
 product in f32); the train step's loss and gradients within 1e-5 relative
@@ -49,7 +53,8 @@ def _write_wav(path, x):
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
     """HF Whisper and WavLM directories, 8 wavs, a label CSV (6 Train, 2 Development)."""
-    from transformers import WavLMConfig, WavLMModel, WhisperConfig, WhisperModel
+    from transformers import (HubertConfig, HubertModel, Wav2Vec2Config, Wav2Vec2Model, WavLMConfig, WavLMModel,
+                              WhisperConfig, WhisperModel)
 
     root = tmp_path_factory.mktemp("lora_port")
     torch.manual_seed(9)
@@ -64,6 +69,12 @@ def dirs(tmp_path_factory):
         max_bucket_distance=64, do_stable_layer_norm=True, feat_extract_norm="layer", conv_bias=True,
         layerdrop=0.0,
     )).save_pretrained(str(root / "wavlm"))
+    zoo = dict(num_hidden_layers=2, num_attention_heads=2, conv_dim=[16, 16], conv_kernel=[10, 3],
+               conv_stride=[5, 2], num_feat_extract_layers=2, num_conv_pos_embeddings=16,
+               num_conv_pos_embedding_groups=4, do_stable_layer_norm=True, feat_extract_norm="layer",
+               conv_bias=True, layerdrop=0.0)
+    HubertModel(HubertConfig(hidden_size=160, intermediate_size=320, **zoo)).save_pretrained(str(root / "hubert_xl"))
+    Wav2Vec2Model(Wav2Vec2Config(hidden_size=240, intermediate_size=480, **zoo)).save_pretrained(str(root / "xlsr_2b"))
     (root / "wavs").mkdir()
     wavs, labels, rows = [], [], []
     for i in range(8):
@@ -172,11 +183,13 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-@pytest.mark.parametrize("kind", ["whisper", "wavlm"])
+@pytest.mark.parametrize("kind", ["whisper", "wavlm", "hubert_xl", "xlsr_2b"])
 def test_one_train_step_matches_jax(dirs, kind, monkeypatch):
     """Loss and the gradient of every LoRA factor and head parameter of one
     step, head dropout off on both sides: the JAX engine's loss function under
-    ``jax.value_and_grad`` against the port's ``loss(...).backward()``."""
+    ``jax.value_and_grad`` against the port's ``loss(...).backward()``. The
+    HuBERT-XL and XLS-R-2B shapes run attention at head dims 80 and 120,
+    where the card's gradient comes from K4 at those widths."""
     root, wavs, _ = dirs
     path = str(root / kind)
     je = _perturbed_jax_engine(path, seed=1)
@@ -276,3 +289,88 @@ def test_ft_lora_cli_feeds_both_pretrained_extractions(dirs, tmp_path):
             got = torch.load(tmp_path / f"port_{kind}" / name, weights_only=True)
             assert got.shape == want.shape, (kind, name)
             np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0, err_msg=f"{kind} {name}")
+
+
+def _speech_attention_inputs(seed, D=160, Hh=2, T=23):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((2, T, D)).astype(np.float32) for _ in range(3))
+    mask = (np.arange(T)[None] < np.array([T, 9])[:, None]).astype(np.float32)
+    gate = rng.uniform(0.5, 2.0, (2, Hh, T)).astype(np.float32)
+    bias = rng.standard_normal((Hh, T, T)).astype(np.float32)
+    return q, k, v, mask, gate, bias
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that says it lies on the card, to see where the dispatcher
+    sends it (the kernels themselves are mocked)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_attn_impl_xla_routes_as_jax(with_bias, monkeypatch):
+    """SER_TPU_ATTN_IMPL=xla: the [B, T, D] dispatcher runs the plain attention
+    on heads, as the JAX package's XLA route does (hd 80, scale left to its
+    default), on the CPU and for a card tensor that needs a gradient alike:
+    neither K1 nor the K1 + K4 pair is reached."""
+    from interspeech_ser_tpu.ops import attention_core as jcore
+    from interspeech_ser_tpu_torch.ops import attention_core as core
+
+    monkeypatch.setenv("SER_TPU_ATTN_IMPL", "xla")
+    q, k, v, mask, gate, bias = _speech_attention_inputs(4)
+    gate, bias = (gate, bias) if with_bias else (None, None)
+    want = jcore.dot_product_attention_btd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2,
+                                           key_mask=jnp.asarray(mask),
+                                           gate=None if gate is None else jnp.asarray(gate),
+                                           shared_bias=None if bias is None else jnp.asarray(bias))
+    t = {n: None if x is None else torch.from_numpy(x) for n, x in dict(q=q, k=k, v=v, gate=gate, bias=bias).items()}
+    routes = []
+    monkeypatch.setattr(core, "attention_btd", lambda *a, **kw: routes.append("k1"))
+    monkeypatch.setattr(core.AttentionBtdTrain, "apply", lambda *a: routes.append("pair"))
+    got = core.dot_product_attention_btd(t["q"], t["k"], t["v"], 2, key_mask=torch.from_numpy(mask),
+                                         gate=t["gate"], shared_bias=t["bias"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    card = t["q"].as_subclass(_CudaLike).requires_grad_()
+    out = core.dot_product_attention_btd(card, t["k"], t["v"], 2, key_mask=torch.from_numpy(mask),
+                                         gate=t["gate"], shared_bias=t["bias"])
+    out.sum().backward()
+    assert routes == [] and card.grad is not None
+    monkeypatch.delenv("SER_TPU_ATTN_IMPL")
+    core.dot_product_attention_btd(card.detach(), t["k"], t["v"], 2)
+    assert routes == ["k1"]  # the default route is unchanged
+
+
+@pytest.mark.parametrize("bad", ["XLA", "oneshot2", "plain"])
+def test_attn_impl_other_values_raise(bad, monkeypatch):
+    from interspeech_ser_tpu_torch.ops import attention_core as core
+
+    monkeypatch.setenv("SER_TPU_ATTN_IMPL", bad)
+    x = torch.zeros(1, 4, 160)
+    with pytest.raises(ValueError, match="SER_TPU_ATTN_IMPL"):
+        core.dot_product_attention_btd(x, x, x, 2)
+    with pytest.raises(ValueError, match="SER_TPU_ATTN_IMPL"):
+        core.pick_impl(4)
+
+
+@pytest.mark.parametrize("value", ["xla", "0"])
+def test_frontend_xla_routes_as_jax(dirs, value, monkeypatch):
+    """SER_TPU_FRONTEND=xla or 0: no K2, as the JAX package reads both; every
+    conv layer runs the cuDNN route (here its CPU version), and the encoder
+    still matches the JAX one under the same setting."""
+    from interspeech_ser_tpu.models import speech as jspeech
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.models.loader import build_speech_encoder
+
+    root, wavs, _ = dirs
+    monkeypatch.setenv("SER_TPU_FRONTEND", value)
+    model, cfg, _ = build_speech_encoder(str(root / "hubert_xl"))
+    assert speech.default_fused_frontend(cfg) == jspeech.default_fused_frontend(cfg) == 0
+    assert model.fused_frontend == 0
+    monkeypatch.setattr(speech, "conv_frontend", lambda *a, **kw: pytest.fail("K2 ran under SER_TPU_FRONTEND=" + value))
+    monkeypatch.setattr(speech, "conv_frontend_plain", lambda *a, **kw: pytest.fail("K2 ran"))
+    wav = torch.from_numpy(wavs[3][None])
+    with torch.no_grad():
+        out = model(wav)["last_hidden_state"]
+    assert out.shape[-1] == 160 and torch.isfinite(out).all()

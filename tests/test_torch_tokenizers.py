@@ -3,7 +3,8 @@
 - byte-level BPE (``utils/bpe.py``) against transformers' ``RobertaTokenizer``
   on a synthetic vocabulary trained here with ``tokenizers`` (a few hundred
   merges over ASCII, accented, digit and emoji text): the same ids and
-  masks, with and without truncation;
+  masks, with and without truncation, and on texts that hold the special
+  tokens (each emitted as its id, ``<mask>`` taking the space on its left);
 - the SentencePiece copy (``utils/spm.py``) against the JAX package's
   ``DebertaV2SpmTokenizer`` on a hand-built unigram model;
 - ``auto_tokenizer``'s choice by the files present.
@@ -68,6 +69,39 @@ def test_bpe_matches_transformers_roberta_tokenizer(bpe_dir, max_length):
         assert got["attention_mask"][i].tolist() == want["attention_mask"][i].tolist(), repr(text)
     assert got["input_ids"].dtype == np.int64 and got["input_ids"].shape == (len(TEXTS), max_length)
     assert got["attention_mask"][-1].all()  # the long text was cut to fit
+
+
+SPECIAL_TEXTS = [
+    "hello <mask> world",
+    "<s>",
+    "</s> starts with an end",
+    "a<pad>b<unk>c",
+    "two  spaces   <mask>then<mask> and\t<mask>",
+    "<mask>",
+    " <mask>",
+    "<s><s></s></s>",
+    "it's <mask>! <pad> </s>ending",
+    "nearly: <s <mask <ma sk> </ s> <unk",
+    "<<s>> <</s>>",
+    "café <unk> déjà 😀<mask>😢",
+]
+
+
+@pytest.mark.parametrize("add_prefix_space", [False, True])
+def test_bpe_emits_special_tokens_as_transformers(bpe_dir, add_prefix_space):
+    from transformers import RobertaTokenizer
+
+    ref = RobertaTokenizer(os.path.join(bpe_dir, "vocab.json"), os.path.join(bpe_dir, "merges.txt"),
+                           add_prefix_space=add_prefix_space)
+    ours = bpe.RobertaBpeTokenizer.from_pretrained(bpe_dir)
+    ours.add_prefix_space = add_prefix_space
+    want = ref(SPECIAL_TEXTS, padding="max_length", max_length=40, truncation=True, return_tensors="np")
+    got = ours(SPECIAL_TEXTS, padding="max_length", max_length=40, truncation=True, return_tensors="np")
+    for i, text in enumerate(SPECIAL_TEXTS):
+        assert got["input_ids"][i].tolist() == want["input_ids"][i].tolist(), repr(text)
+        assert got["attention_mask"][i].tolist() == want["attention_mask"][i].tolist(), repr(text)
+    for tok in bpe.SPECIAL_TOKENS:  # each special string inside a text comes out as its one id
+        assert ours.encoder[tok] in ours.tokenize(f"x {tok} y"), tok
 
 
 def test_pretokenize_matches_gpt2_regex():

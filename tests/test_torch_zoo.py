@@ -167,10 +167,12 @@ def test_default_fused_frontend(monkeypatch):
     layer, group = speech.wav2vec2_xlsr_2b(), SpeechConfig()
     monkeypatch.delenv("SER_TPU_FRONTEND", raising=False)
     assert (speech.default_fused_frontend(layer), speech.default_fused_frontend(group)) == (1, 0)
-    for n in range(1, 8):
+    for n in range(0, 8):
         monkeypatch.setenv("SER_TPU_FRONTEND", str(n))
         assert (speech.default_fused_frontend(layer), speech.default_fused_frontend(group)) == (n, 0)
-    for bad in ("0", "8", "xla", ""):
+    monkeypatch.setenv("SER_TPU_FRONTEND", "xla")  # the JAX package's "no K2"
+    assert (speech.default_fused_frontend(layer), speech.default_fused_frontend(group)) == (0, 0)
+    for bad in ("8", "XLA", "-1", ""):
         monkeypatch.setenv("SER_TPU_FRONTEND", bad)
         with pytest.raises(ValueError, match="SER_TPU_FRONTEND"):
             speech.default_fused_frontend(layer)
