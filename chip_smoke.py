@@ -410,14 +410,22 @@ def check_attention_bhtd(g, results) -> None:
     """K7 (one-shot) and K6 (streaming) against their plain versions: at
     RoBERTa-large's extraction shape (B=64, H=16, T=80, ragged key mask), at
     the WavLM-large shape with the factored gate * bias (B=8, H=16, T=499),
-    and K6 at a long shape (B=8, H=20, T=1500, no bias, no mask); f32 and
-    bf16. Bars: f32 max-abs <= 1e-5; bf16 cosine >= 0.9999."""
+    and K6 at a long shape (B=8, H=20, T=1500, no bias, no mask), and at the
+    same shape with a ragged key mask (the Tk tail and masked 64-key tiles);
+    then both at B=4, H=16, T=499 with the bias and row 1's keys all masked
+    (sum(V) / Tk_p, Tk_p = 512 for both), that row also held alone. f32 and
+    bf16. Bars: f32 max-abs <= 1e-5; bf16 cosine >= 0.9999, and on the dead
+    row also max-abs <= 1e-2 x max|ref| of the row. Each line gives
+    the kernel's achieved TFLOP/s and its share of the bound."""
     rng = np.random.default_rng(SEED)
     roberta_lengths = [80] * 8 + [int(n) for n in rng.integers(3, 81, 56)]
     wavlm_lengths = [499, 480, 451, 400, 333, 250, 130, 64]
+    long_lengths = [1500, 1437, 1290, 1111, 900, 777, 400, 65]
     cases = [("roberta", (64, 16, 80), roberta_lengths, False, ("attention_bhtd", "flash_attention")),
              ("wavlm", (8, 16, 499), wavlm_lengths, True, ("attention_bhtd", "flash_attention")),
-             ("long", (8, 20, 1500), None, False, ("flash_attention",))]
+             ("long", (8, 20, 1500), None, False, ("flash_attention",)),
+             ("long_masked", (8, 20, 1500), long_lengths, False, ("flash_attention",)),
+             ("dead_row", (4, 16, 499), [499, 0, 300, 77], True, ("attention_bhtd", "flash_attention"))]
     for shape, (B, H, T), lengths, bias, kernels in cases:
         for dt in (torch.float32, torch.bfloat16):
             args, kw = _bhtd_case(g, B, H, T, lengths, bias, dt)
@@ -442,12 +450,24 @@ def check_attention_bhtd(g, results) -> None:
                 bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
                 log(f"[parity] {'K7' if name == 'attention_bhtd' else 'K6'} {name} {shape} B{B} H{H} T{T} "
                     f"bias={bias} mask={lengths is not None} {dname}: max_abs {err:.3e} cos {cos:.7f}; "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with float mask {library_ms:.4f} ms "
+                    f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the bound), "
+                    f"plain {plain_ms:.4f} ms, SDPA with float mask {library_ms:.4f} ms "
                     f"(vs plain max_abs {lib_err:.3e}); bound {bound_ms:.4f} ms ({bound_by})")
                 if dt == torch.float32:
                     require(err <= 1e-5, f"{name} {shape} f32 max_abs {err} > 1e-5")
                 else:
                     require(cos >= 0.9999, f"{name} {shape} bf16 cosine {cos} < 0.9999")
+                dead = [b for b in range(B) if lengths is not None and lengths[b] == 0]
+                if dead:  # the row with no live key, alone: sum(V) / Tk_p
+                    d_err, d_cos = max_abs(out[dead], ref[dead]), cosine(out[dead], ref[dead])
+                    d_rel = d_err / float(ref[dead].abs().max())
+                    log(f"[parity]   {name} {shape} {dname} fully masked row: max_abs {d_err:.3e} "
+                        f"(x max|ref| {d_rel:.2e}) cos {d_cos:.7f}")
+                    if dt == torch.float32:
+                        require(d_err <= 1e-5, f"{name} {shape} f32 dead row max_abs {d_err} > 1e-5")
+                    else:  # cosine cannot see a wrong scale (Tk for Tk_p): max-abs too
+                        require(d_cos >= 0.9999 and d_rel <= 1e-2,
+                                f"{name} {shape} bf16 dead row cosine {d_cos} < 0.9999 or max-abs {d_rel} x max|ref| > 1e-2")
                 key = dname if shape == "roberta" else f"{shape}_{dname}"
                 results.setdefault(name, {})[key] = dict(
                     max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -583,12 +603,14 @@ def check_ffn_fused(g, results) -> None:
             lib_cos = cosine(F.linear(F.gelu(F.linear(x, wu, bu), approximate=gelu), wd, bd), ref)
             item = x.element_size()
             nbytes = item * (x.numel() + w_up.numel() + w_down.numel() + out.numel()) + 4 * (Fd + K)
-            bound_ms, bound_by = roofline_ms(nbytes, 2 * M * Fd * 2 * K, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+            flops = 2 * M * Fd * 2 * K
+            bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
             name = ("f32" if dt == torch.float32 else "bf16") if shape == "xlsr_2b" else \
                 f"{shape}_" + ("f32" if dt == torch.float32 else "bf16")
             log(f"[parity] K5 ffn_fused {shape} M{M} {K}->{Fd}->{K} {name}: max_abs {err:.3e} "
                 f"(max|ref| {float(ref.abs().max()):.3f}) cos {cos:.7f}; bit-identical rerun {again}; kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, two F.linear + F.gelu {library_ms:.3f} ms (cos vs plain "
+                f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the bound), plain "
+                f"{plain_ms:.3f} ms, two F.linear + F.gelu {library_ms:.3f} ms (cos vs plain "
                 f"{lib_cos:.7f}); bound {bound_ms:.4f} ms ({bound_by})")
             if dt == torch.float32:
                 require(err <= 1e-4 * float(ref.abs().max()), f"K5 {name} max_abs {err} > 1e-4 x max|ref|")
@@ -599,6 +621,18 @@ def check_ffn_fused(g, results) -> None:
                               bound_ms=bound_ms, bound_by=bound_by)
             del x, w_up, w_down, out, ref, wu, wd
             torch.cuda.empty_cache()
+    # Waves: a cluster owns 128 rows, one CTA an SM. If 15 clusters fit on the
+    # card at once, 8 and 15 clusters take one wave, 16 two and XLS-R-2B's 63
+    # five. bf16 at the XLS-R-2B widths, weights cast beforehand.
+    x, w_up, b_up, w_down, b_down = _ffn_inputs(g, 16 * 499, 1920, 7680, torch.bfloat16)
+    w_up, w_down = w_up.to(torch.bfloat16), w_down.to(torch.bfloat16)
+    waves = {str(M): median_ms(lambda: k_ffn.ffn_fused(x[:M], w_up, b_up, w_down, b_down, True))
+             for M in (1024, 1920, 2048, 4096, 16 * 499)}
+    log("[parity] K5 ffn_fused bf16 1920->7680->1920 by rows: "
+        + ", ".join(f"M {m} ({-(-int(m) // 128)} clusters) {t:.3f} ms" for m, t in waves.items()))
+    main["bf16_ms_by_rows"] = waves
+    del x, w_up, w_down
+    torch.cuda.empty_cache()
     results["ffn_fused"] = main
 
 
@@ -913,55 +947,73 @@ def check_attention_bwd(g, results) -> None:
             torch.cuda.empty_cache()
 
 
-def check_attention_tensor_cores(g, results) -> None:
-    """K1 and K4 in bf16 (the tensor-core kernels) against their plain
-    versions at every head dim (64, 80, 120; H=16) and both lengths (T=499
-    and 1500, neither a multiple of the 64-key tile), with a ragged key mask
-    in which row 1 has no live key at all. That row is not defined by the
-    plain version (a uniform softmax over masked keys); the kernels give it
-    an output of 0, lse -inf and no gradient, which is checked exactly; the
-    other rows are held to the plain versions: cosine >= 0.999 per output,
-    and a rerun of K4 bit-identical. Gated bias at T=499 (WavLM's case)."""
-    for hd in (64, 80, 120):
-        for T in (499, 1500):
-            B, H = (4, 16) if T == 499 else (2, 16)
-            lengths = [T, 0, T - 77, 130][:B] if B == 4 else [T - 3, 0]
-            D = H * hd
-            bias = T == 499
-            (q, k, v, _), kw = _attention_inputs(g, B, T, D, H, lengths, bias, torch.bfloat16)
-            gr = torch.randn(B, T, D, generator=g, device="cuda").to(torch.bfloat16)
-            out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
-            ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
-            live = [b for b in range(B) if lengths[b] > 0]
-            cos_fwd = cosine(out[live], ref[live])
-            dead_ok = bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
-            kw_live = dict(kw)
-            if bias:  # K4's dbias sums over b: compare it with the plain one over the live rows
-                kw_live["gate"] = kw["gate"][live]
-            ref_b = k_attn.attention_btd_bwd_plain(q[live], k[live], v[live], gr[live], H,
-                                                   kw["key_mask"][live], None, kw_live["gate"], kw["pos_bias"])
-            got = k_attn.attention_btd_bwd(q, k, v, gr, H, **kw, out=out, lse=lse)
-            again = k_attn.attention_btd_bwd(q, k, v, gr, H, **kw, out=out, lse=lse)
-            same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
-            cos_bwd = {}
-            for n, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, ref_b):
-                if b is None:
-                    continue
-                cos_bwd[n] = cosine(a, b) if n == "dbias" else cosine(a[live], b)
-            dead_ok = dead_ok and all(float(a[1].abs().max()) == 0 for a in got[:3])
-            name = f"tc_hd{hd}_T{T}"
-            log(f"[parity] K1 + K4 bf16 tensor cores hd {hd} B{B} T{T} H{H} bias={bias} row 1 fully masked: "
-                f"K1 cos {cos_fwd:.7f}; K4 cos {', '.join(f'{n} {c:.7f}' for n, c in cos_bwd.items())}; "
-                f"masked row zero {dead_ok}; K4 rerun bit-identical {same}")
-            require(cos_fwd >= 0.999, f"K1 {name} cosine {cos_fwd} < 0.999")
-            for n, c in cos_bwd.items():
-                require(c >= 0.999, f"K4 {name} {n} cosine {c} < 0.999")
-            require(dead_ok, f"{name}: the fully masked row is not 0 (output, lse, gradients)")
-            require(same, f"K4 {name} gave different bits on a rerun")
-            results.setdefault("attention_btd", {})[name] = dict(cosine=cos_fwd)
-            results.setdefault("attention_btd_bwd", {})[name] = dict(cosine=min(cos_bwd.values()))
-            del q, k, v, gr, out, lse, ref, ref_b, got, again
-            torch.cuda.empty_cache()
+def check_attention_dead_row(g, results) -> None:
+    """K1 and K4 against their plain versions at every head dim (64, 80,
+    120; H=16) and both lengths (T=499 and 1500, neither a multiple of the
+    64-key tile), f32 (the FP32-pipe kernels) and bf16 (the tensor-core
+    kernels), with a ragged key mask in which row 1 has no live key at all.
+    That row gets what the TPU kernel gives it: sum(V) / Tk_p (Tk_p = T
+    rounded up to 128), lse -inf, and in the backward P = 1 / Tk_p on every
+    key. Gated bias at T=499 (WavLM's case). Bars: f32 K1 max-abs <= 1e-4 x
+    max|ref| and K4 <= 1e-5 x max|ref| per output, that row alone max-abs
+    <= 1e-5; bf16 cosine >= 0.999 over every output and that row alone, and
+    there (where cosine cannot see a wrong scale such as Tk for Tk_p) max-abs
+    <= 1e-2 x max|ref| of the row; a rerun of K4 bit-identical."""
+    for dt in (torch.float32, torch.bfloat16):
+        f32 = dt == torch.float32
+        for hd in (64, 80, 120):
+            for T in (499, 1500):
+                B, H = (4, 16) if T == 499 else (2, 16)
+                lengths = [T, 0, T - 77, 130][:B] if B == 4 else [T - 3, 0]
+                D = H * hd
+                bias = T == 499
+                (q, k, v, _), kw = _attention_inputs(g, B, T, D, H, lengths, bias, dt)
+                gr = torch.randn(B, T, D, generator=g, device="cuda").to(dt)
+                out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+                ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
+                lse_ok = bool(torch.isinf(lse[1]).all())
+                ref_b = k_attn.attention_btd_bwd_plain(q, k, v, gr, H, **kw)
+                got = k_attn.attention_btd_bwd(q, k, v, gr, H, **kw, out=out, lse=lse)
+                again = k_attn.attention_btd_bwd(q, k, v, gr, H, **kw, out=out, lse=lse)
+                same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+                # per output: (cosine, max-abs / max|ref|) over every row, and the same on row 1
+                stats = {"out": (cosine(out, ref), max_abs(out, ref) / float(ref.abs().max()),
+                                 cosine(out[1], ref[1]), max_abs(out[1], ref[1]),
+                                 max_abs(out[1], ref[1]) / float(ref[1].abs().max()))}
+                for n, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, ref_b):
+                    if b is None:
+                        continue
+                    stats[n] = (cosine(a, b), max_abs(a, b) / float(b.abs().max())) + (
+                        () if n == "dbias" else
+                        (cosine(a[1], b[1]), max_abs(a[1], b[1]), max_abs(a[1], b[1]) / float(b[1].abs().max())))
+                name = f"{'f32' if f32 else 'tc'}_hd{hd}_T{T}"
+                log(f"[parity] K1 + K4 {'f32' if f32 else 'bf16 tensor cores'} hd {hd} B{B} T{T} H{H} bias={bias} "
+                    f"row 1 fully masked (lse -inf {lse_ok}, K4 rerun bit-identical {same}): " + "; ".join(
+                        f"{n} cos {st[0]:.7f} rel {st[1]:.2e}"
+                        + (f", row 1 cos {st[2]:.7f} max_abs {st[3]:.2e} rel {st[4]:.2e}" if len(st) > 2 else "")
+                        for n, st in stats.items()))
+                for n, st in stats.items():
+                    what = f"{'K1' if n == 'out' else 'K4'} {name} {n}"
+                    if f32:
+                        bar = 1e-4 if n == "out" else 1e-5
+                        require(st[1] <= bar, f"{what} max-abs {st[1]} x max|ref| > {bar}")
+                    else:
+                        require(st[0] >= 0.999, f"{what} cosine {st[0]} < 0.999")
+                    if len(st) == 2:  # dbias has no batch row
+                        continue
+                    if f32:
+                        require(st[3] <= 1e-5, f"{what} row 1 max-abs {st[3]} > 1e-5")
+                    else:
+                        require(st[2] >= 0.999, f"{what} row 1 cosine {st[2]} < 0.999")
+                        require(st[4] <= 1e-2, f"{what} row 1 max-abs {st[4]} x max|ref| > 1e-2")
+                require(lse_ok, f"{name}: K1's lse of the fully masked row is not -inf")
+                require(same, f"K4 {name} gave different bits on a rerun")
+                results.setdefault("attention_btd", {})[name] = dict(cosine=stats["out"][0], dead_row_max_abs=stats["out"][3])
+                results.setdefault("attention_btd_bwd", {})[name] = dict(
+                    cosine=min(st[0] for n, st in stats.items() if n != "out"),
+                    dead_row_max_abs=max(st[3] for n, st in stats.items() if n != "out" and len(st) > 2))
+                del q, k, v, gr, out, lse, ref, ref_b, got, again
+                torch.cuda.empty_cache()
 
 
 # -- phases 4-5 -------------------------------------------------------------------
@@ -2179,7 +2231,8 @@ def phase_zoo(tmp: str, smi: str) -> dict:
     want = {"ffn_fused": xcfg.num_layers * nb, "conv_frontend": nb, "conv_frontend_layer": 2 * nb, "pos_conv": nb}
     require({k: delta[k] for k in want} == want, f"xlsr_2b K5 run: launches {delta}, want {want}")
     cos, err = _compare_dirs(save, os.path.join(tmp, "zoo_xlsr_2b_bfloat16_warm"), lengths)
-    log(f"[zoo] xlsr_2b bf16 under SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3: {stats.utts_per_sec:.2f} utt/s, "
+    log(f"[zoo] xlsr_2b bf16 under SER_TPU_FFN_KERNEL=1 SER_TPU_FRONTEND=3: {stats.utts_per_sec:.2f} utt/s "
+        f"(default route, bf16 warm: {out['xlsr_2b']['utt_per_sec']['bfloat16_warm']:.2f} utt/s; {smi}), "
         f"launches {delta}; files vs the default bf16 run: min cos {cos:.7f} max_abs {err:.3e}")
     require(cos >= 0.999, f"K5 + K2 depth 3 run: cosine {cos} < 0.999 against the default run")
     out["xlsr_2b"].update(k5_utt_per_sec=stats.utts_per_sec, k5_min_cos=cos)
@@ -2233,7 +2286,7 @@ def main() -> None:
     check_gru_sequence(g, parity)
     check_gru_bwd(g, parity)
     check_attention_bwd(g, parity)
-    check_attention_tensor_cores(g, parity)
+    check_attention_dead_row(g, parity)
     log(f"[parity] phase 3 done at {time.perf_counter() - T0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -4,10 +4,11 @@
 // (attention_bhtd -> _kernel). Per (b, h):
 //   out = softmax(scale * q . k^T + gate[b,h,q] * bias[h,q,k], masked keys) . v
 // with the scores and the softmax in f32, a masked key's score set to
-// -1e30 (so a query row whose keys are all masked gets the uniform mean of
-// V), the bias rounded to the compute dtype (the wrapper casts it), P
+// -1e30, the bias rounded to the compute dtype (the wrapper casts it), P
 // rounded to v's dtype before P.V with f32 accumulation, and the result
-// divided by max(l, 1e-30).
+// divided by max(l, 1e-30). A query row whose keys are all masked (its max
+// still -1e30) weighs every key 1, and its l also counts the zero keys the
+// TPU kernel pads Tk with to a multiple of 128: it is sum(V) / Tk_p.
 //
 // What makes it one-shot: the TPU kernel held a whole [Tk, hd] K/V panel per
 // (b, h) in VMEM and took the exact row max before any exponential. A block
@@ -112,6 +113,7 @@ __global__ void attention_bhtd_kernel(const T* __restrict__ q, const T* __restri
     l += e;
   }
   l = row_sum(l);
+  if (m == NEG_INF) l += (float)(oneshot_padded_tk(Tk) - Tk);  // every key masked: the padding counts
 
   // 3. P.V, V streamed in tiles; P rounded to v's dtype
   float acc[16];

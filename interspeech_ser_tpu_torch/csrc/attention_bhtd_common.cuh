@@ -15,7 +15,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
+
 namespace bhtd {
+
+using attn_mma::flash_padded_tk;
+using attn_mma::oneshot_padded_tk;
 
 constexpr int HD = 64;       // head dim (RoBERTa-large, WavLM, Whisper)
 constexpr int TPR = 4;       // threads per query row

@@ -48,13 +48,19 @@
 //
 // Masked keys (key_mask == 0, or index >= Tk) get no weight at all: a tile
 // whose keys are all masked leaves the running max, denominator and
-// accumulator untouched, instead of adding exp(0) terms; a row with no live
-// key gets an output of 0 and lse -inf.
+// accumulator untouched, instead of adding exp(0) terms. A batch row whose
+// keys are ALL masked (the mask is per batch row, so every query row of the
+// block at once) gets what the TPU kernel gives it: there every key weighs
+// exp(0) = 1, and so do the zero keys it pads Tk with to Tk_p, a multiple of
+// 128, so each of its query rows is sum(V over the Tk keys) / Tk_p. The
+// block finds that case at the end (no row has l > 0) and sums V's columns
+// in one more pass over the keys.
 //
 // With a non-null `lse` the kernel also writes each row's log-sum-exp
-// m + log(l) ([B, H, Tq] f32; -inf for a row whose keys are all masked), so
-// that K4 (attention_btd_bwd.cu) can recompute P = exp(s - lse) without a
-// second pass over the keys. Inference passes null and writes nothing more.
+// m + log(l) ([B, H, Tq] f32), so that K4 (attention_btd_bwd.cu) can
+// recompute P = exp(s - lse) without a second pass over the keys; a row
+// whose keys are all masked gets -inf, which K4 reads as P = 1 / Tk_p on
+// every key. Inference passes null and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +74,7 @@ constexpr int BQ = 64;  // queries per block
 constexpr int BK = 64;  // keys per tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
@@ -82,6 +89,21 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
+
+// Every query row of a block whose batch row has no live key:
+// out = sum_j V[j] / Tk_p, in f32, one column a thread; `colsum` holds HD floats.
+template <typename T>
+__device__ __forceinline__ void dead_rows_colsum(float* colsum, const T* __restrict__ v, int b, int h, int Tk,
+                                                 int D, int HD, int tid, int nthreads) {
+  const float tkp = (float)attn_mma::oneshot_padded_tk(Tk);
+  for (int c = tid; c < HD; c += nthreads) {
+    const T* col = v + (size_t)b * Tk * D + h * HD + c;
+    float s = 0.f;
+    for (int j = 0; j < Tk; ++j) s += to_f(col[(size_t)j * D]);
+    colsum[c] = s / tkp;
+  }
+  __syncthreads();
+}
 
 // HD: head dim; P: threads per query row (each owns HD / P columns)
 template <typename T, int HD, int P>
@@ -202,12 +224,22 @@ __global__ void __launch_bounds__(BQ * P) attention_btd_kernel(
     __syncthreads();  // kv and sc are rewritten by the next tile
   }
 
+  if (!__syncthreads_or(l > 0.f)) {  // the batch row has no live key
+    dead_rows_colsum<T>(&kv[0][0], v, b, h, Tk, D, HD, tid, THREADS);
+    if (row_ok) {
+      T* orow = out + ((size_t)b * Tq + qi) * D + h * HD + c0;
+#pragma unroll
+      for (int d = 0; d < HP; ++d) orow[d] = from_f<T>(kv[0][c0 + d]);
+      if (lse != nullptr && c0 == 0) lse[((size_t)b * H + h) * Tq + qi] = -INFINITY;
+    }
+    return;
+  }
   if (row_ok) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
     T* orow = out + ((size_t)b * Tq + qi) * D + h * HD + c0;
 #pragma unroll
     for (int d = 0; d < HP; ++d) orow[d] = from_f<T>(acc[d] * inv);
-    if (lse != nullptr && c0 == 0) lse[((size_t)b * H + h) * Tq + qi] = l > 0.f ? m + logf(l) : -INFINITY;
+    if (lse != nullptr && c0 == 0) lse[((size_t)b * H + h) * Tq + qi] = m + logf(l);
   }
 }
 
@@ -386,16 +418,24 @@ __global__ void __launch_bounds__(MMA_THREADS) attention_btd_mma_kernel(
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const bool dead = !__syncthreads_or(l[0] > 0.f || l[1] > 0.f);  // the batch row has no live key
+  if (dead) dead_rows_colsum<bf16>(valid, v, b, h, Tk, D, HD, tid, MMA_THREADS);  // valid: 2 * BK >= HD floats
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     const int qi = q0 + r_lo + 8 * i;
     if (qi >= Tq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow = out + ((size_t)b * Tq + qi) * D + h * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    for (int n = 0; n < NT; ++n) {
+      const int c = 8 * n + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+          dead ? __floats2bfloat162_rn(valid[c], valid[c + 1])
+               : __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    }
     if (lse != nullptr && t == 0)
-      lse[((size_t)b * H + h) * Tq + qi] = l[i] > 0.f ? m[i] * LN2 + logf(l[i]) : -INFINITY;
+      lse[((size_t)b * H + h) * Tq + qi] = dead ? -INFINITY : m[i] * LN2 + logf(l[i]);
   }
 }
 

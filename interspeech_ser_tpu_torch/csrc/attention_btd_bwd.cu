@@ -15,6 +15,12 @@
 // delta stands in for the TPU kernel's rowsum(P * dP): the two are equal,
 // since rowsum(P * (g V^T)) = g . (P V) = g . out.
 //
+// A batch row whose keys are all masked (K1 wrote lse -inf for its query
+// rows; the mask is per batch row, so its lse[b, h, 0] tells) takes the TPU
+// kernel's P = 1 / Tk_p on every key, Tk_p being Tk padded to a multiple of
+// 128: the padded keys' zero K, V and bias add nothing, and its keys get the
+// gradients of that uniform P.
+//
 // Scores are formed exactly as K1 forms them, from q*scale rounded to the
 // compute dtype (the scale rounded first), so that exp(S - lse) with K1's
 // lse is K1's P at every head dim: the TPU kernel's scale * (q . k) agrees
@@ -211,6 +217,8 @@ __global__ void __launch_bounds__(ROWS * Split<HD>::P) dkdv_kernel(
   const int b = blockIdx.z;
   const int D = H * HD;
   const int kj = k0 + tid / P;
+  const bool dead = lse[((size_t)b * H + h) * Tq] == -INFINITY;  // the batch row has no live key
+  const float p_dead = 1.f / (float)attn_mma::oneshot_padded_tk(Tk);
   const bool key_ok = kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f);
 
   float kr[HP], vr[HP], dk_acc[HP], dv_acc[HP];
@@ -246,12 +254,11 @@ __global__ void __launch_bounds__(ROWS * Split<HD>::P) dkdv_kernel(
     const int nq = min(TILE, Tq - q0);
     for (int i = 0; i < nq; ++i) {
       const float L = lse_s[i];
-      if (L == -INFINITY) continue;  // a query whose keys are all masked: P = 0 (same i for all threads)
       const float* qrow = &qs[i][part * (HP + 4)];
       const float* grow = &gs[i][part * (HP + 4)];
       float s = dot_part<HD>(kr, qrow);  // every lane shuffles: masked keys are computed, then zeroed
       if (bias != nullptr && kj < Tk) s += gate_s[i] * bias[((size_t)h * Tq + q0 + i) * Tk + kj];
-      const float p = key_ok ? expf(s - L) : 0.f;
+      const float p = dead ? (kj < Tk ? p_dead : 0.f) : (key_ok ? expf(s - L) : 0.f);
       const float dp = dot_part<HD>(vr, grow);
       const float ds = p * (dp - delta_s[i]);
       axpy_part<HD>(p, grow, dv_acc);
@@ -310,7 +317,8 @@ __global__ void __launch_bounds__(ROWS * Split<HD>::P) dq_kernel(
   const float L = row_ok ? lse[hrow] : -INFINITY;
   const float dlt = row_ok ? delta[hrow] : 0.f;
   const float gt = (row_ok && bias != nullptr) ? (gate != nullptr ? gate[hrow] : 1.f) : 0.f;
-  const bool live = row_ok && L != -INFINITY;
+  const bool dead = lse[((size_t)b * H + h) * Tq] == -INFINITY;  // the batch row has no live key
+  const float p_dead = 1.f / (float)attn_mma::oneshot_padded_tk(Tk);
   float dgate_acc = 0.f;
 
   for (int k0 = 0; k0 < Tk; k0 += TILE) {
@@ -337,10 +345,10 @@ __global__ void __launch_bounds__(ROWS * Split<HD>::P) dq_kernel(
 
     for (int j = 0; j < TILE; ++j) {
       float ds = 0.f;
-      if (valid[j] > 0.f) {  // the same j for all threads: the shuffles stay whole-warp
+      if (valid[j] > 0.f || (dead && k0 + j < Tk)) {  // the same j for all threads: whole-warp shuffles
         const float bij = bias != nullptr ? bs[r][j] : 0.f;  // read before the shuffles below
         const float s = dot_part<HD>(qr, &ks[j][part * (HP + 4)]) + gt * bij;
-        const float p = live ? expf(s - L) : 0.f;
+        const float p = dead ? p_dead : (row_ok ? expf(s - L) : 0.f);
         const float dp = dot_part<HD>(gr, &vs[j][part * (HP + 4)]);
         ds = p * (dp - dlt);
         dgate_acc = fmaf(ds, bij, dgate_acc);
@@ -425,8 +433,10 @@ __global__ void __launch_bounds__(MMA_THREADS) dkdv_mma_kernel(
   const int gq = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * MB, h = blockIdx.y, b = blockIdx.z;
   const int D = H * HD;
-  auto key_ok = [&](int kj) {
-    return kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f);
+  const bool dead = lse[((size_t)b * H + h) * Tq] == -INFINITY;  // the batch row has no live key
+  const float p_dead = 1.f / (float)oneshot_padded_tk(Tk);
+  auto key_ok = [&](int kj) {  // a key with weight (in a dead batch row every key has 1 / Tk_p)
+    return kj < Tk && (dead || key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f);
   };
   if (!__syncthreads_or(tid < MB && key_ok(k0 + tid))) {  // every key masked: dK = dV = 0
     for (int idx = tid; idx < MB * HD; idx += MMA_THREADS) {
@@ -512,7 +522,7 @@ __global__ void __launch_bounds__(MMA_THREADS) dkdv_mma_kernel(
         const float L = lse_s[st * MT + c];
         float x = s[n][e];
         if constexpr (BIAS) x += gt_s[st * MT + c] * bf(bt[c * DKDV_BSTR + kr + 8 * ih]);
-        const float p = (kok[ih] && L != -INFINITY) ? exp2f(x * LOG2E - L) : 0.f;
+        const float p = dead ? (kok[ih] ? p_dead : 0.f) : ((kok[ih] && L != -INFINITY) ? exp2f(x * LOG2E - L) : 0.f);
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - dl_s[st * MT + c]);
       }
@@ -583,6 +593,8 @@ __global__ void __launch_bounds__(MMA_THREADS) dq_mma_kernel(
     gtr[ih] = (BIAS && qi < Tq) ? gate[row] : 0.f;
     live[ih] = L[ih] != -INFINITY;
   }
+  const bool dead = lse[((size_t)b * H + h) * Tq] == -INFINITY;  // the batch row has no live key
+  const float p_dead = 1.f / (float)oneshot_padded_tk(Tk);
 
   zero_pad<HD, MMA_THREADS>(qsm, MB, tid);
   zero_pad<HD, MMA_THREADS>(gsm, MB, tid);
@@ -630,8 +642,8 @@ __global__ void __launch_bounds__(MMA_THREADS) dq_mma_kernel(
     } else {
       cp_async_wait<0>();
     }
-    // a tile whose keys are all masked adds nothing (its dbias terms are 0)
-    const int any = __syncthreads_or(tid < MT && valid[st * MT + tid] > 0.f);
+    // a tile whose keys are all masked adds nothing (its dbias terms are 0), unless the batch row is dead
+    const int any = __syncthreads_or(tid < MT && valid[st * MT + tid] > 0.f) || dead;
     if (any) {
       const bf16* kt = ksm + st * Sm::tile;
       float s[MT / 8][4], dp[MT / 8][4];
@@ -646,7 +658,8 @@ __global__ void __launch_bounds__(MMA_THREADS) dq_mma_kernel(
           float bij = 0.f;
           if constexpr (BIAS) bij = bf(bt[(r + 8 * ih) * DQ_BSTR + c]);
           const float x = s[n][e] + gtr[ih] * bij;
-          const float p = (valid[st * MT + c] > 0.f && live[ih]) ? exp2f(x * LOG2E - L[ih]) : 0.f;
+          const float p = dead ? (j * MT + c < Tk ? p_dead : 0.f)
+                               : ((valid[st * MT + c] > 0.f && live[ih]) ? exp2f(x * LOG2E - L[ih]) : 0.f);
           const float ds = p * (dp[n][e] - dlt[ih]);
           if constexpr (BIAS) {
             dgate_acc[ih] = fmaf(ds, bij, dgate_acc[ih]);

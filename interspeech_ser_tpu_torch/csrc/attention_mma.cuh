@@ -29,6 +29,17 @@ typedef __nv_bfloat16 bf16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// The key length a TPU kernel pads Tk to with zero keys. In a query row whose
+// keys are all masked every key weighs exp(0) = 1, the padded ones included,
+// so the row is sum(V) / padded and its backward takes P = 1 / padded on
+// every key. K1, K4 and K7 pad to a multiple of 128; K6 to a multiple of its
+// block_k = min(256, max(128, Tk)).
+__host__ __device__ __forceinline__ int oneshot_padded_tk(int Tk) { return (Tk + 127) / 128 * 128; }
+__host__ __device__ __forceinline__ int flash_padded_tk(int Tk) {
+  const int bk = Tk < 128 ? 128 : (Tk > 256 ? 256 : Tk);
+  return (Tk + bk - 1) / bk * bk;
+}
+
 template <int HD>
 struct Dims {
   static constexpr int HDP = (HD + 15) / 16 * 16;  // depth of Q.K^T / dO.V^T, zero-padded

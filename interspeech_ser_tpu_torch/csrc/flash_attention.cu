@@ -3,29 +3,62 @@
 // Replaces interspeech_ser_tpu/ops/pallas/flash_attention.py
 // (flash_attention -> _kernel). Per (b, h):
 //   out = softmax(scale * q . k^T + gate[b,h,q] * bias[h,q,k], masked keys) . v
-// with the scores and the softmax in f32, a masked key's score set to
-// -1e30 and the running max starting at -1e30 (so a query row whose keys are
-// all masked gets the uniform mean of V, as on the TPU), the bias in f32 as
-// given, P rounded to v's dtype before P.V with f32 accumulation, and the
-// result divided by max(l, 1e-30).
+// with the scores and the softmax in f32 (q . k accumulated in f32, then
+// scaled), a masked key's score set to -1e30 and the running max starting at
+// -1e30, the bias in f32 as given, P rounded to v's dtype before P.V with
+// f32 accumulation, and the result divided by max(l, 1e-30). A query row
+// whose keys are all masked (its max still -1e30 at the end) weighs every key
+// exp(0) = 1, and its l also counts the zero keys the TPU kernel pads Tk with
+// to a multiple of its block_k = min(256, max(128, Tk)): it is sum(V) / Tk_p.
 //
 // The TPU kernel walked a sequential grid of 256 x 256 (q, k) blocks and
 // carried the running max m, denominator l and accumulator in VMEM scratch
 // from one k step to the next. Blocks of a GPU grid run in no order, so here
 // one block owns (b, h, 64 queries) and loops over the keys itself, in 64-key
-// tiles staged in shared memory, with the online-softmax rescale per tile:
+// tiles, with the online-softmax rescale per tile:
 //   m' = max(m, tile max); alpha = exp(m - m'); l = l*alpha + sum exp(s - m');
 //   acc = acc*alpha + round(exp(s - m')) . V_tile.
-// Four threads share a query row (attention_bhtd_common.cuh), so a block is
-// 256 threads and holds two 17 KB tiles: no length limit, unlike K7.
 //
-// What bounds it on an H100: q, k, v and out are read or written once per
-// block, the f32 bias tile once; the products run on the FP32 pipes from
-// shared memory (no tensor cores yet), so it is bound by FP32 issue rate at
-// every shape the port runs, not by device memory. wgmma, TMA and double
-// buffering of the tiles are later work.
+// bf16, on the tensor cores (flash_attention_mma_kernel): 4 warps, each
+// owning 16 query rows, whose Q fragments (4 k16 steps of ldmatrix) stay in
+// registers for the whole pass. K and V tiles of 64 keys are staged in bf16 by
+// cp.async into rows padded to 72 elements and double-buffered, so tile j+1
+// loads while tile j is computed; the key flags travel through registers and
+// the f32 bias tile by 4-byte cp.async (a bias row of Tk floats starts on any
+// 4-byte boundary). S = Q . K^T runs on mma.sync.m16n8k16 (bf16 in, f32 out),
+// the scale is applied to the f32 product, then gate * bias, the mask (-1e30)
+// and the Tk tail (no weight) in the accumulator's fragment layout; the row
+// max and sum take two xor-shuffles within the quad of lanes that hold a row.
+// P, rounded to bf16, is the A operand of P.V straight from its registers,
+// V's fragments by ldmatrix.trans. When the batch row has a live key, a tile
+// whose keys are all masked is skipped by the whole block (it would add
+// exp(-1e30 - m) = 0); when it has none, every tile counts.
 //
-// q, k, v and out may be strided views (each row of hd elements contiguous).
+// What bounds the bf16 kernel, at the long shape (B=8, H=20, T=1500, hd 64;
+// 92 GFLOP of products): device memory moves q, k, v and out once, 123 MB or
+// 0.0013 bytes a FLOP (0.037 ms at 3.35 TB/s); L2 -> shared memory moves K
+// and V once per 64-query block, 24 blocks per head, 1.47 GB or 0.016 bytes a
+// FLOP (about 0.27 ms at an L2 rate near 5.5 TB/s); shared memory ->
+// registers (ldmatrix of K and V, per warp) 5.9 GB or 0.064 bytes a FLOP;
+// and the f32 softmax between the two products, 360 M exponentials on the
+// 16-a-clock MUFU pipe of each SM (0.09 ms). So it is bound by L2 bandwidth
+// and mma.sync issue together, not by device memory; a 128-query block
+// (halving the L2 traffic), wgmma and TMA are later work. With the bias
+// (WavLM, T=499) the f32 bias tile, 16 KB a tile, is the largest stream.
+// What the card shows (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.64 ms at
+// the long shape, 148 TFLOP/s of products and 15% of its bound (SDPA takes
+// 0.29), 0.18 ms at WavLM's shape with the bias (SDPA 0.13) and 0.085 ms at
+// RoBERTa's (SDPA 0.057), where each head's second 64-query block holds 16
+// live rows (T = 80).
+//
+// f32 (flash_attention_kernel), the parity mode with TF32 off, stays on the
+// FP32 pipes: four threads share a query row (attention_bhtd_common.cuh), K/V
+// tiles widened to f32 in shared memory, so a block is 256 threads and holds
+// two 17 KB tiles. It is bound by FP32 issue rate.
+//
+// q, k, v and out may be strided views (each row of hd elements contiguous);
+// the bf16 kernel needs 16-byte aligned pointers and row strides (the wrapper
+// checks).
 
 #include "attention_bhtd_common.cuh"
 
@@ -125,14 +158,241 @@ __global__ void __launch_bounds__(BQ * TPR) flash_attention_kernel(
     m = m_new;
     __syncthreads();  // kv and sc are rewritten by the next tile
   }
+  if (m == NEG_INF) l += (float)(flash_padded_tk(Tk) - Tk);  // every key masked: the padding counts
   if (row_ok) store_chunks<T>(out + b * st.o[0] + h * st.o[1] + qi * st.o[2], acc, l, part);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
-           const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk,
-           int hd, float scale, void* stream) {
-  if (hd != HD || Tk < 1 || Tq < 1) return (int)cudaErrorInvalidValue;
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores. Block: (b, h, 64 queries), 4 warps, warp w owns
+// query rows 16w .. 16w+15 of the block.
+
+constexpr int MMA_THREADS = 128;
+constexpr int MMA_BQ = 64;           // queries per block
+constexpr int MMA_BK = 64;           // keys per tile
+constexpr int STR = HD + 8;          // bf16 row stride of the Q, K, V tiles (odd number of 16-byte units)
+
+// The bias of the score epilogue, kept apart so that a variant can stage
+// another bias (K7's, in the compute dtype) or keep its scores resident:
+// K6's is f32 [H, Tq, Tk], staged a [64 queries][64 keys] tile at a time by
+// 4-byte cp.async (a row of Tk floats starts on any 4-byte boundary).
+struct BiasF32 {
+  static constexpr int LD = MMA_BK + 4;  // the 8 rows of a fragment read fall in 8 bank groups
+  static constexpr size_t bytes = (size_t)MMA_BQ * LD * sizeof(float);
+  __device__ static void stage(float* tile, const float* __restrict__ bias_h, int q0, int k0, int Tq, int Tk,
+                               int tid) {
+    for (int idx = tid; idx < MMA_BQ * MMA_BK; idx += MMA_THREADS) {
+      const int r = idx / MMA_BK, c = idx % MMA_BK;
+      const bool ok = q0 + r < Tq && k0 + c < Tk;
+      const float* src = bias_h + (ok ? (size_t)(q0 + r) * Tk + k0 + c : 0);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(attn_mma::smem_u32(tile + r * LD + c)),
+                   "l"(src), "r"(ok ? 4 : 0));
+    }
+  }
+  __device__ static float at(const float* tile, int r, int c) { return tile[r * LD + c]; }
+};
+
+template <bool BIAS>
+struct MmaSmem {
+  static constexpr size_t tile = (size_t)MMA_BK * STR;  // one K or V stage, bf16 elements
+  static constexpr size_t bytes = ((size_t)MMA_BQ * STR + 4 * tile) * sizeof(__nv_bfloat16) +
+                                  2 * MMA_BK * sizeof(float) + (BIAS ? 2 * BiasF32::bytes : 0);
+};
+
+template <bool BIAS>
+__global__ void __launch_bounds__(MMA_THREADS) flash_attention_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ key_mask,  // [B, Tk] or null
+    const float* __restrict__ gate,      // [B, H, Tq] (with bias)
+    const float* __restrict__ bias,      // [H, Tq, Tk] f32 (BIAS)
+    __nv_bfloat16* __restrict__ out, Strides st, int Tq, int Tk, int H, float scale) {
+  using namespace attn_mma;
+  typedef MmaSmem<BIAS> Sm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][STR]
+  bf16* ks = qs + MMA_BQ * STR;                  // [2][BK][STR]
+  bf16* vs = ks + 2 * Sm::tile;                  // [2][BK][STR]
+  float* valid = reinterpret_cast<float*>(vs + 2 * Sm::tile);  // [2][BK]: key < Tk and not masked
+  float* bs = valid + 2 * MMA_BK;                               // [2][BQ][BiasF32::LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * MMA_BQ, h = blockIdx.y, b = blockIdx.z;
+  const bf16* qb = q + b * st.q[0] + h * st.q[1];
+  const bf16* kb = k + b * st.k[0] + h * st.k[1];
+  const bf16* vb = v + b * st.v[0] + h * st.v[1];
+  const float* bias_h = BIAS ? bias + (size_t)h * Tq * Tk : nullptr;
+
+  // may an all-masked tile be skipped? Only if the batch row has a live key
+  int live_row = 1;
+  if (key_mask != nullptr) {
+    int any = 0;
+    for (int j = tid; j < Tk; j += MMA_THREADS) any |= key_mask[(size_t)b * Tk + j] > 0.f;
+    live_row = __syncthreads_or(any);
+  }
+
+  auto stage_kv = [&](int k0, int s) {
+    for (int idx = tid; idx < MMA_BK * (HD / 8); idx += MMA_THREADS) {
+      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+      const bool ok = k0 + r < Tk;
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(ks + s * Sm::tile + r * STR + c, kb + row * st.k[2] + c, ok);
+      cp_async16(vs + s * Sm::tile + r * STR + c, vb + row * st.v[2] + c, ok);
+    }
+    if constexpr (BIAS) BiasF32::stage(bs + s * (BiasF32::bytes / sizeof(float)), bias_h, q0, k0, Tq, Tk, tid);
+  };
+  auto key_flag = [&](int kj) {
+    return (kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f)) ? 1.f : 0.f;
+  };
+
+  for (int idx = tid; idx < MMA_BQ * (HD / 8); idx += MMA_THREADS) {
+    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+    const bool ok = q0 + r < Tq;
+    cp_async16(qs + r * STR + c, qb + (long long)(ok ? q0 + r : 0) * st.q[2] + c, ok);
+  }
+  stage_kv(0, 0);
+  cp_async_commit();
+  if (tid < MMA_BK) valid[tid] = key_flag(tid);
+
+  const int r_lo = warp * 16 + g;  // this thread's rows: r_lo and r_lo + 8 of the block
+  float gr[2] = {0.f, 0.f};
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + r_lo + 8 * i;
+      gr[i] = qi < Tq ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
+    }
+  }
+  uint32_t qf[HD / 16][4];  // Q's A fragments, for the whole pass
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};  // this thread's part of the row's denominator
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  const int nt = (Tk + MMA_BK - 1) / MMA_BK;
+  float vpre = 0.f;
+  for (int j = 0; j < nt; ++j) {
+    const int s = j & 1;
+    if (j + 1 < nt) {
+      stage_kv((j + 1) * MMA_BK, s ^ 1);
+      cp_async_commit();
+      if (tid < MMA_BK) vpre = key_flag((j + 1) * MMA_BK + tid);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const int any = __syncthreads_or(tid < MMA_BK && valid[s * MMA_BK + tid] > 0.f);
+    if (j == 0) {
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) load_a<STR>(qf[kc], qs + warp * 16 * STR, kc, lane);
+    }
+    if (any || !live_row) {
+      const bf16* kt = ks + s * Sm::tile;
+      float sc[MMA_BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < MMA_BK / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) {
+#pragma unroll
+        for (int np = 0; np < MMA_BK / 16; ++np) {
+          uint32_t bf[4];
+          load_b_nk<STR>(bf, kt, np * 16, kc, lane);
+          mma16816(sc[2 * np], qf[kc], bf[0], bf[1]);
+          mma16816(sc[2 * np + 1], qf[kc], bf[2], bf[3]);
+        }
+      }
+      // scale, bias, mask and Tk tail, and the row max, in the accumulator's layout
+      const float* vt = valid + s * MMA_BK;
+      const float* bt = bs + s * (BiasF32::bytes / sizeof(float));
+      const int kn = Tk - j * MMA_BK;  // keys of this tile below Tk
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < MMA_BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
+          float x = sc[n][e] * scale;
+          if constexpr (BIAS) x += gr[i] * BiasF32::at(bt, r_lo + 8 * i, c);
+          x = vt[c] > 0.f ? x : NEG_INF;
+          x = c < kn ? x : -INFINITY;  // past Tk: no key at all
+          sc[n][e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);  // >= -1e30: key 0 of the tile is below Tk
+        const float alpha = expf(m[i] - m_new);
+        l[i] *= alpha;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][2 * i] *= alpha;
+          o[n][2 * i + 1] *= alpha;
+        }
+#pragma unroll
+        for (int n = 0; n < MMA_BK / 8; ++n) {
+          const float p0 = expf(sc[n][2 * i] - m_new), p1 = expf(sc[n][2 * i + 1] - m_new);
+          l[i] += p0 + p1;
+          sc[n][2 * i] = p0;
+          sc[n][2 * i + 1] = p1;
+        }
+        m[i] = m_new;
+      }
+      // O += round_bf16(P) . V
+      const bf16* vt2 = vs + s * Sm::tile;
+#pragma unroll
+      for (int kc2 = 0; kc2 < MMA_BK / 16; ++kc2) {
+        uint32_t a[4];
+        c_to_a(a, sc[2 * kc2], sc[2 * kc2 + 1]);
+        mma_a_xkn<HD, STR>(o, a, vt2, kc2 * 16, lane);
+      }
+    }
+    if (j + 1 < nt && tid < MMA_BK) valid[(s ^ 1) * MMA_BK + tid] = vpre;
+    __syncthreads();  // stage s is rewritten by tile j + 2
+  }
+
+  const float pad = (float)(flash_padded_tk(Tk) - Tk);
+  bf16* ob = out + b * st.o[0] + h * st.o[1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (m[i] == NEG_INF) l[i] += pad;  // every key masked: the padding counts
+    const int qi = q0 + r_lo + 8 * i;
+    if (qi >= Tq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    bf16* orow = ob + (long long)qi * st.o[2];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * i] / den, o[n][2 * i + 1] / den);
+  }
+}
+
+template <bool BIAS>
+int launch_mma(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+               const void* bias, void* out, const Strides& st, int B, int H, int Tq, int Tk, float scale,
+               void* stream) {
+  constexpr size_t bytes = MmaSmem<BIAS>::bytes;
+  static bool configured = false;  // the attribute is per kernel and per process
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_attention_mma_kernel<BIAS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((Tq + MMA_BQ - 1) / MMA_BQ, H, B);
+  flash_attention_mma_kernel<BIAS><<<grid, MMA_THREADS, bytes, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const float*)key_mask,
+      (const float*)gate, (const float*)bias, (__nv_bfloat16*)out, st, Tq, Tk, H, scale);
+  return (int)cudaGetLastError();
+}
+
+Strides unpack(const long long* strides) {
   Strides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
@@ -140,11 +400,27 @@ int launch(const void* q, const void* k, const void* v, const void* key_mask, co
     st.v[i] = strides[6 + i];
     st.o[i] = strides[9 + i];
   }
+  return st;
+}
+
+int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+               const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk, int hd,
+               float scale, void* stream) {
+  if (hd != HD || Tk < 1 || Tq < 1) return (int)cudaErrorInvalidValue;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T><<<grid, BQ * TPR, 0, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)key_mask, (const float*)gate,
-      (const float*)bias, (T*)out, st, Tq, Tk, H, scale);
+  flash_attention_kernel<float><<<grid, BQ * TPR, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
+      (const float*)bias, (float*)out, unpack(strides), Tq, Tk, H, scale);
   return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk, int hd,
+                float scale, void* stream) {
+  if (hd != HD || Tk < 1 || Tq < 1) return (int)cudaErrorInvalidValue;
+  const Strides st = unpack(strides);
+  return bias != nullptr ? launch_mma<true>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, stream)
+                         : launch_mma<false>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, stream);
 }
 
 }  // namespace
@@ -153,13 +429,12 @@ extern "C" int ser_flash_attention_f32(const void* q, const void* k, const void*
                                        const void* key_mask, const void* gate, const void* bias,
                                        void* out, const long long* strides, int B, int H, int Tq,
                                        int Tk, int hd, float scale, void* stream) {
-  return launch<float>(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
+  return launch_f32(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
 }
 
 extern "C" int ser_flash_attention_bf16(const void* q, const void* k, const void* v,
                                         const void* key_mask, const void* gate, const void* bias,
                                         void* out, const long long* strides, int B, int H, int Tq,
                                         int Tk, int hd, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale,
-                               stream);
+  return launch_bf16(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
 }

@@ -18,8 +18,11 @@ Semantics, shared by both versions and the TPU kernel: per head h (columns
 key mask) . v`` with ``scale = hd ** -0.5`` unless given; q*scale rounded to
 the compute dtype, the bias cast to the compute dtype, scores and softmax in
 f32, P rounded to v's dtype before P.V with f32 accumulation, the result
-divided by ``max(l, 1e-30)``. A query row whose keys are all masked is not
-defined (a real utterance has >= 1 frame). The backward keeps the TPU
+divided by ``max(l, 1e-30)``. A query row whose keys are all masked gets
+what the TPU kernel gives it: every key weighs exp(0) = 1, and so do the
+zero keys it pads Tk with to a multiple of 128, so the row is ``sum(V) /
+Tk_p`` (``dead_row_denominator``) and its backward takes P = 1 / Tk_p on
+every key. The backward keeps the TPU
 kernel's roundings: P is recomputed in f32, rounded to the compute dtype
 before ``dV = Pᵀg``; dS is rounded to the compute dtype before ``dQ`` and
 ``dK``; ``dgate`` and ``dbias`` stay f32. K4 forms its scores exactly as K1
@@ -41,6 +44,21 @@ from . import _build
 NEG_INF = -1e30
 LAUNCHES = 0  # K1 launches since the last reset (chip_smoke.py reads it)
 BWD_LAUNCHES = 0  # K4 launches (one per backward: its four CUDA launches count once)
+
+
+def padded_tk(tk: int, block: int = 128) -> int:
+    """The key length the TPU kernels pad to: a multiple of ``block`` (K1, K4 and K7
+    take 128; K6 its own ``block_k``, ``attention_bhtd.flash_padded_tk``)."""
+    return -(-tk // block) * block
+
+
+def dead_row_denominator(l: torch.Tensor, m: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """The softmax denominator ``l`` with the TPU kernels' ``n_pad`` padded keys
+    counted in a row whose keys are all masked (row max ``m`` still ``NEG_INF``):
+    there every key, the padding's zero rows of V included, weighs exp(0) = 1,
+    so the row gets ``sum(V) / (Tk + n_pad)``. Every other row keeps its bits:
+    the padding's weight exp(NEG_INF - m) is 0 there."""
+    return torch.where(m == NEG_INF, l + n_pad, l)
 
 
 def attention_btd_plain(
@@ -70,8 +88,9 @@ def attention_btd_plain(
         s = s + g[..., None] * pos_bias.to(dt).float()[None]
     if key_mask is not None:
         s = s.masked_fill(~(key_mask > 0)[:, None, None, :], NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = dead_row_denominator(p.sum(dim=-1, keepdim=True), m, padded_tk(Tk) - Tk)
     o = (p.to(v.dtype).float() @ vh) / l.clamp_min(1e-30)
     return o.to(dt).transpose(1, 2).reshape(B, Tq, D)
 
@@ -109,8 +128,9 @@ def attention_btd_bwd_plain(
         s = s + gt[..., None] * bias[None]
     if key_mask is not None:
         s = s.masked_fill(~(key_mask > 0)[:, None, None, :], NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    P = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # f32
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    P = p / dead_row_denominator(p.sum(dim=-1, keepdim=True), m, padded_tk(Tk) - Tk).clamp_min(1e-30)  # f32
     dv = P.to(dt).float().transpose(-1, -2) @ gh
     dP = gh @ vh.transpose(-1, -2)
     dS = P * (dP - (P * dP).sum(dim=-1, keepdim=True))  # f32

@@ -15,13 +15,17 @@ Semantics, shared by the kernels, their plain versions and the TPU kernels:
 q.k accumulated in f32 and scaled after, scores and softmax in f32, a masked
 key's score set to ``NEG_INF = -1e30``, P rounded to v's dtype before P.V
 with f32 accumulation, and the result divided by ``max(l, 1e-30)``. So a
-query row whose keys are all masked gets the uniform mean of its Tk values
-(the TPU kernels' padded keys also enter that mean: they pad Tk to their
-block, 128 or 256 keys). K7 rounds the bias to the compute dtype, as its TPU
+query row whose keys are all masked weighs every key exp(0) = 1, and so do
+the zero keys its TPU kernel pads Tk with: the row is ``sum(V) / Tk_p``,
+with ``Tk_p`` Tk rounded up to a multiple of 128 for K7 and of K6's
+``block_k = min(256, max(128, Tk))`` for K6 (``attention.padded_tk``,
+``flash_padded_tk``). K7 rounds the bias to the compute dtype, as its TPU
 kernel does; K6 adds it in f32 as given. The gate defaults to 1.
 
 The kernels take q, k, v as strided views (each row of hd contiguous), so
-[B, T, H*hd] projections viewed as [B, H, T, hd] go in without a copy, and
+[B, T, H*hd] projections viewed as [B, H, T, hd] go in without a copy (K6 in
+bf16, on the tensor cores, copies rows by 16-byte ``cp.async``: it raises on a
+view whose pointer or batch / head / time strides are not 16-byte aligned), and
 they write their output in [B, T, H, hd] memory order (returned as its
 [B, H, T, hd] view), so the caller's transpose back is free.
 """
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .attention import dead_row_denominator, padded_tk
 
 NEG_INF = -1e30
 MAX_ONESHOT_TK = 2048  # flash_attention_short.py: K7's key-length limit
@@ -41,9 +46,16 @@ LAUNCHES = 0  # K7 launches since the last reset (chip_smoke.py reads it)
 FLASH_LAUNCHES = 0  # K6 launches
 
 
-def _softmax_pv(q, k, v, key_mask, scale, gate, bias) -> torch.Tensor:
+def flash_padded_tk(tk: int) -> int:
+    """K6's padded key length: a multiple of ``block_k = min(256, max(128, Tk))``
+    (``flash_attention.flash_attention``)."""
+    return padded_tk(tk, min(256, max(128, tk)))
+
+
+def _softmax_pv(q, k, v, key_mask, scale, gate, bias, tk_padded) -> torch.Tensor:
     """The plain one-pass form both kernels compute; ``bias`` already in the
-    dtype its kernel adds it in."""
+    dtype its kernel adds it in, ``tk_padded`` the key length its TPU kernel
+    pads to."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = (q.float() @ k.float().transpose(-1, -2)) * scale  # [B, H, Tq, Tk] f32
@@ -53,8 +65,9 @@ def _softmax_pv(q, k, v, key_mask, scale, gate, bias) -> torch.Tensor:
         s = s + g[..., None] * bias.float()[None]
     if key_mask is not None:
         s = s.masked_fill(~(key_mask > 0)[:, None, None, :], NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = dead_row_denominator(p.sum(dim=-1, keepdim=True), m, tk_padded - k.shape[2])
     o = p.to(v.dtype).float() @ v.float()
     return (o / l.clamp_min(1e-30)).to(q.dtype)
 
@@ -70,7 +83,7 @@ def attention_bhtd_plain(
 ) -> torch.Tensor:  # [B, H, Tq, hd] in q.dtype
     """K7's function: the bias rounded to the compute dtype."""
     bias = None if pos_bias is None else pos_bias.to(q.dtype)
-    return _softmax_pv(q, k, v, key_mask, scale, gate, bias)
+    return _softmax_pv(q, k, v, key_mask, scale, gate, bias, padded_tk(k.shape[2]))
 
 
 def flash_attention_plain(
@@ -83,7 +96,7 @@ def flash_attention_plain(
     pos_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K6's function: the bias added as given (in f32)."""
-    return _softmax_pv(q, k, v, key_mask, scale, gate, pos_bias)
+    return _softmax_pv(q, k, v, key_mask, scale, gate, pos_bias, flash_padded_tk(k.shape[2]))
 
 
 def _launch(name: str, q, k, v, key_mask, scale, gate, pos_bias, bias_dtype) -> torch.Tensor:
@@ -101,6 +114,11 @@ def _launch(name: str, q, k, v, key_mask, scale, gate, pos_bias, bias_dtype) -> 
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device or t.stride(-1) != 1:
             raise ValueError(f"{name}: {n} must be a {q.dtype} tensor on {q.device} with contiguous rows")
+    if name == "flash_attention" and q.dtype == torch.bfloat16:
+        for n, t in (("q", q), ("k", k), ("v", v)):  # K6's tensor-core kernel copies rows in 16-byte units
+            if t.data_ptr() % 16 != 0 or any(x % 8 != 0 for x in t.stride()[:3]):
+                raise ValueError(f"{name}: bf16 {n} must start on 16 bytes with its batch, head and time "
+                                 f"strides multiples of 8 elements (cp.async), got strides {t.stride()}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, pos_bias)):
         raise RuntimeError(f"{name}: the kernel has no backward; inputs that require grad go to "
                            "the plain attention")

@@ -13,6 +13,13 @@ dtype of ``x``), products accumulated in f32; ``b_up`` added in f32, GELU
 (exact erf, or the tanh form) in f32, rounded to the compute dtype before
 the second product; ``b_down`` added in f32 and the sum rounded once. The
 weights come in torch's Linear layout: ``w_up`` [F, K], ``w_down`` [N, F].
+
+The kernel is one cluster launch (8 CTAs split N and share each chunk of the
+intermediate through distributed shared memory; bf16 on the tensor cores,
+f32 on the FP32 pipes); its rows are staged by 16-byte ``cp.async``, so it
+takes K and F that are multiples of 8 and 16-byte aligned tensors, and the
+wrapper raises otherwise (the JAX kernel takes any K and F; every encoder
+width is a multiple of 8). Any M, and any such F, is masked in the kernel.
 """
 
 from __future__ import annotations
@@ -67,11 +74,17 @@ def ffn_fused(
         )
     if N not in WIDTHS:
         raise NotImplementedError(f"ffn_fused kernel takes output widths {WIDTHS}, got {N}")
+    if K % 8 != 0 or Fd % 8 != 0:
+        raise NotImplementedError(f"ffn_fused kernel takes K and F that are multiples of 8 (16-byte rows), "
+                                  f"got K={K} F={Fd}")
     x = x.contiguous()
     wu = w_up.detach().to(dt).contiguous()
     wd = w_down.detach().to(dt).contiguous()
     bu = b_up.detach().float().contiguous()
     bd = b_down.detach().float().contiguous()
+    for name, t in (("x", x), ("w_up", wu), ("w_down", wd)):
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"ffn_fused: {name} must start on a 16-byte boundary (cp.async)")
     out = torch.empty(M, N, device=x.device, dtype=dt)
     lib = _build.library()
     fn = lib.ser_ffn_fused_bf16 if dt == torch.bfloat16 else lib.ser_ffn_fused_f32

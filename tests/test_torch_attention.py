@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from interspeech_ser_tpu.ops.attention_core import dot_product_attention as jax_dpa
 from interspeech_ser_tpu.ops.pallas.flash_attention_short import attention_btd as jax_attention_btd
 from interspeech_ser_tpu_torch.ops.attention_core import dot_product_attention, dot_product_attention_btd
-from interspeech_ser_tpu_torch.ops.kernels.attention import attention_btd, attention_btd_plain
+from interspeech_ser_tpu_torch.ops.kernels.attention import attention_btd, attention_btd_plain, padded_tk
 
 torch.set_num_threads(2)
 
@@ -100,6 +100,36 @@ def test_bhtd_form_matches_xla_attention_f32():
     out = dot_product_attention(*(_torch(np.ascontiguousarray(bhtd(x))) for x in (q, k, v)),
                                 key_mask=_torch(mask), gate=_torch(gate), shared_bias=_torch(bias))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("tk", [100, 130])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_row_counts_padded_keys(tk, with_bias, dtype):
+    """Row 1's keys all masked at a Tk off the 128-key tile (H=2, D=128: head
+    dim 64): the plain version against the Pallas kernel in interpret mode,
+    the dead row equal to sum(V) / Tk_p with Tk_p = Tk rounded up to 128."""
+    Hh, Dd, Tq = 2, 128, 40
+    rng = np.random.default_rng(tk + with_bias)
+    q = rng.standard_normal((B, Tq, Dd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, tk, Dd)).astype(np.float32) for _ in range(2))
+    mask = (np.arange(tk)[None] < np.array([tk - 5, 0])[:, None]).astype(np.float32)
+    gate = rng.uniform(0.5, 2.0, (B, Hh, Tq)).astype(np.float32) if with_bias else None
+    bias = rng.standard_normal((Hh, Tq, tk)).astype(np.float32) if with_bias else None
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref = jax_attention_btd(_jax(q, jdt), _jax(k, jdt), _jax(v, jdt), Hh, key_mask=_jax(mask), gate=_jax(gate),
+                            pos_bias=_jax(bias), interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = attention_btd_plain(_torch(q, tdt), _torch(k, tdt), _torch(v, tdt), Hh, key_mask=_torch(mask),
+                              gate=_torch(gate), pos_bias=_torch(bias)).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+        want = v[1].sum(axis=0) / padded_tk(tk)
+        np.testing.assert_allclose(out[1], np.broadcast_to(want, out[1].shape), atol=1e-5, rtol=0)
+    else:
+        assert np.abs(out - ref).max() <= 3e-2
+        assert _cos(out, ref) >= 0.999
 
 
 def test_all_negative_scores_stay_exact():

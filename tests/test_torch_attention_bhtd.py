@@ -5,9 +5,12 @@ against the JAX package's Pallas kernels in interpret mode, and the
 Inputs come from numpy with a seed and go to both frameworks. Tolerances:
 f32 max-abs <= 1e-5 (same math, other summation order); bf16 cosine >=
 0.999, because P is rounded to bf16 before P.V and the two frameworks' f32
-sums then differ by a few bf16 ulps. A fully masked query row gets the
-uniform mean of V; the TPU kernels also count their padded keys in that
-mean, so that case runs at Tk = 128, where neither pads.
+sums then differ by a few bf16 ulps. A fully masked query row gets
+``sum(V) / Tk_p``: the TPU kernels count their zero-padded keys in that
+mean, K7 padding Tk to a multiple of 128 and K6 to a multiple of
+``min(256, max(128, Tk))``. The case at Tk = 128 pads neither; the cases
+at Tk = 100 (both pad to 128) and Tk = 2100 (K6 pads to 2304) hold the
+padded count.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from interspeech_ser_tpu.ops.pallas.flash_attention_short import attention_bhtd 
 from interspeech_ser_tpu_torch.ops import attention as fusion_attention
 from interspeech_ser_tpu_torch.ops import attention_core
 from interspeech_ser_tpu_torch.ops.kernels import attention_bhtd as kb
+from interspeech_ser_tpu_torch.ops.kernels.attention import padded_tk
 
 torch.set_num_threads(2)
 
@@ -86,6 +90,33 @@ def test_plain_matches_pallas_interpret(kernel, case, dtype):
         want = v[1].mean(axis=1, keepdims=True) if dtype == "float32" else None
         if want is not None:
             np.testing.assert_allclose(out[1], np.broadcast_to(want, out[1].shape), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kernel,tk", [("oneshot", 100), ("flash", 100), ("flash", 2100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_row_counts_padded_keys(kernel, tk, dtype):
+    """Row 1's keys all masked at a Tk off the TPU kernels' tiles: the plain
+    version against the Pallas kernel in interpret mode, the dead row equal
+    to sum(V) / Tk_p, row 0 (live keys) as before."""
+    jax_fn, _, plain, _ = KERNELS[kernel]
+    q, k, v, mask, gate, pb = _inputs(tk + 1, 40, tk, [tk - 3, 0], True)
+    tdt, jdt = (torch.float32, jnp.float32) if dtype == "float32" else (torch.bfloat16, jnp.bfloat16)
+    ref = jax_fn(_j(q, jdt), _j(k, jdt), _j(v, jdt), key_mask=_j(mask), gate=_j(gate), pos_bias=_j(pb),
+                 interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = plain(_t(q, tdt), _t(k, tdt), _t(v, tdt), key_mask=_t(mask), gate=_t(gate), pos_bias=_t(pb))
+    out = out.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+        tk_p = padded_tk(tk) if kernel == "oneshot" else kb.flash_padded_tk(tk)
+        assert tk_p == (128 if tk == 100 else 2304)
+        want = v[1].sum(axis=1, keepdims=True) / tk_p
+        np.testing.assert_allclose(out[1], np.broadcast_to(want, out[1].shape), atol=1e-5, rtol=0)
+    else:
+        assert _cos(out, ref) >= 0.999
+    # a live row does not see the padded count: the one-pass softmax over its Tk keys
+    live = plain(*(_t(x[:1], tdt) for x in (q, k, v)), key_mask=_t(mask[:1]), gate=_t(gate[:1]), pos_bias=_t(pb))
+    np.testing.assert_array_equal(out[:1], live.float().numpy())
 
 
 @pytest.mark.parametrize("kernel", list(KERNELS))

@@ -81,6 +81,35 @@ def test_plain_backward_matches_pallas_interpret(with_bias, with_mask, dtype, hd
 
 
 @pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tk", [37, 100])
+def test_plain_backward_fully_masked_row(with_bias, dtype, tk):
+    """Row 1's keys all masked: the TPU kernel's P is 1 / Tk_p on every key
+    there (Tk padded to 128), so the dead row's keys do get a gradient. The
+    plain backward against the Pallas kernel in interpret mode, head dim 64."""
+    rng = np.random.default_rng(tk + with_bias)
+    q, g = (rng.standard_normal((B, T, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, tk, D)).astype(np.float32) for _ in range(2))
+    mask = (np.arange(tk)[None] < np.array([tk - 4, 0])[:, None]).astype(np.float32)
+    gate = rng.uniform(0.5, 2.0, (B, H, T)).astype(np.float32) if with_bias else None
+    bias = rng.standard_normal((H, T, tk)).astype(np.float32) if with_bias else None
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jax_bwd(*(_j(x, jdt) for x in (q, k, v, g)), H, _j(mask), 0.125, _j(gate), _j(bias, jdt), interpret=True)
+    got = ka.attention_btd_bwd(*(_t(x, tdt) for x in (q, k, v, g)), H, _t(mask), 0.125, _t(gate), _t(bias, tdt))
+    for name, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        a, b = a.float().numpy(), np.asarray(b.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=name)
+        else:
+            assert _cos(a, b) >= 0.999, name
+    assert float(got[2][1].abs().max()) > 0  # dV of the dead row: sum over queries of g / Tk_p
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_autograd_pair_matches_jax_grad(with_bias, hd):
     """Torch autograd through AttentionBtdTrain on the CPU (plain forward and

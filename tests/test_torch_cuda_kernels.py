@@ -28,14 +28,46 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("bias,masked", [(True, True), (True, False), (False, True), (False, False)])
+def _key_mask(T, masked):
+    """Row 2 leaves the last two 64-key tiles fully masked; with ``"dead"``
+    row 1 has no live key at all (sum(V) / Tk_p, Tk_p = 256 at T = 150)."""
+    lengths = [150, 0 if masked == "dead" else 77, 40]
+    return (torch.arange(T, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]).float()
+
+
+def _assert_dead_row(a, b, dtype, what, row=1):
+    """The batch row with no live key, alone: f32 max-abs <= 1e-5; bf16
+    max-abs <= 1e-2 x max|ref| of the row, which a wrong scale (Tk for Tk_p)
+    breaks and cosine does not see."""
+    err = float((a[row].float() - b[row].float()).abs().max())
+    bar = 1e-5 if dtype == torch.float32 else 1e-2 * float(b[row].abs().max())
+    assert err <= bar, (what, err, bar)
+
+
+def _assert_bwd_close(got, ref, dtype, masked):
+    for name, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, ref):
+        assert (a is None) == (b is None)
+        if b is None:
+            continue
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        else:
+            assert torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0) >= 0.999
+        if masked == "dead" and name != "dbias":
+            _assert_dead_row(a, b, dtype, name)
+
+
+MASKS = [(True, True), (True, False), (False, True), (False, False), (True, "dead"), (False, "dead")]
+
+
+@pytest.mark.parametrize("bias,masked", MASKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel(cuda, bias, masked, dtype):
     B, T, H = 3, 150, 4
     q, k, v = (torch.randn(B, T, 64 * H, generator=cuda, device="cuda").to(dtype) for _ in range(3))
     kw = {}
-    if masked:  # row 2 leaves the last two 64-key tiles fully masked
-        kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([150, 77, 40], device="cuda")[:, None]).float()
+    if masked:
+        kw["key_mask"] = _key_mask(T, masked)
     if bias:
         kw["gate"] = 1 + torch.rand(B, H, T, generator=cuda, device="cuda")
         kw["pos_bias"] = torch.randn(H, T, T, generator=cuda, device="cuda")
@@ -48,20 +80,22 @@ def test_attention_kernel(cuda, bias, masked, dtype):
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+    if masked == "dead":
+        _assert_dead_row(out, ref, dtype, "out")
 
 
 def _attention_bwd_inputs(gen, bias, masked, dtype, B=3, T=150, H=4, hd=64):
     q, k, v, g = (torch.randn(B, T, hd * H, generator=gen, device="cuda").to(dtype) for _ in range(4))
     kw = {}
-    if masked:  # row 2 leaves the last two 64-key tiles fully masked
-        kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([150, 77, 40], device="cuda")[:, None]).float()
+    if masked:
+        kw["key_mask"] = _key_mask(T, masked)
     if bias:
         kw["gate"] = 1 + torch.rand(B, H, T, generator=gen, device="cuda")
         kw["pos_bias"] = torch.randn(H, T, T, generator=gen, device="cuda")
     return (q, k, v, g, H), kw
 
 
-@pytest.mark.parametrize("bias,masked", [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("bias,masked", MASKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_bwd_kernel(cuda, bias, masked, dtype):
     """K4 (on K1's output and lse) against the plain backward; a rerun is bit-identical."""
@@ -72,14 +106,7 @@ def test_attention_bwd_kernel(cuda, bias, masked, dtype):
     torch.cuda.synchronize()
     assert k_attn.BWD_LAUNCHES == before + 1
     ref = k_attn.attention_btd_bwd_plain(q, k, v, g, H, **kw)
-    for a, b in zip(got, ref):
-        assert (a is None) == (b is None)
-        if b is None:
-            continue
-        if dtype == torch.float32:
-            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-        else:
-            assert torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0) >= 0.999
+    _assert_bwd_close(got, ref, dtype, masked)
     again = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
     assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
 
@@ -171,7 +198,7 @@ def test_conv_frontend_kernel(cuda, approx, dtype, depth):
 
 
 @pytest.mark.parametrize("hd", [80, 120])
-@pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False)])
+@pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False), (False, "dead")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_wide_heads(cuda, hd, bias, masked, dtype):
     """K1 at HuBERT-XL's and XLS-R-2B's head dims (two threads per query row)."""
@@ -179,7 +206,7 @@ def test_attention_kernel_wide_heads(cuda, hd, bias, masked, dtype):
     q, k, v = (torch.randn(B, T, hd * H, generator=cuda, device="cuda").to(dtype) for _ in range(3))
     kw = {}
     if masked:
-        kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([150, 77, 40], device="cuda")[:, None]).float()
+        kw["key_mask"] = _key_mask(T, masked)
     if bias:
         kw["gate"] = 1 + torch.rand(B, H, T, generator=cuda, device="cuda")
         kw["pos_bias"] = torch.randn(H, T, T, generator=cuda, device="cuda")
@@ -189,6 +216,8 @@ def test_attention_kernel_wide_heads(cuda, hd, bias, masked, dtype):
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+    if masked == "dead":
+        _assert_dead_row(out, ref, dtype, "out")
     out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)  # the lse is the row's, written once
     assert lse.shape == (B, H, T)
     if not bias and not masked and dtype == torch.float32:
@@ -212,7 +241,7 @@ def test_attention_train_takes_wide_heads(cuda, hd):
 
 
 @pytest.mark.parametrize("hd", [80, 120])
-@pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False)])
+@pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False), (False, "dead")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_bwd_kernel_wide_heads(cuda, hd, bias, masked, dtype):
     """K4 at head dims 80 and 120 (four threads a row on the FP32 pipes in f32,
@@ -221,14 +250,7 @@ def test_attention_bwd_kernel_wide_heads(cuda, hd, bias, masked, dtype):
     out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
     got = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
     ref = k_attn.attention_btd_bwd_plain(q, k, v, g, H, **kw)
-    for a, b in zip(got, ref):
-        assert (a is None) == (b is None)
-        if b is None:
-            continue
-        if dtype == torch.float32:
-            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-        else:
-            assert torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0) >= 0.999
+    _assert_bwd_close(got, ref, dtype, masked)
     again = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
     assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
 
@@ -238,32 +260,36 @@ def test_attention_bwd_kernel_wide_heads(cuda, hd, bias, masked, dtype):
 def test_attention_tensor_cores_main_shapes(cuda, hd, T):
     """bf16 K1 and K4 (the tensor-core kernels) at every head dim and both
     lengths (neither a multiple of the 64-key tile), gated bias, H=16, with
-    row 1's keys all masked: the live rows against the plain versions
-    (cosine >= 0.999), the dead row exactly 0 (output, gradients) with lse -inf."""
+    row 1's keys all masked: every row against the plain versions (cosine >=
+    0.999), the dead row as the TPU kernel gives it (sum(V) / Tk_p, lse
+    -inf, and P = 1 / Tk_p in the backward, so its keys get gradients)."""
     B, H = 3, 16
     (q, k, v, g, _), kw = _attention_bwd_inputs(cuda, True, False, torch.bfloat16, B=B, T=T, H=H, hd=hd)
     kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor([T, 0, T // 3], device="cuda")[:, None]).float()
     out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
     ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
-    live = [0, 2]
     cos = torch.nn.functional.cosine_similarity
-    assert cos(out[live].float().flatten(), ref[live].float().flatten(), dim=0) >= 0.999
-    assert bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
+    assert cos(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+    assert cos(out[1].float().flatten(), ref[1].float().flatten(), dim=0) >= 0.999
+    _assert_dead_row(out, ref, torch.bfloat16, "out")
+    assert bool(torch.isinf(lse[1]).all())
     got = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
-    want = k_attn.attention_btd_bwd_plain(q[live], k[live], v[live], g[live], H, kw["key_mask"][live], None,
-                                          kw["gate"][live], kw["pos_bias"])
+    want = k_attn.attention_btd_bwd_plain(q, k, v, g, H, **kw)
     for name, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, want):
-        a_live = a if name == "dbias" else a[live]
-        assert cos(a_live.float().flatten(), b.float().flatten(), dim=0) >= 0.999, name
-    assert all(float(a[1].abs().max()) == 0 for a in got[:4])
+        assert cos(a.float().flatten(), b.float().flatten(), dim=0) >= 0.999, name
+        if name != "dbias":
+            assert cos(a[1].float().flatten(), b[1].float().flatten(), dim=0) >= 0.999, name
+            _assert_dead_row(a, b, torch.bfloat16, name)
 
 
 @pytest.mark.parametrize("n", k_ffn.WIDTHS)
 @pytest.mark.parametrize("approx", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ffn_fused_kernel(cuda, n, approx, dtype):
-    """K5 with M, K and F off its tiles (37 rows, 96 inputs, 300 hidden)."""
-    M, K, Fd = 37, 96, 300
+    """K5 with M, K and F off its tiles (300 rows: 3 clusters of 128, the last
+    ragged; 104 inputs; 328 hidden: one chunk and a masked tail), K and F
+    multiples of 8 as its 16-byte row copies need."""
+    M, K, Fd = 300, 104, 328
     x = torch.randn(M, K, generator=cuda, device="cuda").to(dtype)
     w_up = torch.randn(Fd, K, generator=cuda, device="cuda") / K ** 0.5
     b_up = 0.1 * torch.randn(Fd, generator=cuda, device="cuda")
@@ -421,6 +447,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         k_gru.gru_bidir_carries(torch.randn(3, 4, 6, device="cuda"), torch.randn(2, 2, 6, device="cuda"),
                                 torch.randn(2, 6, device="cuda"), torch.ones(3, 4, device="cuda"))
+    # K6 in bf16 copies rows by 16-byte cp.async: a head view 2 bytes off, or a time
+    # stride of 68 elements, is refused (K7 and f32 K6 take both)
+    heads = torch.randn(1, 8 * 64 + 1, device="cuda").to(torch.bfloat16)[:, 1:].view(1, 1, 8, 64)
+    wide = torch.randn(1, 8, 68, device="cuda").to(torch.bfloat16)[:, :, :64].unsqueeze(1)
+    for bad in (heads, wide):
+        with pytest.raises(ValueError, match="16 bytes"):
+            k_bhtd.flash_attention(bad, bad, bad)
+        k_bhtd.attention_bhtd(bad, bad, bad)
+        k_bhtd.flash_attention(bad.float(), bad.float(), bad.float())
+    # K5 takes K and F in multiples of 8
+    with pytest.raises(NotImplementedError, match="multiples of 8"):
+        k_ffn.ffn_fused(torch.randn(4, 100, device="cuda"), torch.randn(300, 100, device="cuda"),
+                        torch.zeros(300, device="cuda"), torch.randn(768, 300, device="cuda"),
+                        torch.zeros(768, device="cuda"), False)
 
 
 BHTD = {"oneshot": (k_bhtd.attention_bhtd, k_bhtd.attention_bhtd_plain, "LAUNCHES"),
@@ -430,10 +470,11 @@ BHTD = {"oneshot": (k_bhtd.attention_bhtd, k_bhtd.attention_bhtd_plain, "LAUNCHE
 @pytest.mark.parametrize("kernel", list(BHTD))
 @pytest.mark.parametrize("bias,masked", [(True, True), (True, False), (False, True), (False, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tq,tk", [(80, 80), (150, 217)])
+@pytest.mark.parametrize("tq,tk", [(80, 80), (150, 217), (70, 499)])
 def test_bhtd_kernels(cuda, kernel, bias, masked, dtype, tq, tk):
-    """K7 / K6 on [B, H, T, 64] heads; row 2 of the mask leaves whole 64-key
-    tiles masked, row 3 masks every key (the uniform mean of V)."""
+    """K7 / K6 on [B, H, T, 64] heads, Tk never a multiple of the 64-key tile;
+    row 2 of the mask leaves whole 64-key tiles masked, row 3 masks every key
+    (sum(V) / Tk_p: the TPU kernels' padded keys count)."""
     fn, plain, counter = BHTD[kernel]
     B, H = 4, 3
     q = torch.randn(B, H, tq, 64, generator=cuda, device="cuda").to(dtype)
@@ -455,17 +496,25 @@ def test_bhtd_kernels(cuda, kernel, bias, masked, dtype, tq, tk):
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     else:
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.9999
+    if masked:
+        _assert_dead_row(out, ref, dtype, kernel, row=3)
 
 
 @pytest.mark.parametrize("kernel", list(BHTD))
-def test_bhtd_kernels_take_strided_projections(cuda, kernel):
-    """[B, T, H*64] projections viewed as [B, H, T, 64] (RoBERTa's layout) give
-    the same result as contiguous heads, and the output's transpose back to
-    [B, T, D] is a free view."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["btd", "qkv"])
+def test_bhtd_kernels_take_strided_projections(cuda, kernel, dtype, layout):
+    """[B, T, H*64] projections viewed as [B, H, T, 64] (RoBERTa's layout), or
+    q, k, v cut from one [B, T, 3, H, 64] projection, give the same result as
+    contiguous heads, and the output's transpose back to [B, T, D] is a free view."""
     fn, _, _ = BHTD[kernel]
     B, T, H = 3, 80, 4
-    q, k, v = (torch.randn(B, T, H * 64, generator=cuda, device="cuda") for _ in range(3))
-    views = [t.view(B, T, H, 64).transpose(1, 2) for t in (q, k, v)]
+    if layout == "btd":
+        q, k, v = (torch.randn(B, T, H * 64, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+        views = [t.view(B, T, H, 64).transpose(1, 2) for t in (q, k, v)]
+    else:
+        qkv = torch.randn(B, T, 3, H, 64, generator=cuda, device="cuda").to(dtype)
+        views = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
     out = fn(*views)
     torch.testing.assert_close(out, fn(*(t.contiguous() for t in views)), atol=0, rtol=0)
     assert out.transpose(1, 2).is_contiguous()
