@@ -22,7 +22,8 @@ entry points at full width:
    Whisper-large shapes; K7 (one-shot) and K6 (streaming) attention on
    [B, H, T, 64] heads at RoBERTa-large's extraction shape (B=64, H=16, T=80,
    ragged key mask) and the WavLM-large shape with the gated bias, K6 also at
-   B=8, H=20, T=1500 (f32 and bf16; SDPA with a float mask); K1 also at
+   B=8, H=20, T=1500 (f32 and bf16; SDPA with a float mask), K7 bf16 also
+   at Tk = 2048 and on views one element off 16 bytes; K1 also at
    HuBERT-XL's and XLS-R-2B's head dims (80 and 120: B=16, T=499, ragged
    key mask); K2 the fused frontend on 10-s waveforms at depths 1-7 (its
    layer-0 kernel, and its later-layer kernel at depths 2-7); K5 the
@@ -30,7 +31,9 @@ entry points at full width:
    ``F.gelu``); K8 the grouped positional conv at 120, 64 and 48 channels a
    group (cuDNN ``F.conv1d``); K3 the BiGRU recurrence and K3b its backward
    at the fusion trainer's batch (2B=128 rows, T=512, H=512; cuDNN
-   ``nn.GRU``); K9 one direction of it, forward and reverse (B=64); K4 the
+   ``nn.GRU``), K3 with its route, cluster size and rows and on edge shapes
+   (odd row groups, holed masks, H=100, H=640 on the other route); K9 one
+   direction of it, forward and reverse (B=64); K4 the
    attention backward at the Whisper-large fine-tune shape (B=8, T=1500, no
    bias, no mask), the WavLM-large one (gated bias + ragged mask) and
    HuBERT-XL's and XLS-R-2B's head dims (80, 120: B=16, T=499, ragged mask,
@@ -184,6 +187,8 @@ KERNELS = {
 # the profiler's names of K1's and K4's CUDA kernels (the f32 and the bf16 ones)
 K1_EVENTS = ("attention_btd_kernel", "attention_btd_mma_kernel")
 K4_EVENTS = ("delta_kernel", "dkdv_kernel", "dkdv_mma_kernel", "dq_kernel", "dq_mma_kernel", "dbias_reduce")
+K7_EVENTS = ("attention_bhtd_kernel", "attention_bhtd_mma_kernel")  # K7's f32 and bf16 kernels
+K3_EVENTS = ("gru_bidir_kernel", "gru_bidir_cluster_kernel")  # K3's two routes
 
 
 def log(msg: str) -> None:
@@ -371,11 +376,14 @@ def check_attention(g, results) -> None:
     results["attention_btd"] = main
 
 
-def _bhtd_case(g, B, H, T, lengths, bias: bool, dt):
+def _bhtd_case(g, B, H, T, lengths, bias: bool, dt, offset: bool = False):
     """[B, T, H*64] projections viewed as [B, H, T, 64] heads (the text path's
-    layout), a key mask from ``lengths`` and the factored gate * bias."""
+    layout), a key mask from ``lengths`` and the factored gate * bias. With
+    ``offset`` each projection starts one element into its buffer, so no row
+    of q, k or v starts on 16 bytes."""
     dev = "cuda"
-    q, k, v = (torch.randn(B, T, H * 64, generator=g, device=dev).to(dt).view(B, T, H, 64).transpose(1, 2)
+    n = B * T * H * 64
+    q, k, v = (torch.randn(n + offset, generator=g, device=dev).to(dt)[int(offset):].view(B, T, H, 64).transpose(1, 2)
                for _ in range(3))
     kw = {}
     if lengths is not None:
@@ -414,21 +422,29 @@ def check_attention_bhtd(g, results) -> None:
     same shape with a ragged key mask (the Tk tail and masked 64-key tiles);
     then both at B=4, H=16, T=499 with the bias and row 1's keys all masked
     (sum(V) / Tk_p, Tk_p = 512 for both), that row also held alone. f32 and
-    bf16. Bars: f32 max-abs <= 1e-5; bf16 cosine >= 0.9999, and on the dead
-    row also max-abs <= 1e-2 x max|ref| of the row. Each line gives
+    bf16. K7 in bf16 also at its longest key length, Tk = 2048 (B=2, H=16,
+    gated bias, ragged mask: the two-pass route), and at RoBERTa's width
+    with q, k and v one element off 16 bytes (B=4, T=80, row 1 fully
+    masked). Bars: f32 max-abs <= 1e-5; bf16 cosine >= 0.9999, and on the
+    dead row also max-abs <= 1e-2 x max|ref| of the row. Each line gives
     the kernel's achieved TFLOP/s and its share of the bound."""
     rng = np.random.default_rng(SEED)
     roberta_lengths = [80] * 8 + [int(n) for n in rng.integers(3, 81, 56)]
     wavlm_lengths = [499, 480, 451, 400, 333, 250, 130, 64]
     long_lengths = [1500, 1437, 1290, 1111, 900, 777, 400, 65]
-    cases = [("roberta", (64, 16, 80), roberta_lengths, False, ("attention_bhtd", "flash_attention")),
-             ("wavlm", (8, 16, 499), wavlm_lengths, True, ("attention_bhtd", "flash_attention")),
-             ("long", (8, 20, 1500), None, False, ("flash_attention",)),
-             ("long_masked", (8, 20, 1500), long_lengths, False, ("flash_attention",)),
-             ("dead_row", (4, 16, 499), [499, 0, 300, 77], True, ("attention_bhtd", "flash_attention"))]
-    for shape, (B, H, T), lengths, bias, kernels in cases:
-        for dt in (torch.float32, torch.bfloat16):
-            args, kw = _bhtd_case(g, B, H, T, lengths, bias, dt)
+    both, f32_bf16, bf16 = ("attention_bhtd", "flash_attention"), (torch.float32, torch.bfloat16), (torch.bfloat16,)
+    cases = [("roberta", (64, 16, 80), roberta_lengths, False, both, f32_bf16, False),
+             ("wavlm", (8, 16, 499), wavlm_lengths, True, both, f32_bf16, False),
+             ("long", (8, 20, 1500), None, False, ("flash_attention",), f32_bf16, False),
+             ("long_masked", (8, 20, 1500), long_lengths, False, ("flash_attention",), f32_bf16, False),
+             ("dead_row", (4, 16, 499), [499, 0, 300, 77], True, both, f32_bf16, False),
+             ("tk2048", (2, 16, 2048), [2048, 1337], True, ("attention_bhtd",), bf16, False),
+             ("offset", (4, 16, 80), [80, 0, 51, 7], False, ("attention_bhtd",), bf16, True)]
+    for shape, (B, H, T), lengths, bias, kernels, dtypes, offset in cases:
+        for dt in dtypes:
+            args, kw = _bhtd_case(g, B, H, T, lengths, bias, dt, offset)
+            if offset:
+                require(all(t.data_ptr() % 16 != 0 for t in args), "the offset views start on 16 bytes")
             dname = "f32" if dt == torch.float32 else "bf16"
             for name in kernels:
                 fn = k_bhtd.attention_bhtd if name == "attention_bhtd" else k_bhtd.flash_attention
@@ -678,15 +694,16 @@ def check_pos_conv(g, results) -> None:
     results["pos_conv"] = main
 
 
-def _gru_inputs(g, B: int, T: int, H: int):
+def _gru_inputs(g, B: int, T: int, H: int, min_len: int = 150):
     """The fusion BiGRU at the main path's shapes: 2B stacked rows, ragged
-    lengths (prefix masks; the backward rows reversed in time)."""
+    lengths from ``min_len`` to T (prefix masks; the backward rows reversed
+    in time)."""
     dev = "cuda"
     bound = H ** -0.5
     x_proj = 0.5 * torch.randn(2 * B, T, 3 * H, generator=g, device=dev)
     w_hh2 = (torch.rand(2, H, 3 * H, generator=g, device=dev) * 2 - 1) * bound
     b_hh2 = (torch.rand(2, 3 * H, generator=g, device=dev) * 2 - 1) * bound
-    lengths = torch.randint(150, T + 1, (B,), generator=g, device=dev)
+    lengths = torch.randint(min_len, T + 1, (B,), generator=g, device=dev)
     lengths[0] = T
     m = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
     mask = torch.cat([m, m.flip(1)], dim=0).contiguous()
@@ -724,9 +741,23 @@ def _unpack(gru_out, T: int) -> torch.Tensor:
 
 
 def check_gru(g, results) -> None:
+    """K3 at the fusion trainer's batch (2B=128 rows, T=512, H=512, ragged
+    prefix masks) against its plain version and cuDNN ``nn.GRU``, with the
+    route, cluster size C and rows R the launch planner took and how many such
+    clusters the card holds at once; then edge cases: 2B=74 (not a multiple
+    of R), a mask with holes (not a prefix), H=100 (not a multiple of the
+    cluster's 32 units a CTA) and H=640 (the one-block-per-row route). Bar:
+    f32 max-abs <= 1e-4 on every case. Also times cuDNN's identity input
+    projection alone (one ``F.linear`` of [64*512, 6H] x [6H, 3H]; ``nn.GRU``
+    runs one per direction), the part of the yardstick that is not the
+    recurrence."""
+    import torch.nn.functional as F
+
     B, T, H = 64, 512, 512
     x_proj, w_hh2, b_hh2, mask, lengths = _gru_inputs(g, B, T, H)
     args = (x_proj, w_hh2, b_hh2, mask, B)
+    plan = k_gru.gru_bidir_plan(2 * B, H)
+    active = k_gru.max_active_clusters(H) if plan.route == "cluster" else None
     with torch.no_grad():
         out = k_gru.gru_sequence_bidir(*args)
         ref_card = k_gru.gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask) * mask[:, :, None]
@@ -737,16 +768,40 @@ def check_gru(g, results) -> None:
         lib = _unpack(gru(packed)[0], T)
         lib_err = max_abs(lib, torch.cat([out[:B], out[B:].flip(1)], dim=-1))
         library_ms = median_ms(lambda: gru(packed))
+        x_in = torch.randn(B * T, 6 * H, generator=g, device="cuda")
+        proj_ms = median_ms(lambda: F.linear(x_in, gru.weight_ih_l0))
+        del gru, packed, lib, x_in
     valid = float(mask.sum())
     nbytes = 4 * (x_proj.numel() + w_hh2.numel() + b_hh2.numel() + mask.numel() + out.numel())
     bound_ms, bound_by = roofline_ms(nbytes, valid * (6 * H * H + 12 * H), PEAK_F32)
-    log(f"[parity] K3 gru_bidir x_proj[128,512,1536] H512 ragged f32: max_abs {err:.3e} cos {cos:.7f}; "
+    log(f"[parity] K3 gru_bidir x_proj[128,512,1536] H512 ragged f32: route {plan.route}, C={plan.cluster} CTAs "
+        f"x R={plan.rows} rows a cluster, {plan.smem_bytes} B of shared memory a CTA, grid {plan.grid}, "
+        f"{active} such clusters resident at once; max_abs {err:.3e} cos {cos:.7f}; "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN nn.GRU {library_ms:.3f} ms "
-        f"(incl. identity input projection; vs K3 max_abs {lib_err:.3e}); bound {bound_ms:.3f} ms ({bound_by})")
+        f"(incl. identity input projection, {proj_ms:.3f} ms a direction alone; vs K3 max_abs {lib_err:.3e}); "
+        f"bound {bound_ms:.3f} ms ({bound_by})")
     require(err <= 1e-4, f"K3 f32 max_abs {err} > 1e-4")
     require(lib_err <= 1e-3, f"cuDNN GRU yardstick differs from K3 by {lib_err}: not the same function")
-    results["gru_bidir"] = {"f32": dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms,
-                                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
+    main = {"f32": dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        library_input_projection_ms=proj_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        route=plan.route, cluster=plan.cluster, rows=plan.rows, smem_bytes=plan.smem_bytes,
+                        max_active_clusters=active)}
+    del x_proj, w_hh2, b_hh2, mask, out, ref_card
+    for name, (B, T, H), holes in (("odd_rows", (37, 96, 512), False), ("holes", (64, 96, 512), True),
+                                   ("h100", (5, 64, 100), True), ("row_route", (6, 64, 640), True)):
+        x_proj, w_hh2, b_hh2, mask, _ = _gru_inputs(g, B, T, H, min_len=T // 3)
+        if holes:  # a third of the steps masked anywhere, in both directions
+            mask = (mask * (torch.rand(mask.shape, generator=g, device="cuda") > 0.33).float()).contiguous()
+        plan = k_gru.gru_bidir_plan(2 * B, H)
+        with torch.no_grad():
+            out = k_gru.gru_bidir_carries(x_proj, w_hh2, b_hh2, mask)
+            ref = k_gru.gru_bidir_carries_plain(x_proj, w_hh2, b_hh2, mask)
+        e = max_abs(out, ref)
+        log(f"[parity] K3 gru_bidir {name} 2B={2 * B} T={T} H={H} holes={holes}: route {plan.route}, "
+            f"C={plan.cluster}, R={plan.rows}; max_abs {e:.3e}")
+        require(e <= 1e-4, f"K3 {name} f32 max_abs {e} > 1e-4")
+        main[name] = dict(max_abs_err=e, route=plan.route, cluster=plan.cluster, rows=plan.rows)
+    results["gru_bidir"] = main
 
 
 def check_gru_sequence(g, results) -> None:
@@ -1428,6 +1483,44 @@ def check_train_step(config_path: str) -> dict:
             log(f"[train]   {ms:9.3f} ms  x{n:<4d} {name}")
     log(f"[train] train step (batch {cfg.batch_size}, kernels, TF32 off): median {step_ms:.3f} ms "
         f"of runs {[round(t, 3) for t in times]}")
+    out["score"] = time_scoring_forward(engine, batch)
+    return out
+
+
+def time_scoring_forward(engine, batch) -> dict:
+    """Scoring's unit of work: the eval forward of one batch of 64 (what
+    ``cli eval`` / ``test`` run per batch), its median of 5 host-clock runs
+    and, on the card, K3's share of its device time."""
+    feats = [torch.from_numpy(f).to(DEVICE) for f in batch.feats]
+    masks = [torch.from_numpy(m).to(DEVICE) for m in batch.masks]
+    engine.model.eval()
+
+    def score():
+        with torch.no_grad():
+            engine.model(feats, masks)
+
+    score()
+    sync()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        score()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"score_batch_ms": statistics.median(times), "score_batch_ms_runs": times}
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            score()
+            sync()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out["device_busy_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+        out["k3_ms"] = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K3_EVENTS)) / 1e3
+        log(f"[score] eval forward of one batch of {len(batch.labels)} (shapes "
+            f"{[tuple(f.shape) for f in batch.feats]}): median {out['score_batch_ms']:.3f} ms of runs "
+            f"{[round(t, 3) for t in times]}; device busy {out['device_busy_ms']:.3f} ms, K3 {out['k3_ms']:.3f} ms "
+            f"= {100 * out['k3_ms'] / out['device_busy_ms']:.1f}%")
     return out
 
 
@@ -2007,7 +2100,7 @@ def profile_text(model_dir: str, names: list, texts: list, tmp: str, smi: str) -
         wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        k7_ms = sum(e.self_device_time_total for e in kernels if "attention_bhtd_kernel" in e.key) / 1e3
+        k7_ms = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K7_EVENTS)) / 1e3
         gemm_ms = sum(e.self_device_time_total for e in kernels
                       if any(n in e.key.lower() for n in ("gemm", "nvjet", "cutlass", "sm90_xmma"))) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]

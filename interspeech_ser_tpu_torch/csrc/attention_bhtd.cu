@@ -11,23 +11,57 @@
 // TPU kernel pads Tk with to a multiple of 128: it is sum(V) / Tk_p.
 //
 // What makes it one-shot: the TPU kernel held a whole [Tk, hd] K/V panel per
-// (b, h) in VMEM and took the exact row max before any exponential. A block
-// here may hold 227 KB of shared memory, less than one f32 K panel at
-// Tk = 2048, so the block instead keeps its queries' [bq, Tk] f32 SCORE rows
-// in shared memory and streams K, then V, in 64-key tiles:
+// (b, h) in VMEM and took the EXACT row max before any exponential, with no
+// running rescale (that is K6). Both kernels here keep that function.
+//
+// bf16, on the tensor cores (attention_bhtd_mma_kernel): a block owns (b, h,
+// 64 queries), 4 warps of 16 query rows, Q's fragments in registers. K and V
+// tiles of 64 keys are staged in bf16 by 16-byte cp.async into rows padded
+// to 72 elements, double-buffered; S = Q . K^T runs on mma.sync.m16n8k16
+// (bf16 in, f32 out) and is scaled after the product; gate * bias (the bias
+// tile in bf16, [64 q][64 k], through registers by 2-byte loads: a bias row
+// of Tk values starts on any 2-byte boundary), the mask (-1e30) and the Tk
+// tail (no key) are applied in the accumulator's layout; P, rounded to bf16,
+// is the A operand of P.V straight from its registers, V by ldmatrix.trans.
+// The exact max, two ways:
+//   Tk <= 128 (RoBERTa's 80): both tiles' scores stay in registers (64
+//     floats a thread), the max is taken over them, then P, l and P.V;
+//   128 < Tk <= 2048: two passes over the keys. Pass 1 computes S tile by
+//     tile and keeps only the row max; pass 2 computes S again, then P, l
+//     (summed from the unrounded f32 exponentials) and P.V. One more Q . K^T
+//     and no score storage, so shared memory stays at 64 KB a block with a
+//     bias and 46 KB without, for any Tk (the f32 kernel's score rows cap it
+//     at 16 query rows near 2048).
+// A tile whose keys are all masked is skipped by the whole block when the
+// batch row has a live key (it adds exp(-1e30 - m) = 0 and lowers no max);
+// when it has none, every tile counts. A warp whose 16 rows all lie past Tq
+// skips the products (RoBERTa's T = 80: 3 of the 4 warps of each head's
+// second block). q, k and v may be strided views (rows contiguous): views
+// whose pointer or batch / head / time strides are not 16-byte multiples
+// are staged by 2-byte loads instead of cp.async (a runtime branch, the
+// same kernel). Registers are held to 4 blocks an SM (128) on the
+// scores-in-registers route and 3 (145-155) on the two-pass route.
+//
+// What bounds the bf16 kernel: at RoBERTa-large's shape (B=64, H=16, T=80;
+// 1.7 GFLOP) the bound is device memory (q, k, v, out once: 21 MB, 6.3 us
+// at 3.35 TB/s), but each block loads its K/V tiles and then computes on
+// them, with nothing to overlap, and 2048 blocks take about 4 waves: it is
+// bound by load latency. At the
+// WavLM shape with the bias (B=8, H=16, T=499) it makes two passes, three
+// products per tile pair, and reads the bf16 bias twice by 2-byte loads
+// through registers (a bias row of 499 values starts on any 2-byte
+// boundary); at Tk = 2048 the 128 MB bias no longer fits L2. wgmma, TMA and
+// 16-byte bias loads where Tk allows are later work.
+//
+// f32 (attention_bhtd_kernel), the parity mode with TF32 off, stays on the
+// FP32 pipes: the block keeps its queries' [bq, Tk] f32 SCORE rows in shared
+// memory and streams K, then V, in 64-key tiles (K/V widened to f32):
 //   1. scores of every key (the bias tile staged into the score rows first),
 //      and the exact row max;
 //   2. exp(s - max) in place and the row sum;
 //   3. P.V over V tiles.
-// There is no running rescale of the accumulator (that is K6). bq is 64, 32
-// or 16 query rows, the largest whose score rows fit; at RoBERTa's Tk = 80
-// everything fits at bq = 64.
-//
-// What bounds it on an H100: q, k, v and out are read or written once per
-// block (K and V once per query tile); the products run on the FP32 pipes
-// from shared memory, so at RoBERTa-large's shape (hd = 64, Tk = 80) the
-// kernel is bound by shared-memory issue rate and FP32 throughput, not by
-// device memory. wgmma and TMA are later work.
+// bq is 64, 32 or 16 query rows, the largest whose score rows fit. It is
+// bound by shared-memory issue rate and FP32 throughput.
 //
 // q, k, v and out may be strided views (each row of hd elements contiguous),
 // so RoBERTa's [B, T, H*hd] projections go in, and its output comes out, with
@@ -43,13 +77,12 @@ struct Strides {  // elements: batch, head, time, for q, k, v and out
   long long q[3], k[3], v[3], o[3];
 };
 
-template <typename T>
-__global__ void attention_bhtd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                      const T* __restrict__ v,
+__global__ void attention_bhtd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v,
                                       const float* __restrict__ key_mask,  // [B, Tk] or null
                                       const float* __restrict__ gate,      // [B, H, Tq] or null (with bias)
-                                      const T* __restrict__ bias,          // [H, Tq, Tk] or null
-                                      T* __restrict__ out, Strides st, int Tq, int Tk, int H,
+                                      const float* __restrict__ bias,      // [H, Tq, Tk] or null
+                                      float* __restrict__ out, Strides st, int Tq, int Tk, int H,
                                       int bq, int s_ld, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int tkr = (Tk + BK - 1) / BK * BK;
@@ -66,13 +99,13 @@ __global__ void attention_bhtd_kernel(const T* __restrict__ q, const T* __restri
   const bool row_ok = qi < Tq;
   float* srow = S + (size_t)r * s_ld;
 
-  const T* kb = k + b * st.k[0] + h * st.k[1];
-  const T* vb = v + b * st.v[0] + h * st.v[1];
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
   float qr[HD];
   {
-    const T* qrow = q + b * st.q[0] + h * st.q[1] + (row_ok ? qi : 0) * st.q[2];
+    const float* qrow = q + b * st.q[0] + h * st.q[1] + (row_ok ? qi : 0) * st.q[2];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = row_ok ? to_f(qrow[d]) : 0.f;
+    for (int d = 0; d < HD; ++d) qr[d] = row_ok ? qrow[d] : 0.f;
   }
   const float g = (bias != nullptr && row_ok) ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
   for (int j = tid; j < tkr; j += nthreads)
@@ -86,7 +119,7 @@ __global__ void attention_bhtd_kernel(const T* __restrict__ q, const T* __restri
       for (int idx = tid; idx < bq * BK; idx += nthreads) {
         const int rr = idx / BK, c = idx % BK;
         const int qq = q0 + rr, kj = k0 + c;
-        S[(size_t)rr * s_ld + kj] = (qq < Tq && kj < Tk) ? to_f(bias[((size_t)h * Tq + qq) * Tk + kj]) : 0.f;
+        S[(size_t)rr * s_ld + kj] = (qq < Tq && kj < Tk) ? bias[((size_t)h * Tq + qq) * Tk + kj] : 0.f;
       }
     }
     __syncthreads();
@@ -123,10 +156,297 @@ __global__ void attention_bhtd_kernel(const T* __restrict__ q, const T* __restri
     load_tile(kv, vb, st.v[2], k0, Tk, tid, nthreads);
     __syncthreads();  // also orders step 2's writes to P before these reads
     const int jn = min(BK, Tk - k0);
-    for (int j = 0; j < jn; ++j) axpy_chunks(acc, round_to<T>(srow[k0 + j]), kv + j * KV_LD, part);
+    for (int j = 0; j < jn; ++j) axpy_chunks(acc, srow[k0 + j], kv + j * KV_LD, part);
     __syncthreads();
   }
-  if (row_ok) store_chunks<T>(out + b * st.o[0] + h * st.o[1] + qi * st.o[2], acc, l, part);
+  if (row_ok) store_chunks(out + b * st.o[0] + h * st.o[1] + qi * st.o[2], acc, l, part);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores. Block: (b, h, 64 queries), 4 warps, warp w owns
+// query rows 16w .. 16w+15 of the block.
+
+constexpr int MMA_THREADS = 128;
+constexpr int MBQ = 64;              // queries per block
+constexpr int MBK = 64;              // keys per tile
+constexpr int STR = HD + 8;          // bf16 row stride of the Q, K, V tiles (odd number of 16-byte units)
+constexpr int BSTR = MBK + 8;        // bf16 row stride of a bias tile
+constexpr int TILE = MBK * STR;      // one K or V stage, elements
+constexpr int BTILE = MBQ * BSTR;    // one bias stage, elements
+// Q, two K and two V stages, two bias stages (with a bias), two stages of key flags
+template <bool BIAS>
+constexpr size_t mma_smem() {
+  return ((size_t)MBQ * STR + 4 * TILE + (BIAS ? 2 * BTILE : 0)) * sizeof(__nv_bfloat16) + 2 * MBK * sizeof(float);
+}
+
+// rows [r0, r0 + 64) of one head's [T, HD] panel (rows `ld` elements apart)
+// into a [64][STR] tile; rows at or past `n` are zero. 16-byte cp.async when
+// the panel is aligned, else 2-byte loads through registers.
+__device__ __forceinline__ void stage64(__nv_bfloat16* tile, const __nv_bfloat16* __restrict__ panel, long long ld,
+                                        int r0, int n, bool aligned, int tid) {
+  for (int idx = tid; idx < MBK * (HD / 8); idx += MMA_THREADS) {
+    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+    const bool ok = r0 + r < n;
+    const __nv_bfloat16* src = panel + (long long)(ok ? r0 + r : 0) * ld + c;
+    if (aligned) {
+      attn_mma::cp_async16(tile + r * STR + c, src, ok);
+    } else {
+      const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (ok) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = (uint32_t)__ldg(s16 + 2 * e) | ((uint32_t)__ldg(s16 + 2 * e + 1) << 16);
+      }
+      *reinterpret_cast<uint4*>(tile + r * STR + c) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// RES: Tk <= 2 * MBK, every score in registers; else the two-pass form.
+template <bool BIAS, bool RES>
+__global__ void __launch_bounds__(MMA_THREADS, RES ? 4 : 3) attention_bhtd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ key_mask,       // [B, Tk] or null
+    const float* __restrict__ gate,           // [B, H, Tq] (with bias)
+    const __nv_bfloat16* __restrict__ bias,   // [H, Tq, Tk] bf16 (BIAS)
+    __nv_bfloat16* __restrict__ out, Strides st, int Tq, int Tk, int H, float scale, int aligned) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [MBQ][STR]
+  bf16* ks = qs + MBQ * STR;                     // [2][MBK][STR]
+  bf16* vs = ks + 2 * TILE;                      // [2][MBK][STR]
+  bf16* bs = vs + 2 * TILE;                      // [2][MBQ][BSTR] (BIAS)
+  float* valid = reinterpret_cast<float*>(bs + (BIAS ? 2 * BTILE : 0));  // [2][MBK]: key < Tk and not masked
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * MBQ, h = blockIdx.y, b = blockIdx.z;
+  const bf16* qb = q + b * st.q[0] + h * st.q[1];
+  const bf16* kb = k + b * st.k[0] + h * st.k[1];
+  const bf16* vb = v + b * st.v[0] + h * st.v[1];
+  const bf16* bias_h = BIAS ? bias + (size_t)h * Tq * Tk : nullptr;
+  const bool al = aligned != 0;
+  const bool warp_on = q0 + warp * 16 < Tq;  // a warp whose rows all lie past Tq computes nothing
+  const int nt = (Tk + MBK - 1) / MBK;
+
+  // may an all-masked tile be skipped? Only if the batch row has a live key
+  int live_row = 1;
+  if (key_mask != nullptr) {
+    int any = 0;
+    for (int j = tid; j < Tk; j += MMA_THREADS) any |= key_mask[(size_t)b * Tk + j] > 0.f;
+    live_row = __syncthreads_or(any);
+  }
+
+  // the bias tile and the key flags of a tile travel through registers
+  TileRegs<MBQ, MBK, MMA_THREADS> bpre;
+  float vpre = 0.f;
+  auto prefetch = [&](int k0) {
+    if constexpr (BIAS) bpre.load(bias_h, q0, k0, Tq, Tk, Tk, tid);
+    if (tid < MBK) {
+      const int kj = k0 + tid;
+      vpre = (kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f)) ? 1.f : 0.f;
+    }
+  };
+  auto commit_prefetch = [&](int s) {
+    if constexpr (BIAS) bpre.store(bs + s * BTILE, BSTR, tid);
+    if (tid < MBK) valid[s * MBK + tid] = vpre;
+  };
+
+  const int r_lo = warp * 16 + g;  // this thread's rows: r_lo and r_lo + 8 of the block
+  float gr[2] = {0.f, 0.f};
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + r_lo + 8 * i;
+      gr[i] = qi < Tq ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
+    }
+  }
+
+  // S of the tile in stage s (keys j*64 ..), scaled, biased and masked, in
+  // the accumulator's layout; mx[i] takes the max of row r_lo + 8i
+  uint32_t qf[HD / 16][4];
+  auto scores = [&](float (&sc)[MBK / 8][4], int s, int j, float (&mx)[2]) {
+#pragma unroll
+    for (int n = 0; n < MBK / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    const bf16* kt = ks + s * TILE;
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+#pragma unroll
+      for (int np = 0; np < MBK / 16; ++np) {
+        uint32_t bfr[4];
+        load_b_nk<STR>(bfr, kt, np * 16, kc, lane);
+        mma16816(sc[2 * np], qf[kc], bfr[0], bfr[1]);
+        mma16816(sc[2 * np + 1], qf[kc], bfr[2], bfr[3]);
+      }
+    }
+    const float* vt = valid + s * MBK;
+    const bf16* bt = bs + s * BTILE;
+    const int kn = Tk - j * MBK;  // keys of this tile below Tk
+#pragma unroll
+    for (int n = 0; n < MBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
+        float x = sc[n][e] * scale;
+        if constexpr (BIAS) x += gr[i] * bf(bt[(r_lo + 8 * i) * BSTR + c]);
+        x = vt[c] > 0.f ? x : NEG_INF;
+        x = c < kn ? x : -INFINITY;  // past Tk: no key at all
+        sc[n][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+  };
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's part of the row's denominator
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // P = exp(s - m), l += P, O += round_bf16(P) . V of stage s
+  auto accumulate = [&](float (&sc)[MBK / 8][4], int s) {
+#pragma unroll
+    for (int n = 0; n < MBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[n][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        sc[n][e] = p;
+      }
+    }
+    const bf16* vt = vs + s * TILE;
+#pragma unroll
+    for (int kc2 = 0; kc2 < MBK / 16; ++kc2) {
+      uint32_t a[4];
+      c_to_a(a, sc[2 * kc2], sc[2 * kc2 + 1]);
+      mma_a_xkn<HD, STR>(o, a, vt, kc2 * 16, lane);
+    }
+  };
+  auto quad_max = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    }
+  };
+
+  for (int idx = tid; idx < MBQ * (HD / 8); idx += MMA_THREADS) {
+    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+    const bool ok = q0 + r < Tq;
+    const bf16* src = qb + (long long)(ok ? q0 + r : 0) * st.q[2] + c;
+    if (al) {
+      cp_async16(qs + r * STR + c, src, ok);
+    } else {
+      const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (ok) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = (uint32_t)__ldg(s16 + 2 * e) | ((uint32_t)__ldg(s16 + 2 * e + 1) << 16);
+      }
+      *reinterpret_cast<uint4*>(qs + r * STR + c) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+
+  if constexpr (RES) {
+    // every tile (one or two) staged at once; the scores of both stay in registers
+    for (int j = 0; j < nt; ++j) {
+      stage64(ks + j * TILE, kb, st.k[2], j * MBK, Tk, al, tid);
+      stage64(vs + j * TILE, vb, st.v[2], j * MBK, Tk, al, tid);
+      prefetch(j * MBK);
+      commit_prefetch(j);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (warp_on) {
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) load_a<STR>(qf[kc], qs + warp * 16 * STR, kc, lane);
+      float sc[2][MBK / 8][4];
+      scores(sc[0], 0, 0, m);
+      if (nt > 1) scores(sc[1], 1, 1, m);
+      quad_max();
+      accumulate(sc[0], 0);
+      if (nt > 1) accumulate(sc[1], 1);
+    }
+  } else {
+    // two passes over the keys: steps i < nt take the row max (K only),
+    // steps i >= nt recompute S and accumulate (K and V); step i + 1's tiles
+    // load while step i computes
+    const int total = 2 * nt;
+    auto stage = [&](int i, int s) {
+      const int j = i < nt ? i : i - nt;
+      stage64(ks + s * TILE, kb, st.k[2], j * MBK, Tk, al, tid);
+      if (i >= nt) stage64(vs + s * TILE, vb, st.v[2], j * MBK, Tk, al, tid);
+    };
+    stage(0, 0);
+    cp_async_commit();
+    prefetch(0);
+    commit_prefetch(0);
+    for (int i = 0; i < total; ++i) {
+      const int s = i & 1;
+      const int j = i < nt ? i : i - nt;
+      if (i + 1 < total) {
+        stage(i + 1, s ^ 1);
+        cp_async_commit();
+        prefetch((i + 1 < nt ? i + 1 : i + 1 - nt) * MBK);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      const int any = __syncthreads_or(tid < MBK && valid[s * MBK + tid] > 0.f);
+      if (i == 0 && warp_on) {
+#pragma unroll
+        for (int kc = 0; kc < HD / 16; ++kc) load_a<STR>(qf[kc], qs + warp * 16 * STR, kc, lane);
+      }
+      if (warp_on && (any || !live_row)) {
+        float sc[MBK / 8][4];
+        if (i < nt) {
+          scores(sc, s, j, m);
+        } else {
+          float unused[2] = {-INFINITY, -INFINITY};
+          scores(sc, s, j, unused);
+          accumulate(sc, s);
+        }
+      }
+      if (i == nt - 1) quad_max();  // the exact row max, before any exponential
+      if (i + 1 < total) commit_prefetch(s ^ 1);
+      __syncthreads();  // stage s is rewritten by step i + 2
+    }
+  }
+
+  const float pad = (float)(oneshot_padded_tk(Tk) - Tk);
+  bf16* ob = out + b * st.o[0] + h * st.o[1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (m[i] == NEG_INF) l[i] += pad;  // every key masked: the padding counts
+    const int qi = q0 + r_lo + 8 * i;
+    if (qi >= Tq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    bf16* orow = ob + (long long)qi * st.o[2];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * i] / den, o[n][2 * i + 1] / den);
+  }
+}
+
+template <bool BIAS, bool RES>
+int launch_mma(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+               const void* bias, void* out, const Strides& st, int B, int H, int Tq, int Tk, float scale,
+               int aligned, void* stream) {
+  static bool configured = false;  // the attribute is per kernel and per process
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(attention_bhtd_mma_kernel<BIAS, RES>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mma_smem<BIAS>());
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((Tq + MBQ - 1) / MBQ, H, B);
+  attention_bhtd_mma_kernel<BIAS, RES><<<grid, MMA_THREADS, mma_smem<BIAS>(), (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const float*)key_mask,
+      (const float*)gate, (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, st, Tq, Tk, H, scale, aligned);
+  return (int)cudaGetLastError();
 }
 
 // shared memory for `bq` query rows at key length Tk, in bytes
@@ -137,18 +457,7 @@ size_t smem_bytes(int bq, int Tk) {
 
 constexpr size_t SMEM_LIMIT = 227 * 1024;
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
-           const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk,
-           int hd, float scale, void* stream) {
-  if (hd != HD || Tk < 1 || Tk > 2048 || Tq < 1) return (int)cudaErrorInvalidValue;
-  int bq = 64;
-  while (bq > 16 && smem_bytes(bq, Tk) > SMEM_LIMIT) bq /= 2;
-  const size_t smem = smem_bytes(bq, Tk);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_bhtd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+Strides unpack(const long long* strides) {
   Strides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
@@ -156,12 +465,46 @@ int launch(const void* q, const void* k, const void* v, const void* key_mask, co
     st.v[i] = strides[6 + i];
     st.o[i] = strides[9 + i];
   }
+  return st;
+}
+
+int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+               const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk, int hd,
+               float scale, void* stream) {
+  if (hd != HD || Tk < 1 || Tk > 2048 || Tq < 1) return (int)cudaErrorInvalidValue;
+  int bq = 64;
+  while (bq > 16 && smem_bytes(bq, Tk) > SMEM_LIMIT) bq /= 2;
+  const size_t smem = smem_bytes(bq, Tk);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_bhtd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int tkr = (Tk + BK - 1) / BK * BK;
   dim3 grid((Tq + bq - 1) / bq, H, B);
-  attention_bhtd_kernel<T><<<grid, bq * TPR, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)key_mask, (const float*)gate,
-      (const T*)bias, (T*)out, st, Tq, Tk, H, bq, tkr + 4, scale);
+  attention_bhtd_kernel<<<grid, bq * TPR, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
+      (const float*)bias, (float*)out, unpack(strides), Tq, Tk, H, bq, tkr + 4, scale);
   return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk, int hd,
+                float scale, void* stream) {
+  if (hd != HD || Tk < 1 || Tk > 2048 || Tq < 1) return (int)cudaErrorInvalidValue;
+  const Strides st = unpack(strides);
+  // 16-byte cp.async needs every row of q, k and v to start on 16 bytes
+  int aligned = 1;
+  const void* ptrs[3] = {q, k, v};
+  for (int a = 0; a < 3; ++a) {
+    aligned &= (reinterpret_cast<uintptr_t>(ptrs[a]) % 16) == 0;
+    for (int i = 0; i < 3; ++i) aligned &= strides[3 * a + i] % 8 == 0;
+  }
+  const bool res = Tk <= 2 * MBK;
+  if (bias != nullptr)
+    return res ? launch_mma<true, true>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream)
+               : launch_mma<true, false>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream);
+  return res ? launch_mma<false, true>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream)
+             : launch_mma<false, false>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream);
 }
 
 }  // namespace
@@ -170,13 +513,12 @@ extern "C" int ser_attention_bhtd_f32(const void* q, const void* k, const void* 
                                       const void* key_mask, const void* gate, const void* bias,
                                       void* out, const long long* strides, int B, int H, int Tq,
                                       int Tk, int hd, float scale, void* stream) {
-  return launch<float>(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
+  return launch_f32(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
 }
 
 extern "C" int ser_attention_bhtd_bf16(const void* q, const void* k, const void* v,
                                        const void* key_mask, const void* gate, const void* bias,
                                        void* out, const long long* strides, int B, int H, int Tq,
                                        int Tk, int hd, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale,
-                               stream);
+  return launch_bf16(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
 }

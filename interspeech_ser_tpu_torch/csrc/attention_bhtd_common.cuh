@@ -1,7 +1,8 @@
 // Shared by K6 (flash_attention.cu) and K7 (attention_bhtd.cu): masked SDPA
 // on [B, H, T, hd] heads with head dim 64.
 //
-// Both kernels give one query row to TPR = 4 neighbouring threads of a warp:
+// Their f32 kernels (the bf16 ones run on the tensor cores, attention_mma.cuh)
+// give one query row to TPR = 4 neighbouring threads of a warp:
 // while scoring, thread `part` of the row takes keys part, part+4, ... of a
 // 64-key tile; while summing P.V it owns the output's float4 chunks part,
 // part+4, part+8, part+12 (16 of the 64 columns). Row reductions (max, sum)
@@ -28,27 +29,6 @@ constexpr int BK = 64;       // keys per tile
 constexpr int KV_LD = HD + 4;  // padded shared-memory row of a K/V tile
 constexpr float NEG_INF = -1e30f;  // masked score, as in the TPU kernels (not -inf)
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ float row_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -62,13 +42,12 @@ __device__ __forceinline__ float row_sum(float x) {
 // Rows [k0, k0 + BK) of one head's [T, HD] panel (rows `ld` elements apart)
 // into `tile` as f32, zeros past `Tk`; all `nthreads` threads of the block
 // take part, neighbouring threads on neighbouring columns.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src, long long ld, int k0,
+__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ src, long long ld, int k0,
                                           int Tk, int tid, int nthreads) {
   for (int idx = tid; idx < BK * HD; idx += nthreads) {
     const int r = idx / HD, c = idx % HD;
     const int kj = k0 + r;
-    tile[r * KV_LD + c] = kj < Tk ? to_f(src[kj * ld + c]) : 0.f;
+    tile[r * KV_LD + c] = kj < Tk ? src[kj * ld + c] : 0.f;
   }
 }
 
@@ -101,14 +80,13 @@ __device__ __forceinline__ void axpy_chunks(float (&acc)[16], float p, const flo
 }
 
 // out_row's chunks part, part+4, ... = acc / max(l, 1e-30)
-template <typename T>
-__device__ __forceinline__ void store_chunks(T* __restrict__ orow, const float (&acc)[16], float l, int part) {
+__device__ __forceinline__ void store_chunks(float* __restrict__ orow, const float (&acc)[16], float l, int part) {
   const float den = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = 4 * (part + TPR * i);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) orow[c + e] = from_f<T>(acc[4 * i + e] / den);
+    for (int e = 0; e < 4; ++e) orow[c + e] = acc[4 * i + e] / den;
   }
 }
 

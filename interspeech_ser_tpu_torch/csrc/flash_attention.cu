@@ -73,13 +73,12 @@ struct Strides {  // elements: batch, head, time, for q, k, v and out
   long long q[3], k[3], v[3], o[3];
 };
 
-template <typename T>
 __global__ void __launch_bounds__(BQ * TPR) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ key_mask,  // [B, Tk] or null
     const float* __restrict__ gate,      // [B, H, Tq] or null (with bias)
     const float* __restrict__ bias,      // [H, Tq, Tk] or null
-    T* __restrict__ out, Strides st, int Tq, int Tk, int H, float scale) {
+    float* __restrict__ out, Strides st, int Tq, int Tk, int H, float scale) {
   __shared__ __align__(16) float kv[BK * KV_LD];  // K tile, then V tile
   __shared__ float sc[BQ * S_LD];                 // bias tile, scores, then P
   __shared__ float valid[BK];
@@ -93,13 +92,13 @@ __global__ void __launch_bounds__(BQ * TPR) flash_attention_kernel(
   const bool row_ok = qi < Tq;
   float* srow = sc + r * S_LD;
 
-  const T* kb = k + b * st.k[0] + h * st.k[1];
-  const T* vb = v + b * st.v[0] + h * st.v[1];
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
   float qr[HD];
   {
-    const T* qrow = q + b * st.q[0] + h * st.q[1] + (row_ok ? qi : 0) * st.q[2];
+    const float* qrow = q + b * st.q[0] + h * st.q[1] + (row_ok ? qi : 0) * st.q[2];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = row_ok ? to_f(qrow[d]) : 0.f;
+    for (int d = 0; d < HD; ++d) qr[d] = row_ok ? qrow[d] : 0.f;
   }
   const float g = (bias != nullptr && row_ok) ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
 
@@ -154,12 +153,12 @@ __global__ void __launch_bounds__(BQ * TPR) flash_attention_kernel(
     __syncthreads();  // also orders the P writes above before the reads below
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] *= alpha;
-    for (int j = 0; j < jn; ++j) axpy_chunks(acc, round_to<T>(srow[j]), kv + j * KV_LD, part);
+    for (int j = 0; j < jn; ++j) axpy_chunks(acc, srow[j], kv + j * KV_LD, part);
     m = m_new;
     __syncthreads();  // kv and sc are rewritten by the next tile
   }
   if (m == NEG_INF) l += (float)(flash_padded_tk(Tk) - Tk);  // every key masked: the padding counts
-  if (row_ok) store_chunks<T>(out + b * st.o[0] + h * st.o[1] + qi * st.o[2], acc, l, part);
+  if (row_ok) store_chunks(out + b * st.o[0] + h * st.o[1] + qi * st.o[2], acc, l, part);
 }
 
 
@@ -408,7 +407,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* key_mask
                float scale, void* stream) {
   if (hd != HD || Tk < 1 || Tq < 1) return (int)cudaErrorInvalidValue;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<float><<<grid, BQ * TPR, 0, (cudaStream_t)stream>>>(
+  flash_attention_kernel<<<grid, BQ * TPR, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
       (const float*)bias, (float*)out, unpack(strides), Tq, Tk, H, scale);
   return (int)cudaGetLastError();

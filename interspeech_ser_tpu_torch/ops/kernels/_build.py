@@ -64,8 +64,10 @@ SIGNATURES = {
     # x, w, y, B, T, G, C, K, stream
     "ser_pos_conv_f32": [_P] * 3 + [_I] * 5 + [_P],
     "ser_pos_conv_bf16": [_P] * 3 + [_I] * 5 + [_P],
-    # x_proj, w_hh2, b_hh2, mask, out, B2, T, H, threads, stream
-    "ser_gru_bidir_f32": [_P] * 5 + [_I] * 4 + [_P],
+    # x_proj, w_hh2, b_hh2, mask, out, B2, T, H, cluster (0: one block a row), threads, stream
+    "ser_gru_bidir_f32": [_P] * 5 + [_I] * 5 + [_P],
+    # cluster, int* count
+    "ser_gru_max_active_clusters": [_I, ctypes.POINTER(ctypes.c_int)],
     # x_proj, w_hh, b_hh, mask, out, B, T, H, reverse, threads, stream
     "ser_gru_sequence_f32": [_P] * 5 + [_I] * 5 + [_P],
     # g, h, x_proj, mask, w_hh2, b_hh2, dxp, dhp scratch, dw, db, B2, T, H, threads, stream

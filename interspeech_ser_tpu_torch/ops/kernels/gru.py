@@ -27,10 +27,22 @@ calls it (nor does the JAX package's); ``gru_sequence`` launches
 The plain versions compute in float32, or in float64 for float64 inputs
 (so ``torch.autograd.gradcheck`` can hold the hand-derived backward to
 numerical derivatives).
+
+K3 has two routes, both hand-written kernels in ``csrc/gru_bidir.cu``;
+``gru_bidir_plan`` picks one by this rule: for ``H <= 512`` the cluster
+route, where a thread-block cluster of ``C = ceil(H / 32)`` CTAs holds one
+direction's ``w_hh`` on chip (registers and shared memory) for the whole
+sequence and carries ``R = 16`` rows; for ``512 < H <= 4096`` the
+one-block-per-row kernel,
+which rereads ``w_hh`` from L2 at every step (a CTA's 3 x 32 columns of
+``w_hh`` stop fitting its 227 KB above H = 512). A launch that fails
+raises; nothing retries on the other route or on the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -151,6 +163,52 @@ def _threads(H: int) -> int:
     return threads
 
 
+CLUSTER_UNITS = 32  # hidden units (3 x 32 columns of w_hh) a CTA of the cluster route holds
+CLUSTER_ROWS = 16  # rows a cluster carries
+MAX_CLUSTER = 16  # CTAs a cluster at most (a non-portable size above 8)
+CLUSTER_REG_DEPTH = 128  # depth rows of a CTA's w_hh columns held in registers (clusters of 4 CTAs and more)
+SMEM_LIMIT = 232448  # shared memory a block may use on an H100 (227 KB)
+
+
+@dataclass(frozen=True)
+class GruPlan:
+    """K3's launch: ``route`` is ``"cluster"`` (``cluster`` CTAs a cluster,
+    ``rows`` rows each) or ``"row"`` (one block of ``threads`` a row);
+    ``smem_bytes`` is a block's dynamic shared memory, ``grid`` its grid."""
+
+    route: str
+    cluster: int
+    rows: int
+    threads: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def gru_bidir_plan(B2: int, H: int) -> GruPlan:
+    """K3's route for ``2B = B2`` rows of hidden size ``H`` (the rule in the
+    module docstring; ``csrc/gru_bidir.cu`` checks it)."""
+    C = -(-H // CLUSTER_UNITS)
+    if C <= MAX_CLUSTER:
+        kp = C * CLUSTER_UNITS  # the depth, H rounded up to the cluster's units
+        in_regs = CLUSTER_REG_DEPTH if C >= 4 else 0  # the first 128 of the depth stay in registers
+        # w_hh columns less the part in registers, two h buffers, two staging tiles; two mbarriers
+        smem = 4 * (3 * CLUSTER_UNITS * (kp - in_regs) + 2 * CLUSTER_ROWS * kp + 2 * CLUSTER_ROWS * CLUSTER_UNITS) + 16
+        groups = -(-(B2 // 2) // CLUSTER_ROWS)
+        return GruPlan("cluster", C, CLUSTER_ROWS, 256, smem, (C, groups, 2))
+    return GruPlan("row", 1, 1, _threads(H), 4 * H, (B2, 1, 1))
+
+
+def max_active_clusters(H: int) -> int:
+    """How many clusters of K3's cluster route at hidden size ``H`` the card
+    runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    plan = gru_bidir_plan(2, H)
+    if plan.route != "cluster":
+        raise ValueError(f"H={H} takes the one-block-per-row route")
+    n = ctypes.c_int(0)
+    _build.check(_build.library().ser_gru_max_active_clusters(plan.cluster, ctypes.byref(n)), "gru_bidir")
+    return n.value
+
+
 def gru_bidir_carries(
     x_proj: torch.Tensor, w_hh2: torch.Tensor, b_hh2: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
@@ -165,11 +223,11 @@ def gru_bidir_carries(
             "call GruBidirCarries.apply for inputs that require grad"
         )
     B2, T, H = _check_inputs(x_proj, w_hh2, b_hh2, mask)
-    threads = _threads(H)
+    plan = gru_bidir_plan(B2, H)
     out = torch.empty(B2, T, H, device=x_proj.device, dtype=torch.float32)
     err = _build.library().ser_gru_bidir_f32(
-        x_proj.data_ptr(), w_hh2.data_ptr(), b_hh2.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), B2, T, H, threads, _build.stream_ptr(x_proj),
+        x_proj.data_ptr(), w_hh2.data_ptr(), b_hh2.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        B2, T, H, plan.cluster if plan.route == "cluster" else 0, plan.threads, _build.stream_ptr(x_proj),
     )
     _build.check(err, "gru_bidir")
     LAUNCHES += 1

@@ -40,6 +40,7 @@ CASES = {  # name -> (Tq, Tk, key lengths or None, bias)
     "bias_unmasked": (37, 37, None, True),
     "unaligned": (37, 130, [130, 66], False),
     "fully_masked_row": (40, 128, [128, 0], True),
+    "longest_oneshot": (24, 2048, [2048, 1337], True),  # K7's MAX_ONESHOT_TK: its two-pass route on the card
 }
 
 

@@ -89,6 +89,7 @@ def test_train_phase_on_cpu(tmp_path, monkeypatch):
     assert cs.counts()["gru_bidir_bwd"] == 2 * 6 and cs.counts()["gru_bidir"] > 0
     step = cs.check_train_step(config_path)
     assert step["grad_rel_err"] <= 1e-4 and len(step["train_step_ms_runs"]) == 5
+    assert len(step["score"]["score_batch_ms_runs"]) == 5  # scoring's eval forward of the same batch
     assert ops_gru.BiGRU.forward is ops_gru.BiGRU.forward_stacked  # the plain route is undone
 
 

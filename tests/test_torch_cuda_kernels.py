@@ -354,6 +354,32 @@ def test_gru_kernel(cuda):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("B,T,H", [(37, 50, 512), (3, 40, 64), (5, 30, 100), (3, 20, 640)])
+def test_gru_kernel_routes(cuda, B, T, H):
+    """K3 on both routes of its launch planner (H=640 takes one block a row,
+    the rest a cluster), with 2B not a multiple of the cluster's 16 rows and
+    masks with holes (not prefixes), against the plain version."""
+    x = 0.5 * torch.randn(2 * B, T, 3 * H, generator=cuda, device="cuda")
+    w = (torch.rand(2, H, 3 * H, generator=cuda, device="cuda") * 2 - 1) * H ** -0.5
+    b = (torch.rand(2, 3 * H, generator=cuda, device="cuda") * 2 - 1) * H ** -0.5
+    mask = (torch.rand(2 * B, T, generator=cuda, device="cuda") > 0.3).float()
+    mask[1, : T // 2] = 0  # a row that starts late
+    plan = k_gru.gru_bidir_plan(2 * B, H)
+    assert plan.route == ("row" if H > 512 else "cluster")
+    before = k_gru.LAUNCHES
+    out = k_gru.gru_bidir_carries(x, w, b, mask)
+    torch.cuda.synchronize()
+    assert k_gru.LAUNCHES == before + 1
+    torch.testing.assert_close(out, k_gru.gru_bidir_carries_plain(x, w, b, mask), atol=1e-5, rtol=0)
+
+
+def test_gru_cluster_occupancy(cuda):
+    """The card holds at least one cluster of the widest cluster route (16 CTAs of 226 KB)."""
+    assert k_gru.max_active_clusters(512) >= 1
+    with pytest.raises(ValueError):
+        k_gru.max_active_clusters(640)
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_sequence_kernel(cuda, reverse):
     """K9, one direction, ragged prefix masks (row 2 runs 3 of 40 steps)."""
@@ -531,6 +557,29 @@ def test_bhtd_long_keys(cuda):
     k, v = k[:, :, :2048], v[:, :, :2048]
     torch.testing.assert_close(k_bhtd.attention_bhtd(q, k, v), k_bhtd.attention_bhtd_plain(q, k, v),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("tk", [80, 499, 2048])
+@pytest.mark.parametrize("offset", [False, True])
+def test_oneshot_bf16_tensor_cores(cuda, tk, offset):
+    """K7 in bf16 (mma.sync; scores in registers at Tk <= 128, two passes
+    above) with the gated bias and a ragged mask whose row 1 has no live key,
+    on views one element off 16 bytes (staged by 2-byte loads) or aligned."""
+    B, H, tq = 3, 2, min(tk, 150)
+    n = B * tk * H * 64
+    q = torch.randn(B * tq * H * 64 + offset, generator=cuda, device="cuda").to(torch.bfloat16)[int(offset):]
+    q = q.view(B, tq, H, 64).transpose(1, 2)
+    k, v = (torch.randn(n + offset, generator=cuda, device="cuda").to(torch.bfloat16)[int(offset):]
+            .view(B, tk, H, 64).transpose(1, 2) for _ in range(2))
+    assert (q.data_ptr() % 16 != 0) == offset
+    kw = dict(key_mask=(torch.arange(tk, device="cuda")[None]
+                        < torch.tensor([tk, 0, tk // 3], device="cuda")[:, None]).float(),
+              gate=1 + torch.rand(B, H, tq, generator=cuda, device="cuda"),
+              pos_bias=torch.randn(H, tq, tk, generator=cuda, device="cuda"))
+    out = k_bhtd.attention_bhtd(q, k, v, **kw)
+    ref = k_bhtd.attention_bhtd_plain(q, k, v, **kw)
+    assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.9999
+    _assert_dead_row(out, ref, torch.bfloat16, "oneshot", row=1)
 
 
 def test_bhtd_launchers_refuse_grad_and_bad_shapes(cuda):

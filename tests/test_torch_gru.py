@@ -1,7 +1,9 @@
 """K3 (bidirectional GRU recurrence) and the port's BiGRU against the JAX
 package: the Pallas kernel in interpret mode and the ``lax.scan`` BiGRU,
 with the same weights. B=3, T=11, H=8, ragged masks; f32 max-abs <= 1e-5
-(same math, other summation order).
+(same math, other summation order). Also K3's edge shapes (masks with
+holes, rows that are not a multiple of the cluster route's 16, H not a
+multiple of its 32 units a CTA) and its launch planner, which is host code.
 """
 
 import numpy as np
@@ -54,6 +56,49 @@ def test_sequence_bidir_matches_pallas_interpret():
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
     with pytest.raises(ValueError):
         mod.gru_sequence_bidir(*(torch.from_numpy(a) for a in args), B + 1)
+
+
+@pytest.mark.parametrize("b,t,h", [(5, 13, 40), (17, 9, 8), (2, 7, 100)])
+def test_plain_carries_match_pallas_interpret_at_edges(b, t, h):
+    """Masks with holes (not prefixes) and a row that starts late, 2B not a
+    multiple of 16 rows, H not a multiple of 32 units."""
+    rng = np.random.default_rng(b * 100 + h)
+    x_proj = rng.standard_normal((2 * b, t, 3 * h)).astype(np.float32)
+    w_hh2 = rng.uniform(-0.35, 0.35, (2, h, 3 * h)).astype(np.float32)
+    b_hh2 = rng.uniform(-0.35, 0.35, (2, 3 * h)).astype(np.float32)
+    mask = (rng.random((2 * b, t)) > 0.3).astype(np.float32)
+    mask[1, : t // 2] = 0.0
+    args = (x_proj, w_hh2, b_hh2, mask)
+    ref = np.asarray(jax_carries(*(jnp.asarray(a) for a in args), True))
+    out = mod.gru_bidir_carries(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+    # a step whose mask is 0 leaves the carry as it was (the kernel may skip its product)
+    held = mask[:, 1:] == 0
+    np.testing.assert_array_equal(out.numpy()[:, 1:][held], out.numpy()[:, :-1][held])
+
+
+def test_launch_planner_for_every_hidden_size():
+    """Route, cluster size C, rows R and a block's shared memory for each H up
+    to 4096: the cluster route while a CTA's 3 x 32 columns of w_hh (less
+    the 128 depth rows kept in registers), two h buffers of 16 rows, two
+    staging tiles and two mbarriers fit 227 KB (H <= 512), one block a row
+    above; H > 4096 is refused."""
+    for h in range(1, 4097):
+        plan = mod.gru_bidir_plan(128, h)
+        assert plan.smem_bytes <= mod.SMEM_LIMIT, (h, plan)
+        if h <= 512:
+            c = -(-h // 32)
+            assert (plan.route, plan.cluster, plan.rows, plan.threads) == ("cluster", c, 16, 256), (h, plan)
+            in_regs = 128 if c >= 4 else 0  # the first 128 depth rows of w_hh stay in registers
+            assert plan.smem_bytes == 4 * (3 * 32 * (32 * c - in_regs) + 2 * 16 * 32 * c + 2 * 16 * 32) + 16
+            assert plan.grid == (c, 4, 2)
+        else:
+            assert (plan.route, plan.rows, plan.grid) == ("row", 1, (128, 1, 1)), (h, plan)
+            assert plan.threads % 32 == 0 and h <= 4 * plan.threads <= 4 * 1024
+    assert mod.gru_bidir_plan(128, 512).smem_bytes == 217104
+    assert mod.gru_bidir_plan(74, 512).grid == (16, 3, 2)  # 37 rows a direction: 3 groups of 16
+    with pytest.raises(NotImplementedError):
+        mod.gru_bidir_plan(128, 4097)
 
 
 def _jax_bigru_params(seed):
