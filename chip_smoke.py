@@ -31,9 +31,11 @@ entry points at full width:
    ``F.gelu``); K8 the grouped positional conv at 120, 64 and 48 channels a
    group (cuDNN ``F.conv1d``); K3 the BiGRU recurrence and K3b its backward
    at the fusion trainer's batch (2B=128 rows, T=512, H=512; cuDNN
-   ``nn.GRU``), K3 with its route, cluster size and rows and on edge shapes
-   (odd row groups, holed masks, H=100, H=640 on the other route); K9 one
-   direction of it, forward and reverse (B=64); K4 the
+   ``nn.GRU``), K3 and K3b with their route, cluster size and rows, the
+   clusters resident at once, and on edge shapes (odd row groups, holed
+   masks, H=100, H=640 on the other route, K3b also H=3000), K3b's three
+   stages (gate recompute, recurrence, dW) timed apart; K9 one
+   direction of it, forward and reverse (B=64), with its route; K4 the
    attention backward at the Whisper-large fine-tune shape (B=8, T=1500, no
    bias, no mask), the WavLM-large one (gated bias + ragged mask) and
    HuBERT-XL's and XLS-R-2B's head dims (80, 120: B=16, T=499, ragged mask,
@@ -189,6 +191,8 @@ K1_EVENTS = ("attention_btd_kernel", "attention_btd_mma_kernel")
 K4_EVENTS = ("delta_kernel", "dkdv_kernel", "dkdv_mma_kernel", "dq_kernel", "dq_mma_kernel", "dbias_reduce")
 K7_EVENTS = ("attention_bhtd_kernel", "attention_bhtd_mma_kernel")  # K7's f32 and bf16 kernels
 K3_EVENTS = ("gru_bidir_kernel", "gru_bidir_cluster_kernel")  # K3's two routes
+# K3b's kernels: the row route, the cluster route's recurrence, the gate / dW products and the dW sum
+K3B_EVENTS = ("gru_bidir_bwd_kernel", "gru_bidir_bwd_cluster_kernel", "gru_gemm_kernel", "gru_dw_reduce_kernel")
 
 
 def log(msg: str) -> None:
@@ -826,6 +830,10 @@ def check_gru_sequence(g, results) -> None:
     mask = (steps < lengths[:, None]).float()
     # row b's valid prefix reversed: position i holds step len_b - 1 - i
     rev = torch.where(steps < lengths[:, None], lengths[:, None] - 1 - steps, steps)
+    plan = k_gru.gru_sequence_plan(B, H)
+    active = k_gru.max_active_clusters(H, "gru_sequence") if plan.route == "cluster" else None
+    log(f"[parity] K9 gru_sequence B={B} H={H}: route {plan.route}, C={plan.cluster} CTAs x R={plan.rows} rows a "
+        f"cluster, {plan.smem_bytes} B of shared memory a CTA, grid {plan.grid}, {active} such clusters resident")
     gru = torch.nn.GRU(3 * H, H, batch_first=True).cuda()
     with torch.no_grad():
         gru.weight_ih_l0.copy_(torch.eye(3 * H, device=dev))
@@ -858,17 +866,35 @@ def check_gru_sequence(g, results) -> None:
             require(err <= 1e-5, f"K9 {name} max_abs {err} > 1e-5")
             require(lib_err <= 1e-3, f"cuDNN GRU yardstick differs from K9 by {lib_err}: not the same function")
             main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by, route=plan.route, cluster=plan.cluster,
+                              max_active_clusters=active)
     results["gru_sequence"] = main
+
+
+def _gru_bwd_errors(out, ref) -> dict:
+    """K3b's bars: dx_proj max-abs / max(1, max|ref|); dW_hh2 and db_hh2 (sums
+    over rows and steps) max-abs / max|ref|."""
+    return {
+        "dx_proj": max_abs(out[0], ref[0]) / max(1.0, float(ref[0].abs().max())),
+        "dW_hh2": max_abs(out[1], ref[1]) / float(ref[1].abs().max()),
+        "db_hh2": max_abs(out[2], ref[2]) / float(ref[2].abs().max()),
+    }
 
 
 def check_gru_bwd(g, results) -> None:
     """K3b against the plain backward on the card, on K3's carries and a
-    non-uniform upstream cotangent. Bars: dx_proj max-abs <= 1e-4 x
-    max(1, max|ref|); dW_hh2 and db_hh2 (sums over 64 x 512 row-steps)
-    max-abs <= 1e-4 x max|ref|."""
+    non-uniform upstream cotangent, at the fusion trainer's batch (2B=128,
+    T=512, H=512), with its route, the clusters resident at once and the
+    times of its three stages apart (the gate recompute, the recurrence, the
+    dW / db product); then edge cases: 2B=74 (a partial row group), a mask
+    with holes, H=100 (not a multiple of 32), H=640 and H=3000 (the
+    one-block-per-row route). Bars: dx_proj max-abs <= 1e-4 x max(1,
+    max|ref|); dW_hh2 and db_hh2 max-abs <= 1e-4 x max|ref|; reruns
+    bit-identical."""
     B, T, H = 64, 512, 512
     x_proj, w_hh2, b_hh2, mask, lengths = _gru_inputs(g, B, T, H)
+    plan = k_gru.gru_bidir_bwd_plan(2 * B, H)
+    active = k_gru.max_active_clusters(H, "gru_bidir_bwd") if plan.route == "cluster" else None
     with torch.no_grad():
         h = k_gru.gru_bidir_carries(x_proj, w_hh2, b_hh2, mask)
         scale = 0.5 + torch.rand(2 * B, T, 1, generator=g, device="cuda")
@@ -877,15 +903,19 @@ def check_gru_bwd(g, results) -> None:
         out = k_gru.gru_bidir_carries_bwd(*args)
         ref = k_gru.gru_bidir_carries_bwd_plain(*args)
         dx_ref = float(ref[0].abs().max())
-        errs = {
-            "dx_proj": max_abs(out[0], ref[0]) / max(1.0, dx_ref),
-            "dW_hh2": max_abs(out[1], ref[1]) / float(ref[1].abs().max()),
-            "db_hh2": max_abs(out[2], ref[2]) / float(ref[2].abs().max()),
-        }
+        errs = _gru_bwd_errors(out, ref)
         again = k_gru.gru_bidir_carries_bwd(*args)
         deterministic = all(torch.equal(a, b) for a, b in zip(out, again))
+        del again, ref
         ms = median_ms(lambda: k_gru.gru_bidir_carries_bwd(*args))
         plain_ms = median_ms(lambda: k_gru.gru_bidir_carries_bwd_plain(*args))
+        # the stages apart, on the same inputs (launches to time, not counted)
+        hp = k_gru.gate_preacts(h, w_hh2, b_hh2)
+        gates_ms = median_ms(lambda: k_gru.gate_preacts(h, w_hh2, b_hh2))
+        dhp = k_gru.bwd_recurrence(*args, hp)[1]
+        recurrence_ms = median_ms(lambda: k_gru.bwd_recurrence(*args, hp))
+        dw_ms = median_ms(lambda: k_gru.bwd_weight_grads(h, dhp))
+        del hp, dhp
     # cuDNN's backward of the same function (it also differentiates its identity
     # input projection: dX and dW_ih, two [N, 6H] x [6H, 3H]-sized products)
     gru, x, packed = _cudnn_gru(x_proj, w_hh2, b_hh2, lengths)
@@ -897,23 +927,53 @@ def check_gru_bwd(g, results) -> None:
     ref_m = k_gru.gru_bidir_carries_bwd_plain(x_proj, w_hh2, b_hh2, mask, h, gm)
     lib_err = max_abs(lib_grads[0][..., : 3 * H], ref_m[0][:B]) / max(1.0, float(ref_m[0].abs().max()))
     library_ms = median_ms(lambda: torch.autograd.grad(lib_out, wrt, g_lib, retain_graph=True))
-    del lib_out, lib_grads, gru, x, packed
+    del lib_out, lib_grads, gru, x, packed, ref_m
     valid = float(mask.sum())
     nbytes = 4 * (x_proj.numel() + w_hh2.numel() + b_hh2.numel() + mask.numel() + h.numel()
                   + gr.numel() + out[0].numel() + out[1].numel() + out[2].numel())
     bound_ms, bound_by = roofline_ms(nbytes, valid * (18 * H * H + 30 * H), PEAK_F32)
-    log(f"[parity] K3b gru_bidir_bwd [128,512] H512 ragged f32: dx_proj max_abs/max(1,|ref|) "
-        f"{errs['dx_proj']:.3e} (max|ref| {dx_ref:.3f}), dW rel {errs['dW_hh2']:.3e}, "
-        f"db rel {errs['db_hh2']:.3e}; bit-identical rerun {deterministic}; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, cuDNN nn.GRU backward {library_ms:.3f} ms (incl. the identity "
-        f"input projection's backward; dx vs plain {lib_err:.3e}); bound {bound_ms:.3f} ms ({bound_by})")
+    log(f"[parity] K3b gru_bidir_bwd [128,512] H512 ragged f32: route {plan.route}, C={plan.cluster} CTAs x "
+        f"R={plan.rows} rows a cluster, {plan.smem_bytes} B of shared memory a CTA, grid {plan.grid}, {active} "
+        f"such clusters resident at once, dW in {k_gru.dw_splits(2 * B, T, H)} row-step chunks; dx_proj "
+        f"max_abs/max(1,|ref|) {errs['dx_proj']:.3e} (max|ref| {dx_ref:.3f}), dW rel {errs['dW_hh2']:.3e}, "
+        f"db rel {errs['db_hh2']:.3e}; bit-identical rerun {deterministic}; kernel {ms:.3f} ms (gate recompute "
+        f"{gates_ms:.3f}, recurrence {recurrence_ms:.3f}, dW/db {dw_ms:.3f}), plain {plain_ms:.3f} ms, cuDNN "
+        f"nn.GRU backward {library_ms:.3f} ms (incl. the identity input projection's backward; dx vs plain "
+        f"{lib_err:.3e}); bound {bound_ms:.3f} ms ({bound_by})")
     for name, e in errs.items():
         require(e <= 1e-4, f"K3b {name} error {e} > 1e-4")
     require(deterministic, "K3b gave different bits on a rerun")
     require(lib_err <= 1e-3, f"cuDNN GRU backward differs from the plain backward by {lib_err}")
-    results["gru_bidir_bwd"] = {"f32": dict(
-        max_abs_err=max(errs.values()), rel_errs=errs, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)}
+    main = {"f32": dict(
+        max_abs_err=max(errs.values()), rel_errs=errs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by, gates_ms=gates_ms, recurrence_ms=recurrence_ms, dw_ms=dw_ms,
+        route=plan.route, cluster=plan.cluster, rows=plan.rows, smem_bytes=plan.smem_bytes,
+        max_active_clusters=active)}
+    del x_proj, w_hh2, b_hh2, mask, h, gr, out, args
+    for name, (B, T, H), holes in (("odd_rows", (37, 96, 512), False), ("holes", (64, 96, 512), True),
+                                   ("h100", (5, 64, 100), True), ("row_route", (6, 64, 640), True),
+                                   ("h3000", (2, 16, 3000), True)):
+        x_proj, w_hh2, b_hh2, mask, _ = _gru_inputs(g, B, T, H, min_len=T // 3)
+        if holes:  # a third of the steps masked anywhere, in both directions, and one step in every row
+            mask = (mask * (torch.rand(mask.shape, generator=g, device="cuda") > 0.33).float())
+            mask[:, T // 2] = 0
+            mask = mask.contiguous()
+        plan = k_gru.gru_bidir_bwd_plan(2 * B, H)
+        with torch.no_grad():
+            h = k_gru.gru_bidir_carries(x_proj, w_hh2, b_hh2, mask)
+            gr = torch.randn(2 * B, T, H, generator=g, device="cuda")
+            args = (x_proj, w_hh2, b_hh2, mask, h, gr)
+            out = k_gru.gru_bidir_carries_bwd(*args)
+            errs = _gru_bwd_errors(out, k_gru.gru_bidir_carries_bwd_plain(*args))
+            same = all(torch.equal(a, b) for a, b in zip(out, k_gru.gru_bidir_carries_bwd(*args)))
+        log(f"[parity] K3b gru_bidir_bwd {name} 2B={2 * B} T={T} H={H} holes={holes}: route {plan.route}, "
+            f"C={plan.cluster}, R={plan.rows}; dx {errs['dx_proj']:.3e}, dW rel {errs['dW_hh2']:.3e}, db rel "
+            f"{errs['db_hh2']:.3e}; bit-identical rerun {same}")
+        for what, e in errs.items():
+            require(e <= 1e-4, f"K3b {name} {what} error {e} > 1e-4")
+        require(same, f"K3b {name} gave different bits on a rerun")
+        main[name] = dict(max_abs_err=max(errs.values()), rel_errs=errs, route=plan.route, cluster=plan.cluster)
+    results["gru_bidir_bwd"] = main
 
 
 def _sdpa_bwd_yardstick(q, k, v, g, H, key_mask, gate, pos_bias, ref):
@@ -1476,9 +1536,12 @@ def check_train_step(config_path: str) -> dict:
         kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         top8 = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        out["profile"] = {"wall_ms_2_steps": wall_ms, "device_busy_ms": busy_ms,
+        k3b_ms = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K3B_EVENTS)) / 1e3
+        k3_ms = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K3_EVENTS)) / 1e3
+        out["profile"] = {"wall_ms_2_steps": wall_ms, "device_busy_ms": busy_ms, "k3b_ms": k3b_ms, "k3_ms": k3_ms,
                           "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top8]}
-        log(f"[train] profile of 2 steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms")
+        log(f"[train] profile of 2 steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, K3b (all its "
+            f"kernels) {k3b_ms:.1f} ms = {100 * k3b_ms / busy_ms:.1f}%, K3 {k3_ms:.1f} ms")
         for name, ms, n in out["profile"]["top"]:
             log(f"[train]   {ms:9.3f} ms  x{n:<4d} {name}")
     log(f"[train] train step (batch {cfg.batch_size}, kernels, TF32 off): median {step_ms:.3f} ms "

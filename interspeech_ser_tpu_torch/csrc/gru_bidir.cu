@@ -63,21 +63,27 @@
 // Replaces interspeech_ser_tpu/ops/pallas/gru_kernel.py (gru_sequence ->
 // _kernel). Rows are independent sequences; with reverse = 1 the step
 // order runs from T-1 down to 0, which is the TPU kernel's flip of the
-// inputs, forward run and flip of the outputs in one pass. The kernel
-// writes h * m for every step (0 at a masked step, where the carry is
-// frozen), as the TPU kernel does. It is the one-block-per-row recurrence
-// with w_hh shared by every row, bound by the L2 rereads of w_hh.
+// inputs, forward run and flip of the outputs in one pass, indexing x_proj,
+// mask and out in place. The kernel writes h * m for every step (0 at a
+// masked step, where the carry is frozen), as the TPU kernel does. For H <=
+// 512 it is the cluster kernel above with SEQ = true (one direction: a grid
+// of depth 1, w_hh on chip for the whole sequence; B = 64 rows are 4
+// clusters, one wave); wider H takes the one-block-per-row
+// gru_sequence_kernel, bound by its L2 rereads of w_hh at every step. The
+// planner (gru.py: gru_sequence_plan) picks the route.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gru_cluster.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+using namespace gru_cluster;
 
 __global__ void gru_bidir_kernel(const float* __restrict__ x_proj,  // [2B, T, 3H]
                                  const float* __restrict__ w_hh2,   // [2, H, 3H]
@@ -153,53 +159,16 @@ __host__ __device__ constexpr size_t cluster_smem_bytes(int C) {
          2 * sizeof(unsigned long long);
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-// the same shared location in CTA `rank` of the cluster (shared::cluster address)
-__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(local), "r"(rank));
-  return out;
-}
-
-// 16 bytes into a peer's shared memory; its mbarrier counts them on arrival
-__device__ __forceinline__ void st_async16(uint32_t dst, float4 v, uint32_t mbar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar)
-               : "memory");
-}
-
-// Wait for phase `parity` of a local mbarrier to complete. A protocol fault
-// would spin for ever: after 2^24 polls (seconds; a step waits microseconds)
-// the kernel traps, so the fault surfaces as a launch error.
-__device__ __forceinline__ void mbar_wait(uint32_t mbar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(mbar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1u << 24)) __trap();
-  }
-}
-
-template <int REGJ>
+// SEQ: K9, one direction (a grid of depth 1; half = B rows), step s at time
+// T-1-s when `reverse`, and h * m written out; otherwise K3 (reverse unused).
+template <int REGJ, bool SEQ>
 __global__ void __launch_bounds__(CL_THREADS, 1) gru_bidir_cluster_kernel(
-    const float* __restrict__ x_proj,  // [2B, T, 3H]
-    const float* __restrict__ w_hh2,   // [2, H, 3H]
-    const float* __restrict__ b_hh2,   // [2, 3H]
-    const float* __restrict__ mask,    // [2B, T]
-    float* __restrict__ out,           // [2B, T, H]
-    int half, int T, int H) {
+    const float* __restrict__ x_proj,  // [2B, T, 3H]  (K9: [B, T, 3H])
+    const float* __restrict__ w_hh2,   // [2, H, 3H]   (K9: [H, 3H])
+    const float* __restrict__ b_hh2,   // [2, 3H]      (K9: [3H])
+    const float* __restrict__ mask,    // [2B, T]      (K9: [B, T])
+    float* __restrict__ out,           // [2B, T, H]   (K9: [B, T, H])
+    int half, int T, int H, int reverse) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int c = (int)cluster.block_rank();
@@ -252,8 +221,8 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_bidir_cluster_kernel(
   // and every CTA's R x U carries have landed (C R U 4 bytes of st.async)
   if (tid == 0) {
     for (int b = 0; b < 2; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(mbar + b)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init(smem_addr(mbar + b), 1);
+    fence_mbarrier_init();
   }
   const float* bh = b_hh2 + (size_t)d * H3;
   const float br = unit_ok ? bh[unit] : 0.f, bz = unit_ok ? bh[H + unit] : 0.f,
@@ -273,8 +242,11 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_bidir_cluster_kernel(
   const bool flag_ok = rf < half;
   const int frow = d * half + (flag_ok ? rf : 0);
 
+  // the time index of step s: K9 in reverse walks T-1 .. 0 in place
+  auto tix = [&](int s) { return (SEQ && reverse) ? T - 1 - s : s; };
   float xc[2][3], mc[2], fc;  // this step's inputs
-  auto load_step = [&](int t, float (&xv)[2][3], float (&mv)[2], float& fv) {
+  auto load_step = [&](int s, float (&xv)[2][3], float (&mv)[2], float& fv) {
+    const int t = tix(s);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float* xp = x_proj + ((size_t)grow[i] * T + t) * H3;
@@ -295,9 +267,10 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_bidir_cluster_kernel(
   const float4* ws4 = reinterpret_cast<const float4*>(ws) + (size_t)u * SQ;  // gate g's column: + g * U * SQ
   int cur = 0;             // the h buffer this step reads; every CTA writes the other
   uint32_t parity[2] = {0u, 0u};  // the phase of each h buffer's mbarrier this CTA waits for next
-  for (int t = 0; t < T; ++t) {
+  for (int s = 0; s < T; ++s) {
+    const int t = tix(s);
     float xn[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}}, mn[2] = {0.f, 0.f}, fn = 0.f;
-    if (t + 1 < T) load_step(t + 1, xn, mn, fn);
+    if (s + 1 < T) load_step(s + 1, xn, mn, fn);
     // the same vote in every warp of every CTA of the cluster: all skip, or none
     const bool live = __any_sync(0xffffffffu, fc != 0.f);
     if (live) {
@@ -367,9 +340,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_bidir_cluster_kernel(
       const int nxt = cur ^ 1;
       __syncthreads();  // the staging tile is written
       if (tid == 0)
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(mbar + nxt)),
-                     "r"(C * CL_R * CL_U * 4)
-                     : "memory");
+        mbar_arrive_expect_tx(smem_addr(mbar + nxt), C * CL_R * CL_U * 4);
       // the staging tile into h buffer nxt of every CTA (this one's too),
       // columns c*U ..: asynchronous stores that the receiver's mbarrier
       // counts. A CTA reads buffer nxt again only after its mbarrier says
@@ -386,14 +357,14 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_bidir_cluster_kernel(
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        if (row_ok[i] && unit_ok) out[((size_t)grow[i] * T + t) * H + unit] = hreg[i];
+        if (row_ok[i] && unit_ok) out[((size_t)grow[i] * T + t) * H + unit] = SEQ ? hreg[i] * mc[i] : hreg[i];
       mbar_wait(nxt_mbar, parity[nxt]);  // every CTA's carries are here
       parity[nxt] ^= 1u;
       cur = nxt;
     } else {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        if (row_ok[i] && unit_ok) out[((size_t)grow[i] * T + t) * H + unit] = hreg[i];
+        if (row_ok[i] && unit_ok) out[((size_t)grow[i] * T + t) * H + unit] = SEQ ? hreg[i] * mc[i] : hreg[i];
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -410,11 +381,12 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_bidir_cluster_kernel(
 // The cluster kernel for cluster size C, its attributes set once a process:
 // dynamic shared memory up to the largest cluster's need, and clusters of
 // more than 8 CTAs.
-typedef void (*ClusterKernel)(const float*, const float*, const float*, const float*, float*, int, int, int);
-cudaError_t cluster_kernel(int C, ClusterKernel* kern) {
+typedef void (*ClusterKernel)(const float*, const float*, const float*, const float*, float*, int, int, int, int);
+cudaError_t cluster_kernel(int C, bool seq, ClusterKernel* kern) {
   static cudaError_t status = [] {
     cudaError_t err = cudaSuccess;
-    const ClusterKernel kernels[2] = {gru_bidir_cluster_kernel<0>, gru_bidir_cluster_kernel<CL_REGJ>};
+    const ClusterKernel kernels[4] = {gru_bidir_cluster_kernel<0, false>, gru_bidir_cluster_kernel<CL_REGJ, false>,
+                                      gru_bidir_cluster_kernel<0, true>, gru_bidir_cluster_kernel<CL_REGJ, true>};
     for (ClusterKernel k : kernels) {
       if (err == cudaSuccess)
         err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cluster_smem_bytes(CL_MAX));
@@ -422,8 +394,33 @@ cudaError_t cluster_kernel(int C, ClusterKernel* kern) {
     }
     return err;
   }();
-  *kern = cluster_regj(C) > 0 ? gru_bidir_cluster_kernel<CL_REGJ> : gru_bidir_cluster_kernel<0>;
+  if (seq)
+    *kern = cluster_regj(C) > 0 ? gru_bidir_cluster_kernel<CL_REGJ, true> : gru_bidir_cluster_kernel<0, true>;
+  else
+    *kern = cluster_regj(C) > 0 ? gru_bidir_cluster_kernel<CL_REGJ, false> : gru_bidir_cluster_kernel<0, false>;
   return status;
+}
+
+// Launch the cluster route: grid (C, ceil(half / R), dirs), clusters of (C, 1, 1).
+cudaError_t launch_cluster(bool seq, int C, int dirs, const float* x_proj, const float* w_hh, const float* b_hh,
+                           const float* mask, float* out, int half, int T, int H, int reverse, cudaStream_t stream) {
+  ClusterKernel kern;
+  const cudaError_t cerr = cluster_kernel(C, seq, &kern);
+  if (cerr != cudaSuccess) return cerr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, (half + CL_R - 1) / CL_R, dirs);
+  cfg.blockDim = dim3(CL_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = cluster_smem_bytes(C);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, x_proj, w_hh, b_hh, mask, out, half, T, H, reverse);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 __global__ void gru_sequence_kernel(const float* __restrict__ x_proj,  // [B, T, 3H]
@@ -487,36 +484,17 @@ extern "C" int ser_gru_bidir_f32(const void* x_proj, const void* w_hh2, const vo
   }
   // the cluster route: the plan must be ceil(H / 32) CTAs, at most 16
   if (cluster != (H + CL_U - 1) / CL_U || cluster > CL_MAX) return (int)cudaErrorInvalidValue;
-  ClusterKernel kern;
-  const cudaError_t cerr = cluster_kernel(cluster, &kern);
-  if (cerr != cudaSuccess) return (int)cerr;
-  const size_t smem = cluster_smem_bytes(cluster);
-  const int half = B2 / 2;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, (half + CL_R - 1) / CL_R, 2);
-  cfg.blockDim = dim3(CL_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, (const float*)x_proj,
-                                             (const float*)w_hh2, (const float*)b_hh2, (const float*)mask,
-                                             (float*)out, half, T, H);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_cluster(false, cluster, 2, (const float*)x_proj, (const float*)w_hh2, (const float*)b_hh2,
+                             (const float*)mask, (float*)out, B2 / 2, T, H, 0, (cudaStream_t)stream);
 }
 
 // How many clusters of `cluster` CTAs of the cluster route the card runs at
-// once (cudaOccupancyMaxActiveClusters), into *n.
-extern "C" int ser_gru_max_active_clusters(int cluster, int* n) {
+// once (cudaOccupancyMaxActiveClusters), into *n: K3's kernel (seq = 0) or
+// K9's (seq = 1).
+extern "C" int ser_gru_max_active_clusters(int cluster, int seq, int* n) {
   if (cluster < 1 || cluster > CL_MAX) return (int)cudaErrorInvalidValue;
   ClusterKernel kern;
-  const cudaError_t err = cluster_kernel(cluster, &kern);
+  const cudaError_t err = cluster_kernel(cluster, seq != 0, &kern);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = cluster_smem_bytes(cluster);
   cudaLaunchConfig_t cfg = {};
@@ -535,7 +513,13 @@ extern "C" int ser_gru_max_active_clusters(int cluster, int* n) {
 
 extern "C" int ser_gru_sequence_f32(const void* x_proj, const void* w_hh, const void* b_hh,
                                     const void* mask, void* out, int B, int T, int H, int reverse,
-                                    int threads, void* stream) {
+                                    int cluster, int threads, void* stream) {
+  if (B < 1 || T < 0 || H < 1) return (int)cudaErrorInvalidValue;
+  if (cluster != 0) {  // the cluster route: the plan must be ceil(H / 32) CTAs, at most 16
+    if (cluster != (H + CL_U - 1) / CL_U || cluster > CL_MAX) return (int)cudaErrorInvalidValue;
+    return (int)launch_cluster(true, cluster, 1, (const float*)x_proj, (const float*)w_hh, (const float*)b_hh,
+                               (const float*)mask, (float*)out, B, T, H, reverse, (cudaStream_t)stream);
+  }
   if (threads < 32 || threads > 1024 || H > 4 * threads) return (int)cudaErrorInvalidValue;
   gru_sequence_kernel<<<B, threads, H * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)x_proj, (const float*)w_hh, (const float*)b_hh, (const float*)mask,

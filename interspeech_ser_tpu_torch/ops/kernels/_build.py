@@ -31,7 +31,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "attention_bhtd.cu", "flash_attention.cu", "conv_frontend.cu",
            "gru_bidir.cu", "gru_bidir_bwd.cu", "ffn_fused.cu", "pos_conv.cu")
-HEADERS = ("attention_bhtd_common.cuh", "attention_mma.cuh")  # included by sources: part of the hash
+HEADERS = ("attention_bhtd_common.cuh", "attention_mma.cuh", "gru_cluster.cuh")  # included by sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,12 +66,18 @@ SIGNATURES = {
     "ser_pos_conv_bf16": [_P] * 3 + [_I] * 5 + [_P],
     # x_proj, w_hh2, b_hh2, mask, out, B2, T, H, cluster (0: one block a row), threads, stream
     "ser_gru_bidir_f32": [_P] * 5 + [_I] * 5 + [_P],
+    # cluster, seq (0: K3, 1: K9), int* count
+    "ser_gru_max_active_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    # x_proj, w_hh, b_hh, mask, out, B, T, H, reverse, cluster (0: one block a row), threads, stream
+    "ser_gru_sequence_f32": [_P] * 5 + [_I] * 6 + [_P],
+    # h, w_hh2, b_hh2, hp, B2, T, H, stream
+    "ser_gru_bwd_gates_f32": [_P] * 4 + [_I] * 3 + [_P],
+    # g, h, x_proj, mask, w_hh2, b_hh2, hp, dxp, dhp, B2, T, H, cluster (0: one block a row), threads, stream
+    "ser_gru_bidir_bwd_f32": [_P] * 9 + [_I] * 5 + [_P],
+    # h, dhp, dw_part, db_part, dw, db, B2, T, H, splits, stream
+    "ser_gru_bwd_dw_f32": [_P] * 6 + [_I] * 4 + [_P],
     # cluster, int* count
-    "ser_gru_max_active_clusters": [_I, ctypes.POINTER(ctypes.c_int)],
-    # x_proj, w_hh, b_hh, mask, out, B, T, H, reverse, threads, stream
-    "ser_gru_sequence_f32": [_P] * 5 + [_I] * 5 + [_P],
-    # g, h, x_proj, mask, w_hh2, b_hh2, dxp, dhp scratch, dw, db, B2, T, H, threads, stream
-    "ser_gru_bidir_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
+    "ser_gru_bwd_max_active_clusters": [_I, ctypes.POINTER(ctypes.c_int)],
     "ser_cuda_error_string": [_I],
 }
 

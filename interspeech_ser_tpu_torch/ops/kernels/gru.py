@@ -28,15 +28,21 @@ The plain versions compute in float32, or in float64 for float64 inputs
 (so ``torch.autograd.gradcheck`` can hold the hand-derived backward to
 numerical derivatives).
 
-K3 has two routes, both hand-written kernels in ``csrc/gru_bidir.cu``;
-``gru_bidir_plan`` picks one by this rule: for ``H <= 512`` the cluster
-route, where a thread-block cluster of ``C = ceil(H / 32)`` CTAs holds one
-direction's ``w_hh`` on chip (registers and shared memory) for the whole
-sequence and carries ``R = 16`` rows; for ``512 < H <= 4096`` the
-one-block-per-row kernel,
-which rereads ``w_hh`` from L2 at every step (a CTA's 3 x 32 columns of
-``w_hh`` stop fitting its 227 KB above H = 512). A launch that fails
-raises; nothing retries on the other route or on the plain version.
+K3, K9 and K3b each have two routes, hand-written kernels in
+``csrc/gru_bidir.cu`` (K3, K9) and ``csrc/gru_bidir_bwd.cu`` (K3b); a
+planner picks one by this rule (``gru_bidir_plan``, ``gru_sequence_plan``,
+``gru_bidir_bwd_plan``): for ``H <= 512`` the cluster route, where a
+thread-block cluster of ``C = ceil(H / 32)`` CTAs holds one direction's
+``w_hh`` on chip (registers and shared memory) for the whole sequence and
+carries ``R = 16`` rows; for ``512 < H <= 4096`` one block a row, which
+rereads ``w_hh`` from L2 at every step (a CTA's 3 x 32 columns of ``w_hh``
+stop fitting its 227 KB above H = 512). K9 runs K3's cluster kernel for one
+direction. K3b's cluster route is three stages, each a public function here
+so that they can be timed apart: ``gate_preacts`` (the gate recompute
+hoisted out of the loop, a tiled product), ``bwd_recurrence`` and
+``bwd_weight_grads`` (dW and db, a tiled product split along the
+row-steps). A launch that fails raises; nothing retries on the other route
+or on the plain version.
 """
 
 from __future__ import annotations
@@ -167,14 +173,18 @@ CLUSTER_UNITS = 32  # hidden units (3 x 32 columns of w_hh) a CTA of the cluster
 CLUSTER_ROWS = 16  # rows a cluster carries
 MAX_CLUSTER = 16  # CTAs a cluster at most (a non-portable size above 8)
 CLUSTER_REG_DEPTH = 128  # depth rows of a CTA's w_hh columns held in registers (clusters of 4 CTAs and more)
+BWD_REG_COLUMNS = 24  # K3b: of a CTA's 96 w_hh columns, those held in registers
 SMEM_LIMIT = 232448  # shared memory a block may use on an H100 (227 KB)
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
+GEMM_TILE = 128  # output tile of K3b's tiled products (csrc/gru_bidir_bwd.cu)
 
 
 @dataclass(frozen=True)
 class GruPlan:
-    """K3's launch: ``route`` is ``"cluster"`` (``cluster`` CTAs a cluster,
-    ``rows`` rows each) or ``"row"`` (one block of ``threads`` a row);
-    ``smem_bytes`` is a block's dynamic shared memory, ``grid`` its grid."""
+    """A launch of K3, K9 or K3b's recurrence: ``route`` is ``"cluster"``
+    (``cluster`` CTAs a cluster, ``rows`` rows each) or ``"row"`` (one block
+    of ``threads`` a row); ``smem_bytes`` is a block's dynamic shared memory,
+    ``grid`` its grid."""
 
     route: str
     cluster: int
@@ -187,25 +197,68 @@ class GruPlan:
 def gru_bidir_plan(B2: int, H: int) -> GruPlan:
     """K3's route for ``2B = B2`` rows of hidden size ``H`` (the rule in the
     module docstring; ``csrc/gru_bidir.cu`` checks it)."""
+    return _forward_plan(B2 // 2, H, 2)
+
+
+def gru_sequence_plan(B: int, H: int) -> GruPlan:
+    """K9's route for ``B`` rows of hidden size ``H``: K3's kernels for one
+    direction."""
+    return _forward_plan(B, H, 1)
+
+
+def _forward_plan(rows: int, H: int, dirs: int) -> GruPlan:
     C = -(-H // CLUSTER_UNITS)
     if C <= MAX_CLUSTER:
         kp = C * CLUSTER_UNITS  # the depth, H rounded up to the cluster's units
         in_regs = CLUSTER_REG_DEPTH if C >= 4 else 0  # the first 128 of the depth stay in registers
         # w_hh columns less the part in registers, two h buffers, two staging tiles; two mbarriers
         smem = 4 * (3 * CLUSTER_UNITS * (kp - in_regs) + 2 * CLUSTER_ROWS * kp + 2 * CLUSTER_ROWS * CLUSTER_UNITS) + 16
-        groups = -(-(B2 // 2) // CLUSTER_ROWS)
-        return GruPlan("cluster", C, CLUSTER_ROWS, 256, smem, (C, groups, 2))
-    return GruPlan("row", 1, 1, _threads(H), 4 * H, (B2, 1, 1))
+        return GruPlan("cluster", C, CLUSTER_ROWS, 256, smem, (C, -(-rows // CLUSTER_ROWS), dirs))
+    return GruPlan("row", 1, 1, _threads(H), 4 * H, (rows * dirs, 1, 1))
 
 
-def max_active_clusters(H: int) -> int:
-    """How many clusters of K3's cluster route at hidden size ``H`` the card
-    runs at once (``cudaOccupancyMaxActiveClusters``)."""
-    plan = gru_bidir_plan(2, H)
+def gru_bidir_bwd_plan(B2: int, H: int) -> GruPlan:
+    """K3b's recurrence route for ``2B = B2`` rows of hidden size ``H``
+    (``csrc/gru_bidir_bwd.cu`` checks it). Cluster route: a CTA keeps 72 of
+    its 96 w_hh columns in shared memory (24 in registers), two dhp tiles of
+    16 rows and two receive buffers of C x 16 x 32 partial sums, and two
+    mbarriers. Row route: 6H floats of shared memory a block."""
+    C = -(-H // CLUSTER_UNITS)
+    if C <= MAX_CLUSTER:
+        cols = 3 * CLUSTER_UNITS
+        kp = C * CLUSTER_UNITS
+        smem = 4 * ((cols - BWD_REG_COLUMNS) * kp + 2 * CLUSTER_ROWS * cols + 2 * C * CLUSTER_ROWS * CLUSTER_UNITS) + 16
+        return GruPlan("cluster", C, CLUSTER_ROWS, 256, smem, (C, -(-(B2 // 2) // CLUSTER_ROWS), 2))
+    return GruPlan("row", 1, 1, _threads(H), 24 * H, (B2, 1, 1))
+
+
+def dw_splits(B2: int, T: int, H: int) -> int:
+    """Chunks S of the row-step axis for K3b's dW product, at most 16, each
+    at least 512 row-steps: the S that takes the least time when each of the
+    ``tiles x S`` blocks takes 1 / S of a whole tile's time and the card runs
+    two blocks an SM at once (``ceil(tiles S / 264) / S``; the smallest such
+    S). From four full waves of tiles on, no split (the last wave's waste is
+    small, and the partial sums would be large)."""
+    tiles = -(-3 * H // GEMM_TILE) * -(-H // GEMM_TILE) * 2
+    most = 1 if tiles >= 8 * SM_COUNT else max(1, min(16, (B2 // 2) * T // 512))
+    return min(range(1, most + 1), key=lambda s: (-(-tiles * s // (2 * SM_COUNT)) / s, s))
+
+
+def max_active_clusters(H: int, kernel: str = "gru_bidir") -> int:
+    """How many clusters of the cluster route of ``kernel`` (``gru_bidir``,
+    ``gru_sequence`` or ``gru_bidir_bwd``) at hidden size ``H`` the card runs
+    at once (``cudaOccupancyMaxActiveClusters``)."""
+    plans = {"gru_bidir": gru_bidir_plan, "gru_sequence": gru_sequence_plan, "gru_bidir_bwd": gru_bidir_bwd_plan}
+    plan = plans[kernel](2, H)
     if plan.route != "cluster":
         raise ValueError(f"H={H} takes the one-block-per-row route")
     n = ctypes.c_int(0)
-    _build.check(_build.library().ser_gru_max_active_clusters(plan.cluster, ctypes.byref(n)), "gru_bidir")
+    lib = _build.library()
+    if kernel == "gru_bidir_bwd":
+        err = lib.ser_gru_bwd_max_active_clusters(plan.cluster, ctypes.byref(n))
+    else:
+        err = lib.ser_gru_max_active_clusters(plan.cluster, int(kernel == "gru_sequence"), ctypes.byref(n))
+    _build.check(err, kernel)
     return n.value
 
 
@@ -248,21 +301,74 @@ def gru_bidir_carries_bwd(
         return gru_bidir_carries_bwd_plain(x_proj, w_hh2, b_hh2, mask, h, g)
     global BWD_LAUNCHES
     B2, T, H = _check_inputs(x_proj, w_hh2, b_hh2, mask, h=h, g=g)
-    threads = _threads(H)
-    if 6 * H * 4 > 48 * 1024:
-        raise NotImplementedError(f"gru_bidir_bwd kernel takes H <= 2048, got {H}")
-    dxp = torch.empty_like(x_proj)
-    dhp = torch.empty_like(x_proj)  # scratch: gate cotangents for dW / db
-    dw = torch.empty_like(w_hh2)
-    db = torch.empty_like(b_hh2)
-    err = _build.library().ser_gru_bidir_bwd_f32(
-        g.data_ptr(), h.data_ptr(), x_proj.data_ptr(), mask.data_ptr(), w_hh2.data_ptr(),
-        b_hh2.data_ptr(), dxp.data_ptr(), dhp.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        B2, T, H, threads, _build.stream_ptr(x_proj),
-    )
-    _build.check(err, "gru_bidir_bwd")
+    hp = gate_preacts(h, w_hh2, b_hh2) if gru_bidir_bwd_plan(B2, H).route == "cluster" else None
+    dxp, dhp = bwd_recurrence(x_proj, w_hh2, b_hh2, mask, h, g, hp)
+    del hp  # its [2B, T, 3H] go back to the allocator before dW's partial sums
+    dw, db = bwd_weight_grads(h, dhp)
     BWD_LAUNCHES += 1
     return dxp, dw, db
+
+
+def _check_stage(h: torch.Tensor, **more) -> Tuple[int, int, int]:
+    """The shapes a K3b stage takes beside the carries ``h`` [2B, T, H]: all
+    contiguous float32 on h's CUDA device."""
+    B2, T, H = h.shape
+    want = {"w_hh2": (2, H, 3 * H), "b_hh2": (2, 3 * H), "dhp": (B2, T, 3 * H)}
+    for name, t in (("h", h), *more.items()):
+        if B2 % 2 or (name != "h" and tuple(t.shape) != want[name]):
+            raise ValueError(f"{name} {tuple(t.shape)} does not fit h {tuple(h.shape)}")
+        if t.dtype != torch.float32 or t.device != h.device or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor on {h.device}")
+    return B2, T, H
+
+
+def gate_preacts(h: torch.Tensor, w_hh2: torch.Tensor, b_hh2: torch.Tensor) -> torch.Tensor:
+    """K3b's first stage on the cluster route (CUDA tensors): the gate
+    pre-activations ``h_prev . w_hh[d] + b_hh[d]`` of every row and step,
+    [2B, T, 3H], from the forward's carries ``h`` (``h_prev`` is ``h`` one
+    step back, zero at t = 0)."""
+    B2, T, H = _check_stage(h, w_hh2=w_hh2, b_hh2=b_hh2)
+    hp = torch.empty(B2, T, 3 * H, device=h.device, dtype=torch.float32)
+    err = _build.library().ser_gru_bwd_gates_f32(
+        h.data_ptr(), w_hh2.data_ptr(), b_hh2.data_ptr(), hp.data_ptr(), B2, T, H, _build.stream_ptr(h))
+    _build.check(err, "gru_bidir_bwd gates")
+    return hp
+
+
+def bwd_recurrence(x_proj, w_hh2, b_hh2, mask, h, g, hp: Optional[torch.Tensor]):
+    """K3b's recurrence (CUDA tensors) -> (dx_proj, dhp), both [2B, T, 3H];
+    ``hp`` is ``gate_preacts``'s output on the cluster route, None on the
+    row route (which recomputes the gates in its loop)."""
+    B2, T, H = _check_inputs(x_proj, w_hh2, b_hh2, mask, h=h, g=g)
+    plan = gru_bidir_bwd_plan(B2, H)
+    if (hp is None) != (plan.route == "row"):
+        raise ValueError(f"hp must be given on the cluster route and only there (H={H}: {plan.route} route)")
+    dxp = torch.empty_like(x_proj)
+    dhp = torch.empty_like(x_proj)  # the gate cotangents, for dW / db
+    err = _build.library().ser_gru_bidir_bwd_f32(
+        g.data_ptr(), h.data_ptr(), x_proj.data_ptr(), mask.data_ptr(), w_hh2.data_ptr(), b_hh2.data_ptr(),
+        _build.ptr(hp), dxp.data_ptr(), dhp.data_ptr(), B2, T, H,
+        plan.cluster if plan.route == "cluster" else 0, plan.threads, _build.stream_ptr(x_proj),
+    )
+    _build.check(err, "gru_bidir_bwd")
+    return dxp, dhp
+
+
+def bwd_weight_grads(h: torch.Tensor, dhp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3b's last stage (CUDA tensors) -> (dW_hh2 [2, H, 3H], db_hh2 [2, 3H]):
+    ``h_prev^T . dhp`` and the sum of ``dhp`` over each direction's rows and
+    steps, ``dw_splits`` partial sums added in a fixed order."""
+    B2, T, H = _check_stage(h, dhp=dhp)
+    splits = dw_splits(B2, T, H)
+    dw = torch.empty(2, H, 3 * H, device=h.device, dtype=torch.float32)
+    db = torch.empty(2, 3 * H, device=h.device, dtype=torch.float32)
+    dw_part = torch.empty(splits, *dw.shape, device=h.device) if splits > 1 else None
+    db_part = torch.empty(splits, *db.shape, device=h.device) if splits > 1 else None
+    err = _build.library().ser_gru_bwd_dw_f32(
+        h.data_ptr(), dhp.data_ptr(), _build.ptr(dw_part), _build.ptr(db_part), dw.data_ptr(), db.data_ptr(),
+        B2, T, H, splits, _build.stream_ptr(h))
+    _build.check(err, "gru_bidir_bwd dW")
+    return dw, db
 
 
 class GruBidirCarries(torch.autograd.Function):
@@ -349,11 +455,12 @@ def gru_sequence(
     for name, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("mask", mask)):
         if t.dtype != torch.float32 or t.device != x_proj.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x_proj.device}")
-    threads = _threads(H)
+    plan = gru_sequence_plan(B, H)
     out = torch.empty(B, T, H, device=x_proj.device, dtype=torch.float32)
     err = _build.library().ser_gru_sequence_f32(
         x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, T, H, int(bool(reverse)), threads, _build.stream_ptr(x_proj),
+        B, T, H, int(bool(reverse)), plan.cluster if plan.route == "cluster" else 0, plan.threads,
+        _build.stream_ptr(x_proj),
     )
     _build.check(err, "gru_sequence")
     SEQ_LAUNCHES += 1

@@ -454,6 +454,68 @@ def test_bigru_gets_gradients_on_the_card(cuda):
         torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-5, rtol=1e-4, msg=name)
 
 
+def _edge_mask(gen, B2, T):
+    """Holes anywhere (not prefixes), a row masked from step 0 to the middle,
+    a step masked in every row."""
+    mask = (torch.rand(B2, T, generator=gen, device="cuda") > 0.3).float()
+    mask[1, : T // 2] = 0
+    mask[:, T // 3] = 0
+    return mask.contiguous()
+
+
+@pytest.mark.parametrize("B,T,H", [(37, 50, 512), (3, 40, 64), (5, 30, 100), (4, 17, 40), (3, 20, 640), (2, 1, 96),
+                                   (2, 12, 3000)])
+def test_gru_bwd_kernel_routes(cuda, B, T, H):
+    """K3b on both routes of its planner (H <= 512 a cluster, above one block
+    a row, up to K3's 4096), 2B = 74 (a partial row group), H not a multiple
+    of 32, T = 1 and the edge masks, against the plain backward; reruns give
+    the same bits."""
+    x = 0.5 * torch.randn(2 * B, T, 3 * H, generator=cuda, device="cuda")
+    w = (torch.rand(2, H, 3 * H, generator=cuda, device="cuda") * 2 - 1) * H ** -0.5
+    b = (torch.rand(2, 3 * H, generator=cuda, device="cuda") * 2 - 1) * H ** -0.5
+    mask = _edge_mask(cuda, 2 * B, T)
+    h = k_gru.gru_bidir_carries(x, w, b, mask)
+    g = torch.randn(h.shape, generator=cuda, device="cuda")
+    assert k_gru.gru_bidir_bwd_plan(2 * B, H).route == ("row" if H > 512 else "cluster")
+    before = k_gru.BWD_LAUNCHES
+    out = k_gru.gru_bidir_carries_bwd(x, w, b, mask, h, g)
+    torch.cuda.synchronize()
+    assert k_gru.BWD_LAUNCHES == before + 1
+    ref = k_gru.gru_bidir_carries_bwd_plain(x, w, b, mask, h, g)
+    for name, got, want in zip(("dx_proj", "dW_hh2", "db_hh2"), out, ref):
+        scale = max(1.0, float(want.abs().max())) if name == "dx_proj" else float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale, name
+    assert float(out[0][mask == 0].abs().max()) == 0.0  # a masked step has no input gradient
+    assert all(torch.equal(a, c) for a, c in zip(out, k_gru.gru_bidir_carries_bwd(x, w, b, mask, h, g)))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,T,H", [(37, 50, 512), (5, 30, 100), (3, 20, 640)])
+def test_gru_sequence_kernel_routes(cuda, B, T, H, reverse):
+    """K9 on both routes of its planner, with the edge masks and with no mask
+    (all ones), against the plain version."""
+    x = 0.5 * torch.randn(B, T, 3 * H, generator=cuda, device="cuda")
+    w = (torch.rand(H, 3 * H, generator=cuda, device="cuda") * 2 - 1) * H ** -0.5
+    b = (torch.rand(3 * H, generator=cuda, device="cuda") * 2 - 1) * H ** -0.5
+    assert k_gru.gru_sequence_plan(B, H).route == ("row" if H > 512 else "cluster")
+    for mask in (_edge_mask(cuda, B, T), None):
+        before = k_gru.SEQ_LAUNCHES
+        out = k_gru.gru_sequence(x, w, b, mask, reverse)
+        torch.cuda.synchronize()
+        assert k_gru.SEQ_LAUNCHES == before + 1
+        torch.testing.assert_close(out, k_gru.gru_sequence_plain(x, w, b, mask, reverse), atol=1e-5, rtol=0)
+        if mask is not None:
+            assert float(out[mask == 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kernel", ["gru_sequence", "gru_bidir_bwd"])
+def test_gru_new_cluster_routes_occupancy(cuda, kernel):
+    """The card holds at least one cluster of 16 CTAs of K9's and K3b's cluster routes."""
+    assert k_gru.max_active_clusters(512, kernel) >= 1
+    with pytest.raises(ValueError):
+        k_gru.max_active_clusters(640, kernel)
+
+
 def test_gru_launcher_refuses_grad(cuda):
     x, w, b, mask = _gru_bwd_inputs(cuda)
     with pytest.raises(RuntimeError, match="GruBidirCarries"):
@@ -473,6 +535,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         k_gru.gru_bidir_carries(torch.randn(3, 4, 6, device="cuda"), torch.randn(2, 2, 6, device="cuda"),
                                 torch.randn(2, 6, device="cuda"), torch.ones(3, 4, device="cuda"))
+    h = torch.randn(4, 5, 8, device="cuda")
+    with pytest.raises(ValueError):  # K3b's stages: dhp is [2B, T, 3H]
+        k_gru.bwd_weight_grads(h, torch.randn(4, 5, 23, device="cuda"))
+    with pytest.raises(ValueError):
+        k_gru.gate_preacts(h, torch.randn(2, 8, 24, device="cuda"), torch.randn(2, 24, device="cuda").double())
     # K6 in bf16 copies rows by 16-byte cp.async: a head view 2 bytes off, or a time
     # stride of 68 elements, is refused (K7 and f32 K6 take both)
     heads = torch.randn(1, 8 * 64 + 1, device="cuda").to(torch.bfloat16)[:, 1:].view(1, 1, 8, 64)

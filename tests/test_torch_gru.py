@@ -101,6 +101,79 @@ def test_launch_planner_for_every_hidden_size():
         mod.gru_bidir_plan(128, 4097)
 
 
+@pytest.mark.parametrize("kernel", ["gru_sequence", "gru_bidir_bwd"])
+def test_k9_and_k3b_planners_for_every_hidden_size(kernel):
+    """K9's and K3b's routes for each H up to 4096, at a batch of 64 rows a
+    direction: the cluster route (C = ceil(H/32) CTAs of 256 threads, R = 16
+    rows) for H <= 512, one block a row above; every plan fits 227 KB; H >
+    4096 is refused. K9 is K3's kernel for one direction (K3's shared
+    memory, a grid of depth 1); K3b keeps 72 of a CTA's 96 w_hh columns in
+    shared memory beside two dhp tiles [16][96] and two receive buffers
+    [C][16][32]."""
+    plan_of = getattr(mod, f"{kernel}_plan")
+    rows = 64 if kernel == "gru_sequence" else 128
+    for h in range(1, 4097):
+        plan = plan_of(rows, h)
+        assert plan.smem_bytes <= mod.SMEM_LIMIT, (h, plan)
+        if h <= 512:
+            c = -(-h // 32)
+            assert (plan.route, plan.cluster, plan.rows, plan.threads) == ("cluster", c, 16, 256), (h, plan)
+            if kernel == "gru_sequence":
+                assert plan.smem_bytes == mod.gru_bidir_plan(128, h).smem_bytes
+                assert plan.grid == (c, 4, 1)
+            else:
+                assert plan.smem_bytes == 4 * (72 * 32 * c + 2 * 16 * 96 + 2 * c * 16 * 32) + 16
+                assert plan.grid == (c, 4, 2)
+        else:
+            assert (plan.route, plan.rows) == ("row", 1), (h, plan)
+            assert plan.grid == (rows, 1, 1)
+            assert plan.threads % 32 == 0 and h <= 4 * plan.threads <= 4 * 1024
+            assert plan.smem_bytes == (4 * h if kernel == "gru_sequence" else 24 * h)
+    assert plan_of(rows, 512).smem_bytes == (217104 if kernel == "gru_sequence" else 225296)
+    assert plan_of(74 if kernel == "gru_bidir_bwd" else 37, 512).grid[1] == 3  # 37 rows: 3 groups of 16
+    with pytest.raises(NotImplementedError):
+        plan_of(rows, 4097)
+
+
+@pytest.mark.parametrize("b2,t,h,want", [(128, 512, 512, 11), (128, 512, 4096, 1), (74, 20, 512, 1),
+                                         (74, 32, 512, 2), (2, 1, 8, 1), (512, 512, 64, 16)])
+def test_dw_splits(b2, t, h, want):
+    """K3b's dW product splits the row-steps into S chunks (at least 512
+    row-steps each, at most 16) so that its blocks fill whole waves of two
+    blocks on each of the card's 132 SMs: at H = 512, 96 tiles x 11 = 1056 =
+    4 waves of 264; none from 4 waves of tiles on."""
+    assert mod.dw_splits(b2, t, h) == want
+
+
+def _edge_mask(rng, rows, t):
+    """Holes anywhere, row 1 masked from step 0 to the middle, one step masked in every row."""
+    mask = (rng.random((rows, t)) > 0.3).astype(np.float32)
+    mask[1, : max(1, t // 2)] = 0.0
+    mask[:, t // 3] = 0.0
+    return mask
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,t,h", [(37, 9, 8), (3, 7, 100), (3, 7, 40), (2, 5, 640), (3, 1, 8)])
+def test_gru_sequence_plain_matches_pallas_interpret_at_edges(b, t, h, reverse):
+    """K9's plain version against the JAX ``gru_sequence`` (interpret mode)
+    at its routes' edges: 37 rows (a partial group of 16), H not a multiple
+    of 32, H = 640 (the row route), T = 1, and masks with holes, a row masked
+    from step 0 and a step masked in every row."""
+    rng = np.random.default_rng(b * 1000 + t * 10 + h)
+    x_proj = rng.standard_normal((b, t, 3 * h)).astype(np.float32)
+    w_hh = (rng.uniform(-1, 1, (h, 3 * h)) * h ** -0.5).astype(np.float32)
+    b_hh = (rng.uniform(-1, 1, 3 * h) * h ** -0.5).astype(np.float32)
+    mask = _edge_mask(rng, b, t)
+    from interspeech_ser_tpu.ops.pallas.gru_kernel import gru_sequence as jax_gru_sequence
+
+    ref = np.asarray(jax_gru_sequence(*(jnp.asarray(a) for a in (x_proj, w_hh, b_hh, mask)), reverse,
+                                      interpret=True))
+    out = mod.gru_sequence(*(torch.from_numpy(a) for a in (x_proj, w_hh, b_hh, mask)), reverse)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+    assert float(np.abs(out.numpy()[mask == 0]).max()) == 0.0
+
+
 def _jax_bigru_params(seed):
     x = jnp.zeros((B, T, I), jnp.float32)
     return JaxBiGRU(H).init(jax.random.PRNGKey(seed), x, jnp.ones((B, T)))["params"]

@@ -57,6 +57,32 @@ def test_plain_backward_matches_jax(reference):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("b,t,h", [(37, 9, 8), (3, 7, 100), (3, 7, 40), (2, 5, 640), (3, 1, 8)])
+def test_plain_backward_matches_pallas_interpret_at_edges(b, t, h):
+    """The plain backward (K3b's reference on the card) against the JAX Pallas
+    backward in interpret mode at the cluster route's edges: 2B = 74 (a
+    partial group of 16 rows), H not a multiple of 32, H = 640 (the row
+    route), T = 1, and masks with holes, a row masked from step 0 and a step
+    masked in every row. Bar: atol 1e-5 x max(1, max|ref|)."""
+    rng = np.random.default_rng(b * 1000 + t * 10 + h)
+    x_proj = rng.standard_normal((2 * b, t, 3 * h)).astype(np.float32)
+    w_hh2 = (rng.uniform(-1, 1, (2, h, 3 * h)) * h ** -0.5).astype(np.float32)
+    b_hh2 = (rng.uniform(-1, 1, (2, 3 * h)) * h ** -0.5).astype(np.float32)
+    mask = (rng.random((2 * b, t)) > 0.3).astype(np.float32)
+    mask[1, : max(1, t // 2)] = 0.0
+    mask[:, t // 3] = 0.0
+    h_all = np.array(jk.gru_bidir_carries(*(jnp.asarray(a) for a in (x_proj, w_hh2, b_hh2, mask)), True))
+    g = rng.standard_normal((2 * b, t, h)).astype(np.float32)
+    args = (x_proj, w_hh2, b_hh2, mask, h_all, g)
+    ref = jk._bidir_bwd_kernel_impl(*(jnp.asarray(a) for a in args), True)
+    out = kg.gru_bidir_carries_bwd(*(torch.from_numpy(a) for a in args))
+    for name, got, want in zip(("dx_proj", "dW_hh2", "db_hh2"), out, ref):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * max(1.0, float(np.abs(want).max())), rtol=0,
+                                   err_msg=name)
+    assert float(np.abs(out[0].numpy()[mask == 0]).max()) == 0.0  # a masked step has no input gradient
+
+
 def _port_bigru(params) -> BiGRU:
     m = BiGRU(I, H)
     sd = {}
