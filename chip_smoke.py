@@ -40,8 +40,13 @@ entry points at full width:
    bias, no mask), the WavLM-large one (gated bias + ragged mask) and
    HuBERT-XL's and XLS-R-2B's head dims (80, 120: B=16, T=499, ragged mask,
    with and without the gated bias), f32 and bf16, rerun bit-identical
-   (autograd through SDPA); then bf16 K1 + K4 (the tensor-core kernels) at
-   every head dim and T = 499 and 1500 with a fully masked row;
+   (autograd through SDPA); then K1 + K4 in f32 (the FP32-pipe micro-tile
+   kernels) and bf16 (the tensor-core kernels) at every head dim and T = 499
+   and 1500 with a fully masked row; K1 also at Whisper-large-v3's layer
+   (B=8, T=1500, D=1280, H=20, no mask) in f32 and bf16 beside SDPA, rerun
+   bit-identical; and the f32 K1 / K4 kernels' tiles, shared memory and
+   resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+   against ``attention_f32_plan``;
 4. extraction: a seeded random-init WavLM-large (24 layers, D=1024) written
    as an HF directory, 8 seeded wavs of 3-12 s, ``preprocess_cli.speech_main``
    in bf16 and in f32 (each run twice, cold then warm); shapes,
@@ -67,7 +72,9 @@ entry points at full width:
    over WavLM-large and ``speech_pretrained_main``: finite losses, K4
    launches = layers x steps, frame counts. Then one LoRA step's gradients
    through K1 + K4 against the plain path (full width, 2 layers, Whisper and
-   WavLM), and the median bf16 Whisper LoRA step with a profile;
+   WavLM), and the median Whisper LoRA step in bf16 and in f32 (the engine's
+   default, what ``lora_cli`` runs), each with a profile of 2 steps (K1's and
+   K4's shares of device time);
 8. text: a seeded random-init RoBERTa-large (24 layers, D=1024, H=16, FFN
    4096, vocab 50265) as an HF directory with synthetic ``vocab.json`` and
    ``merges.txt``, and 256 seeded transcripts of 0-120 words;
@@ -186,9 +193,12 @@ KERNELS = {
         replaces="interspeech_ser_tpu/ops/pallas/gru_kernel.py:82",
     ),
 }
-# the profiler's names of K1's and K4's CUDA kernels (the f32 and the bf16 ones)
-K1_EVENTS = ("attention_btd_kernel", "attention_btd_mma_kernel")
-K4_EVENTS = ("delta_kernel", "dkdv_kernel", "dkdv_mma_kernel", "dq_kernel", "dq_mma_kernel", "dbias_reduce")
+# the profiler's names of K1's and K4's CUDA kernels (the f32 and the bf16 ones;
+# attention_btd_kernel, dkdv_kernel and dq_kernel name the earlier f32 kernels,
+# so that scripts/time_f32_attention_pair.py reads an older checkout's profile too)
+K1_EVENTS = ("attention_btd_f32_kernel", "attention_btd_mma_kernel", "attention_btd_kernel")
+K4_EVENTS = ("delta_kernel", "dkdv_f32_kernel", "dkdv_mma_kernel", "dkdv_kernel", "dq_f32_kernel", "dq_mma_kernel",
+             "dq_kernel", "dbias_reduce")
 K7_EVENTS = ("attention_bhtd_kernel", "attention_bhtd_mma_kernel")  # K7's f32 and bf16 kernels
 K3_EVENTS = ("gru_bidir_kernel", "gru_bidir_cluster_kernel")  # K3's two routes
 # K3b's kernels: the row route, the cluster route's recurrence, the gate / dW products and the dW sum
@@ -289,17 +299,20 @@ def _attention_inputs(g, B, T, D, H, lengths, bias: bool, dt):
 
 def _sdpa_yardstick(q, k, v, H, key_mask, gate, pos_bias, ref):
     """``scaled_dot_product_attention`` with the additive float mask
-    gate * bias + key mask (the key mask alone without a bias), which
-    computes K1's function: its median ms
+    gate * bias + key mask (the key mask alone without a bias, no mask
+    without either), which computes K1's function: its median ms
     (mask built outside the timing) and its max-abs gap to the plain version."""
     import torch.nn.functional as F
 
     B, T, D = q.shape
     heads = [t.view(B, T, H, D // H).transpose(1, 2) for t in (q, k, v)]
-    attn_mask = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))[:, None, None, :]
+    attn_mask = None
+    if key_mask is not None:
+        attn_mask = torch.zeros_like(key_mask).masked_fill(key_mask == 0, float("-inf"))[:, None, None, :]
     if pos_bias is not None:
-        attn_mask = gate[..., None] * pos_bias[None] + attn_mask
-    attn_mask = attn_mask.to(q.dtype)
+        attn_mask = gate[..., None] * pos_bias[None] + (0 if attn_mask is None else attn_mask)
+    if attn_mask is not None:
+        attn_mask = attn_mask.to(q.dtype)
     out = F.scaled_dot_product_attention(*heads, attn_mask=attn_mask).transpose(1, 2).reshape(B, T, D)
     return median_ms(lambda: F.scaled_dot_product_attention(*heads, attn_mask=attn_mask)), max_abs(out, ref)
 
@@ -312,6 +325,7 @@ def check_attention(g, results) -> None:
     for dt in (torch.float32, torch.bfloat16):
         args, kw = _attention_inputs(g, 8, 499, 1024, 16, lengths, True, dt)
         out = k_attn.attention_btd(*args, **kw)
+        require(torch.equal(out, k_attn.attention_btd(*args, **kw)), f"K1 WavLM {dt} gave different bits on a rerun")
         ref = k_attn.attention_btd_plain(*args, **kw)
         err, cos = max_abs(out, ref), cosine(out, ref)
         ms = median_ms(lambda: k_attn.attention_btd(*args, **kw))
@@ -370,7 +384,8 @@ def check_attention(g, results) -> None:
                 f"cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA with float mask "
                 f"{library_ms:.3f} ms (vs plain max_abs {lib_err:.3e}); bound {bound_ms:.4f} ms ({bound_by})")
             if dt == torch.float32:
-                require(err <= 1e-4 * float(ref.abs().max()), f"K1 {name} max_abs {err} > 1e-4 x max|ref|")
+                require(err <= 1e-4 * min(1.0, float(ref.abs().max())), f"K1 {name} max_abs {err} > 1e-4")
+                require(torch.equal(out, k_attn.attention_btd(*args, **kw)), f"K1 {name} gave different bits on a rerun")
             else:
                 require(cos >= 0.999, f"K1 {name} cosine {cos} < 0.999")
             main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -378,6 +393,61 @@ def check_attention(g, results) -> None:
             del args, kw, out, ref
             torch.cuda.empty_cache()
     results["attention_btd"] = main
+
+
+def check_attention_whisper(g, results) -> None:
+    """K1 at Whisper-large-v3's layer (B=8, T=1500, D=1280, H=20, no bias, no
+    mask; what every Whisper extraction and LoRA forward runs, 32 times a
+    batch), f32 and bf16, against its plain version and beside SDPA; a rerun
+    bit-identical. Bars: f32 max-abs <= 1e-4, bf16 cosine >= 0.999."""
+    main = results.setdefault("attention_btd", {})
+    for dt in (torch.float32, torch.bfloat16):
+        args, kw = _attention_inputs(g, 8, 1500, 1280, 20, None, False, dt)
+        out = k_attn.attention_btd(*args, **kw)
+        same = torch.equal(out, k_attn.attention_btd(*args, **kw))
+        ref = k_attn.attention_btd_plain(*args, **kw)
+        err, cos = max_abs(out, ref), cosine(out, ref)
+        ms = median_ms(lambda: k_attn.attention_btd(*args, **kw))
+        plain_ms = median_ms(lambda: k_attn.attention_btd_plain(*args, **kw))
+        library_ms, lib_err = _sdpa_yardstick(*args, **kw, ref=ref)
+        q, _, _, H = args
+        B, T, D = q.shape
+        nbytes = q.element_size() * 4 * q.numel()
+        flops = 4 * T * D * B * T + 8 * H * T * B * T
+        bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+        name = "whisper_" + ("f32" if dt == torch.float32 else "bf16")
+        log(f"[parity] K1 attention_btd B8 T1500 D1280 H20 (Whisper-large-v3) {name}: max_abs {err:.3e} "
+            f"cos {cos:.7f}; bit-identical rerun {same}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+            f"{library_ms:.3f} ms (vs plain max_abs {lib_err:.3e}); bound {bound_ms:.4f} ms ({bound_by})")
+        if dt == torch.float32:
+            require(err <= 1e-4, f"K1 {name} max_abs {err} > 1e-4")
+        else:
+            require(cos >= 0.999, f"K1 {name} cosine {cos} < 0.999")
+        require(same, f"K1 {name} gave different bits on a rerun")
+        main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        del args, kw, out, ref
+        torch.cuda.empty_cache()
+
+
+def check_f32_plans() -> dict:
+    """The f32 K1 and K4 kernels' tiles, shared memory and resident blocks an
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) against
+    ``attention_f32_plan``: the same tile and bytes, one block of 256 threads
+    an SM."""
+    plans = {}
+    for kind in k_attn.F32_KINDS:
+        for hd in k_attn.K1_HEAD_DIMS:
+            for bias in (False, True):
+                tile, nbytes, blocks = k_attn.attention_f32_occupancy(hd, bias, kind)
+                plan = k_attn.attention_f32_plan(hd, bias, kind)
+                require((tile, nbytes, blocks) == (plan.tile, plan.smem_bytes, plan.blocks_per_sm),
+                        f"f32 {kind} hd {hd} bias {bias}: built {(tile, nbytes, blocks)} != planned "
+                        f"{(plan.tile, plan.smem_bytes, plan.blocks_per_sm)}")
+                plans[f"{kind}_hd{hd}{'_bias' if bias else ''}"] = dict(tile=tile, smem_bytes=nbytes, blocks_per_sm=blocks)
+    log("[parity] f32 K1 / K4 plans (tile, shared bytes, blocks an SM): " + "; ".join(
+        f"{n} {p['tile']} {p['smem_bytes']} {p['blocks_per_sm']}" for n, p in plans.items()))
+    return plans
 
 
 def _bhtd_case(g, B, H, T, lengths, bias: bool, dt, offset: bool = False):
@@ -1591,7 +1661,7 @@ def time_scoring_forward(engine, batch) -> dict:
 
 # the fine-tune corpus: seeded wavs, the Train / Development split of a label
 # CSV; ft_lora's defaults (rank 8, alpha 16, q/v, batch 8) for one epoch
-LORA_SHAPE = dict(n_train=16, n_dev=8, seconds=(3.0, 12.0), bf16_steps=5)
+LORA_SHAPE = dict(n_train=16, n_dev=8, seconds=(3.0, 12.0), steps=5)
 
 
 def write_whisper(model_dir: str, layers=None) -> None:
@@ -1825,13 +1895,16 @@ def lora_batch(engine, wav_dir: str, n: int = 8):
     return wav, mask, np.arange(n) % 8, np.ones(n, np.float32)
 
 
-def time_bf16_steps(whisper: dict) -> dict:
-    """``LoRAFTEngine(dtype="bfloat16")`` on Whisper-large-v3, batch 8: the
-    median of timed optimizer steps after a warm-up, and a profile of 2 steps
-    (K4's share of device time, the device's idle share)."""
+def time_lora_steps(whisper: dict, dtype: str) -> dict:
+    """``LoRAFTEngine(dtype=dtype)`` on Whisper-large-v3, batch 8: the median of
+    timed optimizer steps after a warm-up, and a profile of 2 steps (K1's and
+    K4's shares of device time, the device's idle share). ``float32`` is the
+    engine's default and what ``lora_cli`` runs. Keys are prefixed ``bf16_`` /
+    ``f32_``."""
     from interspeech_ser_tpu_torch.train.lora_engine import LoRAFTEngine
 
-    engine = LoRAFTEngine(whisper["dir"], dtype="bfloat16", device=DEVICE)
+    tag = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    engine = LoRAFTEngine(whisper["dir"], dtype=dtype, device=DEVICE)
     opt = torch.optim.AdamW(engine.trainable(), lr=5e-4, weight_decay=1e-2)
     batch = lora_batch(engine, whisper["wav_dir"])
 
@@ -1845,13 +1918,13 @@ def time_bf16_steps(whisper: dict) -> dict:
     step()
     sync()
     times, losses = [], []
-    for _ in range(LORA_SHAPE["bf16_steps"]):
+    for _ in range(LORA_SHAPE["steps"]):
         t0 = time.perf_counter()
         losses.append(step().item())
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
-    require(all(np.isfinite(losses)), f"bf16 step losses {losses}")
-    out = {"bf16_step_ms": statistics.median(times), "bf16_step_ms_runs": times, "bf16_losses": losses}
+    require(all(np.isfinite(losses)), f"{tag} step losses {losses}")
+    out = {f"{tag}_step_ms": statistics.median(times), f"{tag}_step_ms_runs": times, f"{tag}_losses": losses}
     if DEVICE == "cuda":
         from torch.profiler import ProfilerActivity, profile
 
@@ -1867,16 +1940,18 @@ def time_bf16_steps(whisper: dict) -> dict:
                     if any(n in e.key for n in K4_EVENTS)) / 1e3
         k1_ms = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K1_EVENTS)) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-        out["profile"] = {"wall_ms_2_steps": wall_ms, "device_busy_ms": busy_ms, "k4_ms": k4_ms, "k1_ms": k1_ms,
-                          "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
-        log(f"[lora] bf16 profile of 2 steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        out[f"{tag}_profile"] = {"wall_ms_2_steps": wall_ms, "device_busy_ms": busy_ms, "k4_ms": k4_ms, "k1_ms": k1_ms,
+                                 "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+        log(f"[lora] {tag} profile of 2 steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
             f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), K4 {k4_ms:.1f} ms = {100 * k4_ms / busy_ms:.1f}% and "
             f"K1 {k1_ms:.1f} ms = {100 * k1_ms / busy_ms:.1f}% of device time")
-        for name, ms, n in out["profile"]["top"]:
+        for name, ms, n in out[f"{tag}_profile"]["top"]:
             log(f"[lora]   {ms:9.3f} ms  x{n:<4d} {name}")
-    log(f"[lora] Whisper-large-v3 LoRA step bf16 batch 8: median {out['bf16_step_ms']:.3f} ms of runs "
+    log(f"[lora] Whisper-large-v3 LoRA step {tag} batch 8: median {out[f'{tag}_step_ms']:.3f} ms of runs "
         f"{[round(t, 3) for t in times]}; losses {losses}")
     del engine, opt
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2434,6 +2509,8 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     parity: dict = {}
     check_attention(g, parity)
+    check_attention_whisper(g, parity)
+    parity["attention_btd"]["f32_plans"] = check_f32_plans()
     check_attention_bhtd(g, parity)
     check_conv_frontend(g, parity)
     check_ffn_fused(g, parity)
@@ -2474,7 +2551,7 @@ def main() -> None:
             require(lora_path[name] > 0, f"kernel {name} was not launched on the LoRA path")
         log(f"[lora path] launches {lora_path}; Whisper extraction utt/s {whisper['utt_per_sec']}")
         lora_grads = check_lora_grads(tmp, whisper, os.path.join(tmp, "wavlm-large"))
-        bf16 = time_bf16_steps(whisper)
+        steps = {**time_lora_steps(whisper, "bfloat16"), **time_lora_steps(whisper, "float32")}
 
         zero_counts()
         text_run = phase_text(tmp, smi)
@@ -2509,11 +2586,12 @@ def main() -> None:
         })
     log(f"[chip_smoke] {time.perf_counter() - T0:.1f} s")
     log(f"[train] median train-step ms {step['train_step_ms']:.3f} (batch 64, H=512, {smi})")
-    log(f"[lora] Whisper-large-v3 LoRA step bf16 median {bf16['bf16_step_ms']:.3f} ms (batch 8, {smi})")
+    log(f"[lora] Whisper-large-v3 LoRA step median: bf16 {steps['bf16_step_ms']:.3f} ms, f32 "
+        f"{steps['f32_step_ms']:.3f} ms (batch 8, {smi})")
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
-                             **bf16},
+                             **steps},
                     "text": text_run, "zoo": zoo, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

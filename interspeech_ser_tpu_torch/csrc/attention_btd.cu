@@ -15,8 +15,9 @@
 // over 16 heads), a template parameter. The TPU kernel held a whole
 // [Tk, D] K/V panel in VMEM (about 4 MB at Tk=499, D=1024 in f32), far over
 // the 227 KB of shared memory a block may use; both kernels here stream K/V
-// tiles of 64 keys with an online softmax (running max and denominator in
-// f32), so they have no length limit. One block owns (b, h, 64 queries).
+// tiles of 64 keys (32 in f32 at hd 120 with a bias) with an online softmax
+// (running max and denominator in f32), so they have no length limit. One
+// block owns (b, h, 64 queries) in bf16, (b, h, 128 queries) in f32.
 //
 // bf16, on the tensor cores (attention_btd_mma_kernel): 4 warps, each
 // owning 16 query rows. K and V tiles are staged by cp.async into padded
@@ -37,14 +38,23 @@
 // products and by the 2-byte bias loads (a bias row of Tk bf16 values
 // starts on any 2-byte boundary, so cp.async cannot stage it).
 //
-// f32 (attention_btd_kernel), the parity mode with TF32 off, stays on the
-// FP32 pipes: at hd=64 each of 64 threads owns one query row, q and the
-// accumulator in registers (128 floats); at hd=80 and 120 P=2 neighbouring
-// threads share a row (hd/2 columns each; the two partial dot products meet
-// in one xor-shuffle), reading K/V tiles from shared memory as float4
-// broadcasts. It is bound by FP32 issue and shared-memory bandwidth; the
-// shared [H, Tq, Tk] bias (16 MB in f32 at T=499) stays in the 50 MB L2
-// across the batch.
+// f32 (attention_btd_f32_kernel), with TF32 off as in the reference's f32
+// mode, stays on the FP32 pipes as IEEE fmaf: the default `--dtype` of every
+// extraction CLI and of every `lora_cli` fine-tune. Block (b, h, 128
+// queries), 256 threads, each owning an 8-query x (BK / 16)-key micro-tile
+// of S and an 8-query x hd/16-column micro-tile of the output, from operands
+// in shared memory (attention_f32.cuh: padded rows, float4 reads, 10.7 FMAs
+// a load at BK = 64). q * scale stays in shared memory for the block's life;
+// K, V, the bias tile and the key flags are staged by cp.async and
+// double-buffered, one block barrier a tile. The online softmax stays in
+// registers: a row's 16 threads are one half-warp, its max and sum go over
+// them by xor-shuffles (a fixed order: the same bits on a rerun); P goes to
+// shared memory ([128][BK + 4], over the bias tile it came from) and only
+// the row's own half-warp reads it back. What bounds it: the products are ~5
+// GFLOP at WavLM shapes (0.08 ms at the FP32 peak of 67 TFLOP/s), so the
+// FFMA rate, the shared-memory loads that feed it and the expf of the softmax;
+// q/k/v/out move 65 MB (0.02 ms). The shared [H, Tq, Tk] bias (16 MB in f32
+// at T=499) stays in the 50 MB L2 across the batch.
 //
 // Masked keys (key_mask == 0, or index >= Tk) get no weight at all: a tile
 // whose keys are all masked leaves the running max, denominator and
@@ -66,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_f32.cuh"
 #include "attention_mma.cuh"
 
 namespace {
@@ -79,16 +90,9 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
 template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 // Every query row of a block whose batch row has no live key:
 // out = sum_j V[j] / Tk_p, in f32, one column a thread; `colsum` holds HD floats.
@@ -105,141 +109,146 @@ __device__ __forceinline__ void dead_rows_colsum(float* colsum, const T* __restr
   __syncthreads();
 }
 
-// HD: head dim; P: threads per query row (each owns HD / P columns)
-template <typename T, int HD, int P>
-__global__ void __launch_bounds__(BQ * P) attention_btd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ key_mask,  // [B, Tk] or null
-    const float* __restrict__ gate,      // [B, H, Tq] or null (with bias)
-    const T* __restrict__ bias,          // [H, Tq, Tk] or null
-    T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H, float scale) {
-  constexpr int HP = HD / P;  // head-dim columns a thread owns
-  constexpr int THREADS = BQ * P;
-  static_assert(HP % 4 == 0, "a thread's columns are read as float4");
-  __shared__ __align__(16) float kv[BK][HD];  // K tile, then V tile
-  __shared__ float sc[BQ][BK + 1];            // bias tile, then scores
-  __shared__ float valid[BK];
+// ---------------------------------------------------------------------------
+// f32 on the FP32 pipes (attention_f32.cuh): block (b, h, 128 queries), 256
+// threads; thread t owns queries g + 16i, g = t >> 4, i < 8, and, of each
+// key tile of BK (64, or 32 at hd 120 with a bias), keys l + 16j, l = t & 15.
+// The tile's K, V, bias and key flags are staged by cp.async (16 bytes a
+// chunk for the K and V panels; 4 bytes for the bias and flags, whose rows
+// start on any 4-byte boundary) into stage j & 1 while tile j - 1 is
+// computed; one block barrier a tile.
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(attn_f32::THREADS, 1)
+    attention_btd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                             const float* __restrict__ key_mask,  // [B, Tk] or null
+                             const float* __restrict__ gate,      // [B, H, Tq] (with bias)
+                             const float* __restrict__ bias,      // [H, Tq, Tk] (with bias)
+                             float* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H, float scale) {
+  using namespace attn_f32;
+  typedef Cols<HD> Cl;
+  typedef Plan<FWD, HD, BIAS> Pl;
+  constexpr int BK = Pl::T, RJ = BK / 16, STR = HD + 4, PSTR = BK + 4;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                             // [ROWS][STR] q * scale
+  float* ks = qs + ROWS * STR;                    // [2][BK][STR]
+  float* vs = ks + 2 * BK * STR;                  // [2][BK][STR]
+  float* ps = vs + 2 * BK * STR;                  // [BIAS ? 2 : 1][ROWS][PSTR]: the bias tile, then P
+  float* fl = ps + (BIAS ? 2 : 1) * ROWS * PSTR;  // [2][BK] key flags (> 0: live)
 
-  const int tid = threadIdx.x;
-  const int row = tid / P;        // query row within the block
-  const int c0 = (tid % P) * HP;  // first head-dim column this thread owns
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, l = tid & 15, g = tid >> 4;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int D = H * HD;
-  const int qi = q0 + row;
-  const bool row_ok = qi < Tq;
+  const float* kb = k + (size_t)b * Tk * D;
+  const float* vb = v + (size_t)b * Tk * D;
+  const float* mask_b = key_mask != nullptr ? key_mask + (size_t)b * Tk : nullptr;
 
-  // q * scale in the compute dtype (the scale itself is rounded first)
-  const float sc_c = round_to<T>(scale);
-  float qr[HP];
-  {
-    const T* qrow = q + ((size_t)b * Tq + (row_ok ? qi : 0)) * D + h * HD + c0;
-#pragma unroll
-    for (int d = 0; d < HP; ++d) qr[d] = row_ok ? round_to<T>(to_f(qrow[d]) * sc_c) : 0.f;
+  auto stage = [&](int j, int st) {
+    const int k0 = j * BK;
+    stage_rows<HD, BK>(ks + st * BK * STR, kb, k0, Tk, D, h, tid);
+    stage_rows<HD, BK>(vs + st * BK * STR, vb, k0, Tk, D, h, tid);
+    if constexpr (BIAS) stage_elems<ROWS, BK>(ps + st * ROWS * PSTR, PSTR, bias + (size_t)h * Tq * Tk, q0, k0, Tq, Tk, Tk, tid);
+    if (tid < BK) {
+      const int kj = k0 + tid;
+      if (mask_b != nullptr) cp_async4(fl + st * BK + tid, kj < Tk ? mask_b + kj : mask_b, kj < Tk);
+      else fl[st * BK + tid] = kj < Tk ? 1.f : 0.f;
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+  // q * scale in f32 (the bf16 kernel rounds the same product to bf16)
+  for (int idx = tid; idx < ROWS * (HD / 4); idx += THREADS) {
+    const int r = idx / (HD / 4), c = (idx % (HD / 4)) * 4, qi = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qi < Tq) x = *reinterpret_cast<const float4*>(q + ((size_t)b * Tq + qi) * D + h * HD + c);
+    *reinterpret_cast<float4*>(qs + r * STR + c) = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
   }
-  const float g = (bias != nullptr && row_ok) ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
-
-  float acc[HP];
+  float gr[RI];
 #pragma unroll
-  for (int d = 0; d < HP; ++d) acc[d] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    // cooperative, coalesced tile loads: consecutive threads, consecutive columns
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int r = idx / HD, c = idx % HD;
-      const int kj = k0 + r;
-      kv[r][c] = kj < Tk ? to_f(k[((size_t)b * Tk + kj) * D + h * HD + c]) : 0.f;
-    }
-    if (bias != nullptr) {
-      for (int idx = tid; idx < BQ * BK; idx += THREADS) {
-        const int r = idx / BK, c = idx % BK;
-        const int qq = q0 + r, kj = k0 + c;
-        sc[r][c] = (qq < Tq && kj < Tk) ? to_f(bias[((size_t)h * Tq + qq) * Tk + kj]) : 0.f;
-      }
-    }
-    for (int j = tid; j < BK; j += THREADS) {
-      const int kj = k0 + j;
-      valid[j] = (kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f)) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    float tmax = -INFINITY;
-    for (int j = 0; j < BK; ++j) {
-      const float bj = bias != nullptr ? sc[row][j] : 0.f;  // read before sc[row][j] is overwritten
-      const float4* krow = reinterpret_cast<const float4*>(&kv[j][c0]);
-      float s = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < HP / 4; ++d4) {
-        const float4 kk = krow[d4];
-        s = fmaf(qr[4 * d4 + 0], kk.x, s);
-        s = fmaf(qr[4 * d4 + 1], kk.y, s);
-        s = fmaf(qr[4 * d4 + 2], kk.z, s);
-        s = fmaf(qr[4 * d4 + 3], kk.w, s);
-      }
-      if constexpr (P > 1) {
-#pragma unroll
-        for (int off = 1; off < P; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        __syncwarp();  // the row's other threads have read bj before it is overwritten
-      }
-      if (bias != nullptr) s += g * bj;
-      s = valid[j] > 0.f ? s : -INFINITY;
-      sc[row][j] = s;  // the row's P threads write the same value
-      tmax = fmaxf(tmax, s);
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int r = idx / HD, c = idx % HD;
-      const int kj = k0 + r;
-      kv[r][c] = kj < Tk ? to_f(v[((size_t)b * Tk + kj) * D + h * HD + c]) : 0.f;
-    }
-    __syncthreads();
-
-    const float m_new = fmaxf(m, tmax);
-    if (m_new != -INFINITY) {  // else: every key so far masked, nothing to add
-      const float alpha = expf(m - m_new);  // exp(-inf) = 0 on the first live tile
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < HP; ++d) acc[d] *= alpha;
-      for (int j = 0; j < BK; ++j) {
-        const float s = sc[row][j];
-        const float p = s == -INFINITY ? 0.f : expf(s - m_new);
-        l += p;
-        const float pr = round_to<T>(p);
-        const float4* vrow = reinterpret_cast<const float4*>(&kv[j][c0]);
-#pragma unroll
-        for (int d4 = 0; d4 < HP / 4; ++d4) {
-          const float4 vv = vrow[d4];
-          acc[4 * d4 + 0] = fmaf(pr, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(pr, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(pr, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(pr, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
-    __syncthreads();  // kv and sc are rewritten by the next tile
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + g + 16 * i;
+    gr[i] = (BIAS && qi < Tq) ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
   }
 
-  if (!__syncthreads_or(l > 0.f)) {  // the batch row has no live key
-    dead_rows_colsum<T>(&kv[0][0], v, b, h, Tk, D, HD, tid, THREADS);
-    if (row_ok) {
-      T* orow = out + ((size_t)b * Tq + qi) * D + h * HD + c0;
+  float o[RI][Cl::NC], m[RI], lsum[RI];
 #pragma unroll
-      for (int d = 0; d < HP; ++d) orow[d] = from_f<T>(kv[0][c0 + d]);
-      if (lse != nullptr && c0 == 0) lse[((size_t)b * H + h) * Tq + qi] = -INFINITY;
-    }
-    return;
+  for (int i = 0; i < RI; ++i) {
+    m[i] = -INFINITY;
+    lsum[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < Cl::NC; ++c) o[i][c] = 0.f;
   }
-  if (row_ok) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = out + ((size_t)b * Tq + qi) * D + h * HD + c0;
+
+  const int nt = (Tk + BK - 1) / BK;
+  for (int j = 0; j < nt; ++j) {
+    const int st = j & 1;
+    cp_async_wait<0>();
+    // the one barrier of the tile: stage st has landed, and every thread is
+    // done with tile j - 1, whose stage the next copies overwrite
+    const int any = __syncthreads_or(tid < BK && fl[st * BK + tid] > 0.f);
+    if (j + 1 < nt) stage(j + 1, st ^ 1);
+    if (!any) continue;  // every key of the tile masked: nothing changes
+    const float* ft = fl + st * BK;
+    float* pt = ps + (BIAS ? st : 0) * ROWS * PSTR + g * PSTR;  // row i of this thread at pt + 16 i PSTR
+    float s[RI][RJ];
+    dot_tile<HD, RI, RJ>(s, qs + g * STR, 16 * STR, ks + st * BK * STR + l * STR, 16 * STR);
 #pragma unroll
-    for (int d = 0; d < HP; ++d) orow[d] = from_f<T>(acc[d] * inv);
-    if (lse != nullptr && c0 == 0) lse[((size_t)b * H + h) * Tq + qi] = m + logf(l);
+    for (int i = 0; i < RI; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) {
+        const int c = l + 16 * jj;
+        float x = s[i][jj];
+        if constexpr (BIAS) x = fmaf(gr[i], pt[16 * i * PSTR + c], x);
+        x = ft[c] > 0.f ? x : -INFINITY;
+        s[i][jj] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = half_warp_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      // a row with no live key yet: o and l are 0 and stay 0 (exp(-inf) = 0)
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[i] - m_use);
+      lsum[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < Cl::NC; ++c) o[i][c] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) {
+        const float p = expf(s[i][jj] - m_use);
+        lsum[i] += p;
+        pt[16 * i * PSTR + l + 16 * jj] = p;  // where this thread read its bias: no other thread's
+      }
+      m[i] = m_new;
+    }
+    __syncwarp();  // the rows' P come from this half-warp alone
+    acc_tile<HD, RI, BK, true>(o, pt, 16 * PSTR, vs + st * BK * STR, STR, l);
+  }
+
+  bool live = false;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    lsum[i] = half_warp_sum(lsum[i]);
+    live |= lsum[i] > 0.f;
+  }
+  // the batch row has no live key: every row is sum(V) / Tk_p, into qs[0 .. HD)
+  const bool dead = !__syncthreads_or(live);
+  if (dead) dead_rows_colsum<float>(qs, v, b, h, Tk, D, HD, tid, THREADS);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + g + 16 * i;
+    if (qi >= Tq) continue;
+    float* orow = out + ((size_t)b * Tq + qi) * D + h * HD;
+    if (dead) {
+      float col[Cl::NC];
+#pragma unroll
+      for (int m4 = 0; m4 < Cl::NF4; ++m4)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) col[4 * m4 + e] = Cl::has(m4, l) ? qs[64 * m4 + 4 * l + e] : 0.f;
+      if constexpr (Cl::TAIL) col[4 * Cl::NF4] = qs[64 + l];
+      store_cols<HD>(orow, col, 1.f, l);
+    } else {
+      store_cols<HD>(orow, o[i], 1.f / fmaxf(lsum[i], 1e-30f), l);
+    }
+    if (lse != nullptr && l == 0) lse[((size_t)b * H + h) * Tq + qi] = dead ? -INFINITY : m[i] + logf(lsum[i]);
   }
 }
 
@@ -467,16 +476,33 @@ int launch_mma_hd(const void* q, const void* k, const void* v, const void* key_m
              : launch_mma<HD, false>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
 }
 
-// f32 on the FP32 pipes: HD the head dim, P threads a query row
-template <typename T, int HD, int P>
-int launch_hd(const void* q, const void* k, const void* v, const void* key_mask,
-              const void* gate, const void* bias, void* out, void* lse, int B, int Tq,
-              int Tk, int H, float scale, void* stream) {
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  attention_btd_kernel<T, HD, P><<<grid, BQ * P, 0, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)key_mask,
-      (const float*)gate, (const T*)bias, (T*)out, (float*)lse, Tq, Tk, H, scale);
+// f32 on the FP32 pipes
+template <int HD, bool BIAS>
+int launch_f32_hd(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                  const void* bias, void* out, void* lse, int B, int Tq, int Tk, int H, float scale, void* stream) {
+  using namespace attn_f32;
+  typedef Plan<FWD, HD, BIAS> Pl;
+  constexpr size_t bytes = Pl::BYTES;
+  static bool configured = false;  // the attribute is per kernel and per process
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(attention_btd_f32_kernel<HD, BIAS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((Tq + ROWS - 1) / ROWS, H, B);
+  attention_btd_f32_kernel<HD, BIAS><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
+      (const float*)bias, (float*)out, (float*)lse, Tq, Tk, H, scale);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32_bias(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                    const void* bias, void* out, void* lse, int B, int Tq, int Tk, int H, float scale, void* stream) {
+  return bias != nullptr
+             ? launch_f32_hd<HD, true>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream)
+             : launch_f32_hd<HD, false>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
 }
 
 int launch_f32(const void* q, const void* k, const void* v, const void* key_mask,
@@ -484,14 +510,30 @@ int launch_f32(const void* q, const void* k, const void* v, const void* key_mask
                int Tk, int H, int hd, float scale, void* stream) {
   switch (hd) {
     case 64:
-      return launch_hd<float, 64, 1>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+      return launch_f32_bias<64>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
     case 80:
-      return launch_hd<float, 80, 2>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+      return launch_f32_bias<80>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
     case 120:
-      return launch_hd<float, 120, 2>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
+      return launch_f32_bias<120>(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// tile, shared bytes and resident blocks an SM of the f32 kernel at (HD, BIAS)
+template <int HD, bool BIAS>
+int f32_plan(int* out) {
+  using namespace attn_f32;
+  typedef Plan<FWD, HD, BIAS> Pl;
+  constexpr int t = Pl::T;
+  constexpr size_t bytes = Pl::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(attention_btd_f32_kernel<HD, BIAS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = t;
+  out[1] = (int)bytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], attention_btd_f32_kernel<HD, BIAS>, THREADS,
+                                                            bytes);
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask,
@@ -521,6 +563,20 @@ extern "C" int ser_attention_btd_f32(const void* q, const void* k, const void* v
                                      int Tq, int Tk, int H, int hd, float scale,
                                      void* stream) {
   return launch_f32(q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale, stream);
+}
+
+// out: [tile keys, shared bytes, blocks an SM] of the f32 kernel at head dim hd, with or without the bias
+extern "C" int ser_attention_btd_f32_plan(int hd, int bias, int* out) {
+  switch (hd) {
+    case 64:
+      return bias ? f32_plan<64, true>(out) : f32_plan<64, false>(out);
+    case 80:
+      return bias ? f32_plan<80, true>(out) : f32_plan<80, false>(out);
+    case 120:
+      return bias ? f32_plan<120, true>(out) : f32_plan<120, false>(out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int ser_attention_btd_bf16(const void* q, const void* k, const void* v,

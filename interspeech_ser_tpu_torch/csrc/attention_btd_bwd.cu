@@ -35,12 +35,14 @@
 // recomputes P = exp(S - lse) tile by tile. Four launches:
 //   1. delta: one warp per (b, q, h) row, rowsum(g * out) in f32; in bf16 it
 //      also writes round(q * scale), the scores' left operand, to a scratch.
-//   2. dK, dV (key-major): a block owns (b, h, 64 keys) and streams tiles of
-//      queries; a block whose keys are all masked writes zeros and leaves.
-//   3. dQ, dgate (query-major): a block owns (b, h, 64 queries) and streams
+//   2. dK, dV (key-major): a block owns (b, h, 64 keys; 128 in f32) and
+//      streams tiles of queries; a block whose keys are all masked writes
+//      zeros and leaves.
+//   3. dQ, dgate (query-major): a block owns (b, h, 64 queries; 128 in f32) and streams
 //      tiles of keys, skipping a tile whose keys are all masked. When dbias
 //      is wanted it writes gate * dS for its batch row to a [B, H, Tq, Tk]
-//      f32 scratch (coalesced, through shared memory).
+//      f32 scratch (coalesced: through shared memory in bf16, straight from
+//      registers in runs of 16 keys in f32).
 //   4. dbias: the scratch summed over b in order 0..B-1.
 // Every output is summed by one thread in one fixed order, with no atomics,
 // so a rerun is bit-identical.
@@ -60,17 +62,25 @@
 // chain), not by device memory: q, k, v, g are read a few times, from L2.
 // wgmma, TMA and warp specialisation are later work.
 //
-// f32 (dkdv_kernel, dq_kernel), the parity mode with TF32 off, stays on the
-// FP32 pipes: P neighbouring threads share a row (P=2 at hd 64, P=4 at hd
-// 80 and 120, so that k, v and the two accumulators take 4 x hd/P <= 128
-// floats a thread without spilling), each holding hd/P columns; a dot
-// product takes log2(P) xor-shuffles, and every FMA is fed by a
-// shared-memory broadcast (float4, or float2 at hd 120).
+// f32 (dkdv_f32_kernel, dq_f32_kernel), with TF32 off: what every
+// `lora_cli` fine-tune runs (LoRAFTEngine's default dtype). IEEE fmaf on the
+// FP32 pipes over register-blocked micro-tiles (attention_f32.cuh): 256
+// threads a block, each owning 8 of its 128 rows; S (or S^T) and dP as
+// 8 x T/16 micro-tiles from padded shared rows (float4 reads), P and dS
+// through shared tiles read back only by the half-warp that owns their rows,
+// the output accumulators (dK and dV, or dQ) in registers for the whole pass. The streamed tiles, the bias
+// tile (which replaces a global load a score), lse, delta, gate and the key
+// flags are staged by cp.async and double-buffered, one block barrier a
+// tile. What bounds it: the FFMA rate and the shared-memory loads that feed it.
+// At the Whisper shape the two passes run seven products (S and dP in
+// each), 322 GFLOP, 4.8 ms at the FP32 peak of 67 TFLOP/s; the bound
+// counts five (3.4 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_f32.cuh"
 #include "attention_mma.cuh"
 
 namespace {
@@ -123,255 +133,283 @@ __global__ void __launch_bounds__(256) delta_kernel(const T* __restrict__ g, con
 }
 
 // ---------------------------------------------------------------------------
-// f32 on the FP32 pipes. P neighbouring threads share a row, each holding
-// HP = HD / P columns of it; a shared row keeps each part 4 words apart, so
-// that a row's P threads read their parts as broadcasts in distinct banks.
+// f32 on the FP32 pipes (attention_f32.cuh): blocks of 256 threads owning
+// 128 rows, 8 a thread (rows g + 16i, g = t >> 4, i < 8); lane l = t & 15
+// takes rows l + 16j of the streamed tile. The streamed tiles, the bias tile
+// and the per-row vectors are staged by cp.async into stage i & 1 while tile
+// i - 1 is computed, one block barrier a tile.
 
-template <int HD>
-struct Split {
-  static constexpr int P = HD == 64 ? 2 : 4;  // 4 at hd 80 / 120: 2 would hold 160 / 240 floats a thread
-  static constexpr int HP = HD / P;
-  static constexpr int SP = HD + 4 * P;       // padded shared row
-  static constexpr int VW = HP % 4 == 0 ? 4 : 2;  // shared reads as float4 (hd 64, 80) or float2 (hd 120)
-};
+// 2. dK, dV: block (b, h, ROWS keys); query tiles of QT (Plan<DKDV>). K and V
+//    stay in shared memory, dK and dV in registers (a thread's 8 keys x
+//    hd/16 columns) for the whole pass. Per tile: S^T = K (q*scale)^T and
+//    dP^T = V dO^T as 8-key x QT/16-query micro-tiles, P = exp(S - lse),
+//    dS = P (dP - delta); P (over the bias tile it came from) and dS go to
+//    shared [QT][ROWS + 4] tiles, a thread's keys side by side, that only
+//    the keys' own half-warp reads back: dV += P^T dO, dK += dS^T (q*scale).
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(attn_f32::THREADS, 1)
+    dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ g, const float* __restrict__ key_mask, const float* __restrict__ gate,
+                    const float* __restrict__ bias, const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk, int H, float scale) {
+  using namespace attn_f32;
+  typedef Cols<HD> Cl;
+  typedef Plan<DKDV, HD, BIAS> Pl;
+  constexpr int QT = Pl::T, QJ = QT / 16, STR = HD + 4, PSTR = ROWS + 4;
+  extern __shared__ __align__(16) float smem_f[];
+  float* ksm = smem_f;                             // [ROWS][STR]
+  float* vsm = ksm + ROWS * STR;                   // [ROWS][STR]
+  float* qsm = vsm + ROWS * STR;                   // [2][QT][STR] q * scale
+  float* gsm = qsm + 2 * QT * STR;                 // [2][QT][STR] dO
+  float* psm = gsm + 2 * QT * STR;                 // [BIAS ? 2 : 1][QT][PSTR]: the bias tile, then P
+  float* dsm = psm + (BIAS ? 2 : 1) * QT * PSTR;   // [QT][PSTR] dS
+  float* vec = dsm + QT * PSTR;                    // [2][3][QT] lse, delta, gate
 
-constexpr int ROWS = 64;  // keys (key-major) or queries (query-major) per block
-constexpr int TILE = 32;  // queries (key-major) or keys (query-major) per streamed tile
-
-template <int HD>
-__device__ __forceinline__ int hpad(int c) { return c + (c / Split<HD>::HP) * 4; }
-
-// the full dot product of a row whose parts P neighbouring lanes hold
-template <int HD>
-__device__ __forceinline__ float dot_part(const float* r, const float* __restrict__ s) {
-  typedef Split<HD> Sp;
-  float acc = 0.f;
-  if constexpr (Sp::VW == 4) {
-    const float4* s4 = reinterpret_cast<const float4*>(s);
-#pragma unroll
-    for (int d4 = 0; d4 < Sp::HP / 4; ++d4) {
-      const float4 x = s4[d4];
-      acc = fmaf(r[4 * d4 + 0], x.x, acc);
-      acc = fmaf(r[4 * d4 + 1], x.y, acc);
-      acc = fmaf(r[4 * d4 + 2], x.z, acc);
-      acc = fmaf(r[4 * d4 + 3], x.w, acc);
-    }
-  } else {
-    const float2* s2 = reinterpret_cast<const float2*>(s);
-#pragma unroll
-    for (int d2 = 0; d2 < Sp::HP / 2; ++d2) {
-      const float2 x = s2[d2];
-      acc = fmaf(r[2 * d2 + 0], x.x, acc);
-      acc = fmaf(r[2 * d2 + 1], x.y, acc);
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < Sp::P; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
-}
-
-template <int HD>
-__device__ __forceinline__ void axpy_part(float a, const float* __restrict__ s, float* acc) {
-  typedef Split<HD> Sp;
-  if constexpr (Sp::VW == 4) {
-    const float4* s4 = reinterpret_cast<const float4*>(s);
-#pragma unroll
-    for (int d4 = 0; d4 < Sp::HP / 4; ++d4) {
-      const float4 x = s4[d4];
-      acc[4 * d4 + 0] = fmaf(a, x.x, acc[4 * d4 + 0]);
-      acc[4 * d4 + 1] = fmaf(a, x.y, acc[4 * d4 + 1]);
-      acc[4 * d4 + 2] = fmaf(a, x.z, acc[4 * d4 + 2]);
-      acc[4 * d4 + 3] = fmaf(a, x.w, acc[4 * d4 + 3]);
-    }
-  } else {
-    const float2* s2 = reinterpret_cast<const float2*>(s);
-#pragma unroll
-    for (int d2 = 0; d2 < Sp::HP / 2; ++d2) {
-      const float2 x = s2[d2];
-      acc[2 * d2 + 0] = fmaf(a, x.x, acc[2 * d2 + 0]);
-      acc[2 * d2 + 1] = fmaf(a, x.y, acc[2 * d2 + 1]);
-    }
-  }
-}
-
-// 2. dK, dV: block (b, h, 64 keys); threads P*j .. P*j+P-1 own key j's parts.
-//    The query tile holds q * scale (K1's left operand): S = (q*scale) . k and
-//    dK = dS^T (q*scale), which is scale * dS^T q.
-template <int HD>
-__global__ void __launch_bounds__(ROWS * Split<HD>::P) dkdv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ g, const float* __restrict__ key_mask,
-    const float* __restrict__ gate, const float* __restrict__ bias,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk, int H, float scale) {
-  typedef Split<HD> Sp;
-  constexpr int P = Sp::P, HP = Sp::HP, SP = Sp::SP, THREADS = ROWS * P;
-  __shared__ __align__(16) float qs[TILE][SP];
-  __shared__ __align__(16) float gs[TILE][SP];
-  __shared__ float lse_s[TILE], delta_s[TILE], gate_s[TILE];
-
-  const int tid = threadIdx.x;
-  const int part = tid % P;
-  const int k0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, l = tid & 15, gi = tid >> 4;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int D = H * HD;
-  const int kj = k0 + tid / P;
-  const bool dead = lse[((size_t)b * H + h) * Tq] == -INFINITY;  // the batch row has no live key
+  const size_t hrow = ((size_t)b * H + h) * Tq;
+  const bool dead = lse[hrow] == -INFINITY;  // the batch row has no live key
   const float p_dead = 1.f / (float)attn_mma::oneshot_padded_tk(Tk);
-  const bool key_ok = kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f);
-
-  float kr[HP], vr[HP], dk_acc[HP], dv_acc[HP];
-  {
-    const size_t off = ((size_t)b * Tk + (kj < Tk ? kj : 0)) * D + h * HD + part * HP;
-#pragma unroll
-    for (int d = 0; d < HP; ++d) {
-      kr[d] = kj < Tk ? k[off + d] : 0.f;
-      vr[d] = kj < Tk ? v[off + d] : 0.f;
-      dk_acc[d] = 0.f;
-      dv_acc[d] = 0.f;
+  auto key_ok = [&](int kj) {  // a key with weight (in a dead batch row every key has 1 / Tk_p)
+    return kj < Tk && (dead || key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f);
+  };
+  if (!__syncthreads_or(tid < ROWS && key_ok(k0 + tid))) {  // every key masked: dK = dV = 0
+    for (int idx = tid; idx < ROWS * (HD / 4); idx += THREADS) {
+      const int kj = k0 + idx / (HD / 4);
+      if (kj < Tk) {
+        const size_t off = ((size_t)b * Tk + kj) * D + h * HD + (idx % (HD / 4)) * 4;
+        *reinterpret_cast<float4*>(dk + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
+    return;
+  }
+  bool kok[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) kok[i] = key_ok(k0 + gi + 16 * i);
+
+  const float* qb = q + (size_t)b * Tq * D;
+  const float* gb = g + (size_t)b * Tq * D;
+  auto stage = [&](int i, int st) {
+    const int q0 = i * QT;
+    stage_rows<HD, QT>(qsm + st * QT * STR, qb, q0, Tq, D, h, tid);
+    stage_rows<HD, QT>(gsm + st * QT * STR, gb, q0, Tq, D, h, tid);
+    if constexpr (BIAS)
+      stage_elems<QT, ROWS, RI>(psm + st * QT * PSTR, PSTR, bias + (size_t)h * Tq * Tk, q0, k0, Tq, Tk, Tk, tid);
+    float* vs = vec + st * 3 * QT;
+    stage_elems<1, QT>(vs, QT, lse + hrow, 0, q0, 1, Tq, 0, tid);
+    stage_elems<1, QT>(vs + QT, QT, delta + hrow, 0, q0, 1, Tq, 0, tid);
+    if constexpr (BIAS) stage_elems<1, QT>(vs + 2 * QT, QT, gate + hrow, 0, q0, 1, Tq, 0, tid);
+    cp_async_commit();
+  };
+  stage_rows<HD, ROWS>(ksm, k + (size_t)b * Tk * D, k0, Tk, D, h, tid);
+  stage_rows<HD, ROWS>(vsm, v + (size_t)b * Tk * D, k0, Tk, D, h, tid);
+  stage(0, 0);
+
+  float dk_acc[RI][Cl::NC], dv_acc[RI][Cl::NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < Cl::NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  const int nq = (Tq + QT - 1) / QT;
+  for (int it = 0; it < nq; ++it) {
+    const int st = it & 1;
+    cp_async_wait<0>();
+    scale_rows<HD, QT>(qsm + st * QT * STR, scale, tid);  // the chunks this thread copied
+    __syncthreads();  // stage st ready; tile it - 1 consumed by every thread
+    if (it + 1 < nq) stage(it + 1, st ^ 1);
+    const float* qt = qsm + st * QT * STR;
+    const float* gt = gsm + st * QT * STR;
+    const float* vs = vec + st * 3 * QT;
+    float* pt = psm + (BIAS ? st : 0) * QT * PSTR + gi * RI;  // this thread's keys, side by side
+    float* dt = dsm + gi * RI;
+    float s[RI][QJ], dp[RI][QJ];
+    dot_tile<HD, RI, QJ>(s, ksm + gi * STR, 16 * STR, qt + l * STR, 16 * STR);  // S^T, as K1 forms S
+#pragma unroll
+    for (int jj = 0; jj < QJ; ++jj) {
+      const int c = l + 16 * jj, qi = it * QT + c;
+      const float L = vs[c];
+#pragma unroll
+      for (int e = 0; e < RI / 4; ++e) {
+        float4 bb = make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (BIAS) bb = *reinterpret_cast<const float4*>(pt + c * PSTR + 4 * e);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = 4 * e + u;
+          float x = s[i][jj];
+          if constexpr (BIAS) x = fmaf(vs[2 * QT + c], comp(bb, u), x);
+          s[i][jj] = dead ? (k0 + gi + 16 * i < Tk && qi < Tq ? p_dead : 0.f)
+                          : ((kok[i] && qi < Tq && L != -INFINITY) ? expf(x - L) : 0.f);
+        }
+        *reinterpret_cast<float4*>(pt + c * PSTR + 4 * e) =
+            make_float4(s[4 * e][jj], s[4 * e + 1][jj], s[4 * e + 2][jj], s[4 * e + 3][jj]);
+      }
+    }
+    dot_tile<HD, RI, QJ>(dp, vsm + gi * STR, 16 * STR, gt + l * STR, 16 * STR);  // dP^T
+#pragma unroll
+    for (int jj = 0; jj < QJ; ++jj) {
+      const int c = l + 16 * jj;
+      const float dl = vs[QT + c];
+#pragma unroll
+      for (int e = 0; e < RI / 4; ++e)
+        *reinterpret_cast<float4*>(dt + c * PSTR + 4 * e) = make_float4(
+            s[4 * e][jj] * (dp[4 * e][jj] - dl), s[4 * e + 1][jj] * (dp[4 * e + 1][jj] - dl),
+            s[4 * e + 2][jj] * (dp[4 * e + 2][jj] - dl), s[4 * e + 3][jj] * (dp[4 * e + 3][jj] - dl));
+    }
+    __syncwarp();  // the keys' P and dS come from this half-warp alone
+    acc_tile<HD, RI, QT, false>(dv_acc, pt, PSTR, gt, STR, l);  // dV += P^T dO
+    acc_tile<HD, RI, QT, false>(dk_acc, dt, PSTR, qt, STR, l);  // dK += dS^T (q*scale)
   }
 
-  for (int q0 = 0; q0 < Tq; q0 += TILE) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < TILE * HD; idx += THREADS) {
-      const int r = idx / HD, c = idx % HD;
-      const int qi = q0 + r;
-      const size_t off = ((size_t)b * Tq + qi) * D + h * HD + c;
-      qs[r][hpad<HD>(c)] = qi < Tq ? q[off] * scale : 0.f;
-      gs[r][hpad<HD>(c)] = qi < Tq ? g[off] : 0.f;
-    }
-    if (tid < TILE) {
-      const int qi = q0 + tid;
-      const bool ok = qi < Tq;
-      const size_t row = ((size_t)b * H + h) * Tq + qi;
-      lse_s[tid] = ok ? lse[row] : -INFINITY;
-      delta_s[tid] = ok ? delta[row] : 0.f;
-      gate_s[tid] = (ok && bias != nullptr) ? (gate != nullptr ? gate[row] : 1.f) : 0.f;
-    }
-    __syncthreads();
-    const int nq = min(TILE, Tq - q0);
-    for (int i = 0; i < nq; ++i) {
-      const float L = lse_s[i];
-      const float* qrow = &qs[i][part * (HP + 4)];
-      const float* grow = &gs[i][part * (HP + 4)];
-      float s = dot_part<HD>(kr, qrow);  // every lane shuffles: masked keys are computed, then zeroed
-      if (bias != nullptr && kj < Tk) s += gate_s[i] * bias[((size_t)h * Tq + q0 + i) * Tk + kj];
-      const float p = dead ? (kj < Tk ? p_dead : 0.f) : (key_ok ? expf(s - L) : 0.f);
-      const float dp = dot_part<HD>(vr, grow);
-      const float ds = p * (dp - delta_s[i]);
-      axpy_part<HD>(p, grow, dv_acc);
-      axpy_part<HD>(ds, qrow, dk_acc);
-    }
-  }
-
-  if (kj < Tk) {
-    const size_t off = ((size_t)b * Tk + kj) * D + h * HD + part * HP;
 #pragma unroll
-    for (int d = 0; d < HP; ++d) {
-      dk[off + d] = dk_acc[d];
-      dv[off + d] = dv_acc[d];
-    }
+  for (int i = 0; i < RI; ++i) {
+    const int kj = k0 + gi + 16 * i;
+    if (kj >= Tk) continue;
+    const size_t off = ((size_t)b * Tk + kj) * D + h * HD;
+    store_cols<HD>(dk + off, dk_acc[i], 1.f, l);
+    store_cols<HD>(dv + off, dv_acc[i], 1.f, l);
   }
 }
 
-// 3. dQ, dgate (and dbias's per-batch terms): block (b, h, 64 queries);
-//    threads P*i .. P*i+P-1 own query i's parts; q * scale in registers
-template <int HD>
-__global__ void __launch_bounds__(ROWS * Split<HD>::P) dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ g, const float* __restrict__ key_mask,
-    const float* __restrict__ gate, const float* __restrict__ bias,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, float* __restrict__ dgate, float* __restrict__ dbias_part,
-    int Tq, int Tk, int H, float scale) {
-  typedef Split<HD> Sp;
-  constexpr int P = Sp::P, HP = Sp::HP, SP = Sp::SP, THREADS = ROWS * P;
-  __shared__ __align__(16) float ks[TILE][SP];
-  __shared__ __align__(16) float vs[TILE][SP];
-  __shared__ float bs[ROWS][TILE + 1];  // bias tile, then gate * dS for dbias
-  __shared__ float valid[TILE];
+// 3. dQ, dgate, dbias's per-batch terms: block (b, h, ROWS queries); key
+//    tiles of KT (Plan<DQ>), a tile whose keys are all masked skipped (unless
+//    the batch row is dead). q * scale and dO stay in shared memory, dQ in
+//    registers. S and dP as 8-query x KT/16-key micro-tiles (S exactly as K1
+//    forms it), dS = P (dP - delta) to shared memory over the bias tile,
+//    dQ += dS K; dgate = rowsum(dS * bias) per thread in key order, then over
+//    the row's half-warp; gate * dS goes straight from registers to the
+//    [B, H, Tq, Tk] scratch (each store instruction fills two runs of 16
+//    consecutive keys).
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(attn_f32::THREADS, 1)
+    dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ g, const float* __restrict__ key_mask, const float* __restrict__ gate,
+                  const float* __restrict__ bias, const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dq, float* __restrict__ dgate, float* __restrict__ dbias_part, int Tq, int Tk,
+                  int H, float scale) {
+  using namespace attn_f32;
+  typedef Cols<HD> Cl;
+  typedef Plan<DQ, HD, BIAS> Pl;
+  constexpr int KT = Pl::T, KJ = KT / 16, STR = HD + 4, BSTR = KT + 4;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qsm = smem_f;                             // [ROWS][STR] q * scale
+  float* gsm = qsm + ROWS * STR;                   // [ROWS][STR] dO
+  float* ksm = gsm + ROWS * STR;                   // [2][KT][STR]
+  float* vsm = ksm + 2 * KT * STR;                 // [2][KT][STR]
+  float* bsm = vsm + 2 * KT * STR;                 // [BIAS ? 2 : 1][ROWS][BSTR]: the bias tile, then dS
+  float* fl = bsm + (BIAS ? 2 : 1) * ROWS * BSTR;  // [2][KT] key flags
 
-  const int tid = threadIdx.x;
-  const int part = tid % P;
-  const int r = tid / P;
-  const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, l = tid & 15, gi = tid >> 4;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int D = H * HD;
-  const int qi = q0 + r;
-  const bool row_ok = qi < Tq;
-  const size_t hrow = ((size_t)b * H + h) * Tq + (row_ok ? qi : 0);
-
-  float qr[HP], gr[HP], dq_acc[HP];
-  {
-    const size_t off = ((size_t)b * Tq + (row_ok ? qi : 0)) * D + h * HD + part * HP;
-#pragma unroll
-    for (int d = 0; d < HP; ++d) {
-      qr[d] = row_ok ? q[off + d] * scale : 0.f;
-      gr[d] = row_ok ? g[off + d] : 0.f;
-      dq_acc[d] = 0.f;
-    }
-  }
-  const float L = row_ok ? lse[hrow] : -INFINITY;
-  const float dlt = row_ok ? delta[hrow] : 0.f;
-  const float gt = (row_ok && bias != nullptr) ? (gate != nullptr ? gate[hrow] : 1.f) : 0.f;
-  const bool dead = lse[((size_t)b * H + h) * Tq] == -INFINITY;  // the batch row has no live key
+  const size_t hrow = ((size_t)b * H + h) * Tq;
+  const bool dead = lse[hrow] == -INFINITY;  // the batch row has no live key
   const float p_dead = 1.f / (float)attn_mma::oneshot_padded_tk(Tk);
-  float dgate_acc = 0.f;
-
-  for (int k0 = 0; k0 < Tk; k0 += TILE) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < TILE * HD; idx += THREADS) {
-      const int rr = idx / HD, c = idx % HD;
-      const int kk = k0 + rr;
-      const size_t off = ((size_t)b * Tk + kk) * D + h * HD + c;
-      ks[rr][hpad<HD>(c)] = kk < Tk ? k[off] : 0.f;
-      vs[rr][hpad<HD>(c)] = kk < Tk ? v[off] : 0.f;
-    }
-    if (bias != nullptr) {
-      for (int idx = tid; idx < ROWS * TILE; idx += THREADS) {
-        const int rr = idx / TILE, c = idx % TILE;
-        const int qq = q0 + rr, kk = k0 + c;
-        bs[rr][c] = (qq < Tq && kk < Tk) ? bias[((size_t)h * Tq + qq) * Tk + kk] : 0.f;
-      }
-    }
-    if (tid < TILE) {
-      const int kk = k0 + tid;
-      valid[tid] = (kk < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kk] > 0.f)) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < TILE; ++j) {
-      float ds = 0.f;
-      if (valid[j] > 0.f || (dead && k0 + j < Tk)) {  // the same j for all threads: whole-warp shuffles
-        const float bij = bias != nullptr ? bs[r][j] : 0.f;  // read before the shuffles below
-        const float s = dot_part<HD>(qr, &ks[j][part * (HP + 4)]) + gt * bij;
-        const float p = dead ? p_dead : (row_ok ? expf(s - L) : 0.f);
-        const float dp = dot_part<HD>(gr, &vs[j][part * (HP + 4)]);
-        ds = p * (dp - dlt);
-        dgate_acc = fmaf(ds, bij, dgate_acc);
-        axpy_part<HD>(ds, &ks[j][part * (HP + 4)], dq_acc);
-      }
-      __syncwarp();                                               // the row's reads of bs[r][j] are done
-      if (dbias_part != nullptr && part == 0) bs[r][j] = gt * ds;
-    }
-    if (dbias_part != nullptr) {
-      __syncthreads();
-      for (int idx = tid; idx < ROWS * TILE; idx += THREADS) {  // coalesced along keys
-        const int rr = idx / TILE, c = idx % TILE;
-        const int qq = q0 + rr, kk = k0 + c;
-        if (qq < Tq && kk < Tk) dbias_part[(((size_t)b * H + h) * Tq + qq) * Tk + kk] = bs[rr][c];
-      }
-    }
+  float L[RI], dlt[RI], gtr[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + gi + 16 * i;
+    L[i] = qi < Tq ? lse[hrow + qi] : -INFINITY;  // -inf: no weight (a row past Tq)
+    dlt[i] = qi < Tq ? delta[hrow + qi] : 0.f;
+    gtr[i] = (BIAS && qi < Tq) ? gate[hrow + qi] : 0.f;
   }
 
-  if (row_ok) {
-    const size_t off = ((size_t)b * Tq + qi) * D + h * HD + part * HP;
+  const float* kb = k + (size_t)b * Tk * D;
+  const float* vb = v + (size_t)b * Tk * D;
+  const float* mask_b = key_mask != nullptr ? key_mask + (size_t)b * Tk : nullptr;
+  auto stage = [&](int j, int st) {
+    const int k0 = j * KT;
+    stage_rows<HD, KT>(ksm + st * KT * STR, kb, k0, Tk, D, h, tid);
+    stage_rows<HD, KT>(vsm + st * KT * STR, vb, k0, Tk, D, h, tid);
+    if constexpr (BIAS)
+      stage_elems<ROWS, KT>(bsm + st * ROWS * BSTR, BSTR, bias + (size_t)h * Tq * Tk, q0, k0, Tq, Tk, Tk, tid);
+    if (tid < KT) {
+      const int kj = k0 + tid;
+      if (mask_b != nullptr) cp_async4(fl + st * KT + tid, kj < Tk ? mask_b + kj : mask_b, kj < Tk);
+      else fl[st * KT + tid] = kj < Tk ? 1.f : 0.f;
+    }
+    cp_async_commit();
+  };
+  stage_rows<HD, ROWS>(qsm, q + (size_t)b * Tq * D, q0, Tq, D, h, tid);
+  stage_rows<HD, ROWS>(gsm, g + (size_t)b * Tq * D, q0, Tq, D, h, tid);
+  stage(0, 0);
+
+  float dq_acc[RI][Cl::NC], dgate_acc[RI];
 #pragma unroll
-    for (int d = 0; d < HP; ++d) dq[off + d] = dq_acc[d] * scale;
-    if (dgate != nullptr && part == 0) dgate[hrow] = dgate_acc;
+  for (int i = 0; i < RI; ++i) {
+    dgate_acc[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < Cl::NC; ++c) dq_acc[i][c] = 0.f;
+  }
+
+  const int nk = (Tk + KT - 1) / KT;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j & 1, k0 = j * KT;
+    cp_async_wait<0>();
+    if (j == 0) scale_rows<HD, ROWS>(qsm, scale, tid);  // the chunks this thread copied
+    // the one barrier of the tile; a tile whose keys are all masked adds
+    // nothing (its dbias terms are 0), unless the batch row is dead
+    const bool any = __syncthreads_or(tid < KT && fl[st * KT + tid] > 0.f) || dead;
+    if (j + 1 < nk) stage(j + 1, st ^ 1);
+    if (!any) {
+      if (BIAS && dbias_part != nullptr) {
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int jj = 0; jj < KJ; ++jj) {
+            const int qi = q0 + gi + 16 * i, kj = k0 + l + 16 * jj;
+            if (qi < Tq && kj < Tk) dbias_part[(hrow + qi) * Tk + kj] = 0.f;
+          }
+      }
+      continue;
+    }
+    const float* ft = fl + st * KT;
+    const float* kt = ksm + st * KT * STR;
+    float* bt = bsm + (BIAS ? st : 0) * ROWS * BSTR + gi * BSTR;  // row i of this thread at bt + 16 i BSTR
+    float s[RI][KJ], dp[RI][KJ], bij[RI][KJ];
+    dot_tile<HD, RI, KJ>(s, qsm + gi * STR, 16 * STR, kt + l * STR, 16 * STR);  // S, as K1 forms it
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) {
+        const int c = l + 16 * jj;
+        float x = s[i][jj];
+        bij[i][jj] = 0.f;
+        if constexpr (BIAS) {
+          bij[i][jj] = bt[16 * i * BSTR + c];
+          x = fmaf(gtr[i], bij[i][jj], x);
+        }
+        s[i][jj] = dead ? (k0 + c < Tk ? p_dead : 0.f)
+                        : ((ft[c] > 0.f && L[i] != -INFINITY) ? expf(x - L[i]) : 0.f);
+      }
+    dot_tile<HD, RI, KJ>(dp, gsm + gi * STR, 16 * STR, vsm + st * KT * STR + l * STR, 16 * STR);  // dP
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + gi + 16 * i;
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) {
+        const int c = l + 16 * jj;
+        const float ds = s[i][jj] * (dp[i][jj] - dlt[i]);
+        if constexpr (BIAS) {
+          dgate_acc[i] = fmaf(ds, bij[i][jj], dgate_acc[i]);
+          if (dbias_part != nullptr && qi < Tq && k0 + c < Tk) dbias_part[(hrow + qi) * Tk + k0 + c] = gtr[i] * ds;
+        }
+        bt[16 * i * BSTR + c] = ds;  // where this thread read its bias: no other thread's
+      }
+    }
+    __syncwarp();  // the rows' dS come from this half-warp alone
+    acc_tile<HD, RI, KT, true>(dq_acc, bt, 16 * BSTR, kt, STR, l);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const float dg = half_warp_sum(dgate_acc[i]);
+    const int qi = q0 + gi + 16 * i;
+    if (qi >= Tq) continue;
+    store_cols<HD>(dq + ((size_t)b * Tq + qi) * D + h * HD, dq_acc[i], scale, l);
+    if (BIAS && dgate != nullptr && l == 0) dgate[hrow + qi] = dg;
   }
 }
 
@@ -755,20 +793,47 @@ cudaError_t passes_bf16(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 cudaError_t passes_f32(const Args& a) {
-  constexpr int THREADS = ROWS * Split<HD>::P;
-  dkdv_kernel<HD><<<dim3((a.Tk + ROWS - 1) / ROWS, a.H, a.B), THREADS, 0, a.st>>>(
+  using namespace attn_f32;
+  typedef Plan<DKDV, HD, BIAS> P2;
+  typedef Plan<DQ, HD, BIAS> P3;
+  static bool configured = false;  // the attribute is per kernel and per process
+  if (!configured) {
+    cudaError_t err = allow_smem(dkdv_f32_kernel<HD, BIAS>, P2::BYTES);
+    if (err == cudaSuccess) err = allow_smem(dq_f32_kernel<HD, BIAS>, P3::BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dkdv_f32_kernel<HD, BIAS><<<dim3((a.Tk + ROWS - 1) / ROWS, a.H, a.B), THREADS, P2::BYTES, a.st>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g, (const float*)a.key_mask,
       (const float*)a.gate, (const float*)a.bias, (const float*)a.lse, (const float*)a.delta, (float*)a.dk,
       (float*)a.dv, a.Tq, a.Tk, a.H, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<HD><<<dim3((a.Tq + ROWS - 1) / ROWS, a.H, a.B), THREADS, 0, a.st>>>(
+  dq_f32_kernel<HD, BIAS><<<dim3((a.Tq + ROWS - 1) / ROWS, a.H, a.B), THREADS, P3::BYTES, a.st>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g, (const float*)a.key_mask,
       (const float*)a.gate, (const float*)a.bias, (const float*)a.lse, (const float*)a.delta, (float*)a.dq,
       (float*)a.dgate, (float*)a.dbias_part, a.Tq, a.Tk, a.H, a.scale);
   return cudaGetLastError();
+}
+
+// tile, shared bytes and resident blocks an SM of the dK/dV (kind 1) or dQ
+// (kind 2) f32 pass
+template <int KIND, int HD, bool BIAS, typename K>
+int f32_plan_of(K kernel, int* out) {
+  typedef attn_f32::Plan<KIND, HD, BIAS> Pl;
+  cudaError_t err = allow_smem(kernel, Pl::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = Pl::T;
+  out[1] = (int)Pl::BYTES;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, attn_f32::THREADS, Pl::BYTES);
+}
+
+template <int HD, bool BIAS>
+int f32_plan(int kind, int* out) {
+  return kind == attn_f32::DKDV ? f32_plan_of<attn_f32::DKDV, HD, BIAS>(dkdv_f32_kernel<HD, BIAS>, out)
+                                : f32_plan_of<attn_f32::DQ, HD, BIAS>(dq_f32_kernel<HD, BIAS>, out);
 }
 
 template <typename T, int HD>
@@ -781,7 +846,7 @@ int launch_hd(const Args& a) {
   if constexpr (sizeof(T) == 2)
     err = a.bias != nullptr ? passes_bf16<HD, true>(a) : passes_bf16<HD, false>(a);
   else
-    err = passes_f32<HD>(a);
+    err = a.bias != nullptr ? passes_f32<HD, true>(a) : passes_f32<HD, false>(a);
   if (err != cudaSuccess) return (int)err;
   if (a.dbias != nullptr) {
     const size_t n = (size_t)a.H * a.Tq * a.Tk;
@@ -827,4 +892,19 @@ int launch_bwd(const Args& a, int hd) {
   }
 
 SER_BWD_ENTRY(ser_attention_btd_bwd_f32, float)
+
+// out: [tile, shared bytes, blocks an SM] of the f32 dK/dV (kind 1) or dQ (kind 2) pass
+extern "C" int ser_attention_btd_bwd_f32_plan(int kind, int hd, int bias, int* out) {
+  if (kind != attn_f32::DKDV && kind != attn_f32::DQ) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64:
+      return bias ? f32_plan<64, true>(kind, out) : f32_plan<64, false>(kind, out);
+    case 80:
+      return bias ? f32_plan<80, true>(kind, out) : f32_plan<80, false>(kind, out);
+    case 120:
+      return bias ? f32_plan<120, true>(kind, out) : f32_plan<120, false>(kind, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 SER_BWD_ENTRY(ser_attention_btd_bwd_bf16, __nv_bfloat16)

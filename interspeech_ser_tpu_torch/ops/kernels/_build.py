@@ -31,7 +31,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "attention_bhtd.cu", "flash_attention.cu", "conv_frontend.cu",
            "gru_bidir.cu", "gru_bidir_bwd.cu", "ffn_fused.cu", "pos_conv.cu")
-HEADERS = ("attention_bhtd_common.cuh", "attention_mma.cuh", "gru_cluster.cuh")  # included by sources: part of the hash
+HEADERS = ("attention_bhtd_common.cuh", "attention_f32.cuh", "attention_mma.cuh", "gru_cluster.cuh")  # included by sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,10 @@ SIGNATURES = {
     # q, k, v, key_mask, gate, bias, out, lse, B, Tq, Tk, H, hd, scale, stream
     "ser_attention_btd_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
     "ser_attention_btd_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # hd, bias, int[3] out: tile, shared bytes, blocks an SM (the f32 K1 kernel)
+    "ser_attention_btd_f32_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    # kind (1: dK/dV, 2: dQ), hd, bias, int[3] out (the f32 K4 passes)
+    "ser_attention_btd_bwd_f32_plan": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # q, k, v, key_mask, gate, bias, out, strides (12 x int64: b, h, t of q, k, v,
     # out), B, H, Tq, Tk, hd, scale, stream
     "ser_attention_bhtd_f32": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],

@@ -11,7 +11,17 @@ for a CUDA tensor and its plain version for a CPU tensor.
 ``AttentionBtdTrain`` is the differentiable pair: K1 forward, K4 backward.
 Both kernels take head dims 64, 80 and 120 (a template parameter). In bf16
 every product runs on the tensor cores (``mma.sync`` m16n8k16, f32
-accumulation); in f32 on the FP32 pipes, TF32 never.
+accumulation); in f32 (the default of the extraction CLIs and of
+``lora_cli``) on the FP32 pipes as IEEE fmaf, TF32 never: blocks of 256
+threads owning 128 rows, register-blocked score micro-tiles of 8 rows x
+T/16 streamed rows, tiles staged by ``cp.async`` and double-buffered.
+``attention_f32_plan`` gives their tile sizes and shared memory (the CUDA
+sources apply the same rule), ``attention_f32_occupancy`` what the built
+kernels report. Every kernel stages the q, k, v (and g) panels by 16-byte
+``cp.async``: a panel whose base is off 16 bytes is refused with a
+``ValueError`` in either dtype (``_check_aligned``); there is no slower
+copy route. A fresh PyTorch allocation, and any contiguous slice of one
+along T, starts on 16 bytes.
 
 Semantics, shared by both versions and the TPU kernel: per head h (columns
 ``h*hd:(h+1)*hd`` of D), ``softmax(scale*q.kᵀ + gate[b,h,q]*bias[h,q,k] +
@@ -35,6 +45,8 @@ of q*scale.
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -186,11 +198,69 @@ def _prepare(q, k, v, num_heads, key_mask, gate, pos_bias, head_dims=K1_HEAD_DIM
 
 
 def _check_aligned(**tensors) -> None:
-    """The bf16 kernels copy rows in 16-byte units (``cp.async``): their
-    panels must start on 16 bytes (rows then do too, D being a multiple of 8)."""
+    """The kernels copy rows in 16-byte units (``cp.async``), in bf16 and in
+    f32: their panels must start on 16 bytes (rows then do too, a row of D
+    values being a multiple of 16 bytes at every head dim). Raises otherwise."""
     for name, t in tensors.items():
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16 != 0:
-            raise ValueError(f"attention_btd kernels: bf16 {name} must start on a 16-byte boundary")
+        if t.data_ptr() % 16 != 0:
+            dt = "bf16" if t.dtype == torch.bfloat16 else "f32"
+            raise ValueError(f"attention_btd kernels: {dt} {name} must start on a 16-byte boundary")
+
+
+# The f32 kernels' launch plan (csrc/attention_f32.cuh holds the same rule).
+F32_ROWS = 128  # rows a block owns, 8 a thread (queries; keys in the dK/dV pass)
+F32_KINDS = ("fwd", "dkdv", "dq")  # K1; K4's dK/dV pass and dQ pass
+SMEM_LIMIT = 232448  # the most shared memory a block may opt into on an H100 (227 KB)
+SM_SMEM = 233472  # shared memory of an H100 SM (228 KB); each resident block also reserves 1 KB
+
+
+@dataclass(frozen=True)
+class F32Plan:
+    kind: str  # "fwd", "dkdv" or "dq"
+    hd: int
+    bias: bool
+    tile: int  # rows of the streamed tile: keys (fwd, dq) or queries (dkdv)
+    stages: int  # streamed tiles in flight (double-buffered)
+    smem_bytes: int  # dynamic shared memory a block
+    blocks_per_sm: int  # resident blocks an SM as shared memory allows
+    micro_tile: Tuple[int, int]  # a thread's score micro-tile: (own rows, streamed rows)
+
+
+def _f32_smem_floats(kind: str, hd: int, bias: bool, t: int) -> int:
+    s, r = hd + 4, F32_ROWS  # padded panel row: an odd number of 16-byte units
+    weights = 2 if bias else 1  # the bias tile's two stages (P or dS lands on it), or one P / dS tile
+    if kind == "fwd":  # q*scale; K, V x 2 stages; bias / P [rows][t + 4]; key flags x 2
+        return r * s + 4 * t * s + weights * r * (t + 4) + 2 * t
+    if kind == "dkdv":  # K, V; q*scale, dO x 2; bias / P and dS [t][rows + 4]; lse, delta, gate x 2
+        return 2 * r * s + 4 * t * s + (weights + 1) * t * (r + 4) + 6 * t
+    # dq: q*scale, dO; K, V x 2; bias / dS [rows][t + 4]; key flags x 2
+    return 2 * r * s + 4 * t * s + weights * r * (t + 4) + 2 * t
+
+
+def attention_f32_plan(hd: int, bias: bool, kind: str = "fwd") -> F32Plan:
+    """The f32 kernel's plan: 128-row blocks of 256 threads, 8 rows a thread
+    (one block an SM, up to 255 registers a thread); the streamed tile is the
+    longest of 64, 32, 16 rows whose shared memory fits ``SMEM_LIMIT``."""
+    if hd not in K1_HEAD_DIMS or kind not in F32_KINDS:
+        raise ValueError(f"attention_f32_plan takes head dims {K1_HEAD_DIMS} and kinds {F32_KINDS}, got {hd}, {kind!r}")
+    t = next(t for t in (64, 32, 16) if 4 * _f32_smem_floats(kind, hd, bias, t) <= SMEM_LIMIT)
+    nbytes = 4 * _f32_smem_floats(kind, hd, bias, t)
+    return F32Plan(kind, hd, bool(bias), t, 2, nbytes, SM_SMEM // (nbytes + 1024), (F32_ROWS // 16, t // 16))
+
+
+def attention_f32_occupancy(hd: int, bias: bool, kind: str = "fwd") -> Tuple[int, int, int]:
+    """(tile, shared bytes, resident blocks an SM) of the built f32 kernel, the
+    blocks from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (registers
+    included). Needs the card."""
+    attention_f32_plan(hd, bias, kind)  # checks the arguments
+    out = (ctypes.c_int * 3)()
+    lib = _build.library()
+    if kind == "fwd":
+        err = lib.ser_attention_btd_f32_plan(hd, int(bias), out)
+    else:
+        err = lib.ser_attention_btd_bwd_f32_plan(F32_KINDS.index(kind), hd, int(bias), out)
+    _build.check(err, f"attention_f32_occupancy({hd}, {bias}, {kind!r})")
+    return tuple(out)
 
 
 def _launch_forward(q, k, v, num_heads, key_mask, scale, gate, pos_bias, with_lse: bool):

@@ -155,3 +155,43 @@ def test_wrapper_runs_plain_version_on_cpu():
     before = mod.LAUNCHES
     torch.testing.assert_close(attention_btd(*args, **kw), attention_btd_plain(*args, **kw), rtol=0, atol=0)
     assert mod.LAUNCHES == before  # the CPU path launches nothing
+
+
+# the f32 kernels' streamed tile (keys for fwd and dq, queries for dkdv) per
+# (kind, head dim, bias): the longest of 64 / 32 / 16 whose 128-row block fits 227 KB
+F32_TILES = {
+    ("fwd", 64, False): 64, ("fwd", 64, True): 64, ("fwd", 80, False): 64, ("fwd", 80, True): 64,
+    ("fwd", 120, False): 64, ("fwd", 120, True): 32,
+    ("dkdv", 64, False): 64, ("dkdv", 64, True): 32, ("dkdv", 80, False): 32, ("dkdv", 80, True): 32,
+    ("dkdv", 120, False): 32, ("dkdv", 120, True): 16,
+    ("dq", 64, False): 64, ("dq", 64, True): 64, ("dq", 80, False): 64, ("dq", 80, True): 32,
+    ("dq", 120, False): 32, ("dq", 120, True): 32,
+}
+
+
+@pytest.mark.parametrize("kind,hd,bias", sorted(F32_TILES))
+def test_f32_plan_per_head_dim(kind, hd, bias):
+    """attention_f32_plan: the tile per head dim; its shared memory within the
+    227 KB a block may opt into (which a tile twice as long would not be), one
+    block of 256 threads an SM; 8 x tile/16 score micro-tiles, double-buffered."""
+    from interspeech_ser_tpu_torch.ops.kernels import attention as mod
+
+    plan = mod.attention_f32_plan(hd, bias, kind)
+    assert plan.tile == F32_TILES[(kind, hd, bias)]
+    assert (plan.stages, plan.micro_tile) == (2, (8, plan.tile // 16))
+    assert plan.smem_bytes == 4 * mod._f32_smem_floats(kind, hd, bias, plan.tile)
+    assert plan.smem_bytes <= mod.SMEM_LIMIT == 232448
+    assert plan.blocks_per_sm == 1 and plan.smem_bytes + 1024 <= mod.SM_SMEM
+    if plan.tile < 64:
+        assert 4 * mod._f32_smem_floats(kind, hd, bias, 2 * plan.tile) > mod.SMEM_LIMIT
+    s = hd + 4  # padded rows: 16-byte aligned, an odd number of 16-byte units
+    assert s % 4 == 0 and (s // 4) % 2 == 1
+
+
+def test_f32_plan_refuses_what_the_kernels_do_not_take():
+    from interspeech_ser_tpu_torch.ops.kernels import attention as mod
+
+    with pytest.raises(ValueError):
+        mod.attention_f32_plan(96, False)
+    with pytest.raises(ValueError):
+        mod.attention_f32_plan(64, False, "bwd")

@@ -223,6 +223,32 @@ def test_card_launchers_refuse_misaligned_bf16(monkeypatch):
         ka.attention_btd_bwd(odd, odd, odd, odd, H, out=odd, lse=lse)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_card_launchers_route_f32_by_alignment(kernel, offset, monkeypatch):
+    """The f32 kernels also stage rows by 16-byte cp.async: an f32 panel on a
+    16-byte boundary goes to the f32 entry point, one ``offset`` floats past
+    it (4, 8 or 12 bytes) is refused before anything is launched (no slower
+    4-byte route)."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(ka._build, "library", lambda: lib)
+    monkeypatch.setattr(ka._build, "stream_ptr", lambda t: 0)
+    flat = torch.randn(T * D + 8)
+    base = (-flat.data_ptr() // 4) % 4  # floats to the first 16-byte boundary
+    x = flat[base + offset:base + offset + T * D].view(1, T, D).as_subclass(_CudaLike)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    lse = torch.zeros(1, H, T).as_subclass(_CudaLike)
+    call = (lambda: ka.attention_btd(x, x, x, H)) if kernel == "fwd" else \
+        (lambda: ka.attention_btd_bwd(x, x, x, x, H, out=x, lse=lse))
+    if offset:
+        with pytest.raises(ValueError, match="f32 q must start on a 16-byte boundary"):
+            call()
+        assert lib.calls == []
+    else:
+        call()
+        assert [name for name, _ in lib.calls] == ["ser_attention_btd_f32" if kernel == "fwd" else "ser_attention_btd_bwd_f32"]
+
+
 def test_raw_k1_launcher_refuses_inputs_that_require_grad(monkeypatch):
     launched = []
     monkeypatch.setattr(ka, "_launch_forward", lambda *a, **kw: launched.append(a) or (a[0], None))

@@ -96,7 +96,7 @@ def test_train_phase_on_cpu(tmp_path, monkeypatch):
 def test_lora_phases_on_cpu(tmp_path, monkeypatch):
     """Phase 7 at a tiny size: Whisper extraction, ft_lora and the
     *_pretrained CLIs for Whisper and WavLM, the gradient check and the
-    bf16 steps. Attention that needs a gradient goes through AttentionBtdTrain
+    bf16 and f32 steps. Attention that needs a gradient goes through AttentionBtdTrain
     (here with the plain backward, counted as K4), as it does on the card."""
     import chip_smoke as cs
     from interspeech_ser_tpu_torch.models import speech, whisper
@@ -133,7 +133,7 @@ def test_lora_phases_on_cpu(tmp_path, monkeypatch):
         return kc.conv_frontend_plain(*args, **kw)
 
     monkeypatch.setattr(cs, "DEVICE", "cpu")
-    monkeypatch.setattr(cs, "LORA_SHAPE", dict(n_train=16, n_dev=8, seconds=(0.5, 1.5), bf16_steps=2))
+    monkeypatch.setattr(cs, "LORA_SHAPE", dict(n_train=16, n_dev=8, seconds=(0.5, 1.5), steps=2))
     monkeypatch.setattr(speech, "wavlm_large", tiny_wavlm)
     monkeypatch.setattr(whisper, "whisper_large_v3", tiny_whisper)
     monkeypatch.setattr(ka, "attention_btd_bwd", counted_bwd)
@@ -155,8 +155,9 @@ def test_lora_phases_on_cpu(tmp_path, monkeypatch):
     assert launches["attention_btd"] > 0 and launches["conv_frontend"] > 0
     grads = cs.check_lora_grads(tmp, w, wavlm_dir)
     assert set(grads) == {"whisper", "wavlm"} and max(grads.values()) <= 1e-4
-    bf16 = cs.time_bf16_steps(w)
-    assert len(bf16["bf16_step_ms_runs"]) == 2 and all(np.isfinite(bf16["bf16_losses"]))
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        steps = cs.time_lora_steps(w, dtype)
+        assert len(steps[f"{tag}_step_ms_runs"]) == 2 and all(np.isfinite(steps[f"{tag}_losses"]))
 
 
 def test_text_phase_on_cpu(tmp_path, monkeypatch):
@@ -263,7 +264,7 @@ def test_zoo_phase_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "DEVICE", "cpu")
     monkeypatch.setattr(cs, "ZOO_SHAPE", dict(xlsr_layers=2, hubert_layers=1, n_wavs=4, seconds=(0.5, 1.5),
                                               full_wavs=2, full_seconds=1.0))
-    monkeypatch.setattr(cs, "LORA_SHAPE", dict(n_train=16, n_dev=8, seconds=(0.5, 1.5), bf16_steps=2))
+    monkeypatch.setattr(cs, "LORA_SHAPE", dict(n_train=16, n_dev=8, seconds=(0.5, 1.5), steps=2))
     monkeypatch.setattr(cs, "wavlm_base_plus", tiny_base)
     monkeypatch.setattr(speech, "wav2vec2_xlsr_2b", tiny_xlsr)
     monkeypatch.setattr(speech, "hubert_xlarge", tiny_hubert)

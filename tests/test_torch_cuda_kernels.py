@@ -201,7 +201,7 @@ def test_conv_frontend_kernel(cuda, approx, dtype, depth):
 @pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False), (False, "dead")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_wide_heads(cuda, hd, bias, masked, dtype):
-    """K1 at HuBERT-XL's and XLS-R-2B's head dims (two threads per query row)."""
+    """K1 at HuBERT-XL's and XLS-R-2B's head dims (f32: 32-key tiles, hd/16 output columns a thread)."""
     B, T, H = 3, 150, 2
     q, k, v = (torch.randn(B, T, hd * H, generator=cuda, device="cuda").to(dtype) for _ in range(3))
     kw = {}
@@ -244,7 +244,7 @@ def test_attention_train_takes_wide_heads(cuda, hd):
 @pytest.mark.parametrize("bias,masked", [(True, True), (False, True), (False, False), (False, "dead")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_bwd_kernel_wide_heads(cuda, hd, bias, masked, dtype):
-    """K4 at head dims 80 and 120 (four threads a row on the FP32 pipes in f32,
+    """K4 at head dims 80 and 120 (register micro-tiles on the FP32 pipes in f32,
     the tensor cores in bf16) against the plain backward; a rerun is bit-identical."""
     (q, k, v, g, H), kw = _attention_bwd_inputs(cuda, bias, masked, dtype, H=2, hd=hd)
     out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
@@ -280,6 +280,69 @@ def test_attention_tensor_cores_main_shapes(cuda, hd, T):
         if name != "dbias":
             assert cos(a[1].float().flatten(), b[1].float().flatten(), dim=0) >= 0.999, name
             _assert_dead_row(a, b, torch.bfloat16, name)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 120])
+@pytest.mark.parametrize("T", [1500, 499, 77])
+@pytest.mark.parametrize("bias", [False, True])
+def test_attention_btd_f32_main_shapes(cuda, hd, T, bias):
+    """f32 K1 and K4 (the FP32-pipe micro-tile kernels) at every head dim and
+    T = 1500, 499 and 77 (none a multiple of the 64-, 32- or 16-row tiles),
+    with and without the gated bias. Key mask: row 0 keeps every key, row 1
+    none (sum(V) / Tk_p, lse -inf, P = 1 / Tk_p in the backward), row 2 stops
+    before its last 64-key tile, which is then fully masked (and so are its
+    32- and 16-key tiles). T = 1500 and 499 span several 128-row blocks. Bars: K1 atol 1e-4 against attention_btd_plain,
+    the dead row 1e-5; K4 max-abs <= 1e-5 x max|ref| per output; K1 and K4
+    reruns bit-identical."""
+    B, H = 3, 2
+    (q, k, v, g, _), kw = _attention_bwd_inputs(cuda, bias, False, torch.float32, B=B, T=T, H=H, hd=hd)
+    lengths = [T, 0, (T - 1) // 64 * 64 - 5]
+    kw["key_mask"] = (torch.arange(T, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]).float()
+    out, lse = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+    out2, lse2 = k_attn.attention_btd_fwd(q, k, v, H, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref = k_attn.attention_btd_plain(q, k, v, H, **kw)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    _assert_dead_row(out, ref, torch.float32, "out")
+    assert bool(torch.isinf(lse[1]).all()) and bool(torch.isfinite(lse[0]).all() and torch.isfinite(lse[2]).all())
+    got = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
+    ref_b = k_attn.attention_btd_bwd_plain(q, k, v, g, H, **kw)
+    _assert_bwd_close(got, ref_b, torch.float32, "dead")
+    again = k_attn.attention_btd_bwd(q, k, v, g, H, **kw, out=out, lse=lse)
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kind", k_attn.F32_KINDS)
+def test_attention_btd_f32_plan_matches_the_build(cuda, kind):
+    """The built f32 kernels take the tile and shared memory that
+    attention_f32_plan gives, and a block of 256 threads is resident, one an
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers included)."""
+    for hd in k_attn.K1_HEAD_DIMS:
+        for bias in (False, True):
+            plan = k_attn.attention_f32_plan(hd, bias, kind)
+            tile, nbytes, blocks = k_attn.attention_f32_occupancy(hd, bias, kind)
+            assert (tile, nbytes) == (plan.tile, plan.smem_bytes), (hd, bias)
+            assert blocks == plan.blocks_per_sm == 1, (hd, bias, blocks)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_attention_btd_f32_refuses_views_off_16_bytes(cuda, offset):
+    """An f32 panel that starts ``offset`` floats past a 16-byte boundary
+    (contiguous all the same) is refused by K1 and K4 before any launch; the
+    same values copied to an aligned tensor run."""
+    T, H, hd = 77, 2, 64
+    flat = torch.randn(T * H * hd + 8, generator=cuda, device="cuda")
+    x = flat[offset:offset + T * H * hd].view(1, T, H * hd)
+    assert x.data_ptr() % 16 == 4 * offset
+    before = (k_attn.LAUNCHES, k_attn.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        k_attn.attention_btd(x, x, x, H)
+    y = x.clone()
+    out, lse = k_attn.attention_btd_fwd(y, y, y, H)
+    with pytest.raises(ValueError, match="16-byte"):
+        k_attn.attention_btd_bwd(x, y, y, y, H, out=out, lse=lse)
+    assert (k_attn.LAUNCHES, k_attn.BWD_LAUNCHES) == (before[0] + 1, before[1])
+    torch.testing.assert_close(out, k_attn.attention_btd_plain(y, y, y, H), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("n", k_ffn.WIDTHS)
