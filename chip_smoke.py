@@ -22,8 +22,9 @@ entry points at full width:
    Whisper-large shapes; K7 (one-shot) and K6 (streaming) attention on
    [B, H, T, 64] heads at RoBERTa-large's extraction shape (B=64, H=16, T=80,
    ragged key mask) and the WavLM-large shape with the gated bias, K6 also at
-   B=8, H=20, T=1500 (f32 and bf16; SDPA with a float mask), K7 bf16 also
-   at Tk = 2048 and on views one element off 16 bytes; K1 also at
+   B=8, H=20, T=1500 (f32 and bf16; SDPA with a float mask), K7 also at
+   Tk = 2048 (f32 and bf16), K6 and K7 in f32 and K7 in bf16 on views one
+   element off 16 bytes; K1 also at
    HuBERT-XL's and XLS-R-2B's head dims (80 and 120: B=16, T=499, ragged
    key mask); K2 the fused frontend on 10-s waveforms at depths 1-7 (its
    layer-0 kernel, and its later-layer kernel at depths 2-7); K5 the
@@ -46,7 +47,8 @@ entry points at full width:
    (B=8, T=1500, D=1280, H=20, no mask) in f32 and bf16 beside SDPA, rerun
    bit-identical; and the f32 K1 / K4 kernels' tiles, shared memory and
    resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-   against ``attention_f32_plan``;
+   against ``attention_f32_plan``, and the f32 K6 / K7 launchers' routes,
+   block rows, tiles and shared memory against ``bhtd_f32_plan``;
 4. extraction: a seeded random-init WavLM-large (24 layers, D=1024) written
    as an HF directory, 8 seeded wavs of 3-12 s, ``preprocess_cli.speech_main``
    in bf16 and in f32 (each run twice, cold then warm); shapes,
@@ -199,7 +201,9 @@ KERNELS = {
 K1_EVENTS = ("attention_btd_f32_kernel", "attention_btd_mma_kernel", "attention_btd_kernel")
 K4_EVENTS = ("delta_kernel", "dkdv_f32_kernel", "dkdv_mma_kernel", "dkdv_kernel", "dq_f32_kernel", "dq_mma_kernel",
              "dq_kernel", "dbias_reduce")
-K7_EVENTS = ("attention_bhtd_kernel", "attention_bhtd_mma_kernel")  # K7's f32 and bf16 kernels
+# K7's f32 and bf16 kernels (attention_bhtd_kernel names the earlier f32 kernel, so that
+# scripts/time_f32_attention_pair.py reads an older checkout's profile too)
+K7_EVENTS = ("attention_bhtd_f32_kernel", "attention_bhtd_mma_kernel", "attention_bhtd_kernel")
 K3_EVENTS = ("gru_bidir_kernel", "gru_bidir_cluster_kernel")  # K3's two routes
 # K3b's kernels: the row route, the cluster route's recurrence, the gate / dW products and the dW sum
 K3B_EVENTS = ("gru_bidir_bwd_kernel", "gru_bidir_bwd_cluster_kernel", "gru_gemm_kernel", "gru_dw_reduce_kernel")
@@ -450,6 +454,27 @@ def check_f32_plans() -> dict:
     return plans
 
 
+def check_bhtd_f32_plans() -> dict:
+    """The f32 K6 and K7 launchers' route, block rows, tile and shared memory
+    against ``bhtd_f32_plan`` at the shapes of ``check_attention_bhtd`` (and
+    K7 on both sides of its route boundaries, Tk = 256 / 257, 640 / 641), with the
+    resident blocks an SM the build reports."""
+    plans = {}
+    for name, cases in (("attention_bhtd", ((80, 80), (499, 499), (256, 256), (257, 257), (640, 640), (641, 641),
+                                            (2048, 2048))),
+                        ("flash_attention", ((80, 80), (499, 499), (1500, 1500)))):
+        for tq, tk in cases:
+            for bias in (False, True):
+                built = k_bhtd.bhtd_f32_occupancy(name, tq, tk, bias)
+                plan = k_bhtd.bhtd_f32_plan(name, tq, tk, bias)
+                require(built[:4] == (plan.route, plan.rows, plan.tile, plan.smem_bytes) and built[4] >= 1,
+                        f"f32 {name} Tq {tq} Tk {tk} bias {bias}: built {built} != planned {plan}")
+                plans[f"{name}_tk{tk}{'_bias' if bias else ''}"] = built
+    log("[parity] f32 K7 / K6 plans (route, rows, tile, shared bytes, blocks an SM): " + "; ".join(
+        f"{n} {p}" for n, p in plans.items()))
+    return plans
+
+
 def _bhtd_case(g, B, H, T, lengths, bias: bool, dt, offset: bool = False):
     """[B, T, H*64] projections viewed as [B, H, T, 64] heads (the text path's
     layout), a key mask from ``lengths`` and the factored gate * bias. With
@@ -472,9 +497,13 @@ def _sdpa_bhtd(q, k, v, key_mask=None, gate=None, pos_bias=None, bias_dtype=None
     """``scaled_dot_product_attention`` with the additive float mask (gate *
     bias + key mask; none where there is neither) that computes the function
     of K6 / K7; -> (its median ms with the mask built outside the timing, its
-    output)."""
+    output). f32 views that do not start on 16 bytes are copied to aligned
+    tensors first, outside the timing: SDPA's f32 kernel faults on them
+    (cudaErrorMisalignedAddress). bf16 views are timed as given."""
     import torch.nn.functional as F
 
+    if q.dtype == torch.float32 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        q, k, v = (t.contiguous() for t in (q, k, v))
     B, Tk = q.shape[0], k.shape[2]
     mask = None
     if pos_bias is not None:
@@ -496,26 +525,30 @@ def check_attention_bhtd(g, results) -> None:
     same shape with a ragged key mask (the Tk tail and masked 64-key tiles);
     then both at B=4, H=16, T=499 with the bias and row 1's keys all masked
     (sum(V) / Tk_p, Tk_p = 512 for both), that row also held alone. f32 and
-    bf16. K7 in bf16 also at its longest key length, Tk = 2048 (B=2, H=16,
-    gated bias, ragged mask: the two-pass route), and at RoBERTa's width
-    with q, k and v one element off 16 bytes (B=4, T=80, row 1 fully
-    masked). Bars: f32 max-abs <= 1e-5; bf16 cosine >= 0.9999, and on the
-    dead row also max-abs <= 1e-2 x max|ref| of the row. Each line gives
-    the kernel's achieved TFLOP/s and its share of the bound."""
+    bf16. K7 also at its longest key length, Tk = 2048 (B=2, H=16, gated
+    bias, ragged mask: the two-pass routes), f32 and bf16; and at RoBERTa's
+    width with q, k and v one element off 16 bytes (B=4, T=80, row 1 fully
+    masked): K6 and K7 in f32, K7 in bf16 (bf16 K6 refuses such views).
+    Bars: f32 max-abs <= 1e-5; bf16 cosine >= 0.9999, and on the dead row
+    also max-abs <= 1e-2 x max|ref| of the row (f32: max-abs <= 1e-5). Each
+    line gives the kernel's achieved TFLOP/s and its share of the bound."""
     rng = np.random.default_rng(SEED)
     roberta_lengths = [80] * 8 + [int(n) for n in rng.integers(3, 81, 56)]
     wavlm_lengths = [499, 480, 451, 400, 333, 250, 130, 64]
     long_lengths = [1500, 1437, 1290, 1111, 900, 777, 400, 65]
-    both, f32_bf16, bf16 = ("attention_bhtd", "flash_attention"), (torch.float32, torch.bfloat16), (torch.bfloat16,)
-    cases = [("roberta", (64, 16, 80), roberta_lengths, False, both, f32_bf16, False),
-             ("wavlm", (8, 16, 499), wavlm_lengths, True, both, f32_bf16, False),
-             ("long", (8, 20, 1500), None, False, ("flash_attention",), f32_bf16, False),
-             ("long_masked", (8, 20, 1500), long_lengths, False, ("flash_attention",), f32_bf16, False),
-             ("dead_row", (4, 16, 499), [499, 0, 300, 77], True, both, f32_bf16, False),
-             ("tk2048", (2, 16, 2048), [2048, 1337], True, ("attention_bhtd",), bf16, False),
-             ("offset", (4, 16, 80), [80, 0, 51, 7], False, ("attention_bhtd",), bf16, True)]
-    for shape, (B, H, T), lengths, bias, kernels, dtypes, offset in cases:
-        for dt in dtypes:
+    both, k6, k7 = ("attention_bhtd", "flash_attention"), ("flash_attention",), ("attention_bhtd",)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # shape name, (B, H, T), key lengths, bias, offset views, {dtype: kernels}
+    cases = [("roberta", (64, 16, 80), roberta_lengths, False, False, {f32: both, bf16: both}),
+             ("wavlm", (8, 16, 499), wavlm_lengths, True, False, {f32: both, bf16: both}),
+             ("long", (8, 20, 1500), None, False, False, {f32: k6, bf16: k6}),
+             ("long_masked", (8, 20, 1500), long_lengths, False, False, {f32: k6, bf16: k6}),
+             ("dead_row", (4, 16, 499), [499, 0, 300, 77], True, False, {f32: both, bf16: both}),
+             ("tk2048", (2, 16, 2048), [2048, 1337], True, False, {f32: k7, bf16: k7}),
+             # bf16 K6 copies rows by 16-byte cp.async and refuses views off 16 bytes
+             ("offset", (4, 16, 80), [80, 0, 51, 7], False, True, {f32: both, bf16: k7})]
+    for shape, (B, H, T), lengths, bias, offset, by_dtype in cases:
+        for dt, kernels in by_dtype.items():
             args, kw = _bhtd_case(g, B, H, T, lengths, bias, dt, offset)
             if offset:
                 require(all(t.data_ptr() % 16 != 0 for t in args), "the offset views start on 16 bytes")
@@ -2512,6 +2545,7 @@ def main() -> None:
     check_attention_whisper(g, parity)
     parity["attention_btd"]["f32_plans"] = check_f32_plans()
     check_attention_bhtd(g, parity)
+    parity["attention_bhtd"]["f32_plans"] = check_bhtd_f32_plans()
     check_conv_frontend(g, parity)
     check_ffn_fused(g, parity)
     check_pos_conv(g, parity)

@@ -30,8 +30,7 @@
 //     tile and keeps only the row max; pass 2 computes S again, then P, l
 //     (summed from the unrounded f32 exponentials) and P.V. One more Q . K^T
 //     and no score storage, so shared memory stays at 64 KB a block with a
-//     bias and 46 KB without, for any Tk (the f32 kernel's score rows cap it
-//     at 16 query rows near 2048).
+//     bias and 46 KB without, for any Tk.
 // A tile whose keys are all masked is skipped by the whole block when the
 // batch row has a live key (it adds exp(-1e30 - m) = 0 and lowers no max);
 // when it has none, every tile counts. A warp whose 16 rows all lie past Tq
@@ -53,15 +52,46 @@
 // boundary); at Tk = 2048 the 128 MB bias no longer fits L2. wgmma, TMA and
 // 16-byte bias loads where Tk allows are later work.
 //
-// f32 (attention_bhtd_kernel), the parity mode with TF32 off, stays on the
-// FP32 pipes: the block keeps its queries' [bq, Tk] f32 SCORE rows in shared
-// memory and streams K, then V, in 64-key tiles (K/V widened to f32):
-//   1. scores of every key (the bias tile staged into the score rows first),
-//      and the exact row max;
-//   2. exp(s - max) in place and the row sum;
-//   3. P.V over V tiles.
-// bq is 64, 32 or 16 query rows, the largest whose score rows fit. It is
-// bound by shared-memory issue rate and FP32 throughput.
+// f32 (attention_bhtd_f32_kernel<RI, BIAS, RES>), the parity mode with TF32
+// off, runs on the FP32 pipes on K1's register micro-tiles
+// (attention_bhtd_common.cuh): 256 threads own 16 * RI query rows, a thread
+// rows g + 16i and, of each 64-key tile, keys l + 16j; q, K, V, the bias and
+// the key flags are staged by cp.async into padded rows, double-buffered,
+// one block barrier a step. The exact max, two routes, chosen by the
+// launcher from Tq and Tk (plan; attention_bhtd.py's bhtd_f32_plan is the
+// same rule):
+//   scores on chip (RES), where the block's [rows][Tk_r + 4] score rows fit
+//     in shared memory beside q and a ring of two K-or-V tiles (Tk <= 256 at
+//     128 rows, 512 at 80, 640 at 64; the launcher takes the most rows, at
+//     most block_rows(Tq), that fit): the whole bias block is staged into
+//     the score rows first; steps 0 .. nt-1 compute S tile by tile over it
+//     and keep the row max in registers; then the half-warp max, and steps
+//     nt .. 2nt-1 turn a tile's scores into P in place and add P.V of the V
+//     tile staged meanwhile;
+//   two passes (Tk > 640): pass 1 computes S tile by tile (K and the bias
+//     tile) and keeps only the max; pass 2 computes S again, P, l and P.V (K,
+//     V and the bias tile), P written over the bias elements the same thread
+//     read. 174,592 bytes of shared memory with a bias (139,776 without) at
+//     128 rows, for any Tk: no query block shrinks as Tk grows.
+// A tile whose keys are all masked is skipped by the whole block when the
+// batch row has a live key; when it has none, every tile counts (P = 1).
+// q, k and v whose pointer or strides are not 16-byte multiples are staged
+// by 4-byte cp.async on a runtime branch of the same kernel.
+//
+// Block rows (median of 21 runs on an H100 80GB HBM3 at 700 W, two runs,
+// each block size forced in plan() for the measurement). At RoBERTa-large's shape (B=64, H=16,
+// Tq = Tk = 80, ragged mask) a 128-row block leaves 48 of its rows idle and
+// makes 1024 blocks at one an SM (168 registers, 137,728 bytes): 0.1838 /
+// 0.1806 ms. 64-row blocks (two an SM, 2048 blocks, the second of each head
+// 16 rows full): 0.1940 / 0.1772. 80-row blocks, the queries filling them
+// (RI = 5, 128 registers, 99,328 bytes, two an SM): 0.1323 / 0.1315, the
+// choice: block_rows(Tq) is the fewest of 64, 80 and 128 rows that hold Tq.
+// At the WavLM shape with the bias (Tq = Tk = 499) 128-row blocks take two
+// passes, 0.4678 / 0.4748 ms, and 80- or 64-row blocks keep the scores on
+// chip, 0.4042 / 0.4043 and 0.4180 / 0.4032: hence the most rows that keep
+// the scores on chip, before two passes. What bounds it: the FP32 products
+// (its share of the 67-TFLOP/s peak is in PERF.md), at one or two blocks an
+// SM with nothing but the double-buffered copies to hide their latency.
 //
 // q, k, v and out may be strided views (each row of hd elements contiguous),
 // so RoBERTa's [B, T, H*hd] projections go in, and its output comes out, with
@@ -73,94 +103,248 @@ namespace {
 
 using namespace bhtd;
 
-struct Strides {  // elements: batch, head, time, for q, k, v and out
-  long long q[3], k[3], v[3], o[3];
-};
+// ---------------------------------------------------------------------------
+// f32 on the FP32 pipes
 
-__global__ void attention_bhtd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                      const float* __restrict__ v,
-                                      const float* __restrict__ key_mask,  // [B, Tk] or null
-                                      const float* __restrict__ gate,      // [B, H, Tq] or null (with bias)
-                                      const float* __restrict__ bias,      // [H, Tq, Tk] or null
-                                      float* __restrict__ out, Strides st, int Tq, int Tk, int H,
-                                      int bq, int s_ld, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int tkr = (Tk + BK - 1) / BK * BK;
-  float* kv = smem;               // [BK][KV_LD]: a K tile, then a V tile
-  float* valid = kv + BK * KV_LD;  // [tkr]
-  float* S = valid + tkr;          // [bq][s_ld]: scores, then P
+namespace fp32 {
 
-  const int nthreads = blockDim.x;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, part = tid % TPR;
-  const int q0 = blockIdx.x * bq;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int qi = q0 + r;
-  const bool row_ok = qi < Tq;
-  float* srow = S + (size_t)r * s_ld;
+using attn_f32::acc_tile;
+using attn_f32::cp_async4;
+using attn_f32::cp_async_commit;
+using attn_f32::cp_async_wait;
+using attn_f32::half_warp_max;
+using attn_f32::SMEM_LIMIT;
+using attn_f32::stage_elems;
+using attn_f32::stage_rows_ld;
+using attn_f32::THREADS;
+using bhtd::f32::BK;
+using bhtd::f32::block_rows;
+using bhtd::f32::live_batch_row;
+using bhtd::f32::load_gate;
+using bhtd::f32::PSTR;
+using bhtd::f32::RJ;
+using bhtd::f32::score_tile;
+using bhtd::f32::stage_flags;
+using bhtd::f32::store_rows;
+using bhtd::f32::STR;
 
+enum Route { SCORES_ON_CHIP = 1, TWO_PASS = 2 };  // 0 is K6's online softmax (flash_attention.cu)
+
+// shared floats of a block owning 16 * ri query rows, keys padded to tkr
+__host__ __device__ constexpr size_t smem_floats(int ri, bool bias, int route, int tkr) {
+  return route == SCORES_ON_CHIP
+             ? 16 * (size_t)ri * STR + 2 * BK * STR + 16 * (size_t)ri * (tkr + 4) + tkr
+             : 16 * (size_t)ri * STR + 4 * BK * STR + (bias ? 2 : 1) * 16 * (size_t)ri * PSTR + 2 * BK;
+}
+
+template <int RI, bool BIAS, bool RES>
+__global__ void __launch_bounds__(THREADS, RI < 8 ? 2 : 1) attention_bhtd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ key_mask,  // [B, Tk] or null
+    const float* __restrict__ gate,      // [B, H, Tq] (BIAS)
+    const float* __restrict__ bias,      // [H, Tq, Tk] (BIAS)
+    float* __restrict__ out, Strides st, int Tq, int Tk, int H, float scale, int aligned) {
+  constexpr int ROWS = 16 * RI;
+  extern __shared__ __align__(16) float smem_f[];
+  const int nt = (Tk + BK - 1) / BK, tkr = nt * BK;
+  const int pstr = RES ? tkr + 4 : PSTR;
+  float* qs = smem_f;                        // [ROWS][STR] q
+  float* ks = qs + ROWS * STR;               // [2][BK][STR]: K tiles (RES: K tiles, then V tiles)
+  float* vs = ks + 2 * BK * STR;             // [2][BK][STR]: V tiles (two passes)
+  float* ps = RES ? vs : vs + 2 * BK * STR;  // RES: [ROWS][tkr + 4] bias, S, then P; else [2 | 1][ROWS][PSTR]
+  float* fl = ps + (RES ? 1 : (BIAS ? 2 : 1)) * ROWS * pstr;  // key flags, RES: [tkr]; else [2][BK]
+
+  const int tid = threadIdx.x, l = tid & 15, g = tid >> 4;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const bool al = aligned != 0;
   const float* kb = k + b * st.k[0] + h * st.k[1];
   const float* vb = v + b * st.v[0] + h * st.v[1];
-  float qr[HD];
-  {
-    const float* qrow = q + b * st.q[0] + h * st.q[1] + (row_ok ? qi : 0) * st.q[2];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = row_ok ? qrow[d] : 0.f;
-  }
-  const float g = (bias != nullptr && row_ok) ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
-  for (int j = tid; j < tkr; j += nthreads)
-    valid[j] = (j < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + j] > 0.f)) ? 1.f : 0.f;
+  const float* mask_b = key_mask != nullptr ? key_mask + (size_t)b * Tk : nullptr;
+  const float* bias_h = BIAS ? bias + (size_t)h * Tq * Tk : nullptr;
 
-  // 1. scores and the exact row max
-  float m = -INFINITY;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    load_tile(kv, kb, st.k[2], k0, Tk, tid, nthreads);
-    if (bias != nullptr) {
-      for (int idx = tid; idx < bq * BK; idx += nthreads) {
-        const int rr = idx / BK, c = idx % BK;
-        const int qq = q0 + rr, kj = k0 + c;
-        S[(size_t)rr * s_ld + kj] = (qq < Tq && kj < Tk) ? bias[((size_t)h * Tq + qq) * Tk + kj] : 0.f;
+  // step i < nt computes the scores of key tile i, step nt + j P and P.V of tile j
+  auto stage = [&](int i) {
+    const int j = i < nt ? i : i - nt, s = i & 1, k0 = j * BK;
+    if constexpr (RES) {
+      stage_rows_ld<HD, BK>(ks + s * BK * STR, i < nt ? kb : vb, i < nt ? st.k[2] : st.v[2], k0, Tk, al, tid);
+    } else {
+      stage_rows_ld<HD, BK>(ks + s * BK * STR, kb, st.k[2], k0, Tk, al, tid);
+      if (i >= nt) stage_rows_ld<HD, BK>(vs + s * BK * STR, vb, st.v[2], k0, Tk, al, tid);
+      if constexpr (BIAS) stage_elems<ROWS, BK>(ps + s * ROWS * PSTR, PSTR, bias_h, q0, k0, Tq, Tk, Tk, tid);
+      stage_flags(fl + s * BK, mask_b, k0, BK, Tk, tid);
+    }
+    cp_async_commit();
+  };
+  stage_rows_ld<HD, ROWS>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, Tq, al, tid);
+  if constexpr (RES) {  // the whole bias block into the score rows, every key flag
+    if constexpr (BIAS) {
+      for (int idx = tid; idx < ROWS * tkr; idx += THREADS) {
+        const int r = idx / tkr, c = idx % tkr;
+        const bool ok = q0 + r < Tq && c < Tk;
+        cp_async4(ps + r * pstr + c, ok ? bias_h + (size_t)(q0 + r) * Tk + c : bias_h, ok);
       }
     }
-    __syncthreads();
-    for (int i = 0; i < BK / TPR; ++i) {
-      const int j = part + TPR * i;
-      const int kj = k0 + j;
-      if (kj < Tk) {
-        float s = dot_row(qr, kv + j * KV_LD) * scale;
-        if (bias != nullptr) s += g * srow[kj];
-        s = valid[kj] > 0.f ? s : NEG_INF;
-        srow[kj] = s;
-        m = fmaxf(m, s);
-      }
-    }
-    __syncthreads();  // kv is rewritten by the next tile
+    stage_flags(fl, mask_b, 0, tkr, Tk, tid);
   }
-  m = row_max(m);
+  stage(0);
+  const int live_row = live_batch_row(mask_b, Tk, tid);  // while the copies fly
+  float gr[RI];
+  load_gate<RI, BIAS>(gr, gate, b, h, H, q0, Tq, g);
 
-  // 2. P = exp(s - max) in place, and the row sum
-  float l = 0.f;
-  for (int j = part; j < Tk; j += TPR) {
-    const float e = expf(srow[j] - m);
-    srow[j] = e;
-    l += e;
-  }
-  l = row_sum(l);
-  if (m == NEG_INF) l += (float)(oneshot_padded_tk(Tk) - Tk);  // every key masked: the padding counts
-
-  // 3. P.V, V streamed in tiles; P rounded to v's dtype
-  float acc[16];
+  float o[RI][4], m[RI], lsum[RI];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    load_tile(kv, vb, st.v[2], k0, Tk, tid, nthreads);
-    __syncthreads();  // also orders step 2's writes to P before these reads
-    const int jn = min(BK, Tk - k0);
-    for (int j = 0; j < jn; ++j) axpy_chunks(acc, srow[k0 + j], kv + j * KV_LD, part);
-    __syncthreads();
+  for (int i = 0; i < RI; ++i) {
+    m[i] = -INFINITY;
+    lsum[i] = 0.f;
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   }
-  if (row_ok) store_chunks(out + b * st.o[0] + h * st.o[1] + qi * st.o[2], acc, l, part);
+  for (int i = 0; i < 2 * nt; ++i) {
+    const int j = i < nt ? i : i - nt, s = i & 1;
+    const float* ft = fl + (RES ? j : s) * BK;
+    cp_async_wait<0>();
+    // the step's one barrier: its copies have landed, and every thread is
+    // done with step i - 1, whose stage the next copies overwrite
+    const int any = __syncthreads_or(tid < BK && ft[tid] > 0.f);
+    if (i + 1 < 2 * nt) stage(i + 1);
+    if (i == nt) {  // the exact row max, before any exponential
+#pragma unroll
+      for (int r = 0; r < RI; ++r) m[r] = half_warp_max(m[r]);
+    }
+    if (!any && live_row) continue;  // every key of the tile masked: it adds nothing
+    const float* kt = ks + s * BK * STR;  // RES, i >= nt: the V tile
+    float* pt = RES ? ps + g * pstr + j * BK : ps + (BIAS ? s : 0) * ROWS * PSTR + g * PSTR;
+    float sc[RI][RJ];
+    if (RES && i >= nt) {
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int jj = 0; jj < RJ; ++jj) sc[r][jj] = pt[16 * r * pstr + l + 16 * jj];
+    } else {
+      score_tile<RI, BIAS>(sc, qs, kt, pt, pstr, gr, ft, Tk - j * BK, scale, g, l);
+    }
+    if (i < nt) {
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int jj = 0; jj < RJ; ++jj) {
+          m[r] = fmaxf(m[r], sc[r][jj]);
+          if constexpr (RES) pt[16 * r * pstr + l + 16 * jj] = sc[r][jj];  // over the bias element it read
+        }
+      continue;
+    }
+    // P = exp(s - max) over the bias / score elements this thread owns, then P.V
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) {
+        const float p = expf(sc[r][jj] - m[r]);
+        lsum[r] += p;
+        pt[16 * r * pstr + l + 16 * jj] = p;
+      }
+    __syncwarp();  // a row's P comes from its own half-warp alone
+    acc_tile<HD, RI, BK, true>(o, pt, 16 * pstr, RES ? kt : vs + s * BK * STR, STR, l);
+  }
+  store_rows<RI>(out + b * st.o[0] + h * st.o[1], st.o[2], o, m, lsum, (float)(oneshot_padded_tk(Tk) - Tk), q0, Tq,
+                 g, l);
 }
+
+struct Plan {
+  int route, rows;
+  size_t bytes;
+};
+
+// The launcher's rule: the scores on chip in blocks of the most of 128, 80
+// or 64 query rows, at most block_rows(Tq), whose score rows fit beside the
+// staged tiles (Tk <= 256, 512, 640); else two passes in blocks of
+// block_rows(Tq).
+Plan plan(int Tq, int Tk, bool bias) {
+  const int r0 = block_rows(Tq);
+  const int tkr = (Tk + BK - 1) / BK * BK;
+  const int on_chip_rows[3] = {128, 80, 64};
+  for (const int r : on_chip_rows) {
+    const size_t res = 4 * smem_floats(r / 16, bias, SCORES_ON_CHIP, tkr);
+    if (r <= r0 && res <= SMEM_LIMIT) return {SCORES_ON_CHIP, r, res};
+  }
+  return {TWO_PASS, r0, 4 * smem_floats(r0 / 16, bias, TWO_PASS, tkr)};
+}
+
+// the kernel's opt-in to dynamic shared memory, once per instantiation: the
+// most it can take (any Tk on the scores-on-chip route, its fixed size else)
+template <int RI, bool BIAS, bool RES>
+int configure() {
+  static int err = (int)cudaFuncSetAttribute(attention_bhtd_f32_kernel<RI, BIAS, RES>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             RES ? (int)SMEM_LIMIT : (int)(4 * smem_floats(RI, BIAS, TWO_PASS, 0)));
+  return err;
+}
+
+template <int RI, bool BIAS, bool RES>
+int launch(const void* q, const void* k, const void* v, const void* key_mask, const void* gate, const void* bias,
+           void* out, const Strides& st, int B, int H, int Tq, int Tk, float scale, int aligned, size_t bytes,
+           void* stream) {
+  const int err = configure<RI, BIAS, RES>();
+  if (err != 0) return err;
+  dim3 grid((Tq + 16 * RI - 1) / (16 * RI), H, B);
+  attention_bhtd_f32_kernel<RI, BIAS, RES><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
+      (const float*)bias, (float*)out, st, Tq, Tk, H, scale, aligned);
+  return (int)cudaGetLastError();
+}
+
+// route, rows, tile keys, shared bytes and resident blocks an SM of the kernel the launcher picks
+template <int RI, bool BIAS, bool RES>
+int occupancy(const Plan& p, int* out) {
+  const int err = configure<RI, BIAS, RES>();
+  if (err != 0) return err;
+  out[0] = p.route;
+  out[1] = p.rows;
+  out[2] = BK;
+  out[3] = (int)p.bytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], attention_bhtd_f32_kernel<RI, BIAS, RES>,
+                                                            THREADS, p.bytes);
+}
+
+template <bool BIAS, bool RES>
+int launch_rows(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                const void* bias, void* out, const Strides& st, int B, int H, int Tq, int Tk, float scale,
+                int aligned, const Plan& p, void* stream) {
+  switch (p.rows) {
+    case 64:
+      return launch<4, BIAS, RES>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, p.bytes, stream);
+    case 80:
+      return launch<5, BIAS, RES>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, p.bytes, stream);
+    default:
+      return launch<8, BIAS, RES>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, p.bytes, stream);
+  }
+}
+
+template <bool BIAS>
+int launch_bias(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                const void* bias, void* out, const Strides& st, int B, int H, int Tq, int Tk, float scale,
+                int aligned, const Plan& p, void* stream) {
+  return p.route == TWO_PASS
+             ? launch_rows<BIAS, false>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, p, stream)
+             : launch_rows<BIAS, true>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, p, stream);
+}
+
+template <bool BIAS, bool RES>
+int occupancy_rows(const Plan& p, int* out) {
+  switch (p.rows) {
+    case 64:
+      return occupancy<4, BIAS, RES>(p, out);
+    case 80:
+      return occupancy<5, BIAS, RES>(p, out);
+    default:
+      return occupancy<8, BIAS, RES>(p, out);
+  }
+}
+
+template <bool BIAS>
+int occupancy_bias(const Plan& p, int* out) {
+  return p.route == TWO_PASS ? occupancy_rows<BIAS, false>(p, out) : occupancy_rows<BIAS, true>(p, out);
+}
+
+}  // namespace fp32
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores. Block: (b, h, 64 queries), 4 warps, warp w owns
@@ -449,42 +633,16 @@ int launch_mma(const void* q, const void* k, const void* v, const void* key_mask
   return (int)cudaGetLastError();
 }
 
-// shared memory for `bq` query rows at key length Tk, in bytes
-size_t smem_bytes(int bq, int Tk) {
-  const int tkr = (Tk + BK - 1) / BK * BK;
-  return sizeof(float) * ((size_t)BK * KV_LD + tkr + (size_t)bq * (tkr + 4));
-}
-
-constexpr size_t SMEM_LIMIT = 227 * 1024;
-
-Strides unpack(const long long* strides) {
-  Strides st;
-  for (int i = 0; i < 3; ++i) {
-    st.q[i] = strides[i];
-    st.k[i] = strides[3 + i];
-    st.v[i] = strides[6 + i];
-    st.o[i] = strides[9 + i];
-  }
-  return st;
-}
-
 int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
                const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk, int hd,
                float scale, void* stream) {
   if (hd != HD || Tk < 1 || Tk > 2048 || Tq < 1) return (int)cudaErrorInvalidValue;
-  int bq = 64;
-  while (bq > 16 && smem_bytes(bq, Tk) > SMEM_LIMIT) bq /= 2;
-  const size_t smem = smem_bytes(bq, Tk);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_bhtd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tkr = (Tk + BK - 1) / BK * BK;
-  dim3 grid((Tq + bq - 1) / bq, H, B);
-  attention_bhtd_kernel<<<grid, bq * TPR, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
-      (const float*)bias, (float*)out, unpack(strides), Tq, Tk, H, bq, tkr + 4, scale);
-  return (int)cudaGetLastError();
+  const fp32::Plan p = fp32::plan(Tq, Tk, bias != nullptr);
+  const int aligned = rows_aligned16(q, k, v, strides, 4);
+  const Strides st = unpack(strides);
+  return bias != nullptr
+             ? fp32::launch_bias<true>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, p, stream)
+             : fp32::launch_bias<false>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, p, stream);
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
@@ -492,13 +650,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* key_mas
                 float scale, void* stream) {
   if (hd != HD || Tk < 1 || Tk > 2048 || Tq < 1) return (int)cudaErrorInvalidValue;
   const Strides st = unpack(strides);
-  // 16-byte cp.async needs every row of q, k and v to start on 16 bytes
-  int aligned = 1;
-  const void* ptrs[3] = {q, k, v};
-  for (int a = 0; a < 3; ++a) {
-    aligned &= (reinterpret_cast<uintptr_t>(ptrs[a]) % 16) == 0;
-    for (int i = 0; i < 3; ++i) aligned &= strides[3 * a + i] % 8 == 0;
-  }
+  const int aligned = rows_aligned16(q, k, v, strides, 2);
   const bool res = Tk <= 2 * MBK;
   if (bias != nullptr)
     return res ? launch_mma<true, true>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream)
@@ -514,6 +666,14 @@ extern "C" int ser_attention_bhtd_f32(const void* q, const void* k, const void* 
                                       void* out, const long long* strides, int B, int H, int Tq,
                                       int Tk, int hd, float scale, void* stream) {
   return launch_f32(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
+}
+
+// out: route (1 scores on chip, 2 two passes), rows, tile keys, shared bytes and resident
+// blocks an SM of the f32 kernel the launcher picks at (Tq, Tk, bias)
+extern "C" int ser_attention_bhtd_f32_plan(int Tq, int Tk, int bias, int* out) {
+  if (Tk < 1 || Tk > 2048 || Tq < 1) return (int)cudaErrorInvalidValue;
+  const fp32::Plan p = fp32::plan(Tq, Tk, bias != 0);
+  return bias ? fp32::occupancy_bias<true>(p, out) : fp32::occupancy_bias<false>(p, out);
 }
 
 extern "C" int ser_attention_bhtd_bf16(const void* q, const void* k, const void* v,

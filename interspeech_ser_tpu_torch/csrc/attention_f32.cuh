@@ -1,7 +1,8 @@
 // FP32-pipe building blocks shared by K1 (attention_btd.cu) and K4
 // (attention_btd_bwd.cu) in f32, with TF32 off: IEEE fmaf products over
 // register-blocked micro-tiles of operands staged in shared memory by
-// cp.async and double-buffered.
+// cp.async and double-buffered. K6 and K7 use them too, on [B, H, T, hd]
+// strides (stage_rows_ld; attention_bhtd_common.cuh).
 //
 // Every block has 256 threads and owns ROWS = 128 rows (queries in K1 and
 // K4's dQ pass, keys in the dK/dV pass), RI = 8 to a thread: thread t holds
@@ -106,6 +107,29 @@ __device__ __forceinline__ void stage_rows(float* tile, const float* panel, int 
     const int r = idx / CH, c = (idx % CH) * 4;
     const bool ok = r0 + r < n;
     cp_async16(tile + r * STR + c, panel + (size_t)(ok ? r0 + r : 0) * D + h * HD + c, ok);
+  }
+}
+
+// rows [r0, r0 + R) of one head's [T, HD] panel whose rows lie `ld` elements
+// apart (a [B, H, T, hd] view with any batch, head and time strides, each row
+// contiguous) into a [R][HD + 4] tile; rows at or past n are zero-filled. By
+// 16-byte cp.async when the view's pointer and strides are 16-byte multiples
+// (`aligned`), else by 4-byte cp.async: the same values land either way.
+template <int HD, int R>
+__device__ __forceinline__ void stage_rows_ld(float* tile, const float* panel, long long ld, int r0, int n,
+                                              bool aligned, int tid) {
+  constexpr int CH = HD / 4, STR = HD + 4;
+  for (int idx = tid; idx < R * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx % CH) * 4;
+    const bool ok = r0 + r < n;
+    const float* src = panel + (ok ? (long long)(r0 + r) * ld : 0) + c;
+    float* dst = tile + r * STR + c;
+    if (aligned) {
+      cp_async16(dst, src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(dst + e, src + e, ok);
+    }
   }
 }
 

@@ -51,14 +51,29 @@
 // RoBERTa's (SDPA 0.057), where each head's second 64-query block holds 16
 // live rows (T = 80).
 //
-// f32 (flash_attention_kernel), the parity mode with TF32 off, stays on the
-// FP32 pipes: four threads share a query row (attention_bhtd_common.cuh), K/V
-// tiles widened to f32 in shared memory, so a block is 256 threads and holds
-// two 17 KB tiles. It is bound by FP32 issue rate.
+// f32 (flash_attention_f32_kernel<RI, BIAS>), the parity mode with TF32
+// off, runs on the FP32 pipes on K1's register micro-tiles
+// (attention_bhtd_common.cuh): K1's online-softmax loop on K6's strides and
+// K6's function. A block of 256 threads owns (b, h, 16 * RI queries): RI =
+// 8 (128 rows) for long queries, 5 or 4 (80 or 64 rows, block_rows) for
+// Tq <= 80 or 64, so RoBERTa's 80 queries fill their block as in K7; a
+// thread rows g + 16i and, of each 64-key tile, keys l + 16j (j < 4): an
+// RI x 4 score micro-tile and an RI x 4-column output micro-tile. q stays in
+// shared memory for the block's life; K, V, the f32 bias tile and the key
+// flags are staged by cp.async (16 bytes a copy for q, K and V when the view
+// allows it, else 4; 4 for the bias and flags) into stage j & 1 while tile
+// j - 1 is computed, one block barrier a tile; the running max starts at
+// -1e30 and is rescaled per tile over the row's half-warp; P goes over the
+// bias elements the same thread read and only the row's half-warp reads it
+// back. 174,592 bytes of shared memory with a bias (139,776 without) at 128
+// rows: one block an SM (168 registers); two at 80 and 64 rows (at most 128).
+// What bounds it at the long shape (B=8, H=20, T=1500; 92 GFLOP of products,
+// 1.42 ms at the FP32 peak): the products, as in K1 at Whisper-large-v3's
+// layer, whose loop this is; its times are in PERF.md.
 //
 // q, k, v and out may be strided views (each row of hd elements contiguous);
 // the bf16 kernel needs 16-byte aligned pointers and row strides (the wrapper
-// checks).
+// checks), the f32 kernel takes any.
 
 #include "attention_bhtd_common.cuh"
 
@@ -66,101 +81,180 @@ namespace {
 
 using namespace bhtd;
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int S_LD = BK + 4;  // padded score-tile row (S_LD % 32 == 4: no bank conflicts)
+// ---------------------------------------------------------------------------
+// f32 on the FP32 pipes
 
-struct Strides {  // elements: batch, head, time, for q, k, v and out
-  long long q[3], k[3], v[3], o[3];
-};
+namespace fp32 {
 
-__global__ void __launch_bounds__(BQ * TPR) flash_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ key_mask,  // [B, Tk] or null
-    const float* __restrict__ gate,      // [B, H, Tq] or null (with bias)
-    const float* __restrict__ bias,      // [H, Tq, Tk] or null
-    float* __restrict__ out, Strides st, int Tq, int Tk, int H, float scale) {
-  __shared__ __align__(16) float kv[BK * KV_LD];  // K tile, then V tile
-  __shared__ float sc[BQ * S_LD];                 // bias tile, scores, then P
-  __shared__ float valid[BK];
+using attn_f32::acc_tile;
+using attn_f32::cp_async_commit;
+using attn_f32::cp_async_wait;
+using attn_f32::half_warp_max;
+using attn_f32::stage_elems;
+using attn_f32::stage_rows_ld;
+using attn_f32::THREADS;
+using bhtd::f32::BK;
+using bhtd::f32::block_rows;
+using bhtd::f32::live_batch_row;
+using bhtd::f32::load_gate;
+using bhtd::f32::PSTR;
+using bhtd::f32::RJ;
+using bhtd::f32::score_tile;
+using bhtd::f32::stage_flags;
+using bhtd::f32::store_rows;
+using bhtd::f32::STR;
 
-  constexpr int nthreads = BQ * TPR;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, part = tid % TPR;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int qi = q0 + r;
-  const bool row_ok = qi < Tq;
-  float* srow = sc + r * S_LD;
+constexpr int ROUTE_ONLINE = 0;  // K7's routes are 1 and 2 (attention_bhtd.cu)
 
-  const float* kb = k + b * st.k[0] + h * st.k[1];
-  const float* vb = v + b * st.v[0] + h * st.v[1];
-  float qr[HD];
-  {
-    const float* qrow = q + b * st.q[0] + h * st.q[1] + (row_ok ? qi : 0) * st.q[2];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = row_ok ? qrow[d] : 0.f;
-  }
-  const float g = (bias != nullptr && row_ok) ? gate[((size_t)b * H + h) * Tq + qi] : 0.f;
-
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  float m = NEG_INF;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    load_tile(kv, kb, st.k[2], k0, Tk, tid, nthreads);
-    if (bias != nullptr) {
-      for (int idx = tid; idx < BQ * BK; idx += nthreads) {
-        const int rr = idx / BK, c = idx % BK;
-        const int qq = q0 + rr, kj = k0 + c;
-        sc[rr * S_LD + c] = (qq < Tq && kj < Tk) ? bias[((size_t)h * Tq + qq) * Tk + kj] : 0.f;
-      }
-    }
-    if (tid < BK) {
-      const int kj = k0 + tid;
-      valid[tid] = (kj < Tk && (key_mask == nullptr || key_mask[(size_t)b * Tk + kj] > 0.f)) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    const int jn = min(BK, Tk - k0);
-    float tmax = -INFINITY;
-    for (int i = 0; i < BK / TPR; ++i) {
-      const int j = part + TPR * i;
-      if (j < jn) {
-        float s = dot_row(qr, kv + j * KV_LD) * scale;
-        if (bias != nullptr) s += g * srow[j];
-        s = valid[j] > 0.f ? s : NEG_INF;
-        srow[j] = s;
-        tmax = fmaxf(tmax, s);
-      }
-    }
-    const float m_new = fmaxf(m, row_max(tmax));
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-    for (int i = 0; i < BK / TPR; ++i) {
-      const int j = part + TPR * i;
-      if (j < jn) {
-        const float e = expf(srow[j] - m_new);
-        srow[j] = e;
-        psum += e;
-      }
-    }
-    l = l * alpha + row_sum(psum);
-    __syncthreads();  // every thread is done with the K tile
-
-    load_tile(kv, vb, st.v[2], k0, Tk, tid, nthreads);
-    __syncthreads();  // also orders the P writes above before the reads below
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] *= alpha;
-    for (int j = 0; j < jn; ++j) axpy_chunks(acc, srow[j], kv + j * KV_LD, part);
-    m = m_new;
-    __syncthreads();  // kv and sc are rewritten by the next tile
-  }
-  if (m == NEG_INF) l += (float)(flash_padded_tk(Tk) - Tk);  // every key masked: the padding counts
-  if (row_ok) store_chunks(out + b * st.o[0] + h * st.o[1] + qi * st.o[2], acc, l, part);
+// shared bytes of a block owning 16 * RI query rows
+template <int RI, bool BIAS>
+constexpr size_t smem_bytes() {
+  return 4 * (16 * (size_t)RI * STR + 4 * BK * STR + (BIAS ? 2 : 1) * 16 * (size_t)RI * PSTR + 2 * BK);
 }
 
+template <int RI, bool BIAS>
+__global__ void __launch_bounds__(THREADS, RI < 8 ? 2 : 1) flash_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ key_mask,  // [B, Tk] or null
+    const float* __restrict__ gate,      // [B, H, Tq] (BIAS)
+    const float* __restrict__ bias,      // [H, Tq, Tk] f32 (BIAS)
+    float* __restrict__ out, Strides st, int Tq, int Tk, int H, float scale, int aligned) {
+  constexpr int ROWS = 16 * RI;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                              // [ROWS][STR] q
+  float* ks = qs + ROWS * STR;                     // [2][BK][STR]
+  float* vs = ks + 2 * BK * STR;                   // [2][BK][STR]
+  float* ps = vs + 2 * BK * STR;                   // [BIAS ? 2 : 1][ROWS][PSTR]: the bias tile, then P
+  float* fl = ps + (BIAS ? 2 : 1) * ROWS * PSTR;   // [2][BK] key flags (> 0: live)
+
+  const int tid = threadIdx.x, l = tid & 15, g = tid >> 4;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const bool al = aligned != 0;
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
+  const float* mask_b = key_mask != nullptr ? key_mask + (size_t)b * Tk : nullptr;
+  const float* bias_h = BIAS ? bias + (size_t)h * Tq * Tk : nullptr;
+
+  auto stage = [&](int j) {
+    const int s = j & 1, k0 = j * BK;
+    stage_rows_ld<HD, BK>(ks + s * BK * STR, kb, st.k[2], k0, Tk, al, tid);
+    stage_rows_ld<HD, BK>(vs + s * BK * STR, vb, st.v[2], k0, Tk, al, tid);
+    if constexpr (BIAS) stage_elems<ROWS, BK>(ps + s * ROWS * PSTR, PSTR, bias_h, q0, k0, Tq, Tk, Tk, tid);
+    stage_flags(fl + s * BK, mask_b, k0, BK, Tk, tid);
+    cp_async_commit();
+  };
+  stage_rows_ld<HD, ROWS>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, Tq, al, tid);
+  stage(0);
+  const int live_row = live_batch_row(mask_b, Tk, tid);  // while the copies fly
+  float gr[RI];
+  load_gate<RI, BIAS>(gr, gate, b, h, H, q0, Tq, g);
+
+  float o[RI][4], m[RI], lsum[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = NEG_INF;
+    lsum[i] = 0.f;
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  }
+  const int nt = (Tk + BK - 1) / BK;
+  for (int j = 0; j < nt; ++j) {
+    const int s = j & 1;
+    const float* ft = fl + s * BK;
+    cp_async_wait<0>();
+    // the tile's one barrier: stage s has landed, and every thread is done
+    // with tile j - 1, whose stage the next copies overwrite
+    const int any = __syncthreads_or(tid < BK && ft[tid] > 0.f);
+    if (j + 1 < nt) stage(j + 1);
+    if (!any && live_row) continue;  // every key of the tile masked: it adds nothing
+    float* pt = ps + (BIAS ? s : 0) * ROWS * PSTR + g * PSTR;  // row i of this thread at pt + 16 i PSTR
+    float sc[RI][RJ];
+    score_tile<RI, BIAS>(sc, qs, ks + s * BK * STR, pt, PSTR, gr, ft, Tk - j * BK, scale, g, l);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) mx = fmaxf(mx, sc[i][jj]);
+      const float m_new = fmaxf(m[i], half_warp_max(mx));  // >= -1e30, where m starts
+      const float alpha = expf(m[i] - m_new);
+      lsum[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[i][c] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) {
+        const float p = expf(sc[i][jj] - m_new);
+        lsum[i] += p;
+        pt[16 * i * PSTR + l + 16 * jj] = p;  // where this thread read its bias: no other thread's
+      }
+      m[i] = m_new;
+    }
+    __syncwarp();  // a row's P comes from its own half-warp alone
+    acc_tile<HD, RI, BK, true>(o, pt, 16 * PSTR, vs + s * BK * STR, STR, l);
+  }
+  store_rows<RI>(out + b * st.o[0] + h * st.o[1], st.o[2], o, m, lsum, (float)(flash_padded_tk(Tk) - Tk), q0, Tq,
+                 g, l);
+}
+
+// the kernel's opt-in to its dynamic shared memory, once per instantiation
+template <int RI, bool BIAS>
+int configure() {
+  static int err = (int)cudaFuncSetAttribute(flash_attention_f32_kernel<RI, BIAS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<RI, BIAS>());
+  return err;
+}
+
+template <int RI, bool BIAS>
+int launch(const void* q, const void* k, const void* v, const void* key_mask, const void* gate, const void* bias,
+           void* out, const Strides& st, int B, int H, int Tq, int Tk, float scale, int aligned, void* stream) {
+  const int err = configure<RI, BIAS>();
+  if (err != 0) return err;
+  dim3 grid((Tq + 16 * RI - 1) / (16 * RI), H, B);
+  flash_attention_f32_kernel<RI, BIAS><<<grid, THREADS, smem_bytes<RI, BIAS>(), (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
+      (const float*)bias, (float*)out, st, Tq, Tk, H, scale, aligned);
+  return (int)cudaGetLastError();
+}
+
+// blocks of block_rows(Tq) query rows: 64, 80 or 128
+template <bool BIAS>
+int launch_rows(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
+                const void* bias, void* out, const Strides& st, int B, int H, int Tq, int Tk, float scale,
+                int aligned, void* stream) {
+  switch (block_rows(Tq)) {
+    case 64:
+      return launch<4, BIAS>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream);
+    case 80:
+      return launch<5, BIAS>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream);
+    default:
+      return launch<8, BIAS>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream);
+  }
+}
+
+// route (0: online softmax), rows, tile keys, shared bytes and resident blocks an SM
+template <int RI, bool BIAS>
+int occupancy(int* out) {
+  const int err = configure<RI, BIAS>();
+  if (err != 0) return err;
+  out[0] = ROUTE_ONLINE;
+  out[1] = 16 * RI;
+  out[2] = BK;
+  out[3] = (int)smem_bytes<RI, BIAS>();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], flash_attention_f32_kernel<RI, BIAS>, THREADS,
+                                                            smem_bytes<RI, BIAS>());
+}
+
+template <bool BIAS>
+int occupancy_rows(int Tq, int* out) {
+  switch (block_rows(Tq)) {
+    case 64:
+      return occupancy<4, BIAS>(out);
+    case 80:
+      return occupancy<5, BIAS>(out);
+    default:
+      return occupancy<8, BIAS>(out);
+  }
+}
+
+}  // namespace fp32
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores. Block: (b, h, 64 queries), 4 warps, warp w owns
@@ -391,26 +485,15 @@ int launch_mma(const void* q, const void* k, const void* v, const void* key_mask
   return (int)cudaGetLastError();
 }
 
-Strides unpack(const long long* strides) {
-  Strides st;
-  for (int i = 0; i < 3; ++i) {
-    st.q[i] = strides[i];
-    st.k[i] = strides[3 + i];
-    st.v[i] = strides[6 + i];
-    st.o[i] = strides[9 + i];
-  }
-  return st;
-}
-
 int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
                const void* bias, void* out, const long long* strides, int B, int H, int Tq, int Tk, int hd,
                float scale, void* stream) {
   if (hd != HD || Tk < 1 || Tq < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<<<grid, BQ * TPR, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)key_mask, (const float*)gate,
-      (const float*)bias, (float*)out, unpack(strides), Tq, Tk, H, scale);
-  return (int)cudaGetLastError();
+  const int aligned = rows_aligned16(q, k, v, strides, 4);
+  const Strides st = unpack(strides);
+  return bias != nullptr
+             ? fp32::launch_rows<true>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream)
+             : fp32::launch_rows<false>(q, k, v, key_mask, gate, bias, out, st, B, H, Tq, Tk, scale, aligned, stream);
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask, const void* gate,
@@ -429,6 +512,13 @@ extern "C" int ser_flash_attention_f32(const void* q, const void* k, const void*
                                        void* out, const long long* strides, int B, int H, int Tq,
                                        int Tk, int hd, float scale, void* stream) {
   return launch_f32(q, k, v, key_mask, gate, bias, out, strides, B, H, Tq, Tk, hd, scale, stream);
+}
+
+// out: route (0: online softmax), rows, tile keys, shared bytes and resident blocks an SM
+// of the f32 kernel at (Tq, Tk, bias): its block rows follow Tq, nothing else Tk
+extern "C" int ser_flash_attention_f32_plan(int Tq, int Tk, int bias, int* out) {
+  if (Tk < 1 || Tq < 1) return (int)cudaErrorInvalidValue;
+  return bias ? fp32::occupancy_rows<true>(Tq, out) : fp32::occupancy_rows<false>(Tq, out);
 }
 
 extern "C" int ser_flash_attention_bf16(const void* q, const void* k, const void* v,

@@ -51,6 +51,9 @@ SIGNATURES = {
     "ser_attention_bhtd_f32": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
     "ser_attention_bhtd_bf16": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
     "ser_flash_attention_f32": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
+    # Tq, Tk, bias, int[5] out: route, rows, tile keys, shared bytes, blocks an SM
+    "ser_attention_bhtd_f32_plan": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    "ser_flash_attention_f32_plan": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     "ser_flash_attention_bf16": [_P] * 7 + [_LL] + [_I] * 5 + [_F, _P],
     # q, k, v, g, out, key_mask, gate, bias, lse, delta, q*scale and dbias
     # scratch, dq, dk, dv, dgate, dbias, B, Tq, Tk, H, hd, scale, stream

@@ -25,20 +25,28 @@ kernel does; K6 adds it in f32 as given. The gate defaults to 1.
 The kernels take q, k, v as strided views (each row of hd contiguous), so
 [B, T, H*hd] projections viewed as [B, H, T, hd] go in without a copy (K6 in
 bf16, on the tensor cores, copies rows by 16-byte ``cp.async``: it raises on a
-view whose pointer or batch / head / time strides are not 16-byte aligned), and
-they write their output in [B, T, H, hd] memory order (returned as its
-[B, H, T, hd] view), so the caller's transpose back is free.
+view whose pointer or batch / head / time strides are not 16-byte aligned; the
+f32 kernels and K7 in bf16 copy such a view by smaller copies in the same
+kernel), and they write their output in [B, T, H, hd] memory order (returned
+as its [B, H, T, hd] view), so the caller's transpose back is free.
+
+In f32 both kernels run on K1's FP32 register micro-tiles (256 threads own
+64, 80 or 128 query rows, 4, 5 or 8 a thread; 64-key tiles staged by
+``cp.async``): :func:`bhtd_f32_plan` gives the route, block rows and shared
+memory their launchers pick, :func:`bhtd_f32_occupancy` what the built
+kernel reports.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .attention import dead_row_denominator, padded_tk
+from .attention import SMEM_LIMIT, dead_row_denominator, padded_tk
 
 NEG_INF = -1e30
 MAX_ONESHOT_TK = 2048  # flash_attention_short.py: K7's key-length limit
@@ -97,6 +105,75 @@ def flash_attention_plain(
 ) -> torch.Tensor:
     """K6's function: the bias added as given (in f32)."""
     return _softmax_pv(q, k, v, key_mask, scale, gate, pos_bias, flash_padded_tk(k.shape[2]))
+
+
+# The f32 kernels' launch plan (csrc/attention_bhtd.cu and flash_attention.cu hold the same rule).
+BHTD_KERNELS = ("attention_bhtd", "flash_attention")  # K7, K6
+BHTD_F32_ROUTES = ("online", "scores_on_chip", "two_pass")  # the launchers' route numbers 0, 1, 2
+BHTD_F32_TILE = 64  # keys a tile
+BHTD_F32_ROWS = (64, 80, 128)  # query rows a block of 256 threads may own
+
+
+def bhtd_f32_rows(tq: int) -> int:
+    """Query rows an f32 K6 / K7 block owns: the fewest of 64, 80 or 128 that
+    hold Tq (128 above 80), so that RoBERTa's 80 queries fill their block."""
+    return next((r for r in BHTD_F32_ROWS if tq <= r), BHTD_F32_ROWS[-1])
+
+
+@dataclass(frozen=True)
+class BhtdF32Plan:
+    kernel: str  # "attention_bhtd" (K7) or "flash_attention" (K6)
+    route: str  # K6 "online"; K7 "scores_on_chip" or "two_pass"
+    rows: int  # query rows a block of 256 threads owns
+    tile: int  # keys a streamed tile
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def _bhtd_f32_floats(route: str, rows: int, bias: bool, tkr: int) -> int:
+    s = 64 + 4  # padded row of q, K, V: an odd number of 16-byte units
+    if route == "scores_on_chip":  # q; a ring of two K-or-V tiles; score rows [rows][tkr + 4]; key flags
+        return rows * s + 2 * BHTD_F32_TILE * s + rows * (tkr + 4) + tkr
+    # q; K, V x 2 stages; bias / P [rows][68] x 2 stages (one without a bias); key flags x 2
+    return rows * s + 4 * BHTD_F32_TILE * s + (2 if bias else 1) * rows * (BHTD_F32_TILE + 4) + 2 * BHTD_F32_TILE
+
+
+def bhtd_f32_plan(kernel: str, tq: int, tk: int, bias: bool, hd: int = 64) -> BhtdF32Plan:
+    """The f32 kernel's launch plan at (Tq, Tk, bias). K6: the online softmax
+    at every length in blocks of ``bhtd_f32_rows(tq)`` query rows. K7: its
+    scores kept on chip (shared memory) in blocks of the most of 128, 80 or
+    64 rows, at most ``bhtd_f32_rows(tq)``, whose score rows fit beside q and
+    two staged tiles (Tk <= 256, 512, 640), else two passes over the keys (the
+    max, then P and P.V) in blocks of ``bhtd_f32_rows(tq)``."""
+    if kernel not in BHTD_KERNELS or hd != 64 or tq < 1 or tk < 1:
+        raise ValueError(f"bhtd_f32_plan takes kernels {BHTD_KERNELS}, head dim 64 and Tq, Tk >= 1, "
+                         f"got {kernel!r}, hd {hd}, Tq {tq}, Tk {tk}")
+    r = bhtd_f32_rows(tq)
+    if kernel == "flash_attention":
+        return BhtdF32Plan(kernel, "online", r, BHTD_F32_TILE, 4 * _bhtd_f32_floats("online", r, bias, 0))
+    if tk > MAX_ONESHOT_TK:
+        raise ValueError(f"bhtd_f32_plan: K7 takes Tk <= {MAX_ONESHOT_TK}, got {tk}")
+    tkr = -(-tk // BHTD_F32_TILE) * BHTD_F32_TILE
+    for on_chip in sorted(BHTD_F32_ROWS, reverse=True):
+        nbytes = 4 * _bhtd_f32_floats("scores_on_chip", on_chip, bias, tkr)
+        if on_chip <= r and nbytes <= SMEM_LIMIT:
+            return BhtdF32Plan(kernel, "scores_on_chip", on_chip, BHTD_F32_TILE, nbytes)
+    return BhtdF32Plan(kernel, "two_pass", r, BHTD_F32_TILE, 4 * _bhtd_f32_floats("two_pass", r, bias, tkr))
+
+
+def bhtd_f32_occupancy(kernel: str, tq: int, tk: int, bias: bool) -> Tuple[str, int, int, int, int]:
+    """(route, rows, tile, shared bytes, resident blocks an SM) of the f32
+    kernel the built launcher picks at (Tq, Tk, bias), the blocks from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (registers included).
+    Needs the card."""
+    bhtd_f32_plan(kernel, tq, tk, bias)  # checks the arguments
+    out = (ctypes.c_int * 5)()
+    lib = _build.library()
+    if kernel == "attention_bhtd":
+        err = lib.ser_attention_bhtd_f32_plan(tq, tk, int(bias), out)
+    else:
+        err = lib.ser_flash_attention_f32_plan(tq, tk, int(bias), out)
+    _build.check(err, f"bhtd_f32_occupancy({kernel!r}, {tq}, {tk}, {bias})")
+    return (BHTD_F32_ROUTES[out[0]], *out[1:])
 
 
 def _launch(name: str, q, k, v, key_mask, scale, gate, pos_bias, bias_dtype) -> torch.Tensor:

@@ -131,6 +131,82 @@ def test_wrapper_runs_plain_version_on_cpu(kernel, monkeypatch):
     assert getattr(kb, counter) == 0  # the CPU path launches nothing
 
 
+SMEM_LIMIT = 232448  # the most shared memory a block may opt into on an H100 (227 KB)
+
+
+@pytest.mark.parametrize("kernel,max_tk", [("attention_bhtd", kb.MAX_ONESHOT_TK), ("flash_attention", 4096)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_bhtd_f32_plan_rule(kernel, max_tk, bias):
+    """The f32 launchers' rule at every Tk up to K7's limit (2048) and to 4096
+    for K6, at Tq on both sides of each block size. Block rows: 64 up to Tq =
+    64, 80 up to 80, 128 above; 64-key tiles. K6: the online softmax in one
+    fixed amount of shared memory. K7: its scores on chip in blocks of the
+    most rows (128, 80, 64; at most the rule's) whose [rows][Tk_r + 4] score
+    rows, q and two [64][68] tiles fit in 227 KB (Tk_r = Tk rounded up to
+    64): Tk <= 256 in 128 rows, 512 in 80, 640 in 64; two passes above, in
+    one fixed amount. Every plan fits."""
+    for tq in (1, 64, 65, 80, 81, 1500):
+        rows = 64 if tq <= 64 else 80 if tq <= 80 else 128
+
+        def fixed(r):  # q, K, V x 2, bias / P x 2 (one without a bias), key flags x 2
+            return 4 * (r * 68 + 4 * 64 * 68 + (2 if bias else 1) * r * 68 + 128)
+
+        for tk in range(1, max_tk + 1):
+            plan = kb.bhtd_f32_plan(kernel, tq, tk, bias)
+            assert (plan.kernel, plan.tile) == (kernel, 64)
+            assert plan.smem_bytes <= SMEM_LIMIT
+            if kernel == "flash_attention":
+                assert (plan.route, plan.rows, plan.smem_bytes) == ("online", rows, fixed(rows)), (tq, tk)
+                continue
+            tkr = -(-tk // 64) * 64
+            fits = [r for r in (128, 80, 64) if r <= rows and 4 * (r * 68 + 2 * 64 * 68 + r * (tkr + 4) + tkr) <= SMEM_LIMIT]
+            assert bool(fits) == (tk <= 640), (tq, tk)
+            if fits:
+                r = fits[0]
+                on_chip = 4 * (r * 68 + 2 * 64 * 68 + r * (tkr + 4) + tkr)
+                assert (plan.route, plan.rows, plan.smem_bytes) == ("scores_on_chip", r, on_chip), (tq, tk)
+                assert r == (rows if tk <= {64: 640, 80: 512, 128: 256}[rows] else 80 if tk <= 512 else 64)
+            else:
+                assert (plan.route, plan.rows, plan.smem_bytes) == ("two_pass", rows, fixed(rows)), (tq, tk)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_bhtd_f32_plan_roberta_keeps_scores_on_chip(bias):
+    """RoBERTa-large's text attention (Tq = Tk = 80, max_len 80) takes K7's
+    scores-on-chip route in 80-row blocks, its 80 queries filling them; at
+    80 keys the block sizes it was measured against (128 rows above Tq = 80,
+    64 up to 64) keep the same route. The WavLM shape (Tq = Tk = 499, bias)
+    keeps its scores on chip in 80-row blocks; above 640 keys 128 rows take
+    two passes."""
+    assert kb.bhtd_f32_rows(80) == 80
+    plan = kb.bhtd_f32_plan("attention_bhtd", 80, 80, bias)
+    assert (plan.route, plan.rows, plan.smem_bytes) == ("scores_on_chip", 80, 99328)
+    for tq, rows, nbytes in ((150, 128, 137728), (64, 64, 86528)):
+        other = kb.bhtd_f32_plan("attention_bhtd", tq, 80, bias)
+        assert (other.route, other.rows, other.smem_bytes) == ("scores_on_chip", rows, nbytes)
+    assert kb.bhtd_f32_plan("flash_attention", 80, 80, bias).rows == 80
+    wavlm = kb.bhtd_f32_plan("attention_bhtd", 499, 499, bias)
+    assert (wavlm.route, wavlm.rows) == ("scores_on_chip", 80)
+    assert (kb.bhtd_f32_plan("attention_bhtd", 1500, 641, bias).route,
+            kb.bhtd_f32_plan("attention_bhtd", 1500, 641, bias).rows) == ("two_pass", 128)
+
+
+@pytest.mark.parametrize("args", [
+    dict(kernel="oneshot", tq=80, tk=80),  # the wrappers' names, not the test's
+    dict(kernel="attention_btd", tq=80, tk=80),
+    dict(kernel="attention_bhtd", tq=80, tk=80, hd=80),
+    dict(kernel="flash_attention", tq=80, tk=80, hd=32),
+    dict(kernel="attention_bhtd", tq=80, tk=kb.MAX_ONESHOT_TK + 1),
+    dict(kernel="attention_bhtd", tq=80, tk=0),
+    dict(kernel="flash_attention", tq=0, tk=80),
+    dict(kernel="attention_bhtd", tq=0, tk=80),
+    dict(kernel="flash_attention", tq=80, tk=0),
+])
+def test_bhtd_f32_plan_refuses_what_the_kernels_do_not_take(args):
+    with pytest.raises(ValueError):
+        kb.bhtd_f32_plan(bias=False, **args)
+
+
 def test_oneshot_refuses_long_keys():
     q = torch.zeros(1, 1, 4, HD)
     k = torch.zeros(1, 1, kb.MAX_ONESHOT_TK + 1, HD)

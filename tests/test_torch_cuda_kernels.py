@@ -677,7 +677,7 @@ def test_bhtd_kernels_take_strided_projections(cuda, kernel, dtype, layout):
 
 
 def test_bhtd_long_keys(cuda):
-    """K6 at a length K7 refuses, and K7 at its limit (bq drops to 16 rows)."""
+    """K6 at a length K7 refuses, and K7 at its limit (in f32 its two-pass route)."""
     q = torch.randn(1, 2, 70, 64, generator=cuda, device="cuda")
     k, v = (torch.randn(1, 2, 2500, 64, generator=cuda, device="cuda") for _ in range(2))
     torch.testing.assert_close(k_bhtd.flash_attention(q, k, v), k_bhtd.flash_attention_plain(q, k, v),
@@ -710,6 +710,97 @@ def test_oneshot_bf16_tensor_cores(cuda, tk, offset):
     ref = k_bhtd.attention_bhtd_plain(q, k, v, **kw)
     assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.9999
     _assert_dead_row(out, ref, torch.bfloat16, "oneshot", row=1)
+
+
+def _bhtd_f32_inputs(g, B, H, tq, tk, lengths, bias, offset=0):
+    """f32 [B, H, T, 64] heads viewed out of [B, T, H*64] buffers that start
+    ``offset`` floats past a 16-byte boundary, a key mask from ``lengths`` and
+    the gated bias."""
+    def heads(T):
+        flat = torch.randn(B * T * H * 64 + 4, generator=g, device="cuda")
+        return flat[offset:offset + B * T * H * 64].view(B, T, H, 64).transpose(1, 2)
+
+    q, k, v = heads(tq), heads(tk), heads(tk)
+    kw = {}
+    if lengths is not None:
+        kw["key_mask"] = (torch.arange(tk, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]).float()
+    if bias:
+        kw["gate"] = 1 + torch.rand(B, H, tq, generator=g, device="cuda")
+        kw["pos_bias"] = torch.randn(H, tq, tk, generator=g, device="cuda")
+    return (q, k, v), kw
+
+
+@pytest.mark.parametrize("kernel", list(BHTD))
+@pytest.mark.parametrize("tk", [1, 63, 64, 65, 128, 255, 256, 257, 499, 512, 513, 640, 641])
+@pytest.mark.parametrize("bias", [False, True])
+def test_bhtd_f32_route_boundary(cuda, kernel, tk, bias):
+    """f32 K7 on both sides of each of its route boundaries (scores on chip
+    in 128-row blocks up to Tk = 256, in 80-row ones up to 512, in 64-row ones
+    up to 640, two passes above) and K6 at the same lengths, each against its
+    plain version (atol 1e-5), at Tq = 64, 80 and 150, so that every block
+    size (64, 80, 128 rows) meets every route; Tq = 150 spans two 128-row
+    blocks; row 1 of the mask has no live key (sum(V) / Tk_p, atol 1e-5),
+    row 2 leaves whole 64-key tiles masked above Tk = 64."""
+    fn, plain, _ = BHTD[kernel]
+    lengths = [tk, 0, max(1, tk // 5)]
+    for tq in (64, 80, 150):
+        args, kw = _bhtd_f32_inputs(cuda, 3, 2, tq, tk, lengths, bias)
+        out = fn(*args, **kw)
+        ref = plain(*args, **kw)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        _assert_dead_row(out, ref, torch.float32, kernel, row=1)
+
+
+@pytest.mark.parametrize("kernel", list(BHTD))
+@pytest.mark.parametrize("tk", [80, 499])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_bhtd_f32_takes_views_off_16_bytes(cuda, kernel, tk, offset):
+    """f32 K6 and K7 on views ``offset`` floats past a 16-byte boundary (their
+    4-byte cp.async route) with the gated bias and a dead row: within 1e-5 of
+    the plain version, and bit-identical to the same values copied to aligned
+    tensors (the 16-byte route), launched once each."""
+    fn, plain, counter = BHTD[kernel]
+    lengths = [tk, 0, tk // 3]
+    args, kw = _bhtd_f32_inputs(cuda, 3, 2, 90, tk, lengths, True, offset)
+    assert all(t.data_ptr() % 16 == 4 * offset for t in args)
+    before = getattr(k_bhtd, counter)
+    out = fn(*args, **kw)
+    aligned = [t.contiguous() for t in args]
+    assert all(t.data_ptr() % 16 == 0 for t in aligned)
+    out_aligned = fn(*aligned, **kw)
+    assert getattr(k_bhtd, counter) == before + 2
+    assert torch.equal(out, out_aligned)
+    ref = plain(*args, **kw)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    _assert_dead_row(out, ref, torch.float32, kernel, row=1)
+
+
+def test_oneshot_f32_longest_keys_with_bias(cuda):
+    """f32 K7 at its longest key length, Tk = 2048 (two passes), with the gated
+    bias and a ragged mask whose row 1 has no live key; rerun bit-identical."""
+    args, kw = _bhtd_f32_inputs(cuda, 2, 2, 200, 2048, [2048, 0], True)
+    out = k_bhtd.attention_bhtd(*args, **kw)
+    assert torch.equal(out, k_bhtd.attention_bhtd(*args, **kw))
+    ref = k_bhtd.attention_bhtd_plain(*args, **kw)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    _assert_dead_row(out, ref, torch.float32, "oneshot", row=1)
+
+
+@pytest.mark.parametrize("kernel", ["attention_bhtd", "flash_attention"])
+def test_bhtd_f32_plan_matches_the_build(cuda, kernel):
+    """The built f32 launchers pick the route, block rows, tile and shared
+    memory that bhtd_f32_plan gives, and their kernel is resident (at least
+    one block an SM, registers included), at (Tq, Tk) that reach every
+    block size on each route."""
+    for tq, tk in ((80, 80), (64, 640), (80, 513), (150, 1), (499, 256), (499, 257), (1500, 1500), (24, 2048),
+                   (80, 1000)):
+        if kernel == "attention_bhtd" and tk > k_bhtd.MAX_ONESHOT_TK:
+            continue
+        for bias in (False, True):
+            plan = k_bhtd.bhtd_f32_plan(kernel, tq, tk, bias)
+            route, r, tile, nbytes, blocks = k_bhtd.bhtd_f32_occupancy(kernel, tq, tk, bias)
+            assert (route, r, tile, nbytes) == (plan.route, plan.rows, plan.tile, plan.smem_bytes), (tq, tk, bias)
+            assert blocks >= 1, (tq, tk, bias)
 
 
 def test_bhtd_launchers_refuse_grad_and_bad_shapes(cuda):
