@@ -14,7 +14,9 @@ entry points at full width:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
 3. kernel parity and timing, kernel vs plain version (median of 5 runs,
-   CUDA events, after a warm-up; TF32 off), with each kernel's bound (bytes
+   CUDA events around one call, host time included, after a warm-up; K2
+   and K8 also in runs of 10 back-to-back calls; TF32 off), with each
+   kernel's bound (bytes
    or operations at the H100's published peaks) and one library call that
    computes the same function where there is one:
    K1 attention at WavLM-large shapes (gated bias + ragged key mask, f32 and
@@ -30,7 +32,10 @@ entry points at full width:
    layer-0 kernel, and its later-layer kernel at depths 2-7); K5 the
    fused FFN at the WavLM-large and XLS-R-2B layers (two ``F.linear`` and
    ``F.gelu``); K8 the grouped positional conv at 120, 64 and 48 channels a
-   group (cuDNN ``F.conv1d``); K3 the BiGRU recurrence and K3b its backward
+   group (cuDNN ``F.conv1d``; its per-call weight re-layout timed apart),
+   K2's layer-0 and K8's launch plans against the built kernels (threads,
+   shared bytes, resident blocks an SM), and K2's bf16 GELU table against
+   ``F.gelu``; K3 the BiGRU recurrence and K3b its backward
    at the fusion trainer's batch (2B=128 rows, T=512, H=512; cuDNN
    ``nn.GRU``), K3 and K3b with their route, cluster size and rows, the
    clusters resident at once, and on edge shapes (odd row groups, holed
@@ -54,7 +59,8 @@ entry points at full width:
    in bf16 and in f32 (each run twice, cold then warm); shapes,
    finiteness, launch counts, and one f32 utterance against the plain path
    on the card; then one bf16 batch of 32 10-s wavs (the default budget)
-   timed and profiled (device idle share, K1's share);
+   timed and profiled, and the same batch profiled in f32 (device idle
+   share, the shares of K1, K2's layer-0 kernel and K8);
 5. scoring: the bimodal WavLM-large + RoBERTa-large config at full fusion
    width (H=512, feat dims 1024/1024), ``cli.eval_main`` and ``cli.test_main``
    over the extracted features; CSV format, and every logit against a
@@ -204,6 +210,11 @@ K4_EVENTS = ("delta_kernel", "dkdv_f32_kernel", "dkdv_mma_kernel", "dkdv_kernel"
 # K7's f32 and bf16 kernels (attention_bhtd_kernel names the earlier f32 kernel, so that
 # scripts/time_f32_attention_pair.py reads an older checkout's profile too)
 K7_EVENTS = ("attention_bhtd_f32_kernel", "attention_bhtd_mma_kernel", "attention_bhtd_kernel")
+# K2's layer-0 kernels (conv_frontend_kernel, conv_frontend_mma_kernel, the bf16 GELU table's fill) and
+# later-layer kernel; K8's kernels (pos_conv_f32_kernel,
+# pos_conv_wgmma_kernel, and the earlier pos_conv_kernel / pos_conv_mma_kernel of an older checkout)
+K2_EVENTS = ("conv_frontend", "gelu_table_kernel", "conv_layer_kernel")
+K8_EVENTS = ("pos_conv",)
 K3_EVENTS = ("gru_bidir_kernel", "gru_bidir_cluster_kernel")  # K3's two routes
 # K3b's kernels: the row route, the cluster route's recurrence, the gate / dW products and the dW sum
 K3B_EVENTS = ("gru_bidir_bwd_kernel", "gru_bidir_bwd_cluster_kernel", "gru_gemm_kernel", "gru_dw_reduce_kernel")
@@ -239,6 +250,28 @@ def median_ms(fn, reps: int = 5) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def run_ms(fn, n: int = 10, reps: int = 5) -> tuple:
+    """(device ms, host ms) of a call in a run of n back-to-back calls: CUDA
+    events around the run and the host clock around its calls, each over n
+    (median of ``reps`` runs, after a warm-up). In a run the calls' host time
+    overlaps the device's work; ``median_ms``, which every kernel's ``ms``
+    is, times one call alone with its host time."""
+    fn()
+    torch.cuda.synchronize()
+    times, host = [], []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        h0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host.append((time.perf_counter() - h0) * 1e3 / n)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    return statistics.median(times), statistics.median(host)
 
 
 def roofline_ms(nbytes: float, flops: float, peak_flops: float):
@@ -475,6 +508,38 @@ def check_bhtd_f32_plans() -> dict:
     return plans
 
 
+def check_conv_plans() -> dict:
+    """K8's and K2's layer-0 launch plans against the built kernels: every
+    group width at K = 128 (the zoo's), 256 and 2, and layer 0 at k = 10 and
+    16 with either GELU, in f32 and bf16. The built kernel's threads and
+    shared bytes are the plan's, and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    gives at least the blocks an SM the plan counts on (the kernels' launch
+    bounds)."""
+    plans = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = "f32" if dt == torch.float32 else "bf16"
+        for C in k_pos.GROUP_WIDTHS:
+            for K in (128, 256, 2):
+                plan = k_pos.pos_conv_plan(C, K, dt)
+                built = k_pos.pos_conv_occupancy(plan)
+                require(built[:2] == (plan.threads, plan.smem_bytes) and built[2] >= plan.blocks_per_sm,
+                        f"K8 {dname} C {C} K {K}: built {built} != planned {plan}")
+                plans[f"pos_conv_{dname}_c{C}_k{K}"] = dict(frames=plan.frames, stages=plan.stages, threads=built[0],
+                                                            smem_bytes=built[1], blocks_per_sm=built[2])
+        for ksize in (10, 16):
+            for approx in (False, True):
+                plan = k_conv.conv_frontend_plan(8, 31999, dt, ksize)
+                built = k_conv.conv_frontend_occupancy(dt, ksize, approx)
+                require(built[:2] == (plan.threads, plan.smem_bytes) and built[2] >= plan.blocks_per_sm,
+                        f"K2 layer 0 {dname} k {ksize} approx {approx}: built {built} != planned {plan}")
+                plans[f"conv_frontend_{dname}_k{ksize}{'_tanh' if approx else ''}"] = dict(
+                    blocks=plan.blocks, frames=plan.frames, threads=built[0], smem_bytes=built[1],
+                    blocks_per_sm=built[2])
+    log("[parity] K8 / K2 layer-0 plans (threads, shared bytes, blocks an SM): " + "; ".join(
+        f"{n} {p['threads']} {p['smem_bytes']} {p['blocks_per_sm']}" for n, p in plans.items()))
+    return plans
+
+
 def _bhtd_case(g, B, H, T, lengths, bias: bool, dt, offset: bool = False):
     """[B, T, H*64] projections viewed as [B, H, T, 64] heads (the text path's
     layout), a key mask from ``lengths`` and the factored gate * bias. With
@@ -617,6 +682,12 @@ def _frontend_layers(g, depth: int) -> list:
     return layers
 
 
+def bf16_order(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in their order (-0 and +0 both 0): a difference is a distance in ulps."""
+    b = t.view(torch.int16).int()
+    return torch.where(b < 0, -(b & 0x7FFF), b)
+
+
 def check_conv_frontend(g, results) -> None:
     """K2 on wav [8, 160000] (10 s) at depths 1-7: depth 1 in f32 and bf16,
     each with the erf and the tanh GELU; depths 2-7 in f32 (erf) and bf16
@@ -627,7 +698,12 @@ def check_conv_frontend(g, results) -> None:
     GELU, so there is no yardstick; at depths >= 2 the default route for
     the same layers (K2 at depth 1, then cuDNN convs in the compute dtype
     with f32 LayerNorms, as ``ConvFeatureExtractor`` runs them) is timed
-    beside it as ``route_ms``."""
+    beside it as ``route_ms``. ``ms`` and ``route_ms`` are one call alone,
+    host time included, as every kernel is timed; ``run_ms`` and
+    ``host_ms`` are a call's device and host time in a run of back-to-back
+    calls (``run_ms``). Every case is rerun bit-identical. The bf16
+    layer-0 kernel's GELU table is held to ``F.gelu`` on the same bf16
+    inputs (``gelu_table``)."""
     import torch.nn.functional as F
 
     def default_route(wav, layers, dt, approx, eps):
@@ -638,9 +714,24 @@ def check_conv_frontend(g, results) -> None:
             x = F.gelu(y.to(dt), approximate="tanh" if approx else "none")
         return x
 
+    main, later = {}, {}
+    # the table holds the kernel's own GELU: compare with torch's (an older checkout's package has none)
+    for approx in ((False, True) if hasattr(k_conv, "gelu_table") else ()):
+        got = k_conv.gelu_table(approx)
+        z = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
+        want = F.gelu(z, approximate="tanh" if approx else "none")
+        keep = torch.isfinite(z) & torch.isfinite(want)  # every finite z; inf and NaN give NaN or inf in both
+        ulps = (bf16_order(got) - bf16_order(want)).abs()[keep]
+        n_diff, worst = int((ulps != 0).sum()), int(ulps.max())
+        same = (got.view(torch.int16) == want.view(torch.int16)) | (torch.isnan(got) & torch.isnan(want))
+        require(bool(same[~keep].all()), "K2 GELU table: a non-finite z whose value differs from F.gelu's")
+        log(f"[parity] K2 bf16 GELU table ({'tanh' if approx else 'erf'}), {int(keep.sum())} finite z: "
+            f"{n_diff} differ from F.gelu in bf16, by at most {worst} ulp")
+        require(worst <= 1, f"K2 bf16 GELU table ({'tanh' if approx else 'erf'}) {worst} ulp from F.gelu")
+        main[f"gelu_table_{'tanh' if approx else 'erf'}"] = dict(n_values=int(keep.sum()), n_differ=n_diff,
+                                                                   max_ulp=worst)
     wav = torch.randn(8, 160000, generator=g, device="cuda")
     all_layers = _frontend_layers(g, 7)
-    main, later = {}, {}
     for depth in range(1, 8):
         layers = all_layers[:depth]
         variants = ([(torch.float32, False), (torch.float32, True), (torch.bfloat16, False), (torch.bfloat16, True)]
@@ -650,7 +741,9 @@ def check_conv_frontend(g, results) -> None:
             out = k_conv.conv_frontend(*args)
             ref = k_conv.conv_frontend_plain(*args)
             err, cos = max_abs(out, ref), cosine(out, ref)
+            again = torch.equal(out, k_conv.conv_frontend(*args))
             ms = median_ms(lambda: k_conv.conv_frontend(*args))
+            in_run, host_ms = run_ms(lambda: k_conv.conv_frontend(*args))
             plain_ms = median_ms(lambda: k_conv.conv_frontend_plain(*args))
             # conv products + bias, LayerNorm and GELU (~30 operations per output) for every layer
             t, mm_flops, ew_flops, c_in = wav.shape[1], 0.0, 0.0, 1
@@ -672,15 +765,19 @@ def check_conv_frontend(g, results) -> None:
                 route_ms = median_ms(lambda: default_route(*args))
                 route = f", the default route (K2 depth 1 + cuDNN) {route_ms:.3f} ms"
             log(f"[parity] K2 conv_frontend depth {depth} wav[8,160000] -> {list(out.shape)} {name}: "
-                f"max_abs {err:.3e} cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{route}; "
+                f"max_abs {err:.3e} cos {cos:.7f}; bit-identical rerun {again}; kernel {ms:.4f} ms "
+                f"({bound_ms / ms:.1%} of the bound; in a run of 10 calls {in_run:.4f} ms and {1e3 * host_ms:.1f} us "
+                f"of host time a call), plain {plain_ms:.3f} ms{route}; "
                 f"bound {bound_ms:.4f} ms ({bound_by}); no single library call does conv+LN+GELU")
+            require(again, f"K2 {name} gave different bits on a rerun")
             if dt == torch.float32 and depth == 1:
                 require(err <= 1e-4, f"K2 {name} max_abs {err} > 1e-4")
             elif dt == torch.float32:
                 require(err <= 1e-4 * float(ref.abs().max()), f"K2 {name} max_abs {err} > 1e-4 x max|ref|")
             else:
                 require(cos >= 0.999, f"K2 {name} cosine {cos} < 0.999")
-            case = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=None,
+            case = dict(max_abs_err=err, cosine=cos, ms=ms, run_ms=in_run, host_ms=host_ms, plain_ms=plain_ms,
+                        library_ms=None,
                         bound_ms=bound_ms, bound_by=bound_by)
             if depth > 1:
                 case["route_ms"] = route_ms
@@ -763,8 +860,16 @@ def check_pos_conv(g, results) -> None:
     """K8, the grouped positional conv (K = 128 taps, 16 groups, T = 499
     frames -> 500), at XLS-R-2B (C = 120 channels a group, B = 16),
     WavLM-large (C = 64, B = 32) and the base encoders (C = 48, B = 32), f32
-    and bf16. Bars: f32 max-abs <= 1e-4 x max|ref|, bf16 cosine >= 0.999.
-    Yardstick: cuDNN ``F.conv1d(groups=16)`` in the compute dtype on [B, D, T]."""
+    and bf16. Bars: f32 max-abs <= 1e-4 x max|ref|, bf16 cosine >= 0.999, a
+    rerun bit-identical. ``ms`` is the wrapper's call, which lays the weight
+    out afresh each time (``relayout_ms``, 118 MB of f32 read at C = 120, by
+    K8's layout kernel, bit-identical to torch's permuted copy, whose time
+    is ``relayout_torch_ms``),
+    ``kernel_ms`` the launch alone on the laid-out weight, each one call
+    alone with its host time, as every kernel is timed; ``run_ms`` and
+    ``host_ms`` are the wrapper's device and host time a call in a run of
+    back-to-back calls (``run_ms``). Yardstick: cuDNN ``F.conv1d(groups=16)``
+    in the compute dtype on [B, D, T], timed as ``ms``."""
     import torch.nn.functional as F
 
     main = {}
@@ -776,25 +881,49 @@ def check_pos_conv(g, results) -> None:
             out = k_pos.pos_conv(x, w, 16)
             ref = k_pos.pos_conv_plain(x, w, 16)
             err, cos = max_abs(out, ref), cosine(out, ref)
+            again = torch.equal(out, k_pos.pos_conv(x, w, 16))
             ms = median_ms(lambda: k_pos.pos_conv(x, w, 16))
+            in_run, host_ms = run_ms(lambda: k_pos.pos_conv(x, w, 16))
+            nbytes = x.element_size() * (x.numel() + w.numel() + out.numel())
+            flops = 2 * B * (T + 1) * D * K * C
+            bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+            relayout_ms = kernel_ms = copy_ms = None
+            split = ""
+            if hasattr(k_pos, "weight_layout"):  # an older checkout's package (the A/B script) has no such split
+                wl = k_pos.weight_layout(w, 16, dt)
+                wg = w.view(16, C, C, K)
+                wg = wg.permute(0, 3, 1, 2) if dt == torch.bfloat16 else wg.permute(0, 2, 3, 1)
+                require(torch.equal(wl, torch.empty(wg.shape, dtype=dt, device="cuda").copy_(wg)),
+                        f"K8 {dt} weight layout differs from torch's permuted copy")
+                relayout_ms = median_ms(lambda: k_pos.weight_layout(w, 16, dt))
+                copy_ms = median_ms(lambda: torch.empty(wg.shape, dtype=dt, device="cuda").copy_(wg))
+                kernel_ms = median_ms(lambda: k_pos.launch(x, wl, 16, K))
+                plan = k_pos.pos_conv_plan(C, K, dt)
+                split = (f" = weight re-layout {relayout_ms:.3f} (torch's permuted copy {copy_ms:.3f}) + launch "
+                         f"{kernel_ms:.3f} ({flops / kernel_ms / 1e9:.1f}"
+                         f" TFLOP/s, {bound_ms / kernel_ms:.1%} of the bound; {plan.frames} frames x {plan.threads}"
+                         f" threads a block)")
+                del wl, wg
             plain_ms = median_ms(lambda: k_pos.pos_conv_plain(x, w, 16))
             xt, wt = x.transpose(1, 2).contiguous(), w.to(dt)
             library_ms = median_ms(lambda: F.conv1d(xt, wt, padding=K // 2, groups=16))
             lib_cos = cosine(F.conv1d(xt, wt, padding=K // 2, groups=16).transpose(1, 2), ref)
-            nbytes = x.element_size() * (x.numel() + w.numel() + out.numel())
-            flops = 2 * B * (T + 1) * D * K * C
-            bound_ms, bound_by = roofline_ms(nbytes, flops, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
             dname = "f32" if dt == torch.float32 else "bf16"
             name = dname if shape == "xlsr_2b" else f"{shape}_{dname}"
             log(f"[parity] K8 pos_conv {shape} B{B} T{T} D{D} C{C} K{K} {dname}: max_abs {err:.3e} "
-                f"(max|ref| {float(ref.abs().max()):.3f}) cos {cos:.7f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"cuDNN F.conv1d(groups=16) {library_ms:.3f} ms (cos vs plain {lib_cos:.7f}); "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+                f"(max|ref| {float(ref.abs().max()):.3f}) cos {cos:.7f}; bit-identical rerun {again}; kernel "
+                f"{ms:.4f} ms{split} (in a run of 10 calls {in_run:.4f} ms and {1e3 * host_ms:.1f} us of host time a "
+                f"call), plain {plain_ms:.3f} ms, cuDNN "
+                f"F.conv1d(groups=16) {library_ms:.4f} ms "
+                f"(cos vs plain {lib_cos:.7f}); bound {bound_ms:.4f} ms ({bound_by})")
             if dt == torch.float32:
                 require(err <= 1e-4 * float(ref.abs().max()), f"K8 {name} max_abs {err} > 1e-4 x max|ref|")
             else:
                 require(cos >= 0.999, f"K8 {name} cosine {cos} < 0.999")
-            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            require(again, f"K8 {name} gave different bits on a rerun")
+            main[name] = dict(max_abs_err=err, cosine=cos, ms=ms, run_ms=in_run, host_ms=host_ms,
+                              relayout_ms=relayout_ms, relayout_torch_ms=copy_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                              library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
             del x, xt, out, ref
             torch.cuda.empty_cache()
@@ -1351,21 +1480,22 @@ def phase_extraction(tmp: str, smi: str) -> dict:
         if bar is not None:
             require(cos >= bar, f"{dtype} utt0 cosine {cos} < {bar}")
     del model
-    profile = profile_wavlm_large(tmp, model_dir, smi)
+    b32 = profile_wavlm_large(tmp, model_dir, smi)
     return {"utt_per_sec": rates, "feats_dir": os.path.join(tmp, "feats_float32"),
-            "names": sorted(n_samples), "b32_bf16": profile}
+            "names": sorted(n_samples), "b32_bf16": b32["bfloat16"], "b32_f32": b32["float32"]}
 
 
-# bf16 WavLM-large extraction at the default token budget: 32 x 10 s = 320 s, one batch
+# WavLM-large extraction at the default token budget (bf16, then f32): 32 x 10 s = 320 s, one batch
 WAVLM_B32_SHAPE = dict(n_wavs=32, seconds=10.0)
 
 
 def profile_wavlm_large(tmp: str, model_dir: str, smi: str) -> dict:
-    """WavLM-large extraction in bf16 at the default token budget: 32 seeded
-    10-s wavs in one B=32 batch through ``SpeechExtractionPipeline.run``,
-    built as ``preprocess_cli speech`` builds it. One warm run timed (utt/s),
-    then a profile of another: device busy and idle share, K1's share, the
-    top device ops."""
+    """WavLM-large extraction at the default token budget: 32 seeded 10-s
+    wavs in one B=32 batch through ``SpeechExtractionPipeline.run``, built
+    as ``preprocess_cli speech`` builds it, in bf16 and then in f32 (the
+    CLI's default dtype). bf16: one warm run timed (utt/s). Each dtype: a
+    profile of another warm run: device busy and idle share, the shares of
+    K1, K2's layer-0 kernel and K8, the top device ops."""
     from interspeech_ser_tpu_torch.extract.pipeline import SpeechExtractionPipeline
     from interspeech_ser_tpu_torch.models.loader import build_speech_encoder
     from interspeech_ser_tpu_torch.preprocess_cli import set_precision
@@ -1373,44 +1503,59 @@ def profile_wavlm_large(tmp: str, model_dir: str, smi: str) -> dict:
     n, seconds = WAVLM_B32_SHAPE["n_wavs"], WAVLM_B32_SHAPE["seconds"]
     wav_dir = os.path.join(tmp, "wavs_10s")
     write_wavs(wav_dir, n, (seconds, seconds), SEED + 9)
-    set_precision("bfloat16")
-    model, cfg, do_norm = build_speech_encoder(model_dir, dtype="bfloat16")
-    pipe = SpeechExtractionPipeline(model, cfg, do_normalize=do_norm, num_workers=4, device=DEVICE)
-    pipe.run(wav_dir, os.path.join(tmp, "b32_warmup"))
-    sync()
-    before = counts()
-    stats = pipe.run(wav_dir, os.path.join(tmp, "b32"))
-    sync()
-    delta = {k: v - before[k] for k, v in counts().items()}
-    require(stats.n_utts == n and stats.n_batches == 1, f"WavLM-large B=32: {stats}")
-    require(delta["attention_btd"] == cfg.num_layers, f"WavLM-large B=32 launches {delta}")
-    out = {"utt_per_sec": stats.utts_per_sec, "wall_s": stats.wall_seconds}
-    log(f"[extract] WavLM-large bf16 B=32 x 10 s, one batch: {stats.wall_seconds:.3f} s = "
-        f"{stats.utts_per_sec:.2f} utt/s ({smi})")
-    if DEVICE == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pipe.run(wav_dir, os.path.join(tmp, "b32_profile"))
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        set_precision(dtype)
+        model, cfg, do_norm = build_speech_encoder(model_dir, dtype=dtype)
+        pipe = SpeechExtractionPipeline(model, cfg, do_normalize=do_norm, num_workers=4, device=DEVICE)
+        pipe.run(wav_dir, os.path.join(tmp, f"b32_{dtype}_warmup"))
+        sync()
+        res = {}
+        if dtype == "bfloat16":
+            before = counts()
+            stats = pipe.run(wav_dir, os.path.join(tmp, "b32"))
             sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        k1_ms = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K1_EVENTS)) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-        out["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "k1_ms": k1_ms,
-                          "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
-        log(f"[extract] profile of one warm B=32 bf16 run: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-            f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), K1 {k1_ms:.1f} ms = {100 * k1_ms / busy_ms:.1f}% "
-            f"of device time")
-        for name, ms, n in out["profile"]["top"]:
-            log(f"[extract]   {ms:9.3f} ms  x{n:<4d} {name}")
+            delta = {k: v - before[k] for k, v in counts().items()}
+            require(stats.n_utts == n and stats.n_batches == 1, f"WavLM-large B=32: {stats}")
+            require(delta["attention_btd"] == cfg.num_layers, f"WavLM-large B=32 launches {delta}")
+            res = {"utt_per_sec": stats.utts_per_sec, "wall_s": stats.wall_seconds}
+            log(f"[extract] WavLM-large bf16 B=32 x 10 s, one batch: {stats.wall_seconds:.3f} s = "
+                f"{stats.utts_per_sec:.2f} utt/s ({smi})")
+        if DEVICE == "cuda":
+            res["profile"] = profile_extraction(pipe, wav_dir, os.path.join(tmp, f"b32_{dtype}_profile"),
+                                                f"WavLM-large {dtype} B=32", smi)
+        out[dtype] = res
+        del pipe, model
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
     set_tf32(False)
-    del pipe, model
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
     return out
+
+
+def profile_extraction(pipe, wav_dir: str, save: str, what: str, smi: str) -> dict:
+    """A profile of one ``pipe.run``: wall and device-busy ms, the idle
+    share, the shares of K1, K2 (its layer-0 kernel with the bf16 GELU
+    table's fill, and its later-layer kernel) and K8, the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.run(wav_dir, save)
+        sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    parts = {name: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in names)) / 1e3
+             for name, names in (("K1", K1_EVENTS), ("K2", K2_EVENTS), ("K8", K8_EVENTS))}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "parts_ms": parts, "k1_ms": parts["K1"],
+           "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+    log(f"[extract] profile of one warm {what} run: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%); "
+        + ", ".join(f"{k} {v:.3f} ms = {100 * v / busy_ms:.2f}%" for k, v in parts.items()) + f" ({smi})")
+    for name, ms, count in res["top"]:
+        log(f"[extract]   {ms:9.3f} ms  x{count:<4d} {name}")
+    return res
 
 
 def phase_scoring(tmp: str, extracted: dict) -> None:
@@ -2440,8 +2585,7 @@ def profile_xlsr_full_depth(tmp: str, smi: str) -> dict:
         def share(*names):
             return sum(e.self_device_time_total for e in kernels if any(n in e.key for n in names)) / 1e3
 
-        parts = {"K1": share(*K1_EVENTS), "K8": share("pos_conv"),
-                 "K2": share("conv_frontend_kernel", "conv_layer_kernel"),
+        parts = {"K1": share(*K1_EVENTS), "K8": share(*K8_EVENTS), "K2": share(*K2_EVENTS),
                  "GEMMs": sum(e.self_device_time_total for e in kernels
                               if any(n in e.key.lower() for n in ("gemm", "nvjet", "cutlass", "sm90_xmma"))) / 1e3}
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
@@ -2549,6 +2693,7 @@ def main() -> None:
     check_conv_frontend(g, parity)
     check_ffn_fused(g, parity)
     check_pos_conv(g, parity)
+    parity["pos_conv"]["plans"] = check_conv_plans()
     check_gru(g, parity)
     check_gru_sequence(g, parity)
     check_gru_bwd(g, parity)

@@ -31,7 +31,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("attention_btd.cu", "attention_btd_bwd.cu", "attention_bhtd.cu", "flash_attention.cu", "conv_frontend.cu",
            "gru_bidir.cu", "gru_bidir_bwd.cu", "ffn_fused.cu", "pos_conv.cu")
-HEADERS = ("attention_bhtd_common.cuh", "attention_f32.cuh", "attention_mma.cuh", "gru_cluster.cuh")  # included by sources: part of the hash
+HEADERS = ("attention_bhtd_common.cuh", "attention_f32.cuh", "attention_mma.cuh", "gru_cluster.cuh",
+           "wgmma.cuh")  # included by sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,18 +60,27 @@ SIGNATURES = {
     # scratch, dq, dk, dv, dgate, dbias, B, Tq, Tk, H, hd, scale, stream
     "ser_attention_btd_bwd_f32": [_P] * 17 + [_I] * 5 + [_F, _P],
     "ser_attention_btd_bwd_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
-    # wav, weight, bias, ln_w, ln_b, out, B, L, T0, C, k, stride, eps, approx_gelu, stream
-    "ser_conv_frontend_f32": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-    "ser_conv_frontend_bf16": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    # wav, weight, bias, ln_w, ln_b, out, B, L, T0, C, k, stride, eps, approx_gelu, blocks,
+    # frames a block, stream
+    "ser_conv_frontend_f32": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "ser_conv_frontend_bf16": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    # bf16, k, approx_gelu, int[3] out: threads, static shared bytes, blocks an SM (layer 0)
+    "ser_conv_frontend_plan": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    # approx_gelu, out (bf16 [65536]), stream: the layer-0 kernel's bf16 GELU table
+    "ser_gelu_bf16_table": [_I, _P, _P],
     # x, weight, bias, ln_w, ln_b, out, B, T_in, T_out, C_in, C, k, stride, eps, approx_gelu, stream
     "ser_conv_layer_f32": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     "ser_conv_layer_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     # x, w_up, b_up, w_down, b_down, out, M, K, F, N, approx_gelu, stream
     "ser_ffn_fused_f32": [_P] * 6 + [_I] * 5 + [_P],
     "ser_ffn_fused_bf16": [_P] * 6 + [_I] * 5 + [_P],
-    # x, w, y, B, T, G, C, K, stream
-    "ser_pos_conv_f32": [_P] * 3 + [_I] * 5 + [_P],
-    "ser_pos_conv_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    # x, w, y, B, T, G, C, K, frames a block, stages, stream
+    "ser_pos_conv_f32": [_P] * 3 + [_I] * 7 + [_P],
+    "ser_pos_conv_bf16": [_P] * 3 + [_I] * 7 + [_P],
+    # bf16, C, K, frames, stages, int[3] out: threads, shared bytes, blocks an SM
+    "ser_pos_conv_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+    # src, src bf16, dst, dst bf16, G, R, S, stream: K8's weight layout, dst[g][s][r] = src[g][r][s]
+    "ser_pos_conv_layout": [_P, _I, _P, _I, _I, _I, _I, _P],
     # x_proj, w_hh2, b_hh2, mask, out, B2, T, H, cluster (0: one block a row), threads, stream
     "ser_gru_bidir_f32": [_P] * 5 + [_I] * 5 + [_P],
     # cluster, seq (0: K3, 1: K9), int* count

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the f32 attention kernels of the PyTorch + CUDA port where their users
-run them, on one CUDA card, for the package of the checkout under ``--root``
-(default: this one). Phases (``--phases``, default all):
+"""Time the port's redesigned kernels (the f32 attention pairs, K8 and K2)
+where their users run them, on one CUDA card, for the package of the
+checkout under ``--root`` (default: this one). Phases (``--phases``, default all):
 
 - ``btd``: K1 + K4, the [B, T, D] pair. K1 at Whisper-large-v3's layer (B=8,
   T=1500, D=1280, H=20, no mask), f32 and bf16, against its plain version and
@@ -19,15 +19,23 @@ run them, on one CUDA card, for the package of the checkout under ``--root``
   RoBERTa-large extraction over 256 seeded transcripts (texts/s, f32 and
   bf16, K6's run against K7's) and a profile of one warm run (K7's share of
   device time).
+- ``conv``: K8 (grouped positional conv) and K2 (the waveform frontend)
+  against their plain versions at every shape of ``chip_smoke.py``'s
+  ``check_pos_conv`` (C = 120 / 64 / 48, f32 and bf16, beside cuDNN
+  ``F.conv1d``) and ``check_conv_frontend`` (wav [8, 160000], depths 1-7);
+  then a seeded random-init WavLM-large through ``profile_wavlm_large``: one
+  B=32 batch of 10-s wavs in bf16 (timed) and in f32, each profiled (device
+  busy ms, the shares of K1, K2 and K8).
 - ``fingerprints``: SHA-256 of the f32 K1 and K4 outputs at the speech shapes
   of ``check_attention_bwd`` and of the bf16 K6 / K7 outputs at the shapes
   above, from seeded inputs: two checkouts whose fingerprints agree gave the
   same bits.
 
 It runs this checkout's ``chip_smoke.py`` phases against the other checkout's
-package, so two trees are measured by the same code:
+package, so two trees are measured by the same code (an A/B runs it once per
+tree in turns, parent P and change T: P/T/T/P/T/P/P/T):
 
-    python3 scripts/time_f32_attention_pair.py [--root DIR] [--phases btd bhtd fingerprints] [--out FILE]
+    python3 scripts/time_f32_attention_pair.py [--root DIR] [--phases btd bhtd conv fingerprints] [--out FILE]
     python3 scripts/time_f32_attention_pair.py --compare FILE FILE   # exit 1 if a fingerprint differs
 
 The last line is one JSON object with the card's name and power limit.
@@ -44,7 +52,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("btd", "bhtd", "fingerprints")
+PHASES = ("btd", "bhtd", "conv", "fingerprints")
 
 
 def digest(t) -> str:
@@ -73,6 +81,20 @@ def phase_bhtd(cs, torch, smi) -> dict:
     result = {"bhtd": {n: parity[n] for n in ("attention_bhtd", "flash_attention")}}
     with tempfile.TemporaryDirectory(prefix="bhtd_pair_") as tmp:
         result["text"] = cs.phase_text(tmp, smi)
+    return result
+
+
+def phase_conv(cs, torch, smi) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    parity: dict = {}
+    cs.check_pos_conv(g, parity)
+    cs.check_conv_frontend(g, parity)
+    result = {"conv": {n: parity[n] for n in ("pos_conv", "conv_frontend", "conv_frontend_layer")}}
+    with tempfile.TemporaryDirectory(prefix="conv_pair_") as tmp:
+        # written afresh from the seed in every run (a few seconds), so every tree gets the same weights
+        model_dir = os.path.join(tmp, "wavlm-large")
+        cs.write_wavlm_large(model_dir)
+        result["wavlm_b32"] = cs.profile_wavlm_large(tmp, model_dir, smi)
     return result
 
 
@@ -141,7 +163,7 @@ def main() -> None:
     cs.set_tf32(False)
     cs.phase_build()
     result = {"root": root, "card": smi}
-    runs = {"btd": phase_btd, "bhtd": phase_bhtd, "fingerprints": phase_fingerprints}
+    runs = {"btd": phase_btd, "bhtd": phase_bhtd, "conv": phase_conv, "fingerprints": phase_fingerprints}
     for name in opts.phases:
         result.update(runs[name](cs, torch, smi))
     line = json.dumps(result)

@@ -53,11 +53,12 @@ def test_main_path_phases_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "WAVLM_B32_SHAPE", dict(n_wavs=3, seconds=1.0))
     extracted = cs.phase_extraction(str(tmp_path), "card")
     assert set(extracted["utt_per_sec"]) == {"bfloat16_cold", "bfloat16_warm", "float32_cold", "float32_warm"}
-    assert extracted["b32_bf16"]["utt_per_sec"] > 0
+    assert extracted["b32_bf16"]["utt_per_sec"] > 0 and "b32_f32" in extracted
     cs.phase_scoring(str(tmp_path), extracted)
     launches = cs.counts()
-    assert launches["attention_btd"] == 6 * 2  # 4 CLI runs + the B=32 warm-up and timed run, x 2 layers x 1 batch
-    assert launches["conv_frontend"] == 6 and launches["gru_bidir"] > 0
+    # 4 CLI runs + the B=32 bf16 warm-up and timed run + the f32 warm-up, x 2 layers x 1 batch
+    assert launches["attention_btd"] == 7 * 2
+    assert launches["conv_frontend"] == 7 and launches["gru_bidir"] > 0
     assert launches["gru_bidir_bwd"] == 0  # scoring runs no backward
 
 

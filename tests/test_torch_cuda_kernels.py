@@ -179,11 +179,15 @@ def _frontend_layers(gen, depth):
     return layers
 
 
+@pytest.mark.parametrize("B,L", [(2, 16007), (1, 16017), (3, 1999)])
 @pytest.mark.parametrize("depth", range(1, 8))
 @pytest.mark.parametrize("approx", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_frontend_kernel(cuda, approx, dtype, depth):
-    wav = torch.randn(2, 16007, generator=cuda, device="cuda")
+def test_conv_frontend_kernel(cuda, approx, dtype, depth, B, L):
+    """T0 = 3200, 3202 (off the layer-0 kernel's 4-frame step and 64-frame
+    chunk) at B = 1 and 398 at B = 3 (a block's run of frames crosses batch
+    rows); a rerun is bit-identical."""
+    wav = torch.randn(B, L, generator=cuda, device="cuda")
     args = (wav, _frontend_layers(cuda, depth), dtype, approx, 1e-5)
     before = (k_conv.LAUNCHES, k_conv.LAYER_LAUNCHES)
     out = k_conv.conv_frontend(*args)
@@ -195,6 +199,40 @@ def test_conv_frontend_kernel(cuda, approx, dtype, depth):
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+    assert torch.equal(out, k_conv.conv_frontend(*args))  # no atomics: a rerun is bit-identical
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_conv_frontend_gelu_table(cuda, approx):
+    """The bf16 layer-0 kernel's GELU table (the erf or tanh expression of
+    each of the 65,536 bf16 z, rounded) against ``F.gelu`` on the same bf16
+    values: at most one bf16 ulp apart on every finite z (torch groups the
+    tanh form's cube differently)."""
+    got = k_conv.gelu_table(approx)
+    z = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
+    want = torch.nn.functional.gelu(z, approximate="tanh" if approx else "none")
+    keep = torch.isfinite(z) & torch.isfinite(want)
+
+    def order(t):  # bf16 values as integers in their order (-0 and +0 both 0)
+        b = t.view(torch.int16).int()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    assert int((order(got) - order(want)).abs()[keep].max()) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_plans_match_build(cuda, dtype):
+    """K8's and K2's layer-0 plans: the built kernel's threads and shared
+    bytes are the plan's, and at least the plan's blocks an SM fit."""
+    for c in k_pos.GROUP_WIDTHS:
+        for K in (2, 127, 128, 256):
+            plan = k_pos.pos_conv_plan(c, K, dtype)
+            built = k_pos.pos_conv_occupancy(plan)
+            assert built[:2] == (plan.threads, plan.smem_bytes) and built[2] >= plan.blocks_per_sm, (plan, built)
+    for ksize in (3, 10, 16):
+        plan = k_conv.conv_frontend_plan(8, 31999, dtype, ksize)
+        built = k_conv.conv_frontend_occupancy(dtype, ksize, ksize == 3)
+        assert built[:2] == (plan.threads, plan.smem_bytes) and built[2] >= plan.blocks_per_sm, (plan, built)
 
 
 @pytest.mark.parametrize("hd", [80, 120])
@@ -374,22 +412,53 @@ def test_ffn_fused_kernel(cuda, n, approx, dtype):
 
 @pytest.mark.parametrize("c", k_pos.GROUP_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [3, 150])
-def test_pos_conv_kernel(cuda, c, dtype, T):
-    """K8 at 16 groups of each width it takes, K = 128 taps (T = 3: fewer frames than taps)."""
-    D, K = 16 * c, 128
-    x = torch.randn(2, T, D, generator=cuda, device="cuda").to(dtype)
+@pytest.mark.parametrize("T,K,B", [(3, 128, 2), (150, 128, 2), (1, 128, 2), ("tile-1", 128, 2), ("tile", 128, 2),
+                                   (499, 128, 2), (150, 127, 1), ("tile", 127, 1), (150, 2, 2), (150, 256, 1)])
+def test_pos_conv_kernel(cuda, c, dtype, T, K, B):
+    """K8 at 16 groups of each width it takes, K = 128 taps (T = 3: fewer
+    frames than taps; T + 1 output frames on both sides of the plan's frame
+    tile), K = 127 (odd: T output frames) at B = 1, and K = 2 and 256 (the
+    bf16 kernel's 3-step ring at C = 120); a rerun is bit-identical."""
+    tile = k_pos.pos_conv_plan(c, K, dtype).frames
+    T = {"tile-1": tile - 1, "tile": tile}.get(T, T)
+    D = 16 * c
+    x = torch.randn(B, T, D, generator=cuda, device="cuda").to(dtype)
     w = torch.randn(D, c, K, generator=cuda, device="cuda") / (c * K) ** 0.5
     before = k_pos.LAUNCHES
     out = k_pos.pos_conv(x, w, 16)
     torch.cuda.synchronize()
     assert k_pos.LAUNCHES == before + 1
     ref = k_pos.pos_conv_plain(x, w, 16)
-    assert out.shape == ref.shape == (2, T + 1, D) and out.dtype == dtype
+    assert out.shape == ref.shape == (B, T + 1 - K % 2, D) and out.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0) >= 0.999
+    assert torch.equal(out, k_pos.pos_conv(x, w, 16))  # no atomics: a rerun is bit-identical
+
+
+@pytest.mark.parametrize("c", k_pos.GROUP_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [128, 127])
+def test_pos_conv_weight_layout(cuda, c, dtype, src_dtype, K):
+    """K8's tiled layout kernel gives the bits of torch's permuted copy:
+    [G, K, C_out, C_in] for bf16, [G, C_in, K, C_out] for f32, the cast
+    rounded to nearest even (K = 127 and the f32 layout's C_out rows leave
+    part-filled 32 x 32 tiles)."""
+    w = (torch.randn(16 * c, c, K, generator=cuda, device="cuda") / (c * K) ** 0.5).to(src_dtype)
+    g = w.view(16, c, c, K)
+    want = g.permute(0, 3, 1, 2) if dtype == torch.bfloat16 else g.permute(0, 2, 3, 1)
+    want = torch.empty(want.shape, dtype=dtype, device="cuda").copy_(want)
+    got = k_pos.weight_layout(w, 16, dtype)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_pos_conv_refuses_a_weight_on_another_device(cuda):
+    x = torch.randn(1, 5, 768, device="cuda")
+    with pytest.raises(ValueError, match="weight on cpu"):
+        k_pos.pos_conv(x, torch.randn(768, 48, 128), 16)
 
 
 def test_inference_kernels_refuse_grad(cuda):
