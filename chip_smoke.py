@@ -8,8 +8,9 @@ an H100, ``sm_90a``) and needs nothing else: it builds the hand-written
 kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
 drives the serving path, the fusion training path, the LoRA fine-tuning
-path, the text-extraction path and the speech-encoder zoo through their
-entry points at full width:
+path, the text-extraction path, the speech-encoder zoo and the NS3 prosody
+extractor with the trimodal trainer through their entry points at full
+width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -109,14 +110,38 @@ entry points at full width:
    layers (head dims 80, 120: K4 = layers x steps), each with one step's
    gradients through K1 + K4 against the plain path; the wavlm-base-plus
    shape (group-norm frontend, post-LN: no K2) in bf16 and f32, then
-   ``lora_cli`` over it for 1 epoch.
+   ``lora_cli`` over it for 1 epoch;
+10. NS3 prosody and the trimodal trainer (BASELINE config #4): seeded
+   random-init full-width FACodec encoder and decoder ``.bin`` files in the
+   reference's naming (weight-normed convs and linears, the encoder in the
+   ``weight_g`` / ``weight_v`` key style, the decoder in the
+   ``parametrizations`` one; the VQ codebook spread over the latents of
+   seeded voiced waves, so that frames take many codes); seeded voiced
+   wavs of 2-12 s (the first 1 s) with an F0 contour and a syllable-rate
+   envelope, named as phase 6's corpus, F0 by class;
+   ``preprocess_cli ns3_prosody`` and ``ns3_prosody_speaker`` over all of
+   them (cold, warm), ``ns3_prosody_speaker`` and ``ns3_prosody --codes``
+   on the first 8: shapes [T, 256], [T, 512] and [T] int32, finiteness, a
+   floor on distinct codes and on distinct prosody rows; the batched
+   pre-VQ latents of those 8 against their batch-1 latents on the card;
+   one utterance's batched file against its batch-1 forward on the card
+   (3e-4) and that against the CPU (1e-4), the prosody half on the frames
+   whose VQ top-2 gap exceeds 1e-5; utt/s, and a profile of one warm
+   speaker batch of 16 10-s wavs (device idle share, peak memory); then
+   ``cli.train_main --trimodal`` for 2 epochs over config #4 (feat dims
+   1280 / 1024 / 256, focal loss, batch 64: synthetic Whisper-large
+   features, phase 6's RoBERTa-large files and the extracted NS3 files) and
+   ``cli.eval_main --trimodal``, then the median trimodal train step.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
 eval (the training path), zeroed again just before phase 7's extraction and
 read after its last ``*_pretrained`` run (the LoRA path), zeroed again
-just before phase 8 and read after it (the text path), and zeroed again
-just before phase 9 and read after it (the zoo path). K9 has no path (none
+just before phase 8 and read after it (the text path), zeroed again just
+before phase 9 and read after it (the zoo path), and zeroed again just
+before phase 10 and read after its NS3 extraction (every count 0: the
+extractor has no kernel, as in the JAX package) and after its trimodal
+eval (the trimodal path). K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -1673,21 +1698,23 @@ def write_train_corpus(tmp: str) -> str:
     return path
 
 
-def phase_train(config_path: str) -> dict:
+def phase_train(config_path: str, trimodal: bool = False) -> dict:
     """``cli train`` for the config's epochs, then ``cli eval`` on the
-    checkpoint it wrote: finite losses, a strict load, K3b launched once per
-    modality and optimizer step, the dev CSV's format."""
+    checkpoint it wrote (``--trimodal`` on both when asked): finite losses,
+    a strict load, K3b launched once per modality and optimizer step, the
+    dev CSV's format."""
     from interspeech_ser_tpu_torch import cli
     from interspeech_ser_tpu_torch.models.fusion import MultiModalEmotionClassifier
     from interspeech_ser_tpu_torch.utils.config import load_fusion_config
     from interspeech_ser_tpu_torch.utils.labels import CLASSES
 
-    cfg = load_fusion_config(config_path)
+    cfg = load_fusion_config(config_path, trimodal=trimodal or None)
+    flags = ["--config_path", config_path, "--device", DEVICE] + ["--trimodal"] * trimodal
     t0 = time.perf_counter()
-    best = cli.train_main(["--config_path", config_path, "--device", DEVICE])
+    best = cli.train_main(flags)
     sync()
     train_s = time.perf_counter() - t0
-    dev_csv = cli.eval_main(["--config_path", config_path, "--device", DEVICE])
+    dev_csv = cli.eval_main(flags)
     sync()
     logged = []
     for log_file in sorted(f for f in os.listdir(cfg.model_path) if f.startswith("loggingtxt-")):
@@ -1706,11 +1733,35 @@ def phase_train(config_path: str) -> dict:
     require(len(table) == 1 + TRAIN_SHAPE["n_dev"], f"dev rows {len(table) - 1}")
     require(all(all(four.match(v) for v in r[2:]) for r in table[1:]), "dev logits not 4-decimal")
     steps = cfg.epochs * -(-TRAIN_SHAPE["n_train"] // cfg.batch_size)
-    log(f"[train] cli train {cfg.epochs} epochs x {steps // cfg.epochs} steps (batch {cfg.batch_size}, "
-        f"H={cfg.fusion_hidden_dim}, feat dims {cfg.feat_dims}) in {train_s:.2f} s incl. dev evals; "
+    log(f"[train] cli train{' --trimodal' * trimodal} {cfg.epochs} epochs x {steps // cfg.epochs} steps (batch "
+        f"{cfg.batch_size}, H={cfg.fusion_hidden_dim}, feat dims {cfg.feat_dims}) in {train_s:.2f} s incl. dev evals; "
         f"best {best}; logged losses {logged}; {os.path.relpath(dev_csv, os.path.dirname(config_path))}: "
         f"{len(table) - 1} rows")
     return {"steps": steps, "n_modalities": len(cfg.feat_dims), "best": best, "train_s": train_s}
+
+
+def train_step_fn(engine, batch, class_w):
+    """One optimizer step of ``engine`` on ``batch`` (a fresh AdamW)."""
+    engine.optimizer = engine.make_optimizer()
+
+    def step():
+        engine.accumulate_gradients(batch, class_w)
+        engine.apply_gradients(engine.cfg.lr)
+
+    return step
+
+
+def host_times_ms(fn, reps: int = 5) -> list:
+    """Host-clock ms of ``reps`` runs of ``fn``, each synchronised, after a warm-up."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def check_train_step(config_path: str) -> dict:
@@ -1756,20 +1807,8 @@ def check_train_step(config_path: str) -> dict:
     del grads
 
     engine = FusionEngine(cfg, seed=SEED, device=DEVICE)
-    engine.optimizer = engine.make_optimizer()
-
-    def step():
-        engine.accumulate_gradients(batch, class_w)
-        engine.apply_gradients(cfg.lr)
-
-    step()
-    sync()
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        sync()
-        times.append((time.perf_counter() - t0) * 1e3)
+    step = train_step_fn(engine, batch, class_w)
+    times = host_times_ms(step)
     step_ms = statistics.median(times)
     out = {"train_step_ms": step_ms, "train_step_ms_runs": times, "grad_rel_err": errs[worst]}
     if DEVICE == "cuda":
@@ -2676,6 +2715,370 @@ def phase_zoo(tmp: str, smi: str) -> dict:
     return out
 
 
+# -- phase 10: NS3 prosody and the trimodal trainer (BASELINE config #4) ------------
+
+
+def _weight_norm_pair(w: torch.Tensor, g: torch.Generator, style: str) -> dict:
+    """``weight_norm(dim=0)`` parameters of ``w``: v = w times a seeded
+    positive factor per output channel, g = the norm of w over each output
+    channel, in the ``weight_g`` or the ``parametrizations`` key style."""
+    shape = (w.shape[0],) + (1,) * (w.dim() - 1)
+    v = w * (0.5 + 1.5 * torch.rand(shape, generator=g))
+    gain = w.flatten(1).norm(dim=1).view(shape)
+    names = (("weight_g", "weight_v") if style == "weight_g"
+             else ("parametrizations.weight.original0", "parametrizations.weight.original1"))
+    return dict(zip(names, (gain, v)))
+
+
+def facodec_reference_state_dicts(model, g: torch.Generator) -> tuple:
+    """A port ``ProsodyExtractor(with_speaker=True)``'s weights in the
+    reference's ``.bin`` naming -> (encoder state dict, decoder state dict):
+    every encoder conv weight-normed in the ``weight_g`` / ``weight_v``
+    style, the VQ's projections in the ``parametrizations`` style, the
+    encoder's resampling filters as the reference's buffers, and two
+    decoder tensors the extraction does not read."""
+    from interspeech_ser_tpu_torch.models.ns3.facodec import RESAMPLE_FILTER, SnakeAct1d
+
+    enc = {}
+    for k, v in model.encoder.state_dict().items():
+        if k.endswith(".weight"):
+            enc.update({f"{k[:-7]}.{n}": t for n, t in _weight_norm_pair(v, g, "weight_g").items()})
+        else:
+            enc[k] = v.clone()
+    filt = torch.from_numpy(RESAMPLE_FILTER).view(1, 1, -1)
+    for name, mod in model.encoder.named_modules():
+        if isinstance(mod, SnakeAct1d):
+            enc[f"{name}.upsample.filter"] = filt.clone()
+            enc[f"{name}.downsample.lowpass.filter"] = filt.clone()
+    dec = {k: v.clone() for k, v in model.state_dict().items()
+           if k.startswith(("melspec_linear.", "melspec_encoder.", "timbre_encoder."))}
+    q = "quantizer.0.layers.0"
+    for proj in ("in_proj", "out_proj"):
+        lin = getattr(model.fvq, proj)
+        dec.update({f"{q}.{proj}.{n}": t for n, t in _weight_norm_pair(lin.weight.detach(), g, "param").items()})
+        dec[f"{q}.{proj}.bias"] = lin.bias.detach().clone()
+    dec[f"{q}._codebook.weight"] = model.fvq.codebook.weight.detach().clone()
+    dec["quantizer.1.layers.0._codebook.weight"] = torch.randn(1024, 8, generator=g)
+    dec["timbre_linear.weight"] = torch.randn(512, 256, generator=g)
+    return enc, dec
+
+
+def prosody_wave(n: int, rng, f0: float) -> np.ndarray:
+    """``n`` samples of a voiced 16-kHz signal with prosody: five harmonics
+    of an F0 contour swinging 25% around ``f0``, under a syllable-rate energy
+    envelope, in a little noise."""
+    t = np.arange(n) / 16000.0
+    contour = f0 * (1 + 0.25 * np.sin(2 * np.pi * rng.uniform(0.3, 1.0) * t + rng.uniform(0, 2 * np.pi)))
+    phase = 2 * np.pi * np.cumsum(contour) / 16000.0
+    env = np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 2 * np.pi)) ** 2
+    return 0.3 * env * sum(np.sin(k * phase) / k for k in range(1, 6)) + 0.02 * rng.standard_normal(n)
+
+
+def seeded_facodec(seed: int = SEED, spread_codes: int = 128) -> tuple:
+    """A seeded random-init full-width ``ProsodyExtractor(with_speaker=True)``
+    on the CPU -> (model, the generator to draw more from). The SnakeBeta
+    parameters are drawn (the reference's init is 0). Random codebook rows
+    leave nearly every frame on one code, so the first ``spread_codes`` rows
+    are the VQ's projected latents of frames of seeded prosody waves, picked
+    farthest-first on the unit sphere (the distance compares directions);
+    the other rows stay random."""
+    from interspeech_ser_tpu_torch.models.ns3.facodec import ProsodyExtractor
+
+    torch.manual_seed(seed)
+    model = ProsodyExtractor(with_speaker=True).eval()
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith(("act.alpha", "act.beta")):
+                prm.copy_(0.2 * torch.randn(prm.shape, generator=g))
+        waves = [prosody_wave(4 * 16000, rng, rng.uniform(90, 250)).astype(np.float32) for _ in range(6)]
+        z = model.fvq.in_proj(torch.cat([model.prosody_latents(torch.from_numpy(w)[None])[0] for w in waves]))
+        e = z / z.norm(dim=-1, keepdim=True)
+        picked = [0]
+        dist = (e - e[0]).norm(dim=-1)
+        for _ in range(spread_codes - 1):
+            picked.append(int(dist.argmax()))
+            dist = torch.minimum(dist, (e - e[picked[-1]]).norm(dim=-1))
+        model.fvq.codebook.weight[:spread_codes] = z[picked]
+    return model, g
+
+
+def vq_top2_gap(latents: torch.Tensor, fvq) -> np.ndarray:
+    """Pre-VQ latents [..., T, 256] -> each frame's gap between its two best
+    codes' cosine similarities, in float64. Two computations of the same
+    latents may pick different codes only where this gap is small."""
+    w, b, cb = (t.detach().double().cpu() for t in (fvq.in_proj.weight, fvq.in_proj.bias, fvq.codebook.weight))
+    z = latents.detach().double().cpu() @ w.t() + b
+    top2 = torch.topk((z / z.norm(dim=-1, keepdim=True)) @ (cb / cb.norm(dim=-1, keepdim=True)).t(), 2).values
+    return (top2[..., 0] - top2[..., 1]).numpy()
+
+
+VQ_MARGIN = 1e-5  # a top-2 gap above this: the code must agree
+
+
+def write_facodec_checkpoints(out_dir: str, seed: int = SEED) -> tuple:
+    """``seeded_facodec``'s weights as full-width FACodec encoder and
+    decoder ``.bin`` files in the reference's naming -> (encoder path,
+    decoder path)."""
+    model, g = seeded_facodec(seed)
+    enc, dec = facodec_reference_state_dicts(model, g)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = (os.path.join(out_dir, "ns3_facodec_encoder_v2.bin"), os.path.join(out_dir, "ns3_facodec_decoder_v2.bin"))
+    for sd, path in zip((enc, dec), paths):
+        torch.save(sd, path)
+    return paths
+
+
+# phase 10's corpus: phase 6's names, labels and RoBERTa-large features, seeded prosody waves of 2-12 s (the first
+# 1 s, under the 96-frame tail window; F0 by class), synthetic Whisper-large features; the speaker-on-8 and --codes
+# runs take the first n_speaker wavs; min_codes floors the distinct codes of --codes and the distinct prosody rows;
+# the profile a batch of profile_wavs wavs of profile_seconds
+NS3_SHAPE = dict(seconds=(2.0, 12.0), first_seconds=1.0, n_speaker=8, min_codes=32, batch_size=16, profile_wavs=16,
+                 profile_seconds=10.0, whisper_dim=1280, epochs=2, config={})
+
+
+def _ns3_cli(main, wav_dir: str, save: str, ckpts: tuple, *extra) -> object:
+    stats = main(["--wav_dir", wav_dir, "--save_path", save, "--encoder_ckpt", ckpts[0], "--decoder_ckpt", ckpts[1],
+                  "--batch_size", str(NS3_SHAPE["batch_size"]), "--device", DEVICE, *extra])
+    sync()
+    return stats
+
+
+def check_ns3_files(save: str, lengths: dict, dim, dtype, what: str) -> None:
+    """One ``.pt`` per wav: [T, dim] (``dim`` None: [T]) of ``dtype``, T =
+    the padded length / 200 (200 zeros more when already a multiple), finite."""
+    for stem, n in lengths.items():
+        got = torch.load(os.path.join(save, f"{stem}.pt"), weights_only=True)
+        want = ((n + 200 - n % 200) // 200,) + ((dim,) if dim else ())
+        require(tuple(got.shape) == want and got.dtype == dtype,
+                f"{what} {stem}: {tuple(got.shape)} {got.dtype}, want {want} {dtype}")
+        require(bool(torch.isfinite(got.float()).all()), f"{what} {stem}: non-finite values")
+
+
+def _padded_wav(path: str) -> np.ndarray:
+    from interspeech_ser_tpu_torch.utils.audio import load_wav
+
+    y, _ = load_wav(path)
+    return np.pad(y, (0, 200 - len(y) % 200))
+
+
+def check_ns3_latents(model, waves: dict) -> tuple:
+    """The batched prosody path's pre-VQ latents (host reflect pads, frame
+    mask, ``pe[0]`` on every row) of ``waves`` in one length-sorted batch
+    of NS3_SHAPE's rows, against each utterance's batch-1 latents on the
+    same device -> (max abs over every valid frame, {stem: batch-1 latents})."""
+    from interspeech_ser_tpu_torch.extract.pipeline import NS3_BUCKET, ns3_batch_inputs
+
+    stems = sorted(waves, key=lambda s: len(waves[s]))
+    Lb = -(-max(len(w) for w in waves.values()) // NS3_BUCKET) * NS3_BUCKET
+    wav = np.zeros((max(NS3_SHAPE["batch_size"], len(stems)), Lb), np.float32)
+    for i, s in enumerate(stems):
+        wav[i, : len(waves[s])] = waves[s]
+    refl, fmask = ns3_batch_inputs(wav, [len(waves[s]) for s in stems])
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        batched = model.prosody_latents(torch.from_numpy(refl).to(dev), pre_padded=True,
+                                        key_mask=torch.from_numpy(fmask).to(dev), pe_batch1=True)
+        singles = {s: model.prosody_latents(torch.from_numpy(waves[s][None]).to(dev))[0] for s in stems}
+    err = max(max_abs(batched[i, : len(waves[s]) // 200], singles[s]) for i, s in enumerate(stems))
+    return err, singles
+
+
+def phase_ns3(tmp: str, train_config: str, smi: str) -> dict:
+    """NS3 FACodec prosody at full width from seeded reference-named ``.bin``
+    files: ``preprocess_cli ns3_prosody`` and ``ns3_prosody_speaker`` over
+    the trimodal corpus (cold, warm), ``ns3_prosody_speaker`` and
+    ``ns3_prosody --codes`` on its first wavs; shapes, dtypes, finiteness,
+    the distinct codes and prosody rows; the batched pre-VQ latents against
+    batch-1 on the card; one utterance's batched file against its batch-1
+    forward on the card (3e-4) and that against the CPU (1e-4), the prosody
+    half on the frames clear of a VQ near-tie; a profile of one warm
+    speaker batch. Then the config #4 trimodal config over phase 6's corpus
+    with the extracted files as ``lazy_dir3`` -> its path."""
+    from interspeech_ser_tpu_torch.models.loader import build_prosody_extractor
+    from interspeech_ser_tpu_torch.preprocess_cli import ns3_prosody_main, ns3_prosody_speaker_main
+    from interspeech_ser_tpu_torch.utils import labels as L
+
+    shape = NS3_SHAPE
+    t0 = time.perf_counter()
+    ckpts = write_facodec_checkpoints(os.path.join(tmp, "ns3_ckpt"))
+    with open(train_config) as f:
+        base = json.load(f)
+    rows = L.load_merged(base["label_path"], base["txt_dir"])
+    names, classes = L.column(rows, "FileName"), np.argmax(L.matrix(rows), axis=1)
+    rng = np.random.default_rng(SEED + 10)
+    wav_dir, spk_dir = os.path.join(tmp, "ns3_wavs"), os.path.join(tmp, "ns3_wavs_speaker")
+    os.makedirs(wav_dir)
+    os.makedirs(spk_dir)
+    lengths = {}
+    for i, (name, cls) in enumerate(zip(names, classes)):
+        n = int((shape["first_seconds"] if i == 0 else rng.uniform(*shape["seconds"])) * 16000)
+        write_wav(os.path.join(wav_dir, name), prosody_wave(n, rng, 90.0 + 20.0 * cls))
+        lengths[os.path.splitext(name)[0]] = n
+        if i < shape["n_speaker"]:
+            shutil.copy(os.path.join(wav_dir, name), spk_dir)
+    spk = {s: lengths[s] for s in list(lengths)[: shape["n_speaker"]]}
+    frames = {s: (n + 200 - n % 200) // 200 for s, n in spk.items()}
+    require(min(frames.values()) < 96 <= max(frames.values()), f"speaker frames {frames}: want both sides of 96")
+    log(f"[ns3] wrote FACodec checkpoints ({', '.join(os.path.basename(c) for c in ckpts)}) and {len(lengths)} wavs "
+        f"of {sum(lengths.values()) / 16000:.1f} s in {time.perf_counter() - t0:.1f} s")
+
+    out = {"utt_per_sec": {}}
+    runs = (("prosody", ns3_prosody_main, wav_dir, lengths, 256, ("cold", "warm")),
+            ("speaker", ns3_prosody_speaker_main, wav_dir, lengths, 512, ("cold", "warm")),
+            ("speaker", ns3_prosody_speaker_main, spk_dir, spk, 512, (f"first{len(spk)}",)))
+    for what, main, src, lens, dim, reps in runs:
+        for rep in reps:
+            save = os.path.join(tmp, f"ns3_{what}_{rep}")
+            stats = _ns3_cli(main, src, save, ckpts)
+            require(stats.n_utts == len(lens) and stats.n_failed == 0, f"ns3 {what} {rep}: {stats}")
+            check_ns3_files(save, lens, dim, torch.float32, f"ns3 {what} {rep}")
+            out["utt_per_sec"][f"{what}_{rep}"] = stats.utts_per_sec
+            log(f"[ns3] {what} f32 {rep}: {stats.n_utts} utts, {stats.n_batches} batches of "
+                f"{shape['batch_size']} rows, {stats.audio_seconds:.1f} audio-s in {stats.wall_seconds:.2f} s = "
+                f"{stats.utts_per_sec:.2f} utt/s ({smi})")
+    stats = _ns3_cli(ns3_prosody_main, spk_dir, os.path.join(tmp, "ns3_codes"), ckpts, "--codes")
+    check_ns3_files(os.path.join(tmp, "ns3_codes"), spk, None, torch.int32, "ns3 codes")
+    codes = torch.cat([torch.load(os.path.join(tmp, "ns3_codes", f"{s}.pt"), weights_only=True) for s in spk])
+    require(0 <= int(codes.min()) and int(codes.max()) < 1024, "ns3 codes outside the 1024-entry codebook")
+    prosody = torch.cat([torch.load(os.path.join(tmp, "ns3_prosody_warm", f"{s}.pt"), weights_only=True)
+                         for s in lengths])
+    out["distinct"] = {"codes": len(torch.unique(codes)), "codes_of": len(codes),
+                       "prosody_rows": len(torch.unique(prosody, dim=0)), "prosody_rows_of": len(prosody)}
+    log(f"[ns3] --codes: {stats.n_utts} utts, int32, {out['distinct']['codes']} distinct codes of {len(codes)} "
+        f"frames; prosody files: {out['distinct']['prosody_rows']} distinct rows of {len(prosody)}")
+    require(out["distinct"]["codes"] >= shape["min_codes"] and out["distinct"]["prosody_rows"] >= shape["min_codes"],
+            f"ns3 codes do not spread: {out['distinct']} (floor {shape['min_codes']})")
+
+    # the batched prosody path's pre-VQ latents vs batch-1 on the card, for the first wavs; then one utterance over
+    # the tail window: its batched file vs its batch-1 forward on the card, that vs the CPU; the one under it: its
+    # prosody half (exact in a batch) vs batch-1, its speaker half reported. The prosody half is compared on the
+    # frames whose VQ top-2 gap exceeds VQ_MARGIN (a nearer tie may flip between two summation orders).
+    set_tf32(False)
+    model = build_prosody_extractor(ckpts[1], ckpts[0], with_speaker=True)
+    cpu_model = build_prosody_extractor(ckpts[1], ckpts[0], with_speaker=True)
+    model = model.to(DEVICE)
+    waves = {s: _padded_wav(os.path.join(spk_dir, f"{s}.wav")) for s in spk}
+    err_latents, latents = check_ns3_latents(model, waves)
+    long_stem = min((s for s in spk if frames[s] >= 96), key=lambda s: frames[s])
+    short_stem = min(spk, key=lambda s: frames[s])
+    errs, near = {}, 0
+    for stem in (long_stem, short_stem):
+        wav = torch.from_numpy(waves[stem])[None]
+        clear = torch.from_numpy(vq_top2_gap(latents[stem], model.fvq) > VQ_MARGIN)
+        near += int((~clear).sum())
+        got = torch.load(os.path.join(tmp, f"ns3_speaker_first{len(spk)}", f"{stem}.pt"), weights_only=True)
+        with torch.inference_mode():
+            one = model(wav.to(DEVICE))[0].cpu()
+        errs[stem] = (max(max_abs(got[clear, :256], one[clear, :256]), max_abs(got[:, 256:], one[:, 256:])),
+                      max_abs(got[clear, :256], one[clear, :256]))
+        if stem == long_stem:
+            with torch.inference_mode():
+                ref = cpu_model(wav)[0]
+            errs["cpu"] = max(max_abs(one[clear, :256], ref[clear, :256]), max_abs(one[:, 256:], ref[:, 256:]))
+    log(f"[ns3] batched pre-VQ latents of {len(spk)} utts vs their batch-1 latents on {DEVICE}: max_abs "
+        f"{err_latents:.3e} (bar 1e-4); {near} frame(s) of {frames[long_stem] + frames[short_stem]} within "
+        f"{VQ_MARGIN} of a VQ tie, left out of the prosody-half comparisons")
+    log(f"[ns3] {long_stem} ({frames[long_stem]} frames) speaker file vs its batch-1 forward on {DEVICE}: max_abs "
+        f"{errs[long_stem][0]:.3e} (bar 3e-4); batch-1 on {DEVICE} vs the CPU: {errs['cpu']:.3e} (bar 1e-4); "
+        f"{short_stem} ({frames[short_stem]} frames, under the window): prosody half {errs[short_stem][1]:.3e} "
+        f"(bar 3e-4), speaker half {errs[short_stem][0]:.3e} (the kept approximation)")
+    require(err_latents <= 1e-4, f"ns3 batched latents vs batch-1: {err_latents}")
+    require(near <= 2, f"ns3: {near} frames within {VQ_MARGIN} of a VQ tie")
+    require(errs[long_stem][0] <= 3e-4, f"ns3 batched vs batch-1: {errs[long_stem][0]}")
+    require(errs["cpu"] <= 1e-4, f"ns3 batch-1 card vs CPU: {errs['cpu']}")
+    require(errs[short_stem][1] <= 3e-4, f"ns3 short utterance's prosody vs batch-1: {errs[short_stem][1]}")
+    out["max_abs"] = {"latents_batched_vs_batch1": err_latents, "batched_vs_batch1": errs[long_stem][0],
+                      "card_vs_cpu": errs["cpu"], "short_prosody": errs[short_stem][1],
+                      "short_speaker": errs[short_stem][0], "near_tie_frames": near}
+    out["profile"] = profile_ns3(tmp, model, smi)
+    del model, cpu_model
+
+    # config #4: Whisper-large (1280) + RoBERTa-large (phase 6's 1024-d files) + the extracted NS3 prosody
+    whisper_dir = os.path.join(tmp, "trimodal_whisper")
+    os.makedirs(whisper_dir)
+    means = rng.normal(scale=0.5, size=(8, shape["whisper_dim"])).astype(np.float32)
+    for name, cls in zip(names, classes):
+        stem = os.path.splitext(name)[0]
+        T = min(-(-lengths[stem] // 320), 1500)
+        torch.save(torch.from_numpy(rng.standard_normal((T, shape["whisper_dim"]), dtype=np.float32) + means[cls]),
+                   os.path.join(whisper_dir, f"{stem}.pt"))
+    config4 = "config_cat_trimodal_lazy_lr1e4_whisperlarge_roberta_ns3_focaloss.json"  # BASELINE config #4
+    with open(os.path.join(ROOT, "configs", config4)) as f:
+        cfg = json.load(f)
+    cfg.update(wav_dir=wav_dir, txt_dir=base["txt_dir"], label_path=base["label_path"], lazy_dir1=whisper_dir,
+               lazy_dir2=base["lazy_dir2"], lazy_dir3=os.path.join(tmp, "ns3_prosody_warm"),
+               feat1_dim=shape["whisper_dim"], feat2_dim=base["feat2_dim"], epochs=shape["epochs"],
+               model_path=os.path.join(tmp, "trimodal_experiment"), **shape["config"])
+    out["config_path"] = os.path.join(tmp, "trimodal_config.json")
+    with open(out["config_path"], "w") as f:
+        json.dump(cfg, f)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[ns3] extraction and checks: {out['seconds']:.1f} s")
+    return out
+
+
+def profile_ns3(tmp: str, model, smi: str) -> dict:
+    """One warm prosody-speaker batch (``ProsodyExtractionPipeline``, wav
+    reads and ``.pt`` writes included) of NS3_SHAPE's profile wavs: wall and
+    device-busy ms, the idle share, peak device memory, the top device ops."""
+    from interspeech_ser_tpu_torch.extract.pipeline import ProsodyExtractionPipeline
+
+    shape = NS3_SHAPE
+    wav_dir = os.path.join(tmp, "ns3_profile_wavs")
+    write_wavs(wav_dir, shape["profile_wavs"], (shape["profile_seconds"],) * 2, SEED + 11, prefix="p")
+    save = os.path.join(tmp, "ns3_profile")
+    pipe = ProsodyExtractionPipeline(model, shape["batch_size"], device=DEVICE)
+    run = lambda: pipe.run(wav_dir, save)  # noqa: E731
+    run()  # cold: cuDNN's algorithm choice for this bucket
+    if DEVICE != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stats = run()
+        sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms, "peak_gb": peak_gb,
+           "utt_per_sec": stats.utts_per_sec,
+           "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+    log(f"[ns3] profile of one warm speaker batch of {shape['profile_wavs']} x {shape['profile_seconds']:.0f} s: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle {100 * res['idle_share']:.1f}%), peak device memory "
+        f"{peak_gb:.2f} GB ({smi})")
+    for name, ms, count in res["top"]:
+        log(f"[ns3]   {ms:9.3f} ms  x{count:<4d} {name}")
+    return res
+
+
+def time_trimodal_step(config_path: str, smi: str) -> dict:
+    """The trimodal focal-loss trainer's step (batch 64, the first train
+    rows), median of 5 host-clock runs."""
+    from interspeech_ser_tpu_torch.train.data import LazyFeatureDataset
+    from interspeech_ser_tpu_torch.train.engine import FusionEngine
+    from interspeech_ser_tpu_torch.utils import labels as L
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+
+    cfg = load_fusion_config(config_path, trimodal=True)
+    train_rows = L.split(L.load_merged(cfg.label_path, cfg.txt_dir), "Train")
+    ds = LazyFeatureDataset(L.column(train_rows, "FileName"), L.matrix(train_rows), cfg.lazy_dirs, cfg.feat_dims)
+    batch = ds.collate(list(range(min(cfg.batch_size, len(train_rows)))), cfg.batch_size)
+    class_w = torch.from_numpy(L.class_weights(train_rows)).to(DEVICE)
+    engine = FusionEngine(cfg, seed=SEED, device=DEVICE, focal_dynamic_alpha=True)
+    times = host_times_ms(train_step_fn(engine, batch, class_w))
+    out = {"train_step_ms": statistics.median(times), "train_step_ms_runs": times}
+    log(f"[trimodal] train step (batch {cfg.batch_size}, feat dims {cfg.feat_dims}, shapes "
+        f"{[tuple(f.shape) for f in batch.feats]}, focal loss, TF32 off): median {out['train_step_ms']:.3f} ms of "
+        f"runs {[round(t, 3) for t in times]} ({smi})")
+    return out
+
+
 T0 = time.perf_counter()
 
 
@@ -2746,8 +3149,22 @@ def main() -> None:
                      "pos_conv"):
             require(zoo_path[name] > 0, f"kernel {name} was not launched on the zoo path")
         log(f"[zoo path] launches {zoo_path}")
-    by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path}
-    for path in ("serving", "training", "lora", "zoo"):  # the speech and fusion paths never reach K6 / K7
+
+        zero_counts()
+        ns3 = phase_ns3(tmp, config_path, smi)
+        extraction = counts()
+        require(not any(extraction.values()), f"a kernel launched during NS3 extraction: {extraction}")
+        tri = phase_train(ns3["config_path"], trimodal=True)
+        trimodal_path = counts()
+        require(trimodal_path["gru_bidir"] > 0, "K3 was not launched on the trimodal path")
+        require(trimodal_path["gru_bidir_bwd"] == tri["n_modalities"] * tri["steps"] and tri["n_modalities"] == 3,
+                f"K3b launches {trimodal_path['gru_bidir_bwd']} != {tri['n_modalities']} modalities x "
+                f"{tri['steps']} optimizer steps")
+        log(f"[trimodal path] launches {trimodal_path} (none during NS3 extraction); NS3 utt/s {ns3['utt_per_sec']}")
+        tri_step = time_trimodal_step(ns3["config_path"], smi)
+    by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
+               "trimodal": trimodal_path}
+    for path in ("serving", "training", "lora", "zoo", "trimodal"):  # the speech and fusion paths never reach K6 / K7
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
@@ -2767,11 +3184,17 @@ def main() -> None:
     log(f"[train] median train-step ms {step['train_step_ms']:.3f} (batch 64, H=512, {smi})")
     log(f"[lora] Whisper-large-v3 LoRA step median: bf16 {steps['bf16_step_ms']:.3f} ms, f32 "
         f"{steps['f32_step_ms']:.3f} ms (batch 8, {smi})")
+    log(f"[ns3] prosody utt/s f32 cold {ns3['utt_per_sec']['prosody_cold']:.2f}, warm "
+        f"{ns3['utt_per_sec']['prosody_warm']:.2f}; speaker cold {ns3['utt_per_sec']['speaker_cold']:.2f}, warm "
+        f"{ns3['utt_per_sec']['speaker_warm']:.2f} (all wavs, full batches of {NS3_SHAPE['batch_size']}); speaker "
+        f"batch device idle {100 * ns3['profile']['idle_share']:.1f}%; distinct codes {ns3['distinct']}; trimodal "
+        f"train-step median {tri_step['train_step_ms']:.3f} ms ({smi})")
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
                              **steps},
-                    "text": text_run, "zoo": zoo, "seconds": time.perf_counter() - T0}))
+                    "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
+                    "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -21,6 +21,12 @@ Whisper: fixed [8, 480000] batches (30 s, longer audio cut) in name order,
 raw waveforms, the log-mel computed on the device, and the output cut to
 ``min(ceil(len / 320), 1500)`` frames.
 
+NS3 FACodec prosody: each wav padded by ``200 - len % 200`` zeros (200 on a
+multiple, the reference's pad), length-sorted batches of ``batch_size``
+rows (zero rows fill the last) padded to a multiple of 3200 samples, each
+utterance reflect-padded on the host for the mel, and ``len / 200`` frames
+kept; ``codes`` saves the int32 VQ indices of the literal forward instead.
+
 Text: transcripts in CSV order, batches of ``batch_size`` tokenized to
 ``max_length`` (``padding='max_length'``, truncation), through the same
 device loop; the output is the FULL padded [max_length, D] row. A
@@ -44,14 +50,16 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.ns3.facodec import HOP
 from ..models.speech import feat_extract_output_length, with_config
-from ..ops.mel import whisper_log_mel
+from ..ops.mel import NS3_PAD, whisper_log_mel
 from ..utils import ptio
 from ..utils.audio import load_wav, normalize_waveform
 from ..utils.device import resolve_device
 from . import streaming
 
 BUCKET_QUANTUM = 16000  # batches pad to whole seconds of 16-kHz audio
+NS3_BUCKET = 3200  # samples: NS3 batches pad to a multiple of 16 frames
 
 
 @dataclass
@@ -117,7 +125,7 @@ def _drive(
     def drain(rb, host, ev) -> None:
         if ev is not None:
             ev.synchronize()
-        feats = host.float()
+        feats = host.float() if host.is_floating_point() else host  # NS3 codes stay int32
         for i, name in enumerate(rb.names):
             stem = os.path.splitext(os.path.basename(name))[0]
             n = n_frames(rb.lengths[i], feats.shape[1])
@@ -301,6 +309,96 @@ class WhisperExtractionPipeline:
         )
         _drive(stream, lambda rb: self._forward(rb.wav), lambda n, T: min(math.ceil(n / 320), T),
                save_path, stats, self.num_workers, self.device.type == "cuda")
+        stats.wall_seconds = time.perf_counter() - t0
+        return stats
+
+
+def ns3_batch_inputs(wav: np.ndarray, lengths: Sequence[int]):
+    """The host half of ``ProsodyExtractor.extract_batched`` for a batch
+    zero-padded to its bucket -> (wav_reflect [B, Lb + 824], each utterance
+    reflect-padded by 412 samples before the bucket's zeros; frame_mask
+    [B, Lb / 200], 1 on each utterance's frames)."""
+    B, Lb = wav.shape
+    refl = np.zeros((B, Lb + 2 * NS3_PAD), np.float32)
+    fmask = np.zeros((B, Lb // HOP), np.float32)
+    for i, n in enumerate(lengths):
+        refl[i, : n + 2 * NS3_PAD] = np.pad(wav[i, :n], (NS3_PAD, NS3_PAD), mode="reflect")
+        fmask[i, : n // HOP] = 1
+    return refl, fmask
+
+
+class ProsodyExtractionPipeline:
+    """wav dir -> per-utterance NS3 FACodec prosody features, [len / 200,
+    256] (speaker variant: 512), or with ``codes`` the [len / 200] int32 VQ
+    indices.
+
+    The plan reads WAV headers only; a file whose decode fails after its
+    header was read drops out of its planned batch, where the reference
+    would have regrouped the rest (``codes`` depends on an utterance's batch
+    row; the features do not)."""
+
+    def __init__(
+        self,
+        extractor,  # ProsodyExtractor, f32
+        batch_size: int = 16,
+        codes: bool = False,
+        num_workers: int = 4,
+        device="cuda",  # "cpu" only when asked: no card raises
+    ):
+        self.device = resolve_device(device)
+        self.extractor = extractor.to(self.device).eval()
+        self.batch_size = batch_size
+        self.codes = codes
+        self.num_workers = num_workers
+
+    def _load_one(self, wav_dir: str, name: str) -> Optional[np.ndarray]:
+        try:
+            y, _ = load_wav(os.path.join(wav_dir, name), target_sr=16000)
+            return np.pad(y, (0, HOP - len(y) % HOP))  # the reference's pad, 200 zeros on a multiple
+        except Exception as e:  # skip-and-log like the reference
+            print(f"Failed to process {name}: {e}")
+            return None
+
+    def _plan(self, wav_dir: str, wav_names: Sequence[str], stats: ExtractionStats):
+        """Length-sorted batches of ``batch_size`` at the padded lengths, from headers."""
+
+        def one(name: str):
+            try:
+                n = streaming.planned_wav_len(os.path.join(wav_dir, name))
+                return name, n + HOP - n % HOP
+            except Exception:
+                w = self._load_one(wav_dir, name)  # odd container: decode for the length
+                return (name, len(w)) if w is not None else None
+
+        with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            results = list(pool.map(one, wav_names))
+        planned = sorted((r for r in results if r is not None), key=lambda kv: kv[1])
+        stats.n_failed += len(results) - len(planned)
+        bs = self.batch_size
+        return [streaming.PlannedBatch([n for n, _ in planned[i: i + bs]], [n for _, n in planned[i: i + bs]])
+                for i in range(0, len(planned), bs)]
+
+    @torch.inference_mode()
+    def _forward(self, rb) -> torch.Tensor:
+        wav = _to_device(rb.wav, self.device)
+        if self.codes:
+            return self.extractor.codes(wav)
+        refl, fmask = ns3_batch_inputs(rb.wav, rb.lengths)
+        return self.extractor.extract_batched(wav, _to_device(refl, self.device), _to_device(fmask, self.device))
+
+    def run(self, wav_dir: str, save_path: str, wav_names: Optional[Sequence[str]] = None) -> ExtractionStats:
+        os.makedirs(save_path, exist_ok=True)
+        if wav_names is None:
+            wav_names = sorted(os.listdir(wav_dir))
+        stats = ExtractionStats()
+        t0 = time.perf_counter()
+        wav_names = _skip_existing(wav_names, save_path, stats)
+        stream = streaming.BatchStream(
+            partial(self._load_one, wav_dir), self._plan(wav_dir, wav_names, stats), NS3_BUCKET,
+            num_workers=self.num_workers, row_multiple=self.batch_size,
+        )
+        _drive(stream, self._forward, lambda n, T: n // HOP, save_path, stats, self.num_workers,
+               self.device.type == "cuda")
         stats.wall_seconds = time.perf_counter() - t0
         return stats
 

@@ -14,6 +14,9 @@ nested dicts of numpy arrays and return the port's state dicts.
   and yield HF RobertaModel / DebertaV2Model key names (no prefix).
 - :func:`fusion_params_from_flax` mirrors ``convert_fusion.flax_to_torch``
   and yields the reference's ``multimodal_ser.pt`` names.
+- :func:`ns3_params_from_flax` takes the JAX ``ProsodyExtractor``'s param
+  dict and yields the port's ``ProsodyExtractor`` state dict (its pieces:
+  :func:`ns3_transformer_params_from_flax`, :func:`facodec_encoder_params_from_flax`).
 
 Layouts: a flax Dense kernel [in, out] is a torch Linear weight [out, in];
 a flax Conv kernel [k, in/g, out] is a torch Conv1d weight [out, in/g, k].
@@ -204,3 +207,75 @@ def fusion_params_from_flax(params: Dict, n_mod: int) -> Dict[str, torch.Tensor]
         sd["neutral_classifier.3.weight"] = _t(g("neutral_fc2", "kernel"))
         sd["neutral_classifier.3.bias"] = g("neutral_fc2", "bias")
     return _to_torch(sd)
+
+
+def ns3_transformer_params_from_flax(params: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``NS3TransformerEncoder`` params -> the port's (reference-named) state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {}
+    n_layers = sum(1 for k in params if k.startswith("layer"))
+    for i in range(n_layers):
+        base, src = f"{prefix}layers.{i}", f"layer{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{base}.{ln}.weight"] = g(src, ln, "scale")
+            sd[f"{base}.{ln}.bias"] = g(src, ln, "bias")
+        sd[f"{base}.self_attn.in_proj_weight"] = _t(g(src, "self_attn", "in_proj_kernel"))
+        sd[f"{base}.self_attn.in_proj_bias"] = g(src, "self_attn", "in_proj_bias")
+        sd[f"{base}.self_attn.out_proj.weight"] = _t(g(src, "self_attn", "out_kernel"))
+        sd[f"{base}.self_attn.out_proj.bias"] = g(src, "self_attn", "out_bias")
+        sd[f"{base}.ffn.ffn_1.weight"] = _unconv(g(src, "ffn_1", "kernel"))
+        sd[f"{base}.ffn.ffn_1.bias"] = g(src, "ffn_1", "bias")
+        sd[f"{base}.ffn.ffn_2.weight"] = _t(g(src, "ffn_2", "kernel"))
+        sd[f"{base}.ffn.ffn_2.bias"] = g(src, "ffn_2", "bias")
+    sd[f"{prefix}last_ln.weight"] = g("last_ln", "scale")
+    sd[f"{prefix}last_ln.bias"] = g("last_ln", "bias")
+    return _to_torch(sd)
+
+
+def facodec_encoder_params_from_flax(params: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``FACodecEncoderV2Model`` params -> the port's (reference-named) state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(dst, *src):
+        sd[f"{prefix}{dst}.weight"] = _unconv(g(*src, "kernel"))
+        sd[f"{prefix}{dst}.bias"] = g(*src, "bias")
+
+    def act(dst, *src):
+        sd[f"{prefix}{dst}.act.alpha"] = g(*src, "alpha")
+        sd[f"{prefix}{dst}.act.beta"] = g(*src, "beta")
+
+    n_blocks = sum(1 for k in params if k.startswith("block"))
+    conv("block.0", "conv_in")
+    for i in range(n_blocks):
+        base, blk = f"block.{i + 1}.block", f"block{i}"
+        for j in range(3):
+            unit = f"{base}.{j}.block"
+            act(f"{unit}.0", blk, f"res{j + 1}", "act1")
+            conv(f"{unit}.1", blk, f"res{j + 1}", "conv1")
+            act(f"{unit}.2", blk, f"res{j + 1}", "act2")
+            conv(f"{unit}.3", blk, f"res{j + 1}", "conv2")
+        act(f"{base}.3", blk, "act")
+        conv(f"{base}.4", blk, "down")
+    act(f"block.{n_blocks + 1}", "act_out")
+    conv(f"block.{n_blocks + 2}", "conv_out")
+    return _to_torch(sd)
+
+
+def ns3_params_from_flax(params: Dict, with_speaker: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX ``ProsodyExtractor.params`` -> the port's ``ProsodyExtractor`` state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd = _to_torch({
+        "melspec_linear.weight": _t(g("melspec_linear", "kernel")),
+        "melspec_linear.bias": g("melspec_linear", "bias"),
+        "fvq.in_proj.weight": _t(g("fvq", "in_kernel")),
+        "fvq.in_proj.bias": g("fvq", "in_bias"),
+        "fvq.out_proj.weight": _t(g("fvq", "out_kernel")),
+        "fvq.out_proj.bias": g("fvq", "out_bias"),
+        "fvq.codebook.weight": g("fvq", "codebook"),
+    })
+    sd.update(ns3_transformer_params_from_flax(params["melspec_encoder"], "melspec_encoder."))
+    if with_speaker:
+        sd.update(facodec_encoder_params_from_flax(params["encoder"], "encoder."))
+        sd.update(ns3_transformer_params_from_flax(params["timbre_encoder"], "timbre_encoder."))
+    return sd

@@ -1,4 +1,5 @@
-"""Load a local HF-format speech, Whisper or text checkpoint into the port's encoders.
+"""Load a local HF-format speech, Whisper or text checkpoint, or the NS3
+FACodec ``.bin`` files, into the port's encoders.
 
 Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder``,
 ``build_whisper_encoder``, ``build_roberta`` and ``build_deberta_v2``
@@ -6,16 +7,23 @@ without transformers or safetensors: ``config.json`` is read with ``json``,
 weights come from ``pytorch_model.bin`` (``torch.load(weights_only=True)``)
 or ``model.safetensors`` (a small reader below), sharded or not. The
 positional conv's weight norm is folded into a plain kernel.
+
+Also the port of the FACodec converters of
+``interspeech_ser_tpu/models/ns3/facodec.py`` (``ns3_encoder_params_from_torch``,
+``ns3_decoder_prosody_params_from_torch``): :func:`ns3_state_dict_from_reference`
+reads the reference's ``ns3_facodec_{encoder,decoder}_v2.bin`` key names,
+with FACodec's ``dim=0`` weight norm folded.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from .ns3.facodec import ProsodyExtractor
 from .speech import SpeechConfig, SpeechEncoderModel
 from .text import DebertaV2Config, DebertaV2Model, RobertaConfig, RobertaModel
 from .whisper import WhisperEncoderConfig, WhisperEncoderModel
@@ -88,19 +96,79 @@ def _strip_prefix(sd: Dict[str, torch.Tensor], prefixes) -> Dict[str, torch.Tens
     return sd
 
 
-def fold_weight_norm(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
-    """torch weight_norm(dim=2) conv params -> one plain ``{prefix}.weight``."""
+def fold_weight_norm(sd: Dict[str, torch.Tensor], prefix: str, dim: int = 2) -> Dict[str, torch.Tensor]:
+    """torch ``weight_norm(dim=dim)`` params (either key style) -> one plain
+    ``{prefix}.weight`` = g * v / ||v||, the norm over every dim but ``dim``.
+    ``dim=2``: the wav2vec2-family positional conv (g [1, 1, k], the norm
+    over (out, in)); ``dim=0``: FACodec's convs and linears (g [out, 1, 1]
+    or [out, 1], the norm over each output channel's (in, k))."""
     sd = dict(sd)
     for g_name, v_name in (
         (f"{prefix}.parametrizations.weight.original0", f"{prefix}.parametrizations.weight.original1"),
         (f"{prefix}.weight_g", f"{prefix}.weight_v"),
     ):
         if g_name in sd:
-            g = sd.pop(g_name).float()  # [1, 1, k]
-            v = sd.pop(v_name).float()  # [out, in/g, k]
-            norm = v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+            g = sd.pop(g_name).float()
+            v = sd.pop(v_name).float()
+            norm = v.pow(2).sum(dim=[d for d in range(v.dim()) if d != dim], keepdim=True).sqrt()
             sd[f"{prefix}.weight"] = v * (g / norm.clamp_min(1e-12))
     return sd
+
+
+_WN_SUFFIXES = (".weight_g", ".parametrizations.weight.original0")
+# the port's ProsodyExtractor prefix -> the reference decoder's
+_NS3_DECODER_PREFIXES = {
+    "fvq.in_proj.": "quantizer.0.layers.0.in_proj.",
+    "fvq.out_proj.": "quantizer.0.layers.0.out_proj.",
+    "fvq.codebook.": "quantizer.0.layers.0._codebook.",
+}
+
+
+def _fold_all_weight_norms(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    for key in list(sd):
+        for suffix in _WN_SUFFIXES:
+            if key.endswith(suffix):
+                sd = fold_weight_norm(sd, key[: -len(suffix)], dim=0)
+    return sd
+
+
+def ns3_state_dict_from_reference(
+    decoder_sd: Dict[str, torch.Tensor], encoder_sd: Optional[Dict[str, torch.Tensor]] = None,
+    with_speaker: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """FACodecDecoderV2 (and, ``with_speaker``, FACodecEncoderV2) state dicts
+    -> :class:`ProsodyExtractor`'s. Only the extraction subset is read (the
+    decoder's other quantizers, predictors and vocoder, and the encoder's
+    resampling-filter buffers, are left); a missing key raises."""
+    dec = _fold_all_weight_norms(dict(decoder_sd))
+    enc = _fold_all_weight_norms(dict(encoder_sd)) if with_speaker else {}
+    out = {}
+    with torch.device("meta"):
+        keys = list(ProsodyExtractor(with_speaker=with_speaker).state_dict())
+    for key in keys:
+        if key.startswith("encoder."):
+            src, ref = enc, key[len("encoder."):]
+        else:
+            src, ref = dec, key
+            for mine, theirs in _NS3_DECODER_PREFIXES.items():
+                if key.startswith(mine):
+                    ref = theirs + key[len(mine):]
+        if ref not in src:
+            raise KeyError(f"{ref} ({'encoder' if src is enc else 'decoder'} checkpoint)")
+        out[key] = src[ref].float()
+    return out
+
+
+def build_prosody_extractor(decoder_ckpt: str, encoder_ckpt: Optional[str] = None,
+                            with_speaker: bool = False) -> ProsodyExtractor:
+    """-> the extractor in f32 on the CPU from the reference's ``.bin`` files
+    (``torch.load(weights_only=True)``), loaded strictly."""
+    load = lambda p: torch.load(p, map_location="cpu", weights_only=True)  # noqa: E731
+    sd = ns3_state_dict_from_reference(load(decoder_ckpt), load(encoder_ckpt) if with_speaker else None,
+                                       with_speaker)
+    model = ProsodyExtractor(with_speaker=with_speaker)
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
 
 
 def read_config(path_or_name: str) -> Dict:

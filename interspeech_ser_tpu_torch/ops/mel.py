@@ -1,4 +1,4 @@
-"""Whisper's log-mel frontend, in plain PyTorch.
+"""Whisper's and NS3 FACodec's log-mel frontends, in plain PyTorch.
 
 Port of the Whisper half of ``interspeech_ser_tpu/ops/mel.py``, which
 computes it with XLA matmuls and no Pallas kernel: HF
@@ -7,6 +7,11 @@ reflect pad, power spectrogram, slaney mel bank over 0-8 kHz, log10, the
 final frame dropped, a per-sample floor at max - 8, then (x + 4) / 4). The
 STFT is one framed matmul against DFT bases built in float64 and cast to
 float32, so on the card it is two cuBLAS GEMMs.
+
+Also the port of ``ns3_mel_spectrogram`` / ``get_prosody_feature``
+(``interspeech_ser_tpu/models/ns3/facodec.py:42-67``): an 800-sample
+periodic Hann centred in a 1024-point frame, hop 200, ``center=False``
+after a 412-sample reflect pad, magnitude, slaney mel 0-8 kHz, natural log.
 """
 
 from __future__ import annotations
@@ -62,21 +67,34 @@ def mel_filter_bank_slaney(
 
 
 @functools.lru_cache(maxsize=4)
-def _dft_bases(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Periodic-Hann-windowed cos / -sin bases, [n_fft, 1 + n_fft // 2] float32."""
+def _dft_bases(n_fft: int, win_length: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Periodic-Hann-windowed cos / -sin bases, [n_fft, 1 + n_fft // 2] float32.
+    ``win_length < n_fft``: the window is defined on ``win_length`` samples
+    and centred inside the frame, zeros around it (torch.stft semantics)."""
     n = np.arange(n_fft)
     angle = 2.0 * np.pi * np.outer(n, np.arange(1 + n_fft // 2)) / n_fft
-    win = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / n_fft))
+    if win_length is None or win_length >= n_fft:
+        win = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / n_fft))
+    else:
+        m = np.arange(win_length)
+        off = (n_fft - win_length) // 2
+        win = np.zeros(n_fft)
+        win[off:off + win_length] = 0.5 * (1.0 - np.cos(2.0 * np.pi * m / win_length))
     return (np.cos(angle) * win[:, None]).astype(np.float32), (-np.sin(angle) * win[:, None]).astype(np.float32)
 
 
-def stft_power(wav: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    """Power spectrogram [B, 1 + L // hop, 1 + n_fft // 2] float32 of [B, L]
-    (centred: reflect-padded by n_fft // 2 on both sides)."""
-    pad = n_fft // 2
-    x = F.pad(wav.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+def stft_power(
+    wav: torch.Tensor, n_fft: int, hop_length: int, *, win_length: Optional[int] = None, center: bool = True
+) -> torch.Tensor:
+    """Power spectrogram [B, num_frames, 1 + n_fft // 2] float32 of [B, L].
+    ``center``: reflect-padded by n_fft // 2 on both sides first, so
+    num_frames = 1 + L // hop; else num_frames = 1 + (L - n_fft) // hop."""
+    x = wav.float()
+    if center:
+        pad = n_fft // 2
+        x = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
     frames = x.unfold(1, n_fft, hop_length)  # [B, F, n_fft]
-    cos_b, sin_b = (torch.from_numpy(b).to(wav.device) for b in _dft_bases(n_fft))
+    cos_b, sin_b = (torch.from_numpy(b).to(wav.device) for b in _dft_bases(n_fft, win_length))
     real = frames @ cos_b
     imag = frames @ sin_b
     return real * real + imag * imag
@@ -94,3 +112,27 @@ def whisper_log_mel(
     log_spec = torch.log10((power @ fb.to(power.device)).clamp_min(1e-10))[:, :-1, :]
     log_spec = torch.maximum(log_spec, log_spec.amax(dim=(1, 2), keepdim=True) - 8.0)
     return ((log_spec + 4.0) / 4.0).transpose(1, 2)
+
+
+NS3_PAD = 412  # (n_fft - hop) / 2 of the FACodec melspec
+
+
+def ns3_mel_spectrogram(wav: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
+    """[B, L] -> log-mel [B, 80, T], T = 1 + (L - 200) // 200.
+
+    ``pre_padded=True`` takes a wav that the host already reflect-padded by
+    412 samples on each side (each utterance before the bucket's zero
+    padding), so the frames up to an utterance's true length are those of
+    its batch-1 computation."""
+    x = wav.float()
+    if not pre_padded:
+        x = F.pad(x[:, None], (NS3_PAD, NS3_PAD), mode="reflect")[:, 0]
+    power = stft_power(x, 1024, 200, win_length=800, center=False)
+    mag = torch.sqrt(power + 1e-9)  # [B, T, 513]
+    fb = torch.from_numpy(mel_filter_bank_slaney(513, 80, 0.0, 8000.0, 16000)).to(mag.device)
+    return torch.log((mag @ fb).clamp_min(1e-5)).transpose(1, 2)
+
+
+def get_prosody_feature(wav: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
+    """The first 20 mel bins of :func:`ns3_mel_spectrogram`, [B, 20, T]."""
+    return ns3_mel_spectrogram(wav, pre_padded)[:, :20, :]

@@ -9,10 +9,13 @@
     python -m interspeech_ser_tpu_torch.preprocess_cli roberta \
         --roberta_type <HF model dir> --df_path <csv> --save_path <out> [--use_average y] [--max_len 80]
     python -m interspeech_ser_tpu_torch.preprocess_cli deroberta ...          (same flags)
+    python -m interspeech_ser_tpu_torch.preprocess_cli ns3_prosody \
+        --wav_dir <wavs> --save_path <out> --decoder_ckpt ns3_facodec_decoder_v2.bin [--codes] [--batch_size 16]
+    python -m interspeech_ser_tpu_torch.preprocess_cli ns3_prosody_speaker ... --encoder_ckpt ns3_facodec_encoder_v2.bin
 
 Port of ``interspeech_ser_tpu/preprocess_cli.py::speech_main``,
 ``whisper_main``, ``speech_pretrained_main``, ``whisper_pretrained_main``,
-``roberta_main`` and ``deroberta_main`` with the same flags, plus
+``roberta_main``, ``deroberta_main`` and ``ns3_prosody_main`` with the same flags, plus
 ``--device`` (``cuda`` by default; ``cpu`` only when asked). The ``*_pretrained`` CLIs merge a LoRA checkpoint (the port's
 or the JAX package's ``whisper_lora_ser.pt``, or a peft one) into the
 encoder before extracting.
@@ -27,6 +30,16 @@ pytorch_model.bin or model.safetensors); there is no hub access. In float32
 mode TF32 is off for matmuls and cuDNN convolutions alike, so f32 means f32;
 ``--matmul_precision highest`` turns it off in bfloat16 mode too.
 ``--model_parallel`` above 1 is not ported yet.
+``ns3_prosody`` / ``ns3_prosody_speaker`` run the NS3 FACodec prosody
+extractor (``models/ns3/facodec.py``) through
+``extract/pipeline.py::ProsodyExtractionPipeline`` in f32 with TF32 off,
+from the reference's ``.bin`` files, with the JAX CLI's host behaviour: each wav
+padded by ``200 - len % 200`` zeros (200 when the length is already a
+multiple), files sorted by length, batches of ``--batch_size`` rows (zero
+rows fill the last) padded to a multiple of 3200 samples, each utterance
+reflect-padded on the host for the mel, and ``[len / 200, 256]`` (speaker:
+512) float32 ``.pt`` files, or with ``--codes`` the ``[len / 200]`` int32 VQ
+indices of the literal forward on the zero-padded batch.
 """
 
 from __future__ import annotations
@@ -252,6 +265,51 @@ def deroberta_main(argv=None):
     return _text_main(argv, "deberta")
 
 
+def _ns3_parser():
+    p = argparse.ArgumentParser()
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--save_path", type=str, default="./")
+    p.add_argument("--wav_dir", type=str, default="./")
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--encoder_ckpt", type=str, default="./pretrained_models/ns3/ns3_facodec_encoder_v2.bin")
+    p.add_argument("--decoder_ckpt", type=str, default="./pretrained_models/ns3/ns3_facodec_decoder_v2.bin")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--codes", action="store_true", help="save the prosody VQ indices instead of the embeddings")
+    p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
+                   help="where the extractor runs; without a card 'cuda' raises")
+    return p
+
+
+def ns3_prosody_main(argv=None, speaker: bool = False):
+    """NS3 FACodec prosody (256-d) or prosody + speaker (512-d) features
+    (preprocess_ns3_prosody[_speaker].py): each utterance's reference batch-1
+    output, computed in padded batches (``ProsodyExtractor.extract_batched``)."""
+    args = _ns3_parser().parse_args(argv)
+    import torch
+
+    from .extract.pipeline import ProsodyExtractionPipeline
+    from .models.loader import build_prosody_extractor
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    torch.manual_seed(args.seed)
+    set_precision("float32")
+    wav_names = _audit_wavs(args.wav_dir)
+    if wav_names is None:
+        return None
+    extractor = build_prosody_extractor(args.decoder_ckpt, args.encoder_ckpt, with_speaker=speaker)
+    pipe = ProsodyExtractionPipeline(extractor, args.batch_size, args.codes, args.num_workers, device)
+    stats = pipe.run(args.wav_dir, args.save_path, wav_names)
+    print(f"extracted {stats.n_utts} utts ({stats.audio_seconds:.1f} audio-s, {stats.n_batches} batches) in "
+          f"{stats.wall_seconds:.1f}s = {stats.utts_per_sec:.1f} utt/s on {device}; {stats.n_failed} failed")
+    return stats
+
+
+def ns3_prosody_speaker_main(argv=None):
+    """NS3 FACodec prosody + speaker features (preprocess_ns3_prosody_speaker.py)."""
+    return ns3_prosody_main(argv, speaker=True)
+
+
 COMMANDS = {
     "speech": speech_main,
     "whisper": whisper_main,
@@ -259,6 +317,8 @@ COMMANDS = {
     "whisper_pretrained": whisper_pretrained_main,
     "roberta": roberta_main,
     "deroberta": deroberta_main,
+    "ns3_prosody": ns3_prosody_main,
+    "ns3_prosody_speaker": ns3_prosody_speaker_main,
 }
 
 

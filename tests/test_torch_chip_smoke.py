@@ -298,3 +298,53 @@ def test_zoo_phase_on_cpu(tmp_path, monkeypatch):
     assert launches["conv_frontend_layer"] == 2
     assert os.path.exists(out["wavlm_base_plus"]["lora_ckpt"])
     assert not any(k in os.environ for k in ("SER_TPU_FFN_KERNEL", "SER_TPU_FRONTEND"))
+
+
+def test_ns3_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 10 over a tiny corpus: the reference-named FACodec checkpoints,
+    ``ns3_prosody`` (cold, warm), ``ns3_prosody_speaker`` (cold, warm) and
+    ``--codes`` with their file checks, the batched / batch-1 / CPU
+    comparisons, the trimodal config, ``cli train`` and ``eval`` with
+    ``--trimodal`` and the step timing. The FACodec encoder runs at ngf 8
+    (its other widths and its hop as on the card); K3 / K3b go through
+    counting plain versions."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models.ns3 import facodec
+    from interspeech_ser_tpu_torch.ops import gru as ops_gru
+    from interspeech_ser_tpu_torch.ops.kernels import gru as kg
+
+    def counting(counter, plain):
+        def launch(*args, **kw):
+            setattr(kg, counter, getattr(kg, counter) + 1)
+            return plain(*args, **kw)
+        return launch
+
+    small = dict(fusion_hidden_dim=16, batch_size=4)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    # 8 dev rows, one of each class: any prediction scores a macro-F1 above 0, so the trainer saves
+    monkeypatch.setattr(cs, "TRAIN_SHAPE", dict(n_train=8, n_dev=8, feat_dim=24, speech_len=(30, 70),
+                                                text_len=(5, 20), epochs=1, config=small))
+    # the trimodal run at lr 1e-2, so that its 4 steps learn the class means and the trainer saves a checkpoint
+    # (the NS3 rows differ by utterance, so an untrained model may miss all 8 dev rows)
+    monkeypatch.setattr(cs, "NS3_SHAPE", dict(seconds=(1.3, 1.6), first_seconds=0.5, n_speaker=3, min_codes=32,
+                                              batch_size=4, profile_wavs=2, profile_seconds=0.5, whisper_dim=20,
+                                              epochs=2, config=dict(small, lr=1e-2)))
+    monkeypatch.setattr(facodec.FACodecEncoderV2Model.__init__, "__defaults__", (8, (2, 4, 5, 5), 256))
+    monkeypatch.setattr(kg, "gru_bidir_carries", counting("LAUNCHES", kg.gru_bidir_carries_plain))
+    monkeypatch.setattr(kg, "gru_bidir_carries_bwd", counting("BWD_LAUNCHES", kg.gru_bidir_carries_bwd_plain))
+    monkeypatch.setattr(ops_gru.BiGRU, "forward", ops_gru.BiGRU.forward_stacked)
+    monkeypatch.setattr(kg, "LAUNCHES", 0)
+    monkeypatch.setattr(kg, "BWD_LAUNCHES", 0)
+
+    ns3 = cs.phase_ns3(str(tmp_path), cs.write_train_corpus(str(tmp_path)), "a card, 700 W")
+    assert set(ns3["utt_per_sec"]) == {"prosody_cold", "prosody_warm", "speaker_cold", "speaker_warm",
+                                       "speaker_first3"}
+    assert ns3["max_abs"]["batched_vs_batch1"] <= 3e-4 and ns3["max_abs"]["short_prosody"] <= 3e-4
+    assert ns3["max_abs"]["latents_batched_vs_batch1"] <= 1e-4
+    assert ns3["distinct"]["codes"] >= 32 and ns3["distinct"]["prosody_rows"] >= 32
+    assert not any(cs.counts().values())  # NS3 extraction launches no kernel
+    tri = cs.phase_train(ns3["config_path"], trimodal=True)
+    assert tri["n_modalities"] == 3 and tri["steps"] == 2 * 2
+    assert cs.counts()["gru_bidir_bwd"] == 3 * 4 and cs.counts()["gru_bidir"] > 0
+    step = cs.time_trimodal_step(ns3["config_path"], "a card, 700 W")
+    assert len(step["train_step_ms_runs"]) == 5
