@@ -8,9 +8,9 @@ an H100, ``sm_90a``) and needs nothing else: it builds the hand-written
 kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
 drives the serving path, the fusion training path, the LoRA fine-tuning
-path, the text-extraction path, the speech-encoder zoo and the NS3 prosody
-extractor with the trimodal trainer through their entry points at full
-width:
+path, the text-extraction path, the speech-encoder zoo, the NS3 prosody
+extractor with the trimodal trainer and the challenge baseline through
+their entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -131,7 +131,23 @@ width:
    ``cli.train_main --trimodal`` for 2 epochs over config #4 (feat dims
    1280 / 1024 / 256, focal loss, batch 64: synthetic Whisper-large
    features, phase 6's RoBERTa-large files and the extracted NS3 files) and
-   ``cli.eval_main --trimodal``, then the median trimodal train step.
+   ``cli.eval_main --trimodal``, then the median trimodal train step;
+11. the challenge baseline (an end-to-end fine-tune of phase 4's
+   WavLM-large): 64 train, 16 dev and 8 test3 seeded voiced wavs of 2-12 s
+   (F0 by class) with a label CSV (8 emotions, EmoAct / EmoDom / EmoVal,
+   Split_Set) and ``config_cat.json``; ``baseline.cli.train_main`` for
+   ``cat`` (f32) and ``dim`` (bf16) with benchmark/run_cat.sh's
+   hyperparameters (batch 32, 4 accumulation steps, lr 1e-5, head 1024) for
+   one epoch, then ``eval_main`` on dev and test3: K4 = 24 layers x 8
+   micro-batches a task, the frontend bit for bit and the gated-bias
+   tensors moved in ``final_ssl.pt``, the saved files reloaded against the
+   run's dev outputs (1e-5), dev batches of 8 against batch-1 (1e-4), the
+   CSVs' columns and rows; one micro-step through K2 + K1 + K4 against the
+   plain path on a 2-layer full-width copy (f32 gradients within 1e-4, each
+   bf16 K1 / K4 call within cosine 0.999 of its plain version); the median
+   f32 and bf16 micro-steps (8 rows x 12 s), the AdamW step, peak memory,
+   the f32 inference time per audio second and a profile of one
+   micro-step in each dtype.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -141,7 +157,9 @@ just before phase 8 and read after it (the text path), zeroed again just
 before phase 9 and read after it (the zoo path), and zeroed again just
 before phase 10 and read after its NS3 extraction (every count 0: the
 extractor has no kernel, as in the JAX package) and after its trimodal
-eval (the trimodal path). K9 has no path (none
+eval (the trimodal path), and zeroed again just before phase 11 and read
+after its last ``eval_main`` (the baseline path: K1, K4 and K2's layer 0,
+no other kernel). K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -3079,6 +3097,408 @@ def time_trimodal_step(config_path: str, smi: str) -> dict:
     return out
 
 
+# -- phase 11: the challenge baseline (end-to-end WavLM-large fine-tune) ----------
+
+# the baseline corpus: seeded voiced wavs of 2-12 s (F0 by class) in Train / Development / test3, named as the
+# challenge's; benchmark/run_cat.sh's hyperparameters for one epoch (micro-batches of 8 rows); the gradient check
+# on a batch of grad_rows rows whose last ones are padding; timings: median of steps runs
+BASELINE_SHAPE = dict(n_train=64, n_dev=16, n_test3=8, seconds=(2.0, 12.0), batch_size=32, accumulation_steps=4,
+                      lr=1e-5, head_dim=1024, epochs=1, grad_rows=8, grad_live=6, steps=5)
+# the trained tensors that only K4's dbias / dgate reach
+GATED_BIAS_KEYS = ("rel_attn_embed", "gru_rel_pos_linear", "gru_rel_pos_const")
+
+
+def write_baseline_corpus(tmp: str) -> str:
+    """Seeded voiced wavs (``prosody_wave``, F0 by class), a label CSV with the
+    eight emotion columns, ``EmoAct`` / ``EmoDom`` / ``EmoVal`` (by class, in
+    [0, 1]) and ``Split_Set``, the test3 wavs beside them, and
+    ``config_cat.json`` -> its path."""
+    from interspeech_ser_tpu_torch.baseline.podcast import ADV_COLUMNS, CAT_COLUMNS
+
+    shape = BASELINE_SHAPE
+    rng = np.random.default_rng(SEED + 12)
+    wav_dir = os.path.join(tmp, "baseline_wavs")
+    os.makedirs(wav_dir, exist_ok=True)
+    label_path = os.path.join(tmp, "baseline_labels.csv")
+    n_labelled = shape["n_train"] + shape["n_dev"]
+    with open(label_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["FileName"] + CAT_COLUMNS + ADV_COLUMNS + ["Split_Set"])
+        for i in range(n_labelled + shape["n_test3"]):
+            cls = i % 8
+            n = int(rng.uniform(*shape["seconds"]) * 16000)
+            name = f"MSP-PODCAST_{i:04d}.wav" if i < n_labelled else f"MSP-PODCAST_test3_{i:04d}.wav"
+            write_wav(os.path.join(wav_dir, name), prosody_wave(n, rng, 90.0 + 20.0 * cls))
+            if i < n_labelled:
+                attrs = np.clip(cls / 8 + rng.uniform(-0.1, 0.2, 3), 0.0, 1.0)
+                w.writerow([name] + [float(c == cls) for c in range(8)] + [f"{a:.4f}" for a in attrs]
+                           + ["Train" if i < shape["n_train"] else "Development"])
+    config_path = os.path.join(tmp, "baseline_config_cat.json")
+    with open(config_path, "w") as f:
+        json.dump({"wav_dir": wav_dir, "label_path": label_path}, f)
+    return config_path
+
+
+def _baseline_flags(config_path: str, model_dir: str, model_path: str, *extra) -> list:
+    return ["--ssl_type", model_dir, "--config_path", config_path, "--model_path", model_path, "--head_dim",
+            str(BASELINE_SHAPE["head_dim"]), "--device", DEVICE, *extra]
+
+
+def _dev_set(config_path: str, task: str, model_path: str):
+    """The Development split as eval_main reads it (the training run's norm stats)."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.baseline.engine import labelled_split
+
+    with open(config_path) as f:
+        paths = json.load(f)
+    return labelled_split(task, paths["label_path"], paths["wav_dir"], "dev",
+                          *bdata.load_norm_stat(os.path.join(model_path, "train_norm_stat.pkl")))
+
+
+def phase_baseline(tmp: str, model_dir: str) -> dict:
+    """The challenge baseline through its entry points at full width: for
+    ``cat`` (f32) and ``dim`` (bf16), ``baseline.cli.train_main`` with
+    run_cat.sh's hyperparameters for one epoch, then ``eval_main`` on dev and
+    on test3. Checks: K4 launched once a layer per micro-batch; the
+    frontend in ``final_ssl.pt`` bit for bit the model directory's, the
+    gated-bias tensors changed; the saved files, reloaded in the training
+    dtype, reproduce the run's dev outputs within 1e-5; the CSVs' columns
+    and rows; ``eval_main`` (f32 for both tasks) started from torch's
+    default TF32 flags (cuDNN's on) turns both off. Then, on the reloaded ``cat``
+    engine, dev logits of batches of 8 against each utterance's batch-1
+    logits (1e-4)."""
+    from interspeech_ser_tpu_torch.baseline import cli as bcli
+    from interspeech_ser_tpu_torch.baseline.engine import BaselineEngine
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.utils.labels import INDEX_TO_LETTER
+
+    shape = BASELINE_SHAPE
+    cfg = speech.wavlm_large()
+    config_path = write_baseline_corpus(tmp)
+    micro = -(-shape["n_train"] // (shape["batch_size"] // shape["accumulation_steps"]))
+    source = torch.load(os.path.join(model_dir, "pytorch_model.bin"), weights_only=True)
+    out = {"config_path": config_path, "n_layers": cfg.num_layers, "micro_batches": micro * shape["epochs"],
+           "tasks": {}}
+    for task, dtype in (("cat", "float32"), ("dim", "bfloat16")):
+        model_path = os.path.join(tmp, f"baseline_{task}")
+        before = counts()
+        t0 = time.perf_counter()
+        best = bcli.train_main(task, _baseline_flags(
+            config_path, model_dir, model_path, "--batch_size", str(shape["batch_size"]), "--accumulation_steps",
+            str(shape["accumulation_steps"]), "--lr", str(shape["lr"]), "--epochs", str(shape["epochs"])))
+        sync()
+        train_s = time.perf_counter() - t0
+        k4 = counts()["attention_btd_bwd"] - before["attention_btd_bwd"]
+        require(k4 == cfg.num_layers * micro * shape["epochs"],
+                f"baseline {task}: K4 launches {k4} != {cfg.num_layers} layers x {micro} micro-batches")
+        require(best["epoch"] == 0 and all(np.isfinite(best["dev_losses"])), f"baseline {task}: {best}")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
+        t0 = time.perf_counter()
+        dev_csv = bcli.eval_main(task, True, _baseline_flags(config_path, model_dir, model_path))
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        require(tf32 == (False, DEVICE != "cuda"),
+                f"baseline {task}: eval_main left TF32 (matmul, cuDNN) at {tf32}")
+        set_tf32(False)
+        test3_csv = bcli.eval_main(task, False, _baseline_flags(config_path, model_dir, model_path))
+        sync()
+        eval_s = time.perf_counter() - t0
+        header = ["FileName", "EmoClass"] if task == "cat" else ["FileName", "EmoAct", "EmoVal", "EmoDom"]
+        tables = {}
+        for path, n, word in ((dev_csv, shape["n_dev"], "MSP-PODCAST_"), (test3_csv, shape["n_test3"], "test3")):
+            with open(path, newline="") as f:
+                table = list(csv.reader(f))
+            require(table[0] == header and len(table) == n + 1 and all(word in r[0] for r in table[1:]),
+                    f"baseline {task} {os.path.basename(path)}: header {table[0]}, {len(table) - 1} rows")
+            tables[os.path.basename(path)] = table
+        # the frontend stays bit for bit; the tensors only K4's dbias / dgate reach have moved
+        saved = torch.load(os.path.join(model_path, "final_ssl.pt"), weights_only=True)
+        frontend = [k for k in source if k.startswith("feature_extractor.")]
+        require(frontend and all(torch.equal(saved[k], source[k]) for k in frontend),
+                f"baseline {task}: the frozen frontend changed")
+        gated = [k for k in source if any(n in k for n in GATED_BIAS_KEYS)]
+        moved = {k: float((saved[k] - source[k]).abs().max()) for k in gated}
+        require(len(gated) == 1 + 3 * cfg.num_layers and min(moved.values()) > 0,
+                f"baseline {task}: gated-bias tensors unchanged: {[k for k, v in moved.items() if v == 0]}")
+        # the saved files reproduce the run's dev outputs in its dtype
+        engine = BaselineEngine(model_dir, task=task, head_dim=shape["head_dim"], dtype=dtype, device=DEVICE)
+        engine.load_checkpoints(model_path)
+        dev_set = _dev_set(config_path, task, model_path)
+        reloaded = engine.evaluate(dev_set)["preds"]
+        reload_err = float(np.abs(reloaded - best["dev_preds"]).max())
+        require(reload_err <= 1e-5, f"baseline {task}: reloaded dev outputs differ by {reload_err}")
+        res = {"train_s": train_s, "eval_s": eval_s, "dev_losses": best["dev_losses"], "k4_launches": k4,
+               "reload_max_abs": reload_err, "rel_attn_embed_moved": moved["encoder.layers.0.attention.rel_attn_embed.weight"]}
+        if task == "cat":
+            letters = {r[0]: r[1] for r in tables["dev.csv"][1:]}
+            require(all(letters[u] == INDEX_TO_LETTER[int(i)] for u, i in zip(dev_set.utts, reloaded.argmax(1))),
+                    "baseline cat: dev.csv letters differ from the reloaded engine's arg-max")
+            res["batch1"] = check_baseline_batch1(engine, dev_set, cfg)
+        out["tasks"][task] = res
+        log(f"[baseline] {task} ({dtype}) train_main 1 epoch ({micro} micro-batches of "
+            f"{shape['batch_size'] // shape['accumulation_steps']}, {shape['epochs'] * -(-micro // shape['accumulation_steps'])} "
+            f"optimizer steps) in {train_s:.2f} s incl. load and dev eval; dev loss {best['dev_losses']}; K4 {k4}; "
+            f"eval_main dev + test3 {eval_s:.2f} s; reloaded dev max_abs {reload_err:.3e}; rel_attn_embed moved "
+            f"{res['rel_attn_embed_moved']:.3e}")
+        del engine
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_baseline_batch1(engine, dev_set, cfg) -> dict:
+    """(e) dev logits of batches of 8 against each utterance's batch-1 logits
+    (1e-4). An utterance within 320 samples below a whole 16,000-sample bucket
+    is left out and counted: the pooling's frame count ``(n - 1) // 320 + 1``
+    is then one more than the encoder makes of its batch-1 bucket, so its
+    batch-1 pooling drops a frame that its batched pooling keeps (the JAX
+    package does the same)."""
+    from interspeech_ser_tpu_torch.models.speech import feat_extract_output_length
+
+    batched = engine.predict(dev_set)
+    single = engine.predict(dev_set, batch_size=1)
+    lengths = [len(w) for w in dev_set.wav_list]
+    clipped = [(n - 1) // 320 + 1 > feat_extract_output_length(-(-n // 16000) * 16000, cfg) for n in lengths]
+    keep = [i for i, c in enumerate(clipped) if not c]
+    err = float(np.abs(batched[keep] - single[keep]).max())
+    log(f"[baseline] cat dev logits, batches of 8 vs batch-1: max_abs {err:.3e} over {len(keep)} utterances "
+        f"({sum(clipped)} left out at a bucket's last 320 samples)")
+    require(err <= 1e-4 and len(keep) >= len(lengths) // 2, f"baseline batched vs batch-1 {err} over {len(keep)}")
+    return {"max_abs": err, "utterances": len(keep), "left_out": sum(clipped)}
+
+
+def check_baseline_grads(tmp: str, model_dir: str, config_path: str) -> dict:
+    """(d) One micro-step through the kernels (K2 layer 0, K1, K4 with dbias
+    and dgate) against ``plain=True`` on the card, on a 2-layer full-width
+    copy, head dropout off, a batch whose last rows are padding (attention
+    rows with no live key); the frontend gets no gradient. Each K2, K1 and
+    K4 call of the kernel route is held against its plain version on the
+    same inputs (the step's own wav, activations, masks, gates and shared
+    bias): f32 K1 / K4 within 1e-5 relative and K2 within 1e-4 max-abs, bf16
+    at cosine 0.999, as phase 3 holds them. ``cat`` in f32: every trained
+    tensor's gradient (encoder, pooling, head) within 1e-4 x its largest
+    magnitude of the plain path's. ``dim`` in bf16, where rounding moves the
+    model gradients of either route far more than the kernels do (the plain
+    bf16 route's own sit at cosine 0.66-0.98 of the f32 plain ones): the
+    loss within 1e-2 of the plain bf16 route's; every trained tensor's
+    gradient within 0.3 relative (L2) of the plain bf16 route's, which a
+    lost or doubled ``dbias`` / ``dgate`` contribution fails (1.0); and the
+    kernel route's median cosine to the f32 plain gradients no lower than
+    the plain bf16 route's minus 0.01."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.baseline.engine import BaselineEngine
+    from interspeech_ser_tpu_torch.models import speech
+
+    shape = BASELINE_SHAPE
+    two = os.path.join(tmp, "wavlm-2layers")
+    if not os.path.exists(two):
+        write_wavlm_layers(model_dir, two, 2)
+    real_fwd, real_bwd, real_k2 = k_attn.attention_btd_fwd, k_attn.attention_btd_bwd, speech.conv_frontend
+    calls: list = []  # (kernel, output, agreement) of the kernel route's K2 / K1 / K4 calls
+
+    def agreement(got, ref) -> float:
+        """f32 steps: relative max-abs (lower is better); bf16 steps: cosine (higher is better)."""
+        if dtype == "float32":
+            return max_abs(got, ref) / max(float(ref.abs().max()), 1e-30)
+        return cosine(got, ref)
+
+    def fwd(q, k, v, num_heads, key_mask=None, scale=None, gate=None, pos_bias=None):
+        out, lse = real_fwd(q, k, v, num_heads, key_mask, scale, gate, pos_bias)
+        ref = k_attn.attention_btd_plain(q, k, v, num_heads, key_mask, scale, gate, pos_bias)
+        calls.append(("K1", "out", agreement(out, ref)))
+        return out, lse
+
+    def bwd(q, k, v, g, num_heads, key_mask=None, scale=None, gate=None, pos_bias=None, **kw):
+        got = real_bwd(q, k, v, g, num_heads, key_mask, scale, gate, pos_bias, **kw)
+        ref = k_attn.attention_btd_bwd_plain(q, k, v, g, num_heads, key_mask, scale, gate, pos_bias)
+        calls.extend(("K4", n, agreement(a, b)) for n, a, b in zip(("dq", "dk", "dv", "dgate", "dbias"), got, ref)
+                     if a is not None)
+        return got
+
+    def k2(wav, layers, dt, approx, eps):
+        out = real_k2(wav, layers, dt, approx, eps)
+        ref = k_conv.conv_frontend_plain(wav, layers, dt, approx, eps)
+        calls.append(("K2", "out", max_abs(out, ref) if dtype == "float32" else cosine(out, ref)))
+        return out
+
+    def step(engine, batch, cw, plain: bool) -> tuple:
+        for p in engine.trainable():
+            p.grad = None
+        before = counts()
+        loss = engine.loss(batch, cw, plain=plain)
+        loss.backward()
+        sync()
+        launched = {k: counts()[k] - before[k] for k in ("attention_btd_bwd", "conv_frontend")}
+        want = dict.fromkeys(launched, 0) if plain else {"attention_btd_bwd": 2, "conv_frontend": 1}
+        require(launched == want and np.isfinite(loss.item()), f"baseline {route}: {launched}, loss {loss}")
+        require(not any(p.grad is not None for p in engine.ssl.feature_extractor.parameters()),
+                "a frontend parameter got a gradient")
+        return loss.item(), {n: p.grad.detach().float().clone() for m in ("ssl", "pool", "head")
+                             for n, p in getattr(engine, m).named_parameters(prefix=m) if p.requires_grad}
+
+    out = {}
+    for task, dtype in (("cat", "float32"), ("dim", "bfloat16")):
+        ds = _dev_set(config_path, task, os.path.join(tmp, f"baseline_{task}"))
+        batch = bdata.collate_wav(ds, list(range(shape["grad_live"])), shape["grad_rows"])
+        cw = torch.linspace(0.5, 2.0, 8, device=DEVICE) if task == "cat" else None
+        grads, losses = {}, {}
+        for route, dt in ((("kernel", dtype), ("plain", dtype)) if dtype == "float32" else
+                          (("kernel", dtype), ("plain", dtype), ("plain", "float32"))):
+            engine = BaselineEngine(two, task=task, head_dim=shape["head_dim"], dtype=dt, dropout=0.0, device=DEVICE)
+            calls.clear()
+            k_attn.attention_btd_fwd, k_attn.attention_btd_bwd, speech.conv_frontend = fwd, bwd, k2
+            try:
+                losses[route, dt], grads[route, dt] = step(engine, batch, cw, route == "plain")
+            finally:
+                k_attn.attention_btd_fwd, k_attn.attention_btd_bwd, speech.conv_frontend = real_fwd, real_bwd, real_k2
+            if route == "kernel":
+                per_call = [c for c in calls if c[0] != "K2"]
+                k2_call = [c[2] for c in calls if c[0] == "K2"]
+            del engine
+        names = [n for n in grads["plain", dtype] if not n.endswith("k_proj.bias")]
+        n_k1 = sum(c[0] == "K1" for c in per_call)
+        require(len(per_call) - n_k1 == 2 * 5 and (n_k1 == 2 or DEVICE != "cuda") and len(k2_call) == 1,
+                f"baseline {task}: {n_k1} K1, {len(per_call) - n_k1} K4 and {len(k2_call)} K2 outputs compared")
+        if dtype == "float32":
+            errs = {n: max_abs(grads["kernel", dtype][n], grads["plain", dtype][n])
+                    / max(float(grads["plain", dtype][n].abs().max()), 1e-30) for n in names}
+            which = max(errs, key=errs.get)
+            worst_call = max(c[2] for c in per_call)
+            log(f"[baseline] cat f32 2 layers full width, one micro-step's gradients through K2 + K1 + K4 vs the plain "
+                f"path: worst relative error {errs[which]:.6g} ({which}) over {len(errs)} tensors; K1 / K4 calls vs "
+                f"plain on the step's inputs: worst relative error {worst_call:.3g}; K2 max_abs {k2_call[0]:.3g}; "
+                f"loss {losses['kernel', dtype]:.6f}")
+            require(errs[which] <= 1e-4 and worst_call <= 1e-5 and k2_call[0] <= 1e-4,
+                    f"baseline cat gradients: {which} {errs[which]}, calls {worst_call}, K2 {k2_call[0]}")
+            out[task] = {"worst": errs[which], "tensor": which, "tensors": len(errs), "calls_worst": worst_call,
+                         "k2_max_abs": k2_call[0]}
+        else:
+            kern, plain, ref = grads["kernel", dtype], grads["plain", dtype], grads["plain", "float32"]
+            kernel_f32 = {n: cosine(kern[n], ref[n]) for n in names}
+            plain_f32 = {n: cosine(plain[n], ref[n]) for n in names}
+            between = {n: float((kern[n] - plain[n]).norm() / plain[n].norm().clamp_min(1e-30)) for n in names}
+            which = max(between, key=between.get)
+            worst_call = min(c[2] for c in per_call)
+            loss_rel = abs(losses["kernel", dtype] - losses["plain", dtype]) / abs(losses["plain", dtype])
+            med_kernel, med_plain = statistics.median(kernel_f32.values()), statistics.median(plain_f32.values())
+            gated = {n: between[n] for n in names if any(k in n for k in GATED_BIAS_KEYS)}
+            log(f"[baseline] dim bf16 2 layers full width, one micro-step: K1 / K4 calls vs plain on the step's inputs "
+                f"worst cosine {worst_call:.7f} over {len(per_call)} outputs, K2 {k2_call[0]:.7f}; loss kernel "
+                f"{losses['kernel', dtype]:.6f}, plain {losses['plain', dtype]:.6f}, f32 plain "
+                f"{losses['plain', 'float32']:.6f}; model gradients over {len(names)} tensors, kernel vs plain bf16: "
+                f"worst relative L2 {between[which]:.4f} ({which}), gated-bias tensors' worst "
+                f"{max(gated.values()):.4f}; cosine to f32 plain, worst {min(kernel_f32.values()):.4f} kernel, "
+                f"{min(plain_f32.values()):.4f} plain; median {med_kernel:.5f} kernel, {med_plain:.5f} plain")
+            require(worst_call >= 0.999 and k2_call[0] >= 0.999 and loss_rel <= 1e-2,
+                    f"baseline dim bf16: calls {worst_call}, K2 {k2_call[0]}, loss {loss_rel}")
+            require(between[which] <= 0.3, f"baseline dim bf16: {which} {between[which]} relative L2 from plain bf16")
+            require(med_kernel >= med_plain - 0.01,
+                    f"baseline dim bf16: median cosine to f32 {med_kernel} kernel, {med_plain} plain")
+            out[task] = {"calls_worst_cosine": worst_call, "k2_cosine": k2_call[0], "loss_rel": loss_rel,
+                         "grad_rel_l2_vs_plain_bf16": between[which], "tensor": which,
+                         "gated_bias_rel_l2_vs_plain_bf16": max(gated.values()),
+                         "grad_cosine_vs_f32_kernel": min(kernel_f32.values()),
+                         "grad_cosine_vs_f32_plain": min(plain_f32.values()),
+                         "grad_cosine_vs_f32_median_kernel": med_kernel,
+                         "grad_cosine_vs_f32_median_plain": med_plain}
+        del grads
+    return out
+
+
+def time_baseline_steps(model_dir: str, config_path: str, smi: str) -> dict:
+    """Full-width WavLM-large micro-steps (forward + backward, 8 rows of the
+    longest bucket: the 8 longest train wavs) in f32 (``cat``) and bf16
+    (``dim``): median host-clock ms of BASELINE_SHAPE's runs, each
+    synchronised; the AdamW step over every trained tensor; peak device
+    memory; a profile of one micro-step in each dtype; the f32 inference
+    time per audio second over the dev split (batches of 8)."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.baseline.engine import BaselineEngine, labelled_split
+
+    shape = BASELINE_SHAPE
+    with open(config_path) as f:
+        paths = json.load(f)
+    out = {}
+    for task, dtype in (("cat", "float32"), ("dim", "bfloat16")):
+        tag = {"float32": "f32", "bfloat16": "bf16"}[dtype]
+        ds = labelled_split(task, paths["label_path"], paths["wav_dir"], "train")
+        longest = list(np.argsort([len(w) for w in ds.wav_list], kind="stable")[-8:])
+        batch = bdata.collate_wav(ds, longest, 8)
+        engine = BaselineEngine(model_dir, task=task, head_dim=shape["head_dim"], dtype=dtype, device=DEVICE)
+        params = engine.trainable()
+        opt = engine.optimizer(shape["lr"])
+        cw = torch.ones(8, device=DEVICE) if task == "cat" else None
+
+        def micro_step():
+            for p in params:
+                p.grad = None
+            loss = engine.loss(batch, cw)
+            loss.backward()
+            return loss
+
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        step_ms = host_times_ms(micro_step, shape["steps"])
+        opt_ms = host_times_ms(opt.step, shape["steps"])
+        out.update({f"{tag}_micro_step_ms": statistics.median(step_ms), f"{tag}_micro_step_ms_runs": step_ms,
+                    f"{tag}_optimizer_step_ms": statistics.median(opt_ms), f"{tag}_optimizer_step_ms_runs": opt_ms,
+                    f"{tag}_peak_gb": torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None,
+                    "frames": int(batch.wav.shape[1] // 320), "trained_values": sum(p.numel() for p in params)})
+        log(f"[baseline] WavLM-large micro-step {tag} (8 rows x {batch.wav.shape[1] / 16000:.0f} s, forward + "
+            f"backward): median {out[f'{tag}_micro_step_ms']:.3f} ms of runs {[round(t, 3) for t in step_ms]}; AdamW "
+            f"step over {out['trained_values']} trained values {out[f'{tag}_optimizer_step_ms']:.3f} ms; peak "
+            f"device memory {out[f'{tag}_peak_gb']} GB ({smi})")
+        if task == "cat":
+            dev = labelled_split(task, paths["label_path"], paths["wav_dir"], "dev", ds.wav_mean, ds.wav_std)
+            engine.predict(dev)  # warm: cuDNN's choices for these buckets
+            timing: dict = {}
+            engine.predict(dev, timing=timing)
+            out["inference_s_per_audio_s"] = timing["inference"] / timing["audio_sec"]
+            log(f"[baseline] f32 inference over {len(dev)} dev wavs ({timing['audio_sec']:.1f} audio-s, batches of "
+                f"8): {timing['inference']:.3f} s = {out['inference_s_per_audio_s']:.5f} s per audio-s ({smi})")
+        if DEVICE == "cuda":
+            out[f"{tag}_profile"] = profile_baseline_step(micro_step, tag, smi)
+        del engine, opt, params
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def profile_baseline_step(micro_step, tag: str, smi: str) -> dict:
+    """One micro-step under the profiler: wall and device-busy ms, the idle
+    share, the top device ops, K1's, K4's and K2's shares, and the cuDNN
+    convolutions' (the frozen frontend's layers 1-6 and the positional conv
+    with its backward, which training runs without K8)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    micro_step()
+    sync()
+    before = counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        micro_step()
+        sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    share = lambda names: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in names)) / 1e3  # noqa: E731
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms, "launches": launched,
+           "k1_ms": share(K1_EVENTS), "k4_ms": share(K4_EVENTS), "k2_ms": share(K2_EVENTS),
+           "cudnn_conv_ms": share(("convolve", "conv2d", "dgrad", "wgrad")) - share(K2_EVENTS),
+           "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+    log(f"[baseline] profile of one {tag} micro-step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle "
+        f"{100 * res['idle_share']:.1f}%); K4 {res['k4_ms']:.1f} ms = {100 * res['k4_ms'] / busy_ms:.1f}%, K1 "
+        f"{res['k1_ms']:.1f} ms = {100 * res['k1_ms'] / busy_ms:.1f}%, K2 {res['k2_ms']:.3f} ms, cuDNN convolutions "
+        f"{res['cudnn_conv_ms']:.1f} ms of device time; launches in the window {launched} ({smi})")
+    for name, ms, n in res["top"]:
+        log(f"[baseline]   {ms:9.3f} ms  x{n:<4d} {name}")
+    for e in kernels:  # the frontend's device work by name: K2's kernels and every convolution
+        if any(n in e.key for n in K2_EVENTS + ("conv", "Conv")):
+            log(f"[baseline]   frontend / conv: {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+    return res
+
+
 T0 = time.perf_counter()
 
 
@@ -3162,9 +3582,27 @@ def main() -> None:
                 f"{tri['steps']} optimizer steps")
         log(f"[trimodal path] launches {trimodal_path} (none during NS3 extraction); NS3 utt/s {ns3['utt_per_sec']}")
         tri_step = time_trimodal_step(ns3["config_path"], smi)
+
+        wavlm_dir = os.path.join(tmp, "wavlm-large")
+        zero_counts()
+        t_base = time.perf_counter()
+        baseline = phase_baseline(tmp, wavlm_dir)
+        baseline_path = counts()
+        n_layers = baseline["n_layers"]
+        require(baseline_path["attention_btd_bwd"] == 2 * n_layers * baseline["micro_batches"],
+                f"K4 launches {baseline_path['attention_btd_bwd']} != 2 tasks x {n_layers} layers x "
+                f"{baseline['micro_batches']} micro-batches on the baseline path")
+        for name in ("attention_btd", "conv_frontend"):
+            require(baseline_path[name] > 0, f"kernel {name} was not launched on the baseline path")
+        for name in ("gru_bidir", "gru_bidir_bwd", "ffn_fused", "pos_conv", "gru_sequence", "conv_frontend_layer"):
+            require(baseline_path[name] == 0, f"kernel {name} was launched on the baseline path: {baseline_path}")
+        log(f"[baseline path] launches {baseline_path}")
+        baseline["grads"] = check_baseline_grads(tmp, wavlm_dir, baseline["config_path"])
+        baseline["steps"] = time_baseline_steps(wavlm_dir, baseline["config_path"], smi)
+        baseline["phase_s"] = time.perf_counter() - t_base
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
-               "trimodal": trimodal_path}
-    for path in ("serving", "training", "lora", "zoo", "trimodal"):  # the speech and fusion paths never reach K6 / K7
+               "trimodal": trimodal_path, "baseline": baseline_path}
+    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline"):  # the speech and fusion paths never reach K6 / K7
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
@@ -3189,12 +3627,17 @@ def main() -> None:
         f"{ns3['utt_per_sec']['speaker_warm']:.2f} (all wavs, full batches of {NS3_SHAPE['batch_size']}); speaker "
         f"batch device idle {100 * ns3['profile']['idle_share']:.1f}%; distinct codes {ns3['distinct']}; trimodal "
         f"train-step median {tri_step['train_step_ms']:.3f} ms ({smi})")
+    b = baseline["steps"]
+    log(f"[baseline] WavLM-large fine-tune micro-step (8 rows x {b['frames'] // 50} s) median: f32 "
+        f"{b['f32_micro_step_ms']:.3f} ms, bf16 {b['bf16_micro_step_ms']:.3f} ms; AdamW step {b['f32_optimizer_step_ms']:.3f} "
+        f"ms; peak {b['f32_peak_gb']:.2f} / {b['bf16_peak_gb']:.2f} GB; f32 inference "
+        f"{b['inference_s_per_audio_s']:.5f} s per audio-s; phase 11 {baseline['phase_s']:.1f} s ({smi})")
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
                              **steps},
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
-                    "seconds": time.perf_counter() - T0}))
+                    "baseline": baseline, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -1,0 +1,154 @@
+"""The challenge baseline's train and eval entry points.
+
+Port of ``interspeech_ser_tpu/baseline/cli.py`` (``train_main``,
+``eval_main``; the ``bin/old`` baselinelike trainers of its
+``legacy_train_main`` are not ported): the reference scripts' flags
+(``benchmark/train_eval_files/{train,eval}_{cat,dim}_ser.py``), the wav
+directory and label CSV from ``configs/config_cat.json``, and
+``final_{ser,pool,ssl}.pt`` + ``train_norm_stat.pkl`` in ``--model_path``,
+plus ``--device`` (``cuda`` by default; ``cpu`` only when asked). ``dim``
+trains in bf16, as the JAX package does; eval runs in f32. Eval writes
+``results/dev.csv`` (``--dev``) or ``results/test3.csv`` (the wav
+directory's ``*test3*`` files): ``FileName,EmoClass`` for ``cat``,
+``FileName,EmoAct,EmoVal,EmoDom`` (each ``clip(v * 6 + 1, 1, 7)``) for
+``dim``, and prints the inference time per audio second on test3.
+
+    python -m interspeech_ser_tpu_torch.baseline.cli train --task cat --ssl_type <HF dir> \\
+        --config_path configs/config_cat.json --model_path <out> [--device cpu]
+    python -m interspeech_ser_tpu_torch.baseline.cli eval --task dim [--dev] --ssl_type <HF dir> \\
+        --config_path configs/config_cat.json --model_path <out> [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from ..utils.device import DEVICES
+
+SSL_BOOK = {
+    "wavlm-large": "microsoft/wavlm-large",
+    "wavlm-base": "microsoft/wavlm-base",
+}
+
+
+def get_ssl_type(name: str):
+    """The reference's name book; a path that exists passes through, else None."""
+    if name in SSL_BOOK:
+        return SSL_BOOK[name]
+    return name if os.path.exists(name) else None
+
+
+def _common(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--ssl_type", type=str, default="wavlm-large")
+    p.add_argument("--head_dim", type=int, default=1024)
+    p.add_argument("--pooling_type", type=str, default="AttentiveStatisticsPooling")
+    p.add_argument("--config_path", type=str, default="configs/config_cat.json")
+    p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
+                   help="where the model runs; without a card 'cuda' raises")
+    return p
+
+
+def _train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--seed", type=int, default=100)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--accumulation_steps", type=int, default=1)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--model_path", type=str, default="./temp")
+    return _common(p)
+
+
+def _eval_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--model_path", type=str, default="./model/cat_ser/7/")
+    p.add_argument("--store_path")
+    return _common(p)
+
+
+def _load_paths(config_path: str):
+    with open(config_path) as f:
+        cfg = json.load(f)
+    return cfg["wav_dir"], cfg["label_path"]
+
+
+def _engine(args, task: str, dtype: str = "float32"):
+    from .engine import BaselineEngine
+
+    ssl = get_ssl_type(args.ssl_type)
+    if ssl is None:
+        raise ValueError(f"Invalid SSL type! {args.ssl_type!r} is neither a known name nor a path")
+    return BaselineEngine(ssl, task=task, head_dim=args.head_dim, seed=getattr(args, "seed", 100), dtype=dtype,
+                          device=args.device)
+
+
+def train_main(task: str = "cat", argv=None) -> dict:
+    """-> ``BaselineEngine.fit``'s result (the best epoch, its dev loss and
+    predictions, every epoch's dev loss)."""
+    args = _train_parser().parse_args(argv)
+    audio_path, label_path = _load_paths(args.config_path)
+    engine = _engine(args, task, dtype="bfloat16" if task == "dim" else "float32")
+    return engine.fit(label_path, audio_path, args.model_path, batch_size=args.batch_size,
+                      accumulation_steps=args.accumulation_steps, epochs=args.epochs, lr=args.lr)
+
+
+def eval_main(task: str = "cat", dev: bool = False, argv=None) -> str:
+    """-> the path of the results CSV written."""
+    from . import data as bdata
+    from .engine import labelled_split, write_rows, write_test3_submission
+
+    args = _eval_parser().parse_args(argv)
+    audio_path, label_path = _load_paths(args.config_path)
+    engine = _engine(args, task)
+    engine.load_checkpoints(args.model_path)
+    mean, std = bdata.load_norm_stat(os.path.join(args.model_path, "train_norm_stat.pkl"))
+
+    timing: dict = {}
+    if dev:
+        ds = labelled_split(task, label_path, audio_path, "dev", mean, std)
+        utts = ds.utts
+        res = engine.evaluate(ds)
+        print(f"dev loss = {res['loss']}")
+        preds, split = res["preds"], "dev"
+    else:
+        utts = sorted(f for f in os.listdir(audio_path) if "test3" in f)
+        ds = bdata.WavDataset(bdata.load_audio(audio_path, utts), None, utts, wav_mean=mean, wav_std=std)
+        preds, split = engine.predict(ds, timing=timing), "test3"
+
+    if task == "cat":
+        out = write_test3_submission(preds, utts, args.model_path, split)
+    else:
+        clip = lambda v: float(min(max(1.0, v * 6 + 1), 7.0))  # noqa: E731
+        rows = [[u, clip(p[0]), clip(p[2]), clip(p[1])] for u, p in zip(utts, preds)]
+        out = write_rows(os.path.join(args.model_path, "results", f"{split}.csv"),
+                         ["FileName", "EmoAct", "EmoVal", "EmoDom"], rows)
+
+    if timing.get("audio_sec"):
+        print("Duration of whole dev+test set", timing["audio_sec"], "sec")
+        print("Inference time", timing["inference"], "sec")
+        print("Inference time per sec", timing["inference"] / timing["audio_sec"], "sec")
+    if args.store_path:
+        with open(args.store_path, "w") as f:
+            f.write(out + "\n")
+    return out
+
+
+def main(argv=None):
+    """``train --task cat|dim [flags]`` or ``eval --task cat|dim [--dev] [flags]``."""
+    p = argparse.ArgumentParser(prog="python -m interspeech_ser_tpu_torch.baseline.cli")
+    p.add_argument("command", choices=("train", "eval"))
+    p.add_argument("--task", choices=("cat", "dim"), default="cat")
+    p.add_argument("--dev", action="store_true", help="eval: the Development split instead of test3")
+    args, rest = p.parse_known_args(argv)
+    if args.command == "train":
+        if args.dev:
+            p.error("--dev is an eval flag")
+        return train_main(args.task, rest)
+    return eval_main(args.task, args.dev, rest)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,14 +1,15 @@
-"""MSP-Podcast categorical labels (the challenge baseline's data contract).
+"""MSP-Podcast labels (the challenge baseline's data contract).
 
-Light copy of ``interspeech_ser_tpu/baseline/podcast.py``'s categorical
-loader, read with ``csv`` instead of pandas: the split-name map, the eight
-emotion columns, and ``load_cat_emo_label``.
+Light copy of ``interspeech_ser_tpu/baseline/podcast.py``, read with
+``csv`` instead of pandas: the split-name map, the eight emotion columns
+and the three attribute columns, and the utterance, categorical and
+dimensional loaders. Rows keep the file's order.
 """
 
 from __future__ import annotations
 
 import csv
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -21,12 +22,31 @@ SPLIT_MAP = {
 }
 
 CAT_COLUMNS = ["Angry", "Sad", "Happy", "Surprise", "Fear", "Disgust", "Contempt", "Neutral"]
+ADV_COLUMNS = ["EmoAct", "EmoDom", "EmoVal"]
+
+
+def _split_rows(label_path: str, dtype: str) -> List[dict]:
+    with open(label_path, newline="") as f:
+        return [r for r in csv.DictReader(f) if r["Split_Set"] == SPLIT_MAP[dtype]]
+
+
+def _labelled(label_path: str, dtype: str, columns: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    rows = _split_rows(label_path, dtype)
+    labels = np.asarray([[float(r[c]) for c in columns] for r in rows], dtype=np.float64)
+    return np.asarray([r["FileName"] for r in rows], dtype=object), labels.reshape(-1, len(columns))
+
+
+def load_utts(label_path: str, dtype: str) -> np.ndarray:
+    """-> the file names of split ``dtype``."""
+    return np.asarray([r["FileName"] for r in _split_rows(label_path, dtype)], dtype=object)
 
 
 def load_cat_emo_label(label_path: str, dtype: str) -> Tuple[np.ndarray, np.ndarray]:
-    """-> (file names of split ``dtype``, their [N, 8] float64 label rows), in file order."""
-    with open(label_path, newline="") as f:
-        rows = [r for r in csv.DictReader(f) if r["Split_Set"] == SPLIT_MAP[dtype]]
-    utts = np.asarray([r["FileName"] for r in rows], dtype=object)
-    labels = np.asarray([[float(r[c]) for c in CAT_COLUMNS] for r in rows], dtype=np.float64).reshape(-1, 8)
-    return utts, labels
+    """-> (file names of split ``dtype``, their [N, 8] float64 label rows)."""
+    return _labelled(label_path, dtype, CAT_COLUMNS)
+
+
+def load_adv_emo_label(label_path: str, dtype: str) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (file names of split ``dtype``, their [N, 3] float64 arousal /
+    dominance / valence rows)."""
+    return _labelled(label_path, dtype, ADV_COLUMNS)

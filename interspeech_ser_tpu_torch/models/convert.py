@@ -17,6 +17,9 @@ nested dicts of numpy arrays and return the port's state dicts.
 - :func:`ns3_params_from_flax` takes the JAX ``ProsodyExtractor``'s param
   dict and yields the port's ``ProsodyExtractor`` state dict (its pieces:
   :func:`ns3_transformer_params_from_flax`, :func:`facodec_encoder_params_from_flax`).
+- :func:`baseline_params_from_flax` mirrors ``pooling_flax_to_torch`` and
+  ``ser_flax_to_torch`` (interspeech_ser_tpu/baseline/models.py) and yields
+  the challenge baseline's ``final_pool.pt`` / ``final_ser.pt`` names.
 
 Layouts: a flax Dense kernel [in, out] is a torch Linear weight [out, in];
 a flax Conv kernel [k, in/g, out] is a torch Conv1d weight [out, in/g, k].
@@ -24,7 +27,7 @@ a flax Conv kernel [k, in/g, out] is a torch Conv1d weight [out, in/g, k].
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -279,3 +282,22 @@ def ns3_params_from_flax(params: Dict, with_speaker: bool = False) -> Dict[str, 
         sd.update(facodec_encoder_params_from_flax(params["encoder"], "encoder."))
         sd.update(ns3_transformer_params_from_flax(params["timbre_encoder"], "timbre_encoder."))
     return sd
+
+
+def baseline_params_from_flax(pool: Dict, head: Dict) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """JAX ``AttentiveStatisticsPooling`` and ``EmotionRegression`` params ->
+    the port's (pool, head) state dicts."""
+    pool_sd = {
+        "sap_linear.weight": _t(_get(pool, "sap_linear", "kernel")),
+        "sap_linear.bias": _get(pool, "sap_linear", "bias"),
+        "attention": _get(pool, "attention"),
+    }
+    head_sd: Dict[str, np.ndarray] = {}
+    for i in range(sum(1 for k in head if k.startswith("fc"))):
+        head_sd[f"fc.{i}.0.weight"] = _t(_get(head, f"fc{i}", "kernel"))
+        head_sd[f"fc.{i}.0.bias"] = _get(head, f"fc{i}", "bias")
+        head_sd[f"fc.{i}.1.weight"] = _get(head, f"ln{i}", "scale")
+        head_sd[f"fc.{i}.1.bias"] = _get(head, f"ln{i}", "bias")
+    head_sd["out.0.weight"] = _t(_get(head, "out", "kernel"))
+    head_sd["out.0.bias"] = _get(head, "out", "bias")
+    return _to_torch(pool_sd), _to_torch(head_sd)

@@ -6,7 +6,10 @@ Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder``,
 without transformers or safetensors: ``config.json`` is read with ``json``,
 weights come from ``pytorch_model.bin`` (``torch.load(weights_only=True)``)
 or ``model.safetensors`` (a small reader below), sharded or not. The
-positional conv's weight norm is folded into a plain kernel.
+positional conv's weight norm is folded into a plain kernel
+(:func:`speech_state_dict_from_hf`), and unfolded again for an HF-format
+file (:func:`speech_state_dict_to_hf`, the challenge baseline's
+``final_ssl.pt``).
 
 Also the port of the FACodec converters of
 ``interspeech_ser_tpu/models/ns3/facodec.py`` (``ns3_encoder_params_from_torch``,
@@ -171,6 +174,37 @@ def build_prosody_extractor(decoder_ckpt: str, encoder_ckpt: Optional[str] = Non
     return model.eval()
 
 
+POS_CONV = "encoder.pos_conv_embed.conv"
+
+
+def speech_state_dict_from_hf(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An HF WavLM / wav2vec2 / HuBERT state dict (or a ``final_ssl.pt``) ->
+    the port's ``SpeechEncoderModel`` state dict in f32: a ``wavlm.``,
+    ``wav2vec2.`` or ``hubert.`` prefix stripped, the positional conv's weight
+    norm folded, ``masked_spec_embed`` dropped."""
+    sd = fold_weight_norm(_strip_prefix(sd, ("wavlm.", "wav2vec2.", "hubert.")), POS_CONV)
+    return {k: v.float() for k, v in sd.items() if k not in _UNUSED_KEYS}
+
+
+def speech_state_dict_to_hf(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A port ``SpeechEncoderModel`` state dict -> the HF state dict the JAX
+    package's ``speech_flax_to_hf`` writes (``final_ssl.pt``), as f32 CPU
+    copies: the positional conv's kernel w unfolded into torch's weight-norm
+    parametrization, ``original0`` = g = ||w|| over (out, in) [1, 1, k] and
+    ``original1`` = v = w; every other key as it is. g is computed as
+    :func:`fold_weight_norm` computes the norm of v, so folding the file back
+    gives w bit for bit."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        v = v.detach().to("cpu", torch.float32, copy=True)
+        if k == f"{POS_CONV}.weight":
+            out[f"{POS_CONV}.parametrizations.weight.original0"] = v.pow(2).sum(dim=[0, 1], keepdim=True).sqrt()
+            out[f"{POS_CONV}.parametrizations.weight.original1"] = v
+        else:
+            out[k] = v
+    return out
+
+
 def read_config(path_or_name: str) -> Dict:
     """The directory's ``config.json`` as a dict."""
     with open(os.path.join(resolve_dir(path_or_name), "config.json")) as f:
@@ -188,12 +222,9 @@ def build_speech_encoder(
     strict."""
     d = resolve_dir(path_or_name)
     cfg = SpeechConfig.from_hf(read_config(d), dtype=dtype)
-    sd = _strip_prefix(load_hf_state_dict(d), ("wavlm.", "wav2vec2.", "hubert."))
-    sd = fold_weight_norm(sd, "encoder.pos_conv_embed.conv")
-    sd = {k: v.float() for k, v in sd.items() if k not in _UNUSED_KEYS}
     with torch.device("meta"):  # no throwaway random init of the weights
         model = SpeechEncoderModel(cfg)
-    model.load_state_dict(sd, strict=True, assign=True)
+    model.load_state_dict(speech_state_dict_from_hf(load_hf_state_dict(d)), strict=True, assign=True)
     model.eval()
     do_normalize = True
     pp = os.path.join(d, "preprocessor_config.json")

@@ -295,6 +295,14 @@ class PositionalConvEmbedding(nn.Module):
         if cfg.inference_kernels:  # K8, then the bias outside the kernel as in the JAX package
             h = (pos_conv_plain if plain else pos_conv)(x.to(dt), self.conv.weight, cfg.conv_pos_groups)
             h = h + self.conv.bias.to(dt)
+        elif dt == torch.bfloat16 and not x.is_cuda:
+            # torch's CPU conv1d returns wrong bf16 values for some grouped shapes (8 channels a
+            # group, k=16: wrong in every digit); the same bf16 operands, accumulated in f32 and
+            # rounded, are what a bf16 conv computes
+            h = F.conv1d(
+                x.float().transpose(1, 2), self.conv.weight.to(dt).float(), self.conv.bias.to(dt).float(),
+                padding=k // 2, groups=cfg.conv_pos_groups,
+            ).to(dt).transpose(1, 2)
         else:
             h = F.conv1d(
                 x.transpose(1, 2), self.conv.weight.to(dt), self.conv.bias.to(dt),
@@ -356,8 +364,9 @@ class SpeechSelfAttention(nn.Module):
                 buckets = torch.from_numpy(
                     relative_position_buckets(T, T, cfg.num_buckets, cfg.max_distance)
                 ).to(x.device)
-                # [H, T, T] in the compute dtype, built once, shared by every layer
-                position_bias = self.rel_attn_embed.weight[buckets].permute(2, 0, 1).to(dt).contiguous()
+                # [H, T, T] f32, built once, shared by every layer, as in the JAX package: each
+                # attention rounds it to the compute dtype, so the layers' gradients sum in f32
+                position_bias = self.rel_attn_embed.weight[buckets].permute(2, 0, 1).contiguous()
             assert position_bias is not None, "layers > 0 need layer 0's position_bias"
             # per-(batch, head, query) gate from the layer's input x, per head
             gate_in = x.reshape(B, T, H, hd).transpose(1, 2)  # [B, H, T, hd]

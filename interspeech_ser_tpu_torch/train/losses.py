@@ -1,8 +1,9 @@
 """The losses of the four lazy-fusion trainers, with torch-parity semantics.
 
 Port of the subset of ``interspeech_ser_tpu/train/losses.py`` that
-``bin/train_cat_{bimodal,trimodal}_lazy_*`` use: weighted CE, focal loss
-with and without dynamic alpha, and the ranking trainers' soft-margin loss.
+``bin/train_cat_{bimodal,trimodal}_lazy_*`` and the challenge baseline use:
+weighted CE, focal loss with and without dynamic alpha, the ranking
+trainers' soft-margin loss and the dimensional task's CCC loss.
 Every loss takes an optional ``sample_mask`` (1 = real row, 0 = a padding
 row that fills the fixed batch size): masked rows add nothing to the
 numerator or the denominator, so a padded batch reduces as the unpadded one.
@@ -70,3 +71,28 @@ def soft_margin_loss(
         return per_elem.mean()
     mask = sample_mask.reshape(sample_mask.shape + (1,) * (per_elem.ndim - sample_mask.ndim))
     return _masked_mean(per_elem, mask.expand_as(per_elem))
+
+
+def ccc_loss(
+    pred: torch.Tensor,  # [B, A] predicted attributes
+    lab: torch.Tensor,  # [B, A] labels
+    sample_mask: Optional[torch.Tensor] = None,  # [B]
+) -> torch.Tensor:
+    """``sum over attributes of (1 - CCC)`` (``3 - sum CCC`` for arousal,
+    dominance and valence), each CCC with population moments over the valid
+    rows, in f32."""
+    pred = pred.float()
+    lab = lab.float()
+    w = torch.ones(pred.shape[0], device=pred.device) if sample_mask is None else sample_mask.float()
+    wsum = w.sum().clamp_min(1e-12)
+    total = pred.new_zeros(())
+    for i in range(pred.shape[1]):
+        p, l = pred[:, i], lab[:, i]
+        m_p = (p * w).sum() / wsum
+        m_l = (l * w).sum() / wsum
+        d_p, d_l = p - m_p, l - m_l
+        cov = (d_p * d_l * w).sum() / wsum
+        var_p = (d_p * d_p * w).sum() / wsum
+        var_l = (d_l * d_l * w).sum() / wsum
+        total = total + (1.0 - 2 * cov / (var_p + var_l + (m_p - m_l) ** 2 + 1e-9))
+    return total

@@ -176,6 +176,14 @@ class _FakeLibrary:
         return lambda *args: self.calls.append((name, args)) or 0
 
 
+def _keep_launch_counts(monkeypatch):
+    """The fake library's launches go through the real wrappers, which count
+    them: restore K1's and K4's counters after the test, so that a later test
+    in the same process (chip_smoke's rehearsals) starts from its own counts."""
+    for counter in ("LAUNCHES", "BWD_LAUNCHES"):
+        monkeypatch.setattr(ka, counter, getattr(ka, counter))
+
+
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_card_launcher_passes_head_dim_and_default_scale(hd, dtype, monkeypatch):
@@ -187,6 +195,7 @@ def test_card_launcher_passes_head_dim_and_default_scale(hd, dtype, monkeypatch)
     lib = _FakeLibrary()
     monkeypatch.setattr(ka._build, "library", lambda: lib)
     monkeypatch.setattr(ka._build, "stream_ptr", lambda t: 0)
+    _keep_launch_counts(monkeypatch)
     assert ka.K4_HEAD_DIMS == ka.K1_HEAD_DIMS
     Dh = H * hd
 
@@ -233,6 +242,7 @@ def test_card_launchers_route_f32_by_alignment(kernel, offset, monkeypatch):
     lib = _FakeLibrary()
     monkeypatch.setattr(ka._build, "library", lambda: lib)
     monkeypatch.setattr(ka._build, "stream_ptr", lambda t: 0)
+    _keep_launch_counts(monkeypatch)
     flat = torch.randn(T * D + 8)
     base = (-flat.data_ptr() // 4) % 4  # floats to the first 16-byte boundary
     x = flat[base + offset:base + offset + T * D].view(1, T, D).as_subclass(_CudaLike)

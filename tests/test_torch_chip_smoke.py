@@ -348,3 +348,71 @@ def test_ns3_phase_on_cpu(tmp_path, monkeypatch):
     assert cs.counts()["gru_bidir_bwd"] == 3 * 4 and cs.counts()["gru_bidir"] > 0
     step = cs.time_trimodal_step(ns3["config_path"], "a card, 700 W")
     assert len(step["train_step_ms_runs"]) == 5
+
+
+def test_baseline_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 11 at a tiny size (WavLM at D=128 over 2 layers with a 3-layer
+    frontend, 8 train / 4 dev / 2 test3 wavs of 0.5-1.5 s, micro-batches of
+    4): ``baseline.cli`` train and eval for ``cat`` and ``dim``, the K4
+    count, the frontend and gated-bias checks, the reload, batched vs
+    batch-1, the gradient check and the step timings. Attention that needs a
+    gradient goes through AttentionBtdTrain with the plain backward, counted
+    as K4, as it does on the card."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka, conv_frontend as kc
+
+    def tiny_wavlm(dtype="float32"):
+        return speech.SpeechConfig(
+            hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+            conv_dim=(16,) * 3, conv_kernel=(10, 8, 8), conv_stride=(5, 8, 8), conv_bias=True,
+            feat_extract_norm="layer", do_stable_layer_norm=True, attention_type="wavlm",
+            num_conv_pos_embeddings=16, conv_pos_groups=4, dtype=dtype,
+        )
+
+    real_bwd = ka.attention_btd_bwd
+
+    def counted_bwd(*args, **kw):
+        ka.BWD_LAUNCHES += 1
+        return real_bwd(*args, **kw)
+
+    def routed(q, k, v, H, key_mask=None, scale=None, gate=None, shared_bias=None, plain=False):
+        if plain:
+            return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+        ka.LAUNCHES += 1
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)):
+            return ka.AttentionBtdTrain.apply(q, k, v, H, key_mask, scale, gate, shared_bias)
+        return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+
+    def counting_conv(*args, **kw):
+        kc.LAUNCHES += 1
+        return kc.conv_frontend_plain(*args, **kw)
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "BASELINE_SHAPE", dict(
+        n_train=8, n_dev=4, n_test3=2, seconds=(0.5, 1.5), batch_size=8, accumulation_steps=2, lr=1e-5,
+        head_dim=16, epochs=1, grad_rows=4, grad_live=3, steps=2))
+    monkeypatch.setattr(speech, "wavlm_large", tiny_wavlm)
+    monkeypatch.setattr(speech, "dot_product_attention_btd", routed)
+    monkeypatch.setattr(speech, "conv_frontend", counting_conv)
+    monkeypatch.setattr(ka, "attention_btd_bwd", counted_bwd)
+    for mod, counter in ((ka, "LAUNCHES"), (ka, "BWD_LAUNCHES"), (kc, "LAUNCHES")):
+        monkeypatch.setattr(mod, counter, 0)
+
+    tmp = str(tmp_path)
+    wavlm_dir = os.path.join(tmp, "wavlm-large")
+    cs.write_wavlm_large(wavlm_dir)
+    base = cs.phase_baseline(tmp, wavlm_dir)
+    launches = cs.counts()
+    # K4: 2 tasks x 2 layers x 2 micro-batches; K2 once a forward
+    assert base["micro_batches"] == 2 and launches["attention_btd_bwd"] == 2 * 2 * 2
+    assert launches["attention_btd"] > 0 and launches["conv_frontend"] > 0
+    assert set(base["tasks"]) == {"cat", "dim"} and base["tasks"]["cat"]["batch1"]["utterances"] >= 2
+    assert all(t["reload_max_abs"] <= 1e-5 and t["rel_attn_embed_moved"] > 0 for t in base["tasks"].values())
+    grads = cs.check_baseline_grads(tmp, wavlm_dir, base["config_path"])
+    assert grads["cat"]["worst"] <= 1e-4 and grads["dim"]["calls_worst_cosine"] >= 0.999
+    assert grads["cat"]["k2_max_abs"] <= 1e-4 and grads["dim"]["k2_cosine"] >= 0.999
+    assert grads["dim"]["grad_rel_l2_vs_plain_bf16"] <= 0.3
+    steps = cs.time_baseline_steps(wavlm_dir, base["config_path"], "a card, 700 W")
+    assert len(steps["f32_micro_step_ms_runs"]) == 2 and len(steps["bf16_micro_step_ms_runs"]) == 2
+    assert steps["inference_s_per_audio_s"] > 0

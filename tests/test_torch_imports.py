@@ -42,7 +42,8 @@ def test_port_imports_light():
     for m in ("train.losses", "train.checkpointing", "train.engine", "utils.seeding", "utils.device",
               "ops.mel", "models.whisper", "models.lora", "train.lora_engine", "lora_cli",
               "baseline.podcast", "baseline.data", "ops.kernels.attention_bhtd", "models.text", "utils.spm",
-              "utils.bpe", "ops.kernels.ffn_fused", "ops.kernels.pos_conv", "models.ns3", "models.ns3.facodec"):
+              "utils.bpe", "ops.kernels.ffn_fused", "ops.kernels.pos_conv", "models.ns3", "models.ns3.facodec",
+              "baseline.models", "baseline.engine", "baseline.cli", "utils.metrics"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
