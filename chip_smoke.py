@@ -9,8 +9,8 @@ kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
 drives the serving path, the fusion training path, the LoRA fine-tuning
 path, the text-extraction path, the speech-encoder zoo, the NS3 prosody
-extractor with the trimodal trainer and the challenge baseline through
-their entry points at full width:
+extractor with the trimodal trainer, the challenge baseline and Whisper
+transcription through their entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -147,7 +147,25 @@ their entry points at full width:
    bf16 K1 / K4 call within cosine 0.999 of its plain version); the median
    f32 and bf16 micro-steps (8 rows x 12 s), the AdamW step, peak memory,
    the f32 inference time per audio second and a profile of one
-   micro-step in each dtype.
+   micro-step in each dtype;
+12. Whisper transcription: a seeded random-init Whisper-large-v3 (32 + 32
+   layers, D=1280, H=20, FFN 5120, 128 mels, vocab 51,866) as an HF
+   ``WhisperForConditionalGeneration`` directory with float16 weights, a
+   synthetic byte-level tokenizer in large-v3's layout (50,257 BPE tokens,
+   then the specials, languages and timestamps at their ids) and a
+   ``generation_config.json`` with a forced 4-token prompt and suppressed
+   ids; 16 seeded wavs of 3-30 s and one of 34 s at 16, 22.05, 44.1 and 8
+   kHz; ``transcribe_cli.main`` (batch 16, 200 new tokens) in bf16 and in
+   f32: (a) one CSV row per wav in sorted order, (b) K1 = 32 layers x
+   batches and no other kernel, (c) every wav through the native loader;
+   then on the first batch (d) the f32 run's tokens teacher-forced
+   through ``WhisperDecoderModel`` (each emitted token within TIE_GAP of its
+   step's maximum, near-ties counted), (e) ``greedy_decode`` =
+   ``greedy_decode_cached`` in f32 over 8 new tokens, (f) the bf16 cached
+   decoder's step logits against the f32 teacher-forced ones (cosine);
+   the encoder ms a batch, the cross-K/V projection ms, the median decode
+   step beside its bound, tokens/s, utt/s, peak memory and the device's
+   idle share over 8 profiled decode steps, in each dtype.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -159,7 +177,9 @@ before phase 10 and read after its NS3 extraction (every count 0: the
 extractor has no kernel, as in the JAX package) and after its trimodal
 eval (the trimodal path), and zeroed again just before phase 11 and read
 after its last ``eval_main`` (the baseline path: K1, K4 and K2's layer 0,
-no other kernel). K9 has no path (none
+no other kernel), and zeroed again just before phase 12 and read after its
+two ``transcribe_cli`` runs (the transcription path: K1 alone; the decoder
+is plain PyTorch, as it is plain XLA in the JAX package). K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -3499,6 +3519,504 @@ def profile_baseline_step(micro_step, tag: str, smi: str) -> dict:
     return res
 
 
+# -- phase 12: Whisper transcription ------------------------------------------------
+
+# 16 seeded wavs of 3-30 s (one of 34 s, cut to Whisper's 30-s window) at 16 kHz and
+# at rates the native loader resamples; transcribe_cli's defaults (batch 16, 200 new
+# tokens); Whisper-large-v3's 50,257 byte-level BPE tokens before its added tokens;
+# 82 seeded regular ids suppressed (openai/whisper-large-v3 suppresses 82 regular and
+# 6 special ids); the recompute-vs-cached check over 8 new tokens; 8 profiled steps
+TRANSCRIBE_SHAPE = dict(n_wavs=16, seconds=(3.0, 30.0), long_index=7, long_seconds=34.0,
+                        rates=(16000, 22050, 44100, 8000), batch_size=16, max_new_tokens=200,
+                        regular_tokens=50257, n_suppress=82, recompute_tokens=8, profile_steps=8)
+# (d): each emitted token's f32 logit, teacher-forced through WhisperDecoderModel, lies
+# within TIE_GAP of its step's (suppressed) maximum; the logits are of order 1-10, and
+# the cached and teacher-forced f32 routes differ by summation order only
+TIE_GAP = 1e-3
+# (f): every bf16 step's logits (the cached decoder fed the f32 run's tokens) within
+# this cosine of the f32 teacher-forced ones
+BF16_STEP_COSINE = 0.99
+# (f), the products: every bf16 attention product of one step through _f32_product (the
+# card's bmm with an f32 out_dtype) within this relative L2 of the f32 product of the
+# upcast operands (both sum exact bf16 x bf16 products in f32; only the order differs);
+# the same products rounded to bf16 sit about 1e-3 away and must miss it. The model-level
+# bars above are loose: JAX's own bf16 logits sit 1e-2 from its f32 ones
+F32_PRODUCT_REL = 2e-6
+WHISPER_LANGUAGES = (
+    "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el ms cs ro da hu ta no th ur hr bg lt la mi "
+    "ml cy sk te fa lv bn sr az sl kn et mk br eu is hy ne mn bs kk sq sw gl mr pa si km sn yo so af oc ka be tg sd gu "
+    "am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as tt haw ln ha ba jw su yue"
+).split()
+
+
+def whisper_added_tokens() -> list:
+    """Whisper-large-v3's added tokens in id order, as (content, special):
+    ``<|endoftext|>``, ``<|startoftranscript|>``, the 100 languages, the task
+    and control tokens, then the 1,501 timestamps (not special)."""
+    special = (["<|endoftext|>", "<|startoftranscript|>"] + [f"<|{c}|>" for c in WHISPER_LANGUAGES]
+               + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>", "<|nospeech|>",
+                  "<|notimestamps|>"])
+    return [(t, True) for t in special] + [("<|%.2f|>" % (i * 0.02), False) for i in range(1501)]
+
+
+def write_whisper_tokenizer(model_dir: str, n_regular: int = 50257, seed: int = SEED) -> dict:
+    """Synthetic byte-level BPE files in Whisper-large-v3's layout:
+    ``tokenizer.json`` (what transformers' fast tokenizer loads),
+    ``vocab.json``, ``merges.txt``, ``added_tokens.json``,
+    ``special_tokens_map.json`` and ``tokenizer_config.json``. Ids 0-255 are
+    GPT-2's byte symbols, then the merges that build seeded words after a
+    space (letters, now and then é ü ß 日 本 €, whose UTF-8 bytes are
+    separate symbols) up to ``n_regular`` ids, then the added tokens
+    (:func:`whisper_added_tokens`) -> {added token: id}."""
+    from interspeech_ser_tpu_torch.utils.bpe import bytes_to_unicode
+
+    sym = bytes_to_unicode()
+    vocab = {sym[b]: b for b in range(256)}
+    merges = []
+    rng = np.random.default_rng(seed)
+    alphabet = list("abcdefghijklmnopqrstuvwxyz") + list("éüß日本€")
+    p = np.array([1.0] * 26 + [0.1] * 6)
+    while len(vocab) < n_regular:
+        word = " " + "".join(rng.choice(alphabet, int(rng.integers(2, 9)), p=p / p.sum()))
+        chars = "".join(sym[b] for b in word.encode("utf-8"))
+        prefix = chars[0]
+        for ch in chars[1:]:
+            if prefix + ch not in vocab and len(vocab) < n_regular:
+                merges.append([prefix, ch])
+                vocab[prefix + ch] = len(vocab)
+            prefix += ch
+    added = whisper_added_tokens()
+    ids = {t: n_regular + i for i, (t, _) in enumerate(added)}
+    entry = lambda t, special: {"id": ids[t], "content": t, "single_word": False, "lstrip": False,  # noqa: E731
+                                "rstrip": False, "normalized": False, "special": special}
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True}
+    tokenizer = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": [entry(t, s) for t, s in added],
+        "normalizer": None, "pre_tokenizer": byte_level, "post_processor": None, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    eot = "<|endoftext|>"
+    files = {
+        "tokenizer.json": tokenizer,
+        "vocab.json": vocab,
+        "added_tokens.json": ids,
+        "special_tokens_map.json": {"bos_token": eot, "eos_token": eot, "unk_token": eot, "pad_token": eot,
+                                    "additional_special_tokens": [t for t, s in added if s and t != eot]},
+        "tokenizer_config.json": {
+            "tokenizer_class": "WhisperTokenizer", "clean_up_tokenization_spaces": True, "add_prefix_space": False,
+            "errors": "replace", "model_max_length": 1024, "bos_token": eot, "eos_token": eot, "unk_token": eot,
+            "pad_token": eot,
+            "added_tokens_decoder": {str(ids[t]): {k: v for k, v in entry(t, s).items() if k != "id"}
+                                     for t, s in added},
+        },
+    }
+    os.makedirs(model_dir, exist_ok=True)
+    for name, obj in files.items():
+        with open(os.path.join(model_dir, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    with open(os.path.join(model_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return ids
+
+
+def whisper_generation_config(ids: dict, n_regular: int, n_suppress: int, seed: int = SEED) -> dict:
+    """``generation_config.json`` in Whisper-large-v3's form, with the
+    language fixed (English) where the shipped file leaves it to detection
+    (``null``): the forced prompt, seeded regular ids and the start / task /
+    control ids suppressed, EOT."""
+    rng = np.random.default_rng(seed + 1)
+    eot = ids["<|endoftext|>"]
+    regular = sorted(int(i) for i in rng.choice(np.arange(1, n_regular), n_suppress, replace=False))
+    specials = [ids[t] for t in ("<|startoftranscript|>", "<|translate|>", "<|transcribe|>", "<|startoflm|>",
+                                 "<|startofprev|>", "<|nospeech|>")]
+    return {"decoder_start_token_id": ids["<|startoftranscript|>"], "eos_token_id": eot, "bos_token_id": eot,
+            "pad_token_id": eot, "max_length": 448, "begin_suppress_tokens": [220, eot],
+            "forced_decoder_ids": [[1, ids["<|en|>"]], [2, ids["<|transcribe|>"]], [3, ids["<|notimestamps|>"]]],
+            "suppress_tokens": regular + specials, "no_timestamps_token_id": ids["<|notimestamps|>"]}
+
+
+def seeded_decoder_state_dict(cfg, seed: int = SEED) -> dict:
+    """Seeded decoder weights on the device (HF names): linear weights
+    N(0, 4/fan_in), biases N(0, 0.02^2), LayerNorms 1 + N(0, 0.1^2) and
+    N(0, 0.1^2), the embeddings N(0, 0.05^2). (With transformers' init,
+    0.02 everywhere, or linear weights N(0, 1/fan_in), a random decoder
+    repeats one or a few tokens, whatever the audio: the cross-attention's
+    average over 1,500 frames varies little, and the tied head then picks
+    the same rows.)"""
+    from interspeech_ser_tpu_torch.models.whisper_decoder import WhisperDecoderModel
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in WhisperDecoderModel(cfg).state_dict().items()}
+    sd = {}
+    for k, shape in shapes.items():
+        x = torch.randn(shape, generator=g, device=DEVICE)
+        if "layer_norm" in k:
+            x = (1.0 if k.endswith("weight") else 0.0) + 0.1 * x
+        elif "embed" in k:
+            x = 0.05 * x
+        else:
+            x = x * (0.02 if k.endswith("bias") else 2 * shape[1] ** -0.5)
+        sd[k] = x
+    return sd
+
+
+def write_whisper_transcriber(model_dir: str, enc_cfg, dec_cfg, n_regular: int, n_suppress: int) -> dict:
+    """A seeded random-init Whisper (encoder and decoder) as an HF
+    ``WhisperForConditionalGeneration`` directory: ``config.json`` with both
+    halves' fields and the token ids, the weights under ``model.encoder.``
+    and ``model.decoder.`` in float16 (as openai/whisper-large-v3 ships
+    them) in ``pytorch_model.bin``, the synthetic tokenizer files and
+    ``generation_config.json`` -> {added token: id}."""
+    from interspeech_ser_tpu_torch.models import whisper as mw
+
+    ids = write_whisper_tokenizer(model_dir, n_regular)
+    gen = whisper_generation_config(ids, n_regular, n_suppress)
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        encoder = mw.WhisperEncoderModel(enc_cfg)
+    sd = {f"model.encoder.{k}": v.half().cpu() for k, v in encoder.state_dict().items()}
+    del encoder
+    sd.update({f"model.decoder.{k}": v.half().cpu() for k, v in seeded_decoder_state_dict(dec_cfg).items()})
+    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
+    eot = ids["<|endoftext|>"]
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**enc_cfg.to_hf(), **dec_cfg.to_hf(), "architectures": ["WhisperForConditionalGeneration"],
+                   "decoder_start_token_id": gen["decoder_start_token_id"], "eos_token_id": eot,
+                   "bos_token_id": eot, "pad_token_id": eot, "torch_dtype": "float16"}, f, indent=1)
+    with open(os.path.join(model_dir, "generation_config.json"), "w") as f:
+        json.dump(gen, f, indent=1)
+    return ids
+
+
+def write_transcribe_wavs(wav_dir: str, seed: int) -> dict:
+    """TRANSCRIBE_SHAPE's seeded wavs ``tr00.wav``...: tones with a few
+    harmonics in noise, the rates taken in turn, one (``long_index``) of
+    ``long_seconds`` ->
+    {name: (seconds, rate)}."""
+    shape = TRANSCRIBE_SHAPE
+    rng = np.random.default_rng(seed)
+    os.makedirs(wav_dir, exist_ok=True)
+    out = {}
+    for i in range(shape["n_wavs"]):
+        sr = shape["rates"][i % len(shape["rates"])]
+        sec = shape["long_seconds"] if i == shape["long_index"] else float(rng.uniform(*shape["seconds"]))
+        t = np.arange(int(sec * sr)) / sr
+        f0 = rng.uniform(100, 300)
+        x = sum(0.3 / k * np.sin(2 * np.pi * k * f0 * t) for k in (1, 2, 3)) + 0.05 * rng.standard_normal(len(t))
+        name = f"tr{i:02d}.wav"
+        write_wav(os.path.join(wav_dir, name), x, sr)
+        out[name] = (sec, sr)
+    return out
+
+
+def run_transcription(tmp: str, smi: str) -> dict:
+    """Phase 12's main path: the model directory and wavs, then
+    ``transcribe_cli.main`` in bf16 and in f32 at TRANSCRIBE_SHAPE's batch and
+    token count: (a) one CSV row per wav in sorted order, the CSV's format;
+    (c) every wav read by the native loader. The launch counts (b) are read
+    by the caller."""
+    from interspeech_ser_tpu_torch import transcribe_cli
+    from interspeech_ser_tpu_torch.models import whisper as mw
+    from interspeech_ser_tpu_torch.models import whisper_decoder as wd
+    from interspeech_ser_tpu_torch.utils import audio, native_audio
+
+    shape = TRANSCRIBE_SHAPE
+    enc_cfg, dec_cfg = mw.whisper_large_v3(), wd.whisper_large_v3_decoder()
+    model_dir = os.path.join(tmp, "whisper-large-v3-full")
+    t0 = time.perf_counter()
+    ids = write_whisper_transcriber(model_dir, enc_cfg, dec_cfg, shape["regular_tokens"], shape["n_suppress"])
+    write_s = time.perf_counter() - t0
+    log(f"[transcribe] wrote seeded random-init Whisper-large-v3 ({enc_cfg.encoder_layers} + {dec_cfg.decoder_layers}"
+        f" layers, D={dec_cfg.d_model}, vocab {dec_cfg.vocab_size}, float16 weights, synthetic tokenizer) to "
+        f"{model_dir} in {write_s:.1f} s")
+    wav_dir = os.path.join(tmp, "transcribe_wavs")
+    wavs = write_transcribe_wavs(wav_dir, SEED + 12)
+    names = sorted(os.listdir(wav_dir))
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        out_csv = os.path.join(tmp, f"transcript_{dtype}.csv")
+        loads = dict(audio.LOADS)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = transcribe_cli.main(["--model", model_dir, "--wav_dir", wav_dir, "--out_csv", out_csv,
+                                     "--batch_size", str(shape["batch_size"]), "--max_new_tokens",
+                                     str(shape["max_new_tokens"]), "--dtype", dtype, "--device", DEVICE])
+        cli_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else float("nan")
+        native = audio.LOADS["native"] - loads["native"]
+        require(native == len(names) and audio.LOADS["python"] == loads["python"] and native_audio.available(),
+                f"(c) transcribe {dtype}: {native} of {len(names)} wavs through the native loader, "
+                f"{audio.LOADS['python'] - loads['python']} through python ({native_audio.BUILD_ERROR})")
+        with open(out_csv, "rb") as f:
+            raw = f.read()
+        with open(out_csv, newline="", encoding="utf-8") as f:
+            rows = list(csv.reader(f))
+        require(rows[0] == ["FileName", "transcription"] and [r[0] for r in rows[1:]] == names
+                and rows[1:] == stats.rows and raw.endswith(b"\n") and b"\r" not in raw,
+                f"(a) transcribe {dtype}: CSV rows {[r[0] for r in rows[1:]]} vs wavs {names}")
+        require(stats.n_batches == -(-len(names) // shape["batch_size"]), f"transcribe {dtype}: {stats.n_batches}")
+        runs[dtype] = {"stats": stats, "cli_s": cli_s, "peak_gb": peak, "csv": out_csv}
+        log(f"[transcribe] transcribe_cli {dtype}: {stats.n_utts} wavs, {stats.n_batches} batch(es) of "
+            f"{shape['batch_size']} x {shape['max_new_tokens']} new tokens: batches {stats.wall_seconds:.2f} s = "
+            f"{stats.utts_per_sec:.2f} utt/s, encoder {stats.encoder_seconds:.3f} s, decode "
+            f"{stats.decode_seconds:.2f} s = {stats.tokens_per_sec:.1f} emitted tokens/s ({stats.emitted_tokens} tokens; "
+            f"{stats.slots_per_sec:.1f} token slots/s); whole CLI {cli_s:.1f} s; peak device memory {peak:.2f} GB; "
+            f"row 0 {rows[1][1][:60]!r} ({smi})")
+    # the host's cost of one wav read by each loader, the first wav of each rate, one thread
+    load_s = {}
+    for name, (sec, sr) in wavs.items():
+        if sr not in load_s:
+            path = os.path.join(wav_dir, name)
+            t0 = time.perf_counter()
+            native_audio.load_wav_native(path)
+            t1 = time.perf_counter()
+            audio.load_wav_python(path)
+            load_s[sr] = {"audio_s": sec, "native_s": t1 - t0, "python_s": time.perf_counter() - t1}
+    log("[transcribe] one wav read on one thread, native vs python (utils/audio.load_wav_python): " + "; ".join(
+        f"{sr} Hz {v['audio_s']:.2f} audio-s: {v['native_s']:.4f} s vs {v['python_s']:.4f} s" for sr, v in load_s.items()))
+    return {"dir": model_dir, "wav_dir": wav_dir, "wavs": wavs, "names": names, "ids": ids, "runs": runs,
+            "write_s": write_s, "enc_cfg": enc_cfg, "dec_cfg": dec_cfg, "load_s": load_s}
+
+
+def _ms(fn, reps: int = 3) -> float:
+    """Median ms of ``fn()``: CUDA events on the card, the host clock here."""
+    if DEVICE == "cuda":
+        return median_ms(fn, reps)
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def decode_step_bound(enc_cfg, dec_cfg, B: int, idx: int, dtype: torch.dtype) -> tuple:
+    """(ms, "bytes" / "operations") of one cached step at position ``idx``:
+    the layer weights it reads in the compute dtype (self q/k/v/o, cross q/o,
+    fc1 / fc2), the cross K/V, the self caches up to ``idx``, the f32 LM head
+    and the token and position rows; the multiply-adds of those products."""
+    D, L, F, V = dec_cfg.d_model, dec_cfg.decoder_layers, dec_cfg.decoder_ffn_dim, dec_cfg.vocab_size
+    S = enc_cfg.max_source_positions
+    e = torch.empty((), dtype=dtype).element_size()
+    per_layer = 6 * D * D + 2 * D * F + 9 * D + F  # weights and biases a step reads
+    nbytes = (L * per_layer * e + L * 2 * B * S * D * e + L * 2 * B * (idx + 1) * D * e + V * D * 4
+              + 2 * B * D * 4)
+    flops = 2 * B * (L * (6 * D * D + 2 * D * F) + L * 2 * (S + idx + 1) * D) + 2 * B * V * D
+    return roofline_ms(nbytes, flops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+
+
+def check_transcription(tr: dict, smi: str) -> dict:
+    """Phase 12's checks and times on the card, over the first batch: (d)
+    the f32 run's tokens teacher-forced through ``WhisperDecoderModel``
+    (each emitted token within TIE_GAP of its step's maximum, near-ties
+    counted); (e) ``greedy_decode`` = ``greedy_decode_cached`` in f32 over
+    TRANSCRIBE_SHAPE's recompute tokens; (f) the bf16 cached decoder fed the
+    f32 tokens, each step's logits against the f32 teacher-forced ones at
+    BF16_STEP_COSINE; then per dtype the encoder ms per batch, the cross-K/V
+    projection ms, the decode step's median ms beside its bound, and the
+    device's idle share over profiled decode steps."""
+    from interspeech_ser_tpu_torch import transcribe_cli
+    from interspeech_ser_tpu_torch.models import whisper as mw
+    from interspeech_ser_tpu_torch.models import whisper_decoder as wd
+    from interspeech_ser_tpu_torch.models.loader import (build_whisper_decoder, build_whisper_encoder,
+                                                         load_hf_state_dict, read_whisper_config)
+    from interspeech_ser_tpu_torch.ops.mel import whisper_log_mel
+    from interspeech_ser_tpu_torch.preprocess_cli import set_precision
+
+    shape = TRANSCRIBE_SHAPE
+    set_precision("float32")
+    sd = load_hf_state_dict(tr["dir"])
+    enc32, enc_cfg = build_whisper_encoder(tr["dir"], state_dict=sd)
+    dec32, dec_cfg = build_whisper_decoder(tr["dir"], state_dict=sd)
+    del sd
+    enc32, dec32 = enc32.to(DEVICE), dec32.to(DEVICE)
+    with torch.device("meta"):  # bf16 twins sharing the f32 weights
+        enc16 = mw.WhisperEncoderModel(dataclasses.replace(enc_cfg, dtype="bfloat16"))
+        dec16 = wd.WhisperDecoderModel(dataclasses.replace(dec_cfg, dtype="bfloat16"))
+    enc16.load_state_dict(enc32.state_dict(), assign=True)
+    dec16.load_state_dict(dec32.state_dict(), assign=True)
+    stats32 = tr["runs"]["float32"]["stats"]
+    prompt, eot, P, N = stats32.prompt_ids, stats32.eot_id, len(stats32.prompt_ids), shape["max_new_tokens"]
+    _, suppress, _ = transcribe_cli.generation_setup(tr["dir"], read_whisper_config(tr["dir"]))
+    B = shape["batch_size"]
+    wavs = transcribe_cli.load_batch(tr["wav_dir"], tr["names"][:B], B)
+    res = {"prompt": prompt, "eot": eot}
+    with torch.inference_mode():
+        mel = whisper_log_mel(torch.from_numpy(wavs).to(DEVICE), num_mels=enc_cfg.num_mel_bins)
+        out32 = enc32(mel, keep=(-1,))["last_hidden_state"]
+        out16 = enc16(mel, keep=(-1,))["last_hidden_state"]
+        tokens = torch.from_numpy(stats32.tokens[0]).to(DEVICE)  # [B, P + N]
+        sup = torch.tensor(suppress, device=DEVICE)
+
+        # (d) the f32 run's tokens teacher-forced on the card
+        logits = dec32(tokens[:, :-1], out32)[:, P - 1:]  # [B, N, V]: the logits that picked tokens P..
+        chosen = logits.index_fill(-1, sup, wd.NEG_INF)
+        emitted = tokens[:, P:]
+        live = torch.ones_like(emitted, dtype=torch.bool)  # up to and including a row's first EOT
+        live[:, 1:] = (emitted[:, :-1] != eot).cumprod(dim=1).bool()
+        top2 = chosen.topk(2, dim=-1).values
+        gap = (top2[..., 0] - chosen.gather(-1, emitted[..., None])[..., 0])[live]
+        margin = (top2[..., 0] - top2[..., 1])[live]
+        res["d"] = {"max_gap": float(gap.max()), "not_argmax": int((gap > 0).sum()),
+                    "near_ties": int((margin < TIE_GAP).sum()), "steps": int(live.sum()),
+                    "logit_absmax": float(logits.abs().max()), "distinct_tokens": int(emitted.unique().numel()),
+                    "finished_rows": int((emitted == eot).any(dim=1).sum())}
+        log(f"[transcribe] (d) f32 tokens teacher-forced through WhisperDecoderModel: {res['d']['steps']} emitted "
+            f"tokens, largest gap to the step's maximum {res['d']['max_gap']:.3e} (bar {TIE_GAP}), "
+            f"{res['d']['not_argmax']} not the teacher-forced argmax, {res['d']['near_ties']} steps with a top-2 "
+            f"gap under {TIE_GAP}; logits up to {res['d']['logit_absmax']:.2f}, {res['d']['distinct_tokens']} "
+            f"distinct tokens, {res['d']['finished_rows']} rows ended by EOT")
+        require(res["d"]["max_gap"] <= TIE_GAP, f"(d) an emitted token lies {res['d']['max_gap']} below its step's max")
+
+        # (e) recompute vs cached greedy, f32
+        n8 = shape["recompute_tokens"]
+        slow = wd.greedy_decode(dec32, out32, prompt, eot, n8, suppress)
+        fast = wd.greedy_decode_cached(dec32, out32, prompt, eot, n8, suppress)
+        res["e"] = {"equal": bool(torch.equal(slow, fast)), "same_as_cli": bool(torch.equal(fast, tokens[:, :P + n8]))}
+        log(f"[transcribe] (e) greedy_decode vs greedy_decode_cached, f32, {n8} new tokens x {B} rows: "
+            f"equal {res['e']['equal']}; the CLI's first {n8} tokens too: {res['e']['same_as_cli']}")
+        require(res["e"]["equal"], f"(e) recompute {slow.tolist()} != cached {fast.tolist()}")
+
+        # (f) bf16 cached steps, fed the f32 tokens, against the f32 teacher-forced logits; the
+        # same run times the bf16 steps
+        state16 = wd.CachedDecoder(dec16, out16, P + N)
+        cos = []
+        steps16 = step_through(state16, tokens, P, lambda t, step: cos.append(torch.nn.functional.cosine_similarity(
+            step.double(), logits[:, t - P + 1].double(), dim=-1)))
+        cos = torch.cat(cos)
+        res["f"] = {"min_cos": float(cos.min()), "median_cos": float(cos.median()), "n": int(cos.numel())}
+        log(f"[transcribe] (f) bf16 cached step logits vs f32 teacher-forced, {res['f']['n']} row-steps: cosine min "
+            f"{res['f']['min_cos']:.6f}, median {res['f']['median_cos']:.6f} (bar {BF16_STEP_COSINE})")
+        require(res["f"]["min_cos"] >= BF16_STEP_COSINE, f"(f) bf16 step cosine {res['f']['min_cos']}")
+        res["f_products"] = check_f32_products(state16, tokens, P + N // 2)
+        del logits, chosen
+
+        # times, per dtype, at the CLI's batch
+        for dtype, enc, dec, out in (("bfloat16", enc16, dec16, out16), ("float32", enc32, dec32, out32)):
+            t = {"encoder_ms": _ms(lambda: enc(mel, keep=(-1,)))}
+            if dtype == "bfloat16":
+                state, step_ms = state16, steps16
+            else:
+                state = wd.CachedDecoder(dec, out, P + N)
+                step_ms = step_through(state, tokens, P)
+            t["cross_kv_ms"] = _ms(lambda: state.project_cross_kv(dec, out))
+            t["step_ms"], t["step_ms_min"] = statistics.median(step_ms), min(step_ms)
+            mid = P + N // 2
+            t["bound_ms"], t["bound_by"] = decode_step_bound(enc_cfg, dec_cfg, B, mid, dec.config.compute_dtype)
+            t.update(profile_decode(state, tokens, P, shape["profile_steps"], dtype, smi))
+            run = tr["runs"][dtype]
+            t.update({"cli_tokens_per_sec": run["stats"].tokens_per_sec, "cli_slots_per_sec": run["stats"].slots_per_sec,
+                      "cli_emitted_tokens": run["stats"].emitted_tokens, "cli_utt_per_sec": run["stats"].utts_per_sec,
+                      "cli_decode_s": run["stats"].decode_seconds, "cli_encoder_s": run["stats"].encoder_seconds,
+                      "cli_batches_s": run["stats"].wall_seconds, "cli_s": run["cli_s"], "peak_gb": run["peak_gb"]})
+            res[dtype] = t
+            log(f"[transcribe] {dtype} B={B}: encoder {t['encoder_ms']:.2f} ms a batch, cross-K/V projection "
+                f"{t['cross_kv_ms']:.2f} ms, decode step median {t['step_ms']:.3f} ms (min {t['step_ms_min']:.3f}) vs "
+                f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}, step {mid}); CLI {t['cli_tokens_per_sec']:.1f} "
+                f"emitted tokens/s ({t['cli_slots_per_sec']:.1f} slots/s), {t['cli_utt_per_sec']:.2f} utt/s; decode idle {100 * t['idle_share']:.1f}%; peak "
+                f"{t['peak_gb']:.2f} GB ({smi})")
+            del state
+        del state16
+    return res
+
+
+def check_f32_products(state, tokens: torch.Tensor, idx: int) -> dict:
+    """(f), the products: one bf16 step at position ``idx`` (its caches
+    already filled, so the step rewrites them with the same values), each
+    product it sends through ``_f32_product`` (every layer's self and cross
+    scores and weighted sums) held to ``torch.matmul`` of the operands upcast
+    to f32: the relative L2 of ``_f32_product``'s result within
+    F32_PRODUCT_REL, and that of the same result rounded to bf16 beyond it."""
+    from interspeech_ser_tpu_torch.models import whisper_decoder as wd
+
+    product, errs, rounded = wd._f32_product, [], []
+
+    def recording(a, b):
+        out = product(a, b)
+        ref = torch.matmul(a.float(), b.float()).double()
+        scale = ref.norm()
+        errs.append(float((out.double() - ref).norm() / scale))
+        rounded.append(float((out.to(a.dtype).double() - ref).norm() / scale))
+        return out
+
+    wd._f32_product = recording
+    try:
+        state.step(tokens[:, idx], idx)
+    finally:
+        wd._f32_product = product
+    res = {"n": len(errs), "dtype": str(state.cfg.compute_dtype), "max_rel": max(errs),
+           "rounded_min_rel": min(rounded), "rounded_max_rel": max(rounded)}
+    log(f"[transcribe] (f) _f32_product on {res['n']} bf16 products of step {idx} vs the f32 product of the upcast "
+        f"operands: relative L2 max {res['max_rel']:.3e} (bar {F32_PRODUCT_REL}); rounded to bf16 it would read "
+        f"{res['rounded_min_rel']:.3e}-{res['rounded_max_rel']:.3e}")
+    require(state.cfg.compute_dtype == torch.bfloat16 and res["n"] == 4 * state.cfg.decoder_layers,
+            f"(f) products: {res['n']} products of a {state.cfg.compute_dtype} step")
+    require(res["max_rel"] <= F32_PRODUCT_REL, f"(f) _f32_product lies {res['max_rel']} from the f32 product")
+    require(res["rounded_min_rel"] > F32_PRODUCT_REL,
+            f"(f) a bf16-rounded product reads {res['rounded_min_rel']}: the bar cannot tell f32 from bf16")
+    return res
+
+
+def step_through(state, tokens: torch.Tensor, P: int, each=None) -> list:
+    """Every position of ``tokens`` [B, P + N] through ``state.step`` (the
+    prompt's only fill the caches) -> the ms of each emitting step: CUDA
+    events around the step on the card (a host-bound step reads its host
+    time), the host clock here. ``each(t, logits)`` sees each emitting
+    step's logits, outside the timed window."""
+    times = []
+    for t in range(tokens.shape[1] - 1):
+        emit = t >= P - 1
+        if DEVICE == "cuda":
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            logits = state.step(tokens[:, t], t, logits=emit)
+            e.record()
+        else:
+            h0 = time.perf_counter()
+            logits = state.step(tokens[:, t], t, logits=emit)
+            s, e = (time.perf_counter() - h0) * 1e3, None
+        if emit:
+            times.append((s, e))
+            if each is not None:
+                each(t, logits)
+    sync()
+    return [s.elapsed_time(e) if e is not None else s for s, e in times]
+
+
+def profile_decode(state, tokens: torch.Tensor, P: int, n: int, dtype: str, smi: str) -> dict:
+    """``n`` decode steps from position P under the profiler (the caches
+    already filled by a run): wall and device-busy ms, the idle share, the
+    kernels launched a step and the top device ops."""
+    if DEVICE != "cuda":
+        return {"idle_share": float("nan")}
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(P, P + n):
+            state.step(tokens[:, i], i)
+        sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"profile_wall_ms": wall_ms, "profile_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+           "kernels_per_step": sum(e.count for e in kernels) / n,
+           "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+    log(f"[transcribe] profile of {n} {dtype} decode steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"(idle {100 * res['idle_share']:.1f}%), {res['kernels_per_step']:.0f} kernels a step ({smi})")
+    for name, ms, count in res["top"]:
+        log(f"[transcribe]   {ms:9.3f} ms  x{count:<5d} {name}")
+    return res
+
+
 T0 = time.perf_counter()
 
 
@@ -3600,9 +4118,27 @@ def main() -> None:
         baseline["grads"] = check_baseline_grads(tmp, wavlm_dir, baseline["config_path"])
         baseline["steps"] = time_baseline_steps(wavlm_dir, baseline["config_path"], smi)
         baseline["phase_s"] = time.perf_counter() - t_base
+
+        zero_counts()
+        t_tr = time.perf_counter()
+        transcribed = run_transcription(tmp, smi)
+        transcribe_path = counts()
+        n_batches = sum(run["stats"].n_batches for run in transcribed["runs"].values())
+        want = transcribed["enc_cfg"].encoder_layers * n_batches
+        require(transcribe_path["attention_btd"] == want,
+                f"(b) K1 launches {transcribe_path['attention_btd']} != {transcribed['enc_cfg'].encoder_layers} "
+                f"layers x {n_batches} batches on the transcription path")
+        moved = {k: v for k, v in transcribe_path.items() if k != "attention_btd" and v}
+        require(not moved, f"(b) kernels other than K1 launched on the transcription path: {moved}")
+        log(f"[transcribe path] launches {transcribe_path}")
+        transcription = check_transcription(transcribed, smi)
+        transcription["write_s"] = transcribed["write_s"]
+        transcription["load_s"] = transcribed["load_s"]
+        transcription["phase_s"] = time.perf_counter() - t_tr
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
-               "trimodal": trimodal_path, "baseline": baseline_path}
-    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline"):  # the speech and fusion paths never reach K6 / K7
+               "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path}
+    # the speech, fusion and transcription paths never reach K6 / K7
+    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe"):
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
@@ -3632,12 +4168,19 @@ def main() -> None:
         f"{b['f32_micro_step_ms']:.3f} ms, bf16 {b['bf16_micro_step_ms']:.3f} ms; AdamW step {b['f32_optimizer_step_ms']:.3f} "
         f"ms; peak {b['f32_peak_gb']:.2f} / {b['bf16_peak_gb']:.2f} GB; f32 inference "
         f"{b['inference_s_per_audio_s']:.5f} s per audio-s; phase 11 {baseline['phase_s']:.1f} s ({smi})")
+    t16, t32 = transcription["bfloat16"], transcription["float32"]
+    log(f"[transcribe] Whisper-large-v3, B={TRANSCRIBE_SHAPE['batch_size']} x {TRANSCRIBE_SHAPE['max_new_tokens']} new "
+        f"tokens: decode step median bf16 {t16['step_ms']:.3f} ms (bound {t16['bound_ms']:.3f}), f32 "
+        f"{t32['step_ms']:.3f} ms (bound {t32['bound_ms']:.3f}); CLI emitted tokens/s bf16 {t16['cli_tokens_per_sec']:.1f}, "
+        f"f32 {t32['cli_tokens_per_sec']:.1f} (slots/s {t16['cli_slots_per_sec']:.1f}, {t32['cli_slots_per_sec']:.1f}); encoder ms a batch bf16 {t16['encoder_ms']:.2f}, f32 "
+        f"{t32['encoder_ms']:.2f}; decode idle bf16 {100 * t16['idle_share']:.1f}%, f32 {100 * t32['idle_share']:.1f}%;"
+        f" phase 12 {transcription['phase_s']:.1f} s ({smi})")
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
                              **steps},
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
-                    "baseline": baseline, "seconds": time.perf_counter() - T0}))
+                    "baseline": baseline, "transcription": transcription, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

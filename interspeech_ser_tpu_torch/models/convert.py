@@ -9,6 +9,8 @@ nested dicts of numpy arrays and return the port's state dicts.
   group-norm frontends, with or without conv biases.
 - :func:`whisper_params_from_flax` mirrors ``whisper_encoder_hf_to_flax``
   in reverse and yields HF Whisper-encoder key names.
+- :func:`whisper_decoder_params_from_flax` mirrors ``whisper_decoder_hf_to_flax``
+  in reverse and yields HF Whisper-decoder key names.
 - :func:`roberta_params_from_flax` and :func:`deberta_v2_params_from_flax`
   mirror ``roberta_hf_to_flax`` and ``deberta_v2_hf_to_flax`` in reverse
   and yield HF RobertaModel / DebertaV2Model key names (no prefix).
@@ -118,6 +120,31 @@ def whisper_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
             if proj != "k_proj":
                 sd[f"{base}.self_attn.{proj}.bias"] = g(src, "self_attn", proj, "bias")
         for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[f"{base}.{ln}.weight"] = g(src, ln, "scale")
+            sd[f"{base}.{ln}.bias"] = g(src, ln, "bias")
+        for fc in ("fc1", "fc2"):
+            sd[f"{base}.{fc}.weight"] = _t(g(src, fc, "kernel"))
+            sd[f"{base}.{fc}.bias"] = g(src, fc, "bias")
+    return _to_torch(sd)
+
+
+def whisper_decoder_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """JAX ``WhisperDecoderModel`` params -> the port's (HF-named) state dict."""
+    g = lambda *p: _get(params, *p)  # noqa: E731
+    sd: Dict[str, np.ndarray] = {
+        "embed_tokens.weight": g("embed_tokens"),
+        "embed_positions.weight": g("embed_positions"),
+        "layer_norm.weight": g("layer_norm", "scale"),
+        "layer_norm.bias": g("layer_norm", "bias"),
+    }
+    for i in range(config.decoder_layers):
+        base, src = f"layers.{i}", f"layer{i}"
+        for attn in ("self_attn", "encoder_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                sd[f"{base}.{attn}.{proj}.weight"] = _t(g(src, attn, proj, "kernel"))
+                if proj != "k_proj":
+                    sd[f"{base}.{attn}.{proj}.bias"] = g(src, attn, proj, "bias")
+        for ln in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm"):
             sd[f"{base}.{ln}.weight"] = g(src, ln, "scale")
             sd[f"{base}.{ln}.bias"] = g(src, ln, "bias")
         for fc in ("fc1", "fc2"):

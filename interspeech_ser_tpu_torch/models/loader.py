@@ -1,9 +1,10 @@
-"""Load a local HF-format speech, Whisper or text checkpoint, or the NS3
-FACodec ``.bin`` files, into the port's encoders.
+"""Load a local HF-format speech, Whisper (encoder and decoder) or text
+checkpoint, or the NS3 FACodec ``.bin`` files, into the port's models.
 
 Port of ``interspeech_ser_tpu/models/loader.py::build_speech_encoder``,
-``build_whisper_encoder``, ``build_roberta`` and ``build_deberta_v2``
-without transformers or safetensors: ``config.json`` is read with ``json``,
+``build_whisper_encoder``, ``build_roberta`` and ``build_deberta_v2``, and
+of ``whisper_decoder_hf_to_flax`` (``models/whisper_decoder.py``), without
+transformers or safetensors: ``config.json`` is read with ``json``,
 weights come from ``pytorch_model.bin`` (``torch.load(weights_only=True)``)
 or ``model.safetensors`` (a small reader below), sharded or not. The
 positional conv's weight norm is folded into a plain kernel
@@ -30,6 +31,7 @@ from .ns3.facodec import ProsodyExtractor
 from .speech import SpeechConfig, SpeechEncoderModel
 from .text import DebertaV2Config, DebertaV2Model, RobertaConfig, RobertaModel
 from .whisper import WhisperEncoderConfig, WhisperEncoderModel
+from .whisper_decoder import WhisperDecoderConfig, WhisperDecoderModel
 
 _ST_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -234,21 +236,52 @@ def build_speech_encoder(
     return model, cfg, do_normalize
 
 
-def build_whisper_encoder(
-    path_or_name: str, dtype: str = "float32"
-) -> Tuple[WhisperEncoderModel, WhisperEncoderConfig]:
-    """-> (encoder in f32 on the CPU, config). Takes a Whisper directory only;
-    keys under a ``model.encoder.`` or ``encoder.`` prefix are kept with the
-    prefix stripped (the decoder's are dropped), and the load is strict."""
+def read_whisper_config(path_or_name: str) -> Dict:
+    """A Whisper directory's ``config.json``; any other model type raises."""
     d = resolve_dir(path_or_name)
     hf = read_config(d)
     if hf.get("model_type") != "whisper":
         raise ValueError(f"{d}: model_type {hf.get('model_type')!r} is not 'whisper'")
-    cfg = WhisperEncoderConfig.from_hf(hf, dtype=dtype)
-    sd = _strip_prefix(load_hf_state_dict(d), ("model.encoder.", "encoder."))
+    return hf
+
+
+def build_whisper_encoder(
+    path_or_name: str, dtype: str = "float32", state_dict: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[WhisperEncoderModel, WhisperEncoderConfig]:
+    """-> (encoder in f32 on the CPU, config). Takes a Whisper directory only;
+    keys under a ``model.encoder.`` or ``encoder.`` prefix are kept with the
+    prefix stripped (the decoder's are dropped), and the load is strict.
+    ``state_dict``: the directory's weights, already read."""
+    cfg = WhisperEncoderConfig.from_hf(read_whisper_config(path_or_name), dtype=dtype)
+    sd = load_hf_state_dict(path_or_name) if state_dict is None else state_dict
+    sd = _strip_prefix(sd, ("model.encoder.", "encoder."))
     with torch.device("meta"):
         model = WhisperEncoderModel(cfg)
     model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True, assign=True)
+    return model.eval(), cfg
+
+
+def whisper_decoder_state_dict_from_hf(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An HF ``WhisperForConditionalGeneration`` / ``WhisperModel`` state dict
+    -> the port's ``WhisperDecoderModel`` state dict in f32: the keys under
+    ``model.decoder.`` or ``decoder.`` with the prefix stripped (the
+    encoder's and the tied ``proj_out`` dropped), as ``whisper_decoder_hf_to_flax``
+    reads them."""
+    return {k: v.float() for k, v in _strip_prefix(sd, ("model.decoder.", "decoder.")).items()}
+
+
+def build_whisper_decoder(
+    path_or_name: str, dtype: str = "float32", state_dict: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[WhisperDecoderModel, WhisperDecoderConfig]:
+    """-> (decoder in f32 on the CPU, config) from the same ``config.json``
+    and weights as :func:`build_whisper_encoder`, so that one HF
+    ``WhisperForConditionalGeneration`` directory builds both halves; the
+    load is strict. ``state_dict``: the directory's weights, already read."""
+    cfg = WhisperDecoderConfig.from_hf(read_whisper_config(path_or_name), dtype=dtype)
+    sd = load_hf_state_dict(path_or_name) if state_dict is None else state_dict
+    with torch.device("meta"):
+        model = WhisperDecoderModel(cfg)
+    model.load_state_dict(whisper_decoder_state_dict_from_hf(sd), strict=True, assign=True)
     return model.eval(), cfg
 
 

@@ -416,3 +416,64 @@ def test_baseline_phase_on_cpu(tmp_path, monkeypatch):
     steps = cs.time_baseline_steps(wavlm_dir, base["config_path"], "a card, 700 W")
     assert len(steps["f32_micro_step_ms_runs"]) == 2 and len(steps["bf16_micro_step_ms_runs"]) == 2
     assert steps["inference_s_per_audio_s"] > 0
+
+
+def test_transcribe_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 12 at a tiny size (Whisper at D=64 over 2 + 2 layers, 300 BPE
+    tokens before Whisper-large-v3's 1,609 added ones, 5 wavs of 0.5-1.5 s
+    and one of 31 s at 16 / 22.05 / 44.1 / 8 kHz, batches of 2, 6 new
+    tokens): the model directory and tokenizer files, ``transcribe_cli`` in
+    bf16 and f32 with the CSV and native-loader checks, K1 = layers x
+    batches, then checks (d)-(f) and the timings."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import whisper, whisper_decoder
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka
+
+    n_regular = 300
+    n_added = len(cs.whisper_added_tokens())
+
+    def tiny_whisper(dtype="float32"):
+        return whisper.WhisperEncoderConfig(num_mel_bins=16, d_model=64, encoder_layers=2, encoder_attention_heads=2,
+                                            encoder_ffn_dim=128, dtype=dtype)
+
+    def tiny_decoder(dtype="float32"):
+        return whisper_decoder.WhisperDecoderConfig(vocab_size=n_regular + n_added, d_model=64, decoder_layers=2,
+                                                    decoder_attention_heads=2, decoder_ffn_dim=128, dtype=dtype)
+
+    def counting(q, k, v, H, key_mask=None, scale=None, gate=None, shared_bias=None, plain=False):
+        if not plain:
+            ka.LAUNCHES += 1
+        return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "TRANSCRIBE_SHAPE", dict(
+        n_wavs=6, seconds=(0.5, 1.5), long_index=3, long_seconds=31.0, rates=(16000, 22050, 44100, 8000),
+        batch_size=2, max_new_tokens=6, regular_tokens=n_regular, n_suppress=10, recompute_tokens=3,
+        profile_steps=2))
+    monkeypatch.setattr(whisper, "whisper_large_v3", tiny_whisper)
+    monkeypatch.setattr(whisper_decoder, "whisper_large_v3_decoder", tiny_decoder)
+    monkeypatch.setattr(whisper, "dot_product_attention_btd", counting)
+    cs.zero_counts()
+
+    tmp = str(tmp_path)
+    tr = cs.run_transcription(tmp, "a card, 700 W")
+    launches = cs.counts()
+    assert launches["attention_btd"] == 2 * (3 + 3)  # 2 layers x 3 batches, in bf16 and in f32
+    assert not any(v for k, v in launches.items() if k != "attention_btd")
+    assert tr["names"] == [f"tr{i:02d}.wav" for i in range(6)] and tr["wavs"]["tr03.wav"] == (31.0, 8000)
+    for run in tr["runs"].values():
+        assert len(run["stats"].rows) == 6 and run["stats"].tokens[0].shape == (2, 4 + 6)
+    res = cs.check_transcription(tr, "a card, 700 W")
+    assert res["d"]["max_gap"] <= cs.TIE_GAP and res["d"]["steps"] >= 2
+    assert res["e"]["equal"] and res["e"]["same_as_cli"]
+    assert res["f"]["min_cos"] >= cs.BF16_STEP_COSINE and res["f"]["n"] == 2 * 6
+    fp = res["f_products"]
+    assert fp["n"] == 4 * 2 and fp["max_rel"] <= cs.F32_PRODUCT_REL < fp["rounded_min_rel"]
+    assert sorted(tr["load_s"]) == [8000, 16000, 22050, 44100]
+    assert all(v["native_s"] > 0 and v["python_s"] > 0 for v in tr["load_s"].values())
+    for run in tr["runs"].values():
+        st = run["stats"]
+        assert 0 < st.emitted_tokens <= 6 * 6 and st.tokens_per_sec <= st.slots_per_sec
+    for dtype in ("bfloat16", "float32"):
+        t = res[dtype]
+        assert t["encoder_ms"] > 0 and t["cross_kv_ms"] > 0 and t["step_ms"] > 0 and t["bound_by"] == "bytes"

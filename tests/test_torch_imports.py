@@ -1,6 +1,7 @@
 """Every module of ``interspeech_ser_tpu_torch`` (and ``chip_smoke.py``)
 imports without jax, flax, pandas, transformers, safetensors, tokenizers,
-regex or the JAX package, and without building or launching a kernel. Run
+regex or the JAX package, and without building or launching a kernel or
+building the native wav loader. Run
 in a fresh interpreter, because this test session has imported jax already
 (tests/conftest.py)."""
 
@@ -19,11 +20,13 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 from interspeech_ser_tpu_torch.ops.kernels import _build, attention, attention_bhtd, conv_frontend, ffn_fused, gru, pos_conv
+from interspeech_ser_tpu_torch.utils import audio, native_audio
 print(json.dumps({
     "modules": mods,
     "heavy": [m for m in ("jax", "flax", "pandas", "transformers", "safetensors", "tokenizers", "regex",
                           "interspeech_ser_tpu") if m in sys.modules],
     "library_loaded": _build.library.cache_info().currsize,
+    "native_probed": native_audio._TRIED or native_audio._LIB is not None or any(audio.LOADS.values()),
     "launches": [attention.LAUNCHES, attention.BWD_LAUNCHES, attention_bhtd.LAUNCHES, attention_bhtd.FLASH_LAUNCHES,
                  conv_frontend.LAUNCHES, conv_frontend.LAYER_LAUNCHES, gru.LAUNCHES, gru.BWD_LAUNCHES, gru.SEQ_LAUNCHES,
                  ffn_fused.LAUNCHES, pos_conv.LAUNCHES],
@@ -43,8 +46,10 @@ def test_port_imports_light():
               "ops.mel", "models.whisper", "models.lora", "train.lora_engine", "lora_cli",
               "baseline.podcast", "baseline.data", "ops.kernels.attention_bhtd", "models.text", "utils.spm",
               "utils.bpe", "ops.kernels.ffn_fused", "ops.kernels.pos_conv", "models.ns3", "models.ns3.facodec",
-              "baseline.models", "baseline.engine", "baseline.cli", "utils.metrics"):
+              "baseline.models", "baseline.engine", "baseline.cli", "utils.metrics", "models.whisper_decoder",
+              "utils.whisper_tokenizer", "utils.native_audio", "utils.audio", "transcribe_cli"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
+    assert out["native_probed"] is False
     assert out["launches"] == [0] * 11

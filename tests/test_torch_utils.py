@@ -32,9 +32,12 @@ def test_load_wav_matches_jax_python_path(tmp_path, monkeypatch, width, channels
     from interspeech_ser_tpu.utils.audio import load_wav as jax_load_wav
 
     # the JAX package's python decoder: its native loader may already be
-    # probed and cached by another test in this process
+    # probed and cached by another test in this process; the port's python
+    # path too (its native loader is held to both packages' paths in
+    # tests/test_torch_native_audio.py)
     monkeypatch.setattr(native_audio, "_TRIED", True)
     monkeypatch.setattr(native_audio, "_LIB", None)
+    monkeypatch.setenv("SER_TPU_NATIVE", "0")
     rng = np.random.default_rng(width * 10 + channels)
     n = 3001 * channels
     if width == 1:
