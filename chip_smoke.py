@@ -9,8 +9,9 @@ kernels from ``interspeech_ser_tpu_torch/csrc/`` into ``build/``, holds each
 kernel against its plain PyTorch version at the main path's shapes, then
 drives the serving path, the fusion training path, the LoRA fine-tuning
 path, the text-extraction path, the speech-encoder zoo, the NS3 prosody
-extractor with the trimodal trainer, the challenge baseline and Whisper
-transcription through their entry points at full width:
+extractor with the trimodal trainer, the challenge baseline, Whisper
+transcription and the legacy fusion trainers through their entry points at
+full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -165,7 +166,22 @@ transcription through their entry points at full width:
    decoder's step logits against the f32 teacher-forced ones (cosine);
    the encoder ms a batch, the cross-K/V projection ms, the median decode
    step beside its bound, tokens/s, utt/s, peak memory and the device's
-   idle share over 8 profiled decode steps, in each dtype.
+   idle share over 8 profiled decode steps, in each dtype;
+13. the legacy fusion surface (the ``bin/old`` trainers, ``cli.LEGACY``):
+   phase 6's corpus with seeded EmoAct / EmoDom / EmoVal columns and a seeded
+   gender CSV; one epoch each of ``cli.main([runner, '--legacy', stem,
+   ...])`` for the MoE (then its ``eval``, which reads the flat-key
+   checkpoint the JAX engine cannot), the GRL and SVM gender trainers, the
+   gated-pool ``fiona`` trainer (then its ``eval``), the dim + CKA trainer
+   (then ``eval_dim`` and ``test_dim``), the dim trainer warm-started from
+   phase 6's cat checkpoint and the wavlm-only classifier: finite losses,
+   per run K3 = experts x modalities x (train steps + scored batches) and K3b
+   = experts x modalities x train steps (4 experts for the MoE, 0 for the
+   single-modality model) and no other kernel, the CSVs, the checkpoints'
+   keys and strict reloads, the warm start's kept and skipped keys; then one
+   train step's gradients through K3 + K3b against the plain path for the
+   MoE, the GRL head and dim + CKA, and the median MoE and dim train steps
+   and the MoE's scoring forward at batch 64.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -179,7 +195,9 @@ eval (the trimodal path), and zeroed again just before phase 11 and read
 after its last ``eval_main`` (the baseline path: K1, K4 and K2's layer 0,
 no other kernel), and zeroed again just before phase 12 and read after its
 two ``transcribe_cli`` runs (the transcription path: K1 alone; the decoder
-is plain PyTorch, as it is plain XLA in the JAX package). K9 has no path (none
+is plain PyTorch, as it is plain XLA in the JAX package), and zeroed again
+just before phase 13 and read after its last run (the legacy path: K3 and
+K3b alone, also counted run by run). K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -4017,6 +4035,217 @@ def profile_decode(state, tokens: torch.Tensor, P: int, n: int, dtype: str, smi:
     return res
 
 
+# -- phase 13: the legacy fusion surface (bin/old through cli.LEGACY) -------------------
+
+# one epoch a run over phase 6's corpus; the runs, in order: (bin/old stem, extra flags);
+# the scoring runs read the checkpoint of the train run before them
+LEGACY_RUNS = (
+    ("train_cat_bimodal_lazy_moe", ()), ("eval_cat_bimodal_lazy_moe", ()),
+    ("train_cat_bimodal_lazy_grlgender", ("gender",)), ("train_cat_bimodal_lazy_gender_svm", ("gender",)),
+    ("train_cat_bimodal_lazy_fiona", ()), ("eval_cat_bimodal_lazy_fiona", ()),
+    ("train_dim_bimodal_lazy_cka", ()), ("eval_dim_bimodal_lazy", ()), ("test_dim_bimodal_lazy", ("test_df",)),
+    ("train_dim_bimodal_lazy_fromcat", ()), ("train_cat_wavlm_lazy", ()),
+)
+# the runs that share a model path (and so a checkpoint) with the train run named
+LEGACY_MODEL_OF = {"eval_cat_bimodal_lazy_moe": "train_cat_bimodal_lazy_moe",
+                   "eval_cat_bimodal_lazy_fiona": "train_cat_bimodal_lazy_fiona",
+                   "eval_dim_bimodal_lazy": "train_dim_bimodal_lazy_cka",
+                   "test_dim_bimodal_lazy": "train_dim_bimodal_lazy_cka"}
+LEGACY_GRAD_CHECKS = ("train_cat_bimodal_lazy_moe", "train_cat_bimodal_lazy_grlgender", "train_dim_bimodal_lazy_cka")
+
+
+def write_legacy_corpus(tmp: str, train_config: str) -> dict:
+    """Phase 6's corpus with seeded EmoAct / EmoDom / EmoVal columns, a seeded
+    FileName,Gender CSV and a test CSV of the dev names; one config a train
+    run (one epoch, phase 6's cat checkpoint as ``pretrained_path``)."""
+    with open(train_config) as f:
+        base = json.load(f)
+    rows = list(csv.reader(open(base["label_path"], newline="")))
+    rng = np.random.default_rng(SEED + 13)
+    attrs = np.round(rng.uniform(1.0, 7.0, (len(rows) - 1, 3)), 3)
+    label_csv, gender_csv = os.path.join(tmp, "legacy_labels.csv"), os.path.join(tmp, "legacy_gender.csv")
+    with open(label_csv, "w", newline="") as f:
+        csv.writer(f).writerows([rows[0][:-1] + ["EmoAct", "EmoDom", "EmoVal", rows[0][-1]]]
+                                + [r[:-1] + [str(v) for v in a] + [r[-1]] for r, a in zip(rows[1:], attrs)])
+    with open(gender_csv, "w", newline="") as f:
+        csv.writer(f).writerows([["FileName", "Gender"]]
+                                + [[r[0], ("Female", "Male")[int(rng.integers(2))]] for r in rows[1:]])
+    test_csv = os.path.join(tmp, "legacy_test.csv")
+    dev = [r[0] for r in rows[1:] if r[-1] == "Development"]
+    with open(test_csv, "w", newline="") as f:
+        csv.writer(f).writerows([["FileName"]] + [[n] for n in dev])
+    configs = {}
+    for stem, _ in LEGACY_RUNS:
+        if stem in LEGACY_MODEL_OF:
+            configs[stem] = configs[LEGACY_MODEL_OF[stem]]
+            continue
+        cfg = dict(base, label_path=label_csv, epochs=1, model_path=os.path.join(tmp, f"legacy_{stem}"),
+                   pretrained_path=os.path.join(base["model_path"], "multimodal_ser.pt"))
+        configs[stem] = os.path.join(tmp, f"legacy_{stem}.json")
+        with open(configs[stem], "w") as f:
+            json.dump(cfg, f)
+    return {"configs": configs, "gender_csv": gender_csv, "test_csv": test_csv, "n_dev": len(dev),
+            "n_train": len(rows) - 1 - len(dev)}
+
+
+def _legacy_experts(overrides: dict) -> int:
+    """BiGRU stacks a forward runs per modality: the MoE's experts, 0 for the
+    single-modality model, else 1."""
+    variant = overrides.get("model_variant", "fusion")
+    return {"moe": 4, "single": 0}.get(variant, 1)
+
+
+def phase_legacy(tmp: str, train_config: str) -> dict:
+    """Phase 13: each LEGACY_RUNS entry through ``cli.main([runner, '--legacy',
+    stem, ...])``: finite logged losses, K3 = experts x modalities x (train
+    steps + scored batches) and K3b = experts x modalities x train steps per
+    run (0 for the single-modality model) and no other kernel, the CSVs'
+    headers, rows and 4-decimal values, the MoE and gender checkpoints' flat
+    flax keys and strict reloads, and the ``fromcat`` warm start (every name
+    + shape match of phase 6's cat checkpoint loaded, its 8-way head skipped)."""
+    from interspeech_ser_tpu_torch import cli
+    from interspeech_ser_tpu_torch.models.convert import is_flax_flat
+    from interspeech_ser_tpu_torch.train.engine import EngineOptions, FusionEngine
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+    from interspeech_ser_tpu_torch.utils.labels import CLASSES
+
+    corpus = write_legacy_corpus(tmp, train_config)
+    four = re.compile(r"^-?\d+\.\d{4}$")
+    runs = {}
+    for stem, extra in LEGACY_RUNS:
+        runner, overrides = cli.LEGACY[stem]
+        config_path = corpus["configs"][stem]
+        cfg = load_fusion_config(config_path)
+        argv = [runner, "--legacy", stem, "--config_path", config_path, "--device", DEVICE]
+        argv += ["--gender_labels_csv", corpus["gender_csv"]] * ("gender" in extra)
+        argv += ["--test_df", corpus["test_csv"]] * ("test_df" in extra)
+        before = counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        sync()
+        seconds = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in counts().items()}
+        n_mod, experts = len(cfg.feat_dims), _legacy_experts(overrides)
+        scored = -(-corpus["n_dev"] // cfg.batch_size)  # the dev split, or the test CSV of its names
+        steps = -(-corpus["n_train"] // cfg.batch_size) if runner == "train" else 0
+        want = {"gru_bidir": experts * n_mod * (steps + scored), "gru_bidir_bwd": experts * n_mod * steps}
+        require(delta["gru_bidir"] == want["gru_bidir"] and delta["gru_bidir_bwd"] == want["gru_bidir_bwd"],
+                f"{stem}: K3 / K3b launches {delta['gru_bidir']} / {delta['gru_bidir_bwd']} != "
+                f"{want['gru_bidir']} / {want['gru_bidir_bwd']} ({experts} experts x {n_mod} modalities x "
+                f"({steps} steps + {scored} scored batches))")
+        moved = {k: v for k, v in delta.items() if k not in want and v}
+        require(not moved, f"{stem}: kernels other than K3 / K3b launched: {moved}")
+        run = {"runner": runner, "seconds": seconds, "launches": delta}
+        if runner == "train":
+            text = ""
+            for log_file in sorted(f for f in os.listdir(cfg.model_path) if f.startswith("loggingtxt-")):
+                with open(os.path.join(cfg.model_path, log_file)) as f:
+                    text += f.read()
+            logged = [float(v) for v in re.findall(r"(?:eval_loss|: loss) = (\S+)", text)]
+            require(logged and all(np.isfinite(logged)), f"{stem}: logged losses {logged}")
+            ckpt = torch.load(os.path.join(cfg.model_path, "multimodal_ser.pt"), weights_only=True)
+            flat = overrides.get("model_variant", "fusion") != "fusion" or "gender_mode" in overrides
+            require(is_flax_flat(ckpt) == flat, f"{stem}: checkpoint keys {sorted(ckpt)[:4]}...")
+            engine = FusionEngine(cfg, seed=SEED, device=DEVICE, options=EngineOptions(**overrides))
+            engine.load_torch_checkpoint(os.path.join(cfg.model_path, "multimodal_ser.pt"), strict=True)
+            run.update(logged=logged, flat_keys=flat, n_keys=len(ckpt))
+            if overrides.get("init_from_pretrained"):
+                kept, skipped = engine.load_torch_checkpoint_filtered(cfg.raw["pretrained_path"])
+                own = engine.model.state_dict()
+                require(sorted(skipped) == ["classifier.3.bias", "classifier.3.weight"]
+                        and set(kept) == set(own) - set(skipped), f"fromcat: kept {len(kept)}, skipped {skipped}")
+                require(f"skipped {['classifier.3.weight', 'classifier.3.bias']}" in text,
+                        "fromcat: the warm start is not in the run's log")
+                run.update(warm_start_kept=len(kept), warm_start_skipped=skipped)
+        else:
+            out_csv = os.path.join(cfg.model_path, "results", "test.csv" if runner.startswith("test") else "dev.csv")
+            with open(out_csv, newline="") as f:
+                table = list(csv.reader(f))
+            dim = runner.endswith("_dim")
+            header = ([("FileName" if runner.startswith("test") else "Filename"), "EmoAct", "EmoDom", "EmoVal"]
+                      if dim else ["Filename", "Prediction"] + [f"class_{i}_prob" for i in range(len(CLASSES))])
+            require(table[0] == header, f"{stem}: header {table[0]}")
+            require(len(table) == 1 + corpus["n_dev"], f"{stem}: {len(table) - 1} rows")
+            require(all(four.match(v) for r in table[1:] for v in r[1 if dim else 2:]),
+                    f"{stem}: values not 4-decimal")
+            run["rows"] = len(table) - 1
+        runs[stem] = run
+        log(f"[legacy] {runner} --legacy {stem}: {seconds:.2f} s, K3 {delta['gru_bidir']}, K3b "
+            f"{delta['gru_bidir_bwd']}" + (f", logged {run['logged']}" if "logged" in run else "")
+            + (f", {run['rows']} CSV rows" if "rows" in run else ""))
+    return {"runs": runs, **corpus}
+
+
+def legacy_batch(corpus: dict, stem: str):
+    """(engine options, config, the first batch of 64 train rows with the task's
+    labels and gender targets, the train class weights or None)."""
+    from interspeech_ser_tpu_torch import cli
+    from interspeech_ser_tpu_torch.train.data import LazyFeatureDataset
+    from interspeech_ser_tpu_torch.train.engine import DIM_COLUMNS, EngineOptions
+    from interspeech_ser_tpu_torch.utils import labels as L
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+
+    options = EngineOptions(**cli.LEGACY[stem][1])
+    cfg = load_fusion_config(corpus["configs"][stem])
+    rows = L.split(L.load_merged(cfg.label_path, cfg.txt_dir), "Train")
+    aux = None
+    if options.gender_mode is not None:
+        rows = L.merge_gender(rows, corpus["gender_csv"])
+        aux = np.asarray([int(r["target_gender"]) for r in rows], np.int64)
+    dim = options.task == "dim"
+    ds = LazyFeatureDataset(L.column(rows, "FileName"), L.matrix(rows, DIM_COLUMNS if dim else L.CLASSES),
+                            cfg.lazy_dirs, cfg.feat_dims, aux_labels=aux)
+    class_w = None if dim else torch.from_numpy(L.class_weights(rows)).to(DEVICE)
+    return options, cfg, ds.collate(list(range(cfg.batch_size)), cfg.batch_size), class_w
+
+
+def check_legacy_steps(corpus: dict, smi: str) -> dict:
+    """One train step's gradients of the MoE, the GRL gender head and the dim +
+    CKA trainer through K3 + K3b against the plain path (``BiGRU.forward_scan``)
+    on the card, phase 6's bar (1e-4 of each parameter's largest gradient, with
+    its floor); then the median of 5 train steps of the MoE and of the dim
+    trainer at batch 64 and the MoE's scoring forward of that batch."""
+    from interspeech_ser_tpu_torch.ops.gru import BiGRU
+    from interspeech_ser_tpu_torch.train.engine import FusionEngine
+
+    out = {}
+    for stem in LEGACY_GRAD_CHECKS:
+        options, cfg, batch, class_w = legacy_batch(corpus, stem)
+        grads = {}
+        for route in ("kernel", "plain"):
+            engine = FusionEngine(cfg, seed=SEED, device=DEVICE, options=options)
+            kernel_forward = BiGRU.forward
+            if route == "plain":
+                BiGRU.forward = BiGRU.forward_scan
+            try:
+                loss, _ = engine.accumulate_gradients(batch, class_w)
+            finally:
+                BiGRU.forward = kernel_forward
+            require(bool(torch.isfinite(loss)), f"{stem} {route} train-step loss {loss}")
+            grads[route] = {n: p.grad.detach().clone() for n, p in engine.model.named_parameters()
+                            if p.grad is not None}
+        require(set(grads["kernel"]) == set(grads["plain"]), f"{stem}: the routes reach other parameters")
+        top = max(float(g.abs().max()) for g in grads["plain"].values())
+        errs = {n: max_abs(grads["kernel"][n], gp) / max(float(gp.abs().max()), 1e-3 * top)
+                for n, gp in grads["plain"].items()}
+        worst = max(errs, key=errs.get)
+        gru = max(v for n, v in errs.items() if "_gru." in n)
+        log(f"[legacy] {stem}: one step's gradients, kernel path vs plain path on {DEVICE} ({len(errs)} "
+            f"parameters): worst {worst} {errs[worst]:.3e}, worst GRU weight {gru:.3e} (bar 1e-4)")
+        require(errs[worst] <= 1e-4, f"{stem} train-step gradient {worst}: {errs[worst]} > 1e-4")
+        out[stem] = {"grad_rel_err": errs[worst], "worst": worst}
+    for stem in ("train_cat_bimodal_lazy_moe", "train_dim_bimodal_lazy_cka"):
+        options, cfg, batch, class_w = legacy_batch(corpus, stem)
+        engine = FusionEngine(cfg, seed=SEED, device=DEVICE, options=options)
+        times = host_times_ms(train_step_fn(engine, batch, class_w))
+        out[stem].update(train_step_ms=statistics.median(times), train_step_ms_runs=times)
+        log(f"[legacy] {stem} train step (batch {cfg.batch_size}, kernels, TF32 off): median "
+            f"{out[stem]['train_step_ms']:.3f} ms of runs {[round(t, 3) for t in times]} ({smi})")
+        if options.model_variant == "moe":
+            out[stem]["score"] = time_scoring_forward(engine, batch)
+    return out
+
+
 T0 = time.perf_counter()
 
 
@@ -4135,10 +4364,25 @@ def main() -> None:
         transcription["write_s"] = transcribed["write_s"]
         transcription["load_s"] = transcribed["load_s"]
         transcription["phase_s"] = time.perf_counter() - t_tr
+
+        zero_counts()
+        t_leg = time.perf_counter()
+        legacy = phase_legacy(tmp, config_path)
+        legacy_path = counts()
+        for name in ("gru_bidir", "gru_bidir_bwd"):
+            ran = sum(run["launches"][name] for run in legacy["runs"].values())
+            require(legacy_path[name] == ran > 0, f"{name} launches {legacy_path[name]} on the legacy path, {ran} "
+                                                  f"counted run by run")
+        moved = {k: v for k, v in legacy_path.items() if k not in ("gru_bidir", "gru_bidir_bwd") and v}
+        require(not moved, f"kernels other than K3 / K3b launched on the legacy path: {moved}")
+        log(f"[legacy path] launches {legacy_path}")
+        legacy["steps"] = check_legacy_steps(legacy, smi)
+        legacy["phase_s"] = time.perf_counter() - t_leg
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
-               "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path}
+               "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path,
+               "legacy": legacy_path}
     # the speech, fusion and transcription paths never reach K6 / K7
-    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe"):
+    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy"):
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
@@ -4175,12 +4419,17 @@ def main() -> None:
         f"f32 {t32['cli_tokens_per_sec']:.1f} (slots/s {t16['cli_slots_per_sec']:.1f}, {t32['cli_slots_per_sec']:.1f}); encoder ms a batch bf16 {t16['encoder_ms']:.2f}, f32 "
         f"{t32['encoder_ms']:.2f}; decode idle bf16 {100 * t16['idle_share']:.1f}%, f32 {100 * t32['idle_share']:.1f}%;"
         f" phase 12 {transcription['phase_s']:.1f} s ({smi})")
+    moe, dim = legacy["steps"]["train_cat_bimodal_lazy_moe"], legacy["steps"]["train_dim_bimodal_lazy_cka"]
+    log(f"[legacy] train step median: MoE (4 experts) {moe['train_step_ms']:.3f} ms, dim + CKA "
+        f"{dim['train_step_ms']:.3f} ms (batch 64, H=512); MoE scoring forward {moe['score']['score_batch_ms']:.3f} "
+        f"ms; phase 13 {legacy['phase_s']:.1f} s ({smi})")
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
                              **steps},
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
-                    "baseline": baseline, "transcription": transcription, "seconds": time.perf_counter() - T0}))
+                    "baseline": baseline, "transcription": transcription, "legacy": legacy,
+                    "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -151,7 +151,7 @@ class BaselineEngine:
         if use_timbre_perturb:
             raise NotImplementedError(
                 "use_timbre_perturb needs train/information_encoder.py, which the port does not have yet "
-                "(ROADMAP.md §A.7)")
+                "(ROADMAP.md §A.6)")
         os.makedirs(model_path, exist_ok=True)
         train_set = labelled_split(self.task, label_path, audio_path, "train")
         train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))

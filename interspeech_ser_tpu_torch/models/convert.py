@@ -15,7 +15,16 @@ nested dicts of numpy arrays and return the port's state dicts.
   mirror ``roberta_hf_to_flax`` and ``deberta_v2_hf_to_flax`` in reverse
   and yield HF RobertaModel / DebertaV2Model key names (no prefix).
 - :func:`fusion_params_from_flax` mirrors ``convert_fusion.flax_to_torch``
-  and yields the reference's ``multimodal_ser.pt`` names.
+  and yields the reference's ``multimodal_ser.pt`` names, with the legacy
+  gates (``{mod}_gate``), the gender head (``gender_classifier.fc{1,2}``)
+  and without the modality norms where the params lack them;
+  :func:`variant_params_from_flax` does the same for the MoE and
+  single-modality models, whose port modules carry the flax names. Both go
+  leaf by leaf (:func:`flax_key_to_port`);
+  :func:`port_key_to_flax` is the way back, which writes the JAX engine's
+  flat checkpoint keys (``a.b.kernel``, ``[in, out]`` Dense kernels) for
+  the variants that have no reference naming (``moe``, ``single``, any
+  gender head).
 - :func:`ns3_params_from_flax` takes the JAX ``ProsodyExtractor``'s param
   dict and yields the port's ``ProsodyExtractor`` state dict (its pieces:
   :func:`ns3_transformer_params_from_flax`, :func:`facodec_encoder_params_from_flax`).
@@ -203,40 +212,100 @@ def deberta_v2_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]
     return _to_torch(sd)
 
 
-def fusion_params_from_flax(params: Dict, n_mod: int) -> Dict[str, torch.Tensor]:
-    """JAX ``MultiModalEmotionClassifier`` params -> reference torch names."""
-    g = lambda *p: _get(params, *p)  # noqa: E731
-    sd: Dict[str, np.ndarray] = {}
+# flax leaf name -> the port's, where they differ (a Dense / Conv ``kernel``
+# and a LayerNorm ``scale`` both become ``weight``)
+_FLAX_LEAVES = {"kernel": "weight", "scale": "weight", "in_proj_kernel": "in_proj_weight",
+                "out_kernel": "out_proj.weight", "out_bias": "out_proj.bias"}
+for _d, _sfx in (("fwd", ""), ("bwd", "_reverse")):
+    for _flax, _port in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"), ("b_ih", "bias_ih_l0"),
+                         ("b_hh", "bias_hh_l0")):
+        _FLAX_LEAVES[f"{_flax}_{_d}"] = f"{_port}{_sfx}"
+_PORT_LEAVES = {v: k for k, v in _FLAX_LEAVES.items() if k not in ("kernel", "scale")}
+# the leaves stored [in, out] in flax and [out, in] in torch
+_TRANSPOSED = {"in_proj_kernel", "out_kernel", "w_ih_fwd", "w_hh_fwd", "w_ih_bwd", "w_hh_bwd"}
+
+
+def fusion_renames(n_mod: int) -> Dict[str, str]:
+    """Module paths of the port's fusion model (the reference's torch names)
+    -> the JAX ``MultiModalEmotionClassifier``'s; the rest are equal."""
+    r = {"layer_norm": "fusion_norm"}
     for mod in MODALITY_NAMES[:n_mod]:
-        enc = f"{mod}_encoder"
-        sd[f"{mod}_projection.weight"] = _t(g(enc, "projection", "kernel"))
-        sd[f"{mod}_projection.bias"] = g(enc, "projection", "bias")
-        sd[f"{mod}_norm.weight"] = g(enc, "norm", "scale")
-        sd[f"{mod}_norm.bias"] = g(enc, "norm", "bias")
-        for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
-            sd[f"{mod}_gru.weight_ih_l0{sfx}"] = _t(g(enc, "gru", f"w_ih_{d}"))
-            sd[f"{mod}_gru.weight_hh_l0{sfx}"] = _t(g(enc, "gru", f"w_hh_{d}"))
-            sd[f"{mod}_gru.bias_ih_l0{sfx}"] = g(enc, "gru", f"b_ih_{d}")
-            sd[f"{mod}_gru.bias_hh_l0{sfx}"] = g(enc, "gru", f"b_hh_{d}")
-        att = f"{mod}_attention"
-        sd[f"{att}.in_proj_weight"] = _t(g(att, "in_proj_kernel"))
-        sd[f"{att}.in_proj_bias"] = g(att, "in_proj_bias")
-        sd[f"{att}.out_proj.weight"] = _t(g(att, "out_kernel"))
-        sd[f"{att}.out_proj.bias"] = g(att, "out_bias")
-        sd[f"{mod}_attn.weight"] = _t(g(f"{mod}_pool_attn", "kernel"))
-        sd[f"{mod}_attn.bias"] = g(f"{mod}_pool_attn", "bias")
-    sd["layer_norm.weight"] = g("fusion_norm", "scale")
-    sd["layer_norm.bias"] = g("fusion_norm", "bias")
-    sd["classifier.0.weight"] = _t(g("classifier_fc1", "kernel"))
-    sd["classifier.0.bias"] = g("classifier_fc1", "bias")
-    sd["classifier.3.weight"] = _t(g("classifier_fc2", "kernel"))
-    sd["classifier.3.bias"] = g("classifier_fc2", "bias")
-    if "neutral_fc1" in params:  # the ranking trainers' neutral head
-        sd["neutral_classifier.0.weight"] = _t(g("neutral_fc1", "kernel"))
-        sd["neutral_classifier.0.bias"] = g("neutral_fc1", "bias")
-        sd["neutral_classifier.3.weight"] = _t(g("neutral_fc2", "kernel"))
-        sd["neutral_classifier.3.bias"] = g("neutral_fc2", "bias")
-    return _to_torch(sd)
+        for part in ("projection", "norm", "gru"):
+            r[f"{mod}_{part}"] = f"{mod}_encoder.{part}"
+        r[f"{mod}_attn"] = f"{mod}_pool_attn"
+    for head, flax in (("classifier", "classifier"), ("neutral_classifier", "neutral")):
+        r[f"{head}.0"], r[f"{head}.3"] = f"{flax}_fc1", f"{flax}_fc2"
+    return r
+
+
+def flatten_flax(params: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested flax params -> ``{"a.b.leaf": array}``, the JAX engine's flat
+    checkpoint keys (``interspeech_ser_tpu/train/engine.py::save_torch_checkpoint``)."""
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            flat.update(flatten_flax(v, f"{prefix}{k}."))
+        else:
+            flat[f"{prefix}{k}"] = np.asarray(v)
+    return flat
+
+
+def flax_key_to_port(key: str, value: np.ndarray, renames: Dict[str, str] = None) -> Tuple[str, np.ndarray]:
+    """One flat flax leaf -> (the port's state-dict key, its value in torch layout)."""
+    module, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+    module = {v: k for k, v in (renames or {}).items()}.get(module, module)
+    value = np.asarray(value)
+    if leaf == "kernel":
+        value = _unconv(value) if value.ndim == 3 else _t(value)
+    elif leaf in _TRANSPOSED:
+        value = _t(value)
+    port_leaf = _FLAX_LEAVES.get(leaf, leaf)
+    return (f"{module}.{port_leaf}" if module else port_leaf), value
+
+
+def port_key_to_flax(key: str, value: np.ndarray, renames: Dict[str, str] = None) -> Tuple[str, np.ndarray]:
+    """One port state-dict entry -> (the flat flax key, its value in flax layout)."""
+    parts = key.split(".")
+    n_leaf = 2 if len(parts) > 2 and parts[-2] == "out_proj" else 1
+    module, leaf = ".".join(parts[:-n_leaf]), ".".join(parts[-n_leaf:])
+    module = (renames or {}).get(module, module)
+    value = np.asarray(value)
+    if leaf == "weight":
+        flax_leaf = "scale" if value.ndim == 1 else "kernel"
+        value = _unconv(value) if value.ndim == 3 else _t(value) if value.ndim == 2 else value
+    else:
+        flax_leaf = _PORT_LEAVES.get(leaf, leaf)
+        if flax_leaf in _TRANSPOSED:
+            value = _t(value)
+    return (f"{module}.{flax_leaf}" if module else flax_leaf), np.ascontiguousarray(value)
+
+
+def is_flax_flat(sd: Dict) -> bool:
+    """Whether a state dict has the JAX engine's flat flax keys (a leaf no
+    torch module names: ``kernel``, ``scale``, a GRU's ``w_ih_fwd`` ...)."""
+    return any(k.rsplit(".", 1)[-1] in _FLAX_LEAVES for k in sd)
+
+
+def flax_flat_to_port(flat: Dict, renames: Dict[str, str] = None) -> Dict[str, torch.Tensor]:
+    out = dict(flax_key_to_port(k, v, renames) for k, v in flat.items())
+    return _to_torch(out)
+
+
+def port_to_flax_flat(sd: Dict[str, torch.Tensor], renames: Dict[str, str] = None) -> Dict[str, np.ndarray]:
+    return dict(port_key_to_flax(k, v.detach().cpu().numpy(), renames) for k, v in sd.items())
+
+
+def fusion_params_from_flax(params: Dict, n_mod: int) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiModalEmotionClassifier`` params -> the port's fusion model
+    (reference torch names), with its gates, gender head and neutral head
+    when the params have them."""
+    return flax_flat_to_port(flatten_flax(params), fusion_renames(n_mod))
+
+
+def variant_params_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``MoEEmotionClassifier`` or ``SingleModalitySERClassifier`` params
+    -> the port's (whose modules carry the flax names)."""
+    return flax_flat_to_port(flatten_flax(params))
 
 
 def ns3_transformer_params_from_flax(params: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:

@@ -1,8 +1,9 @@
 """Lazy cached-embedding data pipeline for fusion training and scoring.
 
 Port of ``interspeech_ser_tpu/train/data.py``: each sample is one
-``<utt>.pt`` feature file per modality (``lazy_dir{1,2,3}``) plus a one-hot
-label row. ``collate`` pads a batch to a bucketed time length and a fixed
+``<utt>.pt`` feature file per modality (``lazy_dir{1,2,3}``) plus a label
+row (one-hot classes, or the dimensional task's attributes) and, for the
+legacy gender trainers, an auxiliary integer target. ``collate`` pads a batch to a bucketed time length and a fixed
 batch size, with per-frame masks and a per-row ``sample_mask``; files load
 on a thread pool. ``epoch_batches`` makes the same numpy ``Generator`` calls
 in the same order as the JAX package's, so one seed draws the same batches
@@ -34,12 +35,15 @@ def bucket_length(t: int, quantum: int = 64, minimum: int = 64) -> int:
 class Batch:
     """feats: per modality [B, T_m, D_m] f32; masks: per modality [B, T_m]
     (all zero in padding rows); labels: [B, C] one-hot rows (zero in padding
-    rows); sample_mask: [B], 0 for the padding rows that fill the batch."""
+    rows); sample_mask: [B], 0 for the padding rows that fill the batch;
+    aux: [B] auxiliary targets (the gender trainers'), 0 in padding rows, or
+    None."""
 
     feats: List[np.ndarray]
     masks: List[np.ndarray]
     labels: np.ndarray
     sample_mask: np.ndarray
+    aux: Optional[np.ndarray] = None
 
 
 class LazyFeatureDataset:
@@ -50,10 +54,12 @@ class LazyFeatureDataset:
         lazy_dirs: Sequence[str],
         feat_dims: Sequence[int],
         num_workers: int = 8,
+        aux_labels: Optional[np.ndarray] = None,
     ):
         assert len(utt_names) == len(labels)
         self.utt_names = list(utt_names)
         self.labels = np.asarray(labels, dtype=np.float32)
+        self.aux_labels = None if aux_labels is None else np.asarray(aux_labels)
         self.lazy_dirs = list(lazy_dirs)
         self.feat_dims = list(feat_dims)
         self.num_workers = num_workers
@@ -96,6 +102,7 @@ class LazyFeatureDataset:
         masks = [np.zeros((B, t_max[m]), np.float32) for m in range(n_mod)]
         labels = np.zeros((B, self.labels.shape[1]), np.float32)
         sample_mask = np.zeros((B,), np.float32)
+        aux = None if self.aux_labels is None else np.zeros((B,), self.aux_labels.dtype)
         for row, (idx, fs) in enumerate(zip(indices, per_sample)):
             for m in range(n_mod):
                 t = fs[m].shape[0]
@@ -103,7 +110,9 @@ class LazyFeatureDataset:
                 masks[m][row, :t] = 1.0
             labels[row] = self.labels[idx]
             sample_mask[row] = 1.0
-        return Batch(feats, masks, labels, sample_mask)
+            if aux is not None:
+                aux[row] = self.aux_labels[idx]
+        return Batch(feats, masks, labels, sample_mask, aux)
 
     def primary_lengths(self) -> np.ndarray:
         """Per-utterance length proxy for sorting: the primary modality's

@@ -2,14 +2,16 @@
 
 Port of ``interspeech_ser_tpu/utils/config.py``: required keys raise
 ``KeyError`` when absent; ``use_balanced_batch`` / ``use_focalloss`` default
-to False; ``lazy_dir3`` makes a config trimodal.
+to False; ``lazy_dir3`` makes a config trimodal. ``raw`` keeps the whole
+JSON, so keys outside the schema (``pretrained_path`` of the ``fromcat``
+trainer) stay readable.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional
+from typing import Any, Mapping, Optional
 
 
 @dataclasses.dataclass
@@ -33,6 +35,7 @@ class FusionConfig:
     fusion_hidden_dim: int = 512
     num_emotions: int = 8
     dropout: float = 0.5
+    raw: Mapping[str, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self) -> None:
         if not (self.accum_step > 0 and self.batch_size % self.accum_step == 0):
@@ -88,4 +91,5 @@ def load_fusion_config(config_path: str, trimodal: Optional[bool] = None) -> Fus
         fusion_hidden_dim=int(cfg.get("fusion_hidden_dim", 512)),
         num_emotions=int(cfg.get("num_emotions", 8)),
         dropout=float(cfg.get("dropout", 0.5)),
+        raw=cfg,
     )

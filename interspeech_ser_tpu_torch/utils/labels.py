@@ -2,8 +2,9 @@
 
 Port of ``interspeech_ser_tpu/utils/labels.py``: the reference's left merge
 of the label CSV with the transcript CSV on ``FileName``, the ``Split_Set``
-filter, the class order, and the trainers' class and sample weights. Rows
-are dicts of strings, as ``csv.DictReader`` gives them.
+filter, the class order, the trainers' class and sample weights, and the
+gender targets of the legacy gender trainers (``interspeech_ser_tpu/cli.py``).
+Rows are dicts of strings, as ``csv.DictReader`` gives them.
 """
 
 from __future__ import annotations
@@ -37,6 +38,23 @@ def load_merged(label_path: str, txt_path: Optional[str] = None) -> Rows:
     for r in labels:
         for t in by_name.get(r["FileName"], [{}]):
             merged.append({**{k: v for k, v in t.items() if k not in r}, **r})
+    return merged
+
+
+GENDER_TARGETS = {"Female": "0", "Male": "1"}  # any other value, or none, is 0
+
+
+def merge_gender(rows: Rows, gender_csv: str) -> Rows:
+    """Left merge on ``FileName`` of ``gender_csv``'s ``Gender`` column, as a
+    ``target_gender`` column: Female -> 0, Male -> 1, a missing or other
+    value -> 0."""
+    by_name: Dict[str, List[str]] = {}
+    for r in read_csv(gender_csv):
+        by_name.setdefault(r["FileName"], []).append(r["Gender"])
+    merged = []
+    for r in rows:
+        for g in by_name.get(r["FileName"], [""]):
+            merged.append({**r, "Gender": g, "target_gender": GENDER_TARGETS.get(g, "0")})
     return merged
 
 

@@ -477,3 +477,57 @@ def test_transcribe_phase_on_cpu(tmp_path, monkeypatch):
     for dtype in ("bfloat16", "float32"):
         t = res[dtype]
         assert t["encoder_ms"] > 0 and t["cross_kv_ms"] > 0 and t["step_ms"] > 0 and t["bound_by"] == "bytes"
+
+
+def test_legacy_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 13 at a tiny size (phase 6's corpus at feature dim 24, H=16,
+    batch 4): every LEGACY_RUNS entry through ``cli.main``, the per-run K3 /
+    K3b counts, CSVs, checkpoints and the fromcat warm start, then the
+    kernel-vs-plain gradient checks and the step timings."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.ops import gru as ops_gru
+    from interspeech_ser_tpu_torch.ops.kernels import gru as kg
+    from interspeech_ser_tpu_torch.train.engine import FusionEngine
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+
+    def counting(counter, plain):
+        def launch(*args, **kw):
+            setattr(kg, counter, getattr(kg, counter) + 1)
+            return plain(*args, **kw)
+        return launch
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "TRAIN_SHAPE", dict(
+        n_train=12, n_dev=16, feat_dim=24, speech_len=(30, 70), text_len=(5, 20), epochs=2,
+        config=dict(fusion_hidden_dim=16, batch_size=4, lr=1e-2),  # a dev F1 above 0 after one epoch: a checkpoint
+    ))
+    monkeypatch.setattr(kg, "gru_bidir_carries", counting("LAUNCHES", kg.gru_bidir_carries_plain))
+    monkeypatch.setattr(kg, "gru_bidir_carries_bwd", counting("BWD_LAUNCHES", kg.gru_bidir_carries_bwd_plain))
+    monkeypatch.setattr(ops_gru.BiGRU, "forward", ops_gru.BiGRU.forward_stacked)
+    monkeypatch.setattr(kg, "LAUNCHES", 0)
+    monkeypatch.setattr(kg, "BWD_LAUNCHES", 0)
+
+    config_path = cs.write_train_corpus(str(tmp_path))
+    cfg = load_fusion_config(config_path)  # phase 6's cat checkpoint, the fromcat run's warm start
+    os.makedirs(cfg.model_path)
+    FusionEngine(cfg, seed=3, device="cpu").save_torch_checkpoint(os.path.join(cfg.model_path, "multimodal_ser.pt"))
+
+    cs.zero_counts()
+    legacy = cs.phase_legacy(str(tmp_path), config_path)
+    runs = legacy["runs"]
+    assert list(runs) == [stem for stem, _ in cs.LEGACY_RUNS]
+    # 3 train steps + 4 dev batches a train run at batch 4; the MoE's 4 experts, 2 modalities
+    assert runs["train_cat_bimodal_lazy_moe"]["launches"]["gru_bidir"] == 4 * 2 * (3 + 4)
+    assert runs["train_cat_bimodal_lazy_moe"]["launches"]["gru_bidir_bwd"] == 4 * 2 * 3
+    assert runs["eval_cat_bimodal_lazy_moe"]["launches"]["gru_bidir"] == 4 * 2 * 4
+    assert runs["train_cat_wavlm_lazy"]["launches"]["gru_bidir"] == 0
+    assert runs["train_dim_bimodal_lazy_fromcat"]["warm_start_skipped"] == ["classifier.3.weight", "classifier.3.bias"]
+    assert runs["train_cat_bimodal_lazy_moe"]["flat_keys"] and not runs["train_cat_bimodal_lazy_fiona"]["flat_keys"]
+    assert runs["test_dim_bimodal_lazy"]["rows"] == 16
+    assert cs.counts()["gru_bidir"] == sum(r["launches"]["gru_bidir"] for r in runs.values())
+
+    steps = cs.check_legacy_steps(legacy, "card")
+    assert all(steps[stem]["grad_rel_err"] <= 1e-4 for stem in cs.LEGACY_GRAD_CHECKS)
+    assert len(steps["train_cat_bimodal_lazy_moe"]["train_step_ms_runs"]) == 5
+    assert len(steps["train_cat_bimodal_lazy_moe"]["score"]["score_batch_ms_runs"]) == 5
+    assert ops_gru.BiGRU.forward is ops_gru.BiGRU.forward_stacked  # the plain route is undone
