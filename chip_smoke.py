@@ -10,8 +10,8 @@ kernel against its plain PyTorch version at the main path's shapes, then
 drives the serving path, the fusion training path, the LoRA fine-tuning
 path, the text-extraction path, the speech-encoder zoo, the NS3 prosody
 extractor with the trimodal trainer, the challenge baseline, Whisper
-transcription and the legacy fusion trainers through their entry points at
-full width:
+transcription, the legacy fusion trainers and the joint RoBERTa + WavLM
+trainers through their entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -181,7 +181,23 @@ full width:
    keys and strict reloads, the warm start's kept and skipped keys; then one
    train step's gradients through K3 + K3b against the plain path for the
    MoE, the GRL head and dim + CKA, and the median MoE and dim train steps
-   and the MoE's scoring forward at batch 64.
+   and the MoE's scoring forward at batch 64;
+14. the joint RoBERTa + WavLM trainers (the ``bin/old/train_cat_roberta*``
+   stems through ``joint_cli.main``): phase 11's corpus with seeded
+   transcripts of phase 8's words, phase 4's WavLM-large, phase 8's
+   RoBERTa-large and a seeded RoBERTa-base-width directory (D = 768, 12
+   layers), phase 11's hyperparameters (batch 32, 4 accumulation steps) for
+   one epoch of ``base``, ``ftall``, ``large``, ``cka`` and the text-only
+   trainer in f32: finite losses, the files and their keys, each run's
+   launches against its prediction (frozen runs: K1 = 24 x batches, K7 =
+   RoBERTa layers x batches, K2's layer 0 and K8 once a batch; ``ftall``: K1
+   = 24 x batches, K4 = 24 x micro-batches, K7 on the dev batches; the
+   text-only trainer: K7 on its dev batches), the saved files reloaded
+   strictly against each run's dev logits (1e-5), dev batches against
+   batch-1 (1e-4), one ``ftall`` micro-step through K1 + K4 against the
+   plain path on a 2-layer full-width copy (f32 gradients within 1e-4), the
+   median ``ftall``, ``large`` and ``cka`` micro-steps (8 rows x 12 s) and
+   their peak memory.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -197,7 +213,9 @@ no other kernel), and zeroed again just before phase 12 and read after its
 two ``transcribe_cli`` runs (the transcription path: K1 alone; the decoder
 is plain PyTorch, as it is plain XLA in the JAX package), and zeroed again
 just before phase 13 and read after its last run (the legacy path: K3 and
-K3b alone, also counted run by run). K9 has no path (none
+K3b alone, also counted run by run), and zeroed again just before phase 14
+and read after its last ``joint_cli`` run (the joint path: K1, K4, K7, K2's
+layer 0 and K8, counted run by run). K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -4246,6 +4264,321 @@ def check_legacy_steps(corpus: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 14: the joint RoBERTa + WavLM trainers (joint_cli, the bin/old train_cat_roberta* stems) ------------
+
+# phase 11's corpus and hyperparameters (batch 32 in micro-batches of 8, one epoch) with seeded transcripts of
+# phase 8's words; the conv / transformer heads at the reference's 512; the gradient check on a batch of grad_rows
+# rows whose last ones are padding; timings: median of steps micro-steps of the 8 longest train wavs
+JOINT_SHAPE = dict(batch_size=32, accum_step=4, epochs=1, lr=1e-5, head_dim=512, words=(0, 60), grad_rows=4,
+                   grad_live=3, steps=5)
+# the stems joint_cli.main runs, in order (the text-only trainer last)
+JOINT_RUNS = ("train_cat_roberta_wavlm", "train_cat_roberta_wavlm_ftall", "train_cat_roberta_wavlm_large",
+              "train_cat_roberta_wavlm_large_cka", "train_cat_roberta")
+JOINT_TIMED = ("train_cat_roberta_wavlm_ftall", "train_cat_roberta_wavlm_large", "train_cat_roberta_wavlm_large_cka")
+
+
+def roberta_base(dtype: str = "float32"):
+    """RoBERTa-base's width and depth: D = 768, 12 layers, 12 heads, FFN 3072."""
+    from interspeech_ser_tpu_torch.models import text
+
+    return text.RobertaConfig(hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072, dtype=dtype)
+
+
+def write_text_layers(src_dir: str, model_dir: str, layers: int) -> None:
+    """The first ``layers`` layers of an HF RoBERTa directory, at its width, with its BPE files."""
+    with open(os.path.join(src_dir, "config.json")) as f:
+        cfg = json.load(f)
+    sd = torch.load(os.path.join(src_dir, "pytorch_model.bin"), weights_only=True)
+    keep = {k: v for k, v in sd.items() if not k.startswith("encoder.layer.") or int(k.split(".")[2]) < layers}
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**cfg, "num_hidden_layers": layers}, f, indent=1)
+    torch.save(keep, os.path.join(model_dir, "pytorch_model.bin"))
+    for name in ("vocab.json", "merges.txt"):
+        shutil.copy(os.path.join(src_dir, name), os.path.join(model_dir, name))
+
+
+def write_joint_corpus(tmp: str, baseline_config: str, wavlm_dir: str, roberta_large_dir: str) -> dict:
+    """Phase 11's corpus with a ``FileName,transcription`` CSV (seeded texts of
+    phase 8's words, one row empty, one missing), a seeded RoBERTa-base-width
+    directory beside phase 8's RoBERTa-large (its BPE files copied), and one
+    config a stem: phase 11's paths, JOINT_SHAPE's hyperparameters, ``text_type``
+    as the JAX CLI defaults it (RoBERTa-base for ``base``, ``ftall`` and the
+    text-only trainer, RoBERTa-large otherwise) and ``tokenizer_path``."""
+    from interspeech_ser_tpu_torch import joint_cli
+    from interspeech_ser_tpu_torch.models import text
+    from interspeech_ser_tpu_torch.utils import labels as L
+
+    shape = JOINT_SHAPE
+    with open(baseline_config) as f:
+        paths = json.load(f)
+    rows = L.read_csv(paths["label_path"])
+    words = synthetic_words(SEED + 6)
+    rng = np.random.default_rng(SEED + 13)
+    txt_path = os.path.join(tmp, "joint_transcripts.csv")
+    with open(txt_path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["FileName", "transcription"])
+        for i, r in enumerate(rows):
+            if i != 3:  # a labelled row with no transcript row: the empty text, as pandas' left merge gives it
+                n = 0 if i == 1 else int(rng.integers(*shape["words"]))
+                w.writerow([r["FileName"], " ".join(words[int(j)] for j in rng.integers(0, len(words), n))])
+    base_dir = os.path.join(tmp, "roberta-base")
+    write_text_model(base_dir, text.RobertaModel, roberta_base(), "RobertaModel")
+    for name in ("vocab.json", "merges.txt"):
+        shutil.copy(os.path.join(roberta_large_dir, name), os.path.join(base_dir, name))
+    configs = {}
+    for stem in JOINT_RUNS:
+        variant = joint_cli.STEMS[stem]
+        cfg = {**paths, "txt_dir": txt_path, "ssl_type": wavlm_dir, "batch_size": shape["batch_size"],
+               "accum_step": shape["accum_step"], "epochs": shape["epochs"], "lr": shape["lr"],
+               "head_dim": shape["head_dim"], "model_path": os.path.join(tmp, f"joint_{stem}"),
+               "text_type": base_dir if variant in (None, "base", "ftall") else roberta_large_dir,
+               "tokenizer_path": roberta_large_dir, "pooling_type": "none", "weight_decay": 1e-6,
+               "dropout_head": 0.5, "use_timbre_perturb": False, "tp_prob": 0.0}
+        configs[stem] = os.path.join(tmp, f"joint_{stem}.json")
+        with open(configs[stem], "w") as f:
+            json.dump(cfg, f)
+    n_train = sum(r["Split_Set"] == "Train" for r in rows)
+    n_dev = sum(r["Split_Set"] == "Development" for r in rows)
+    return {"configs": configs, "txt_path": txt_path, "base_dir": base_dir, "tokenizer_path": roberta_large_dir,
+            "n_train": n_train, "n_dev": n_dev, "label_path": paths["label_path"], "wav_dir": paths["wav_dir"]}
+
+
+def predict_joint_launches(variant, speech_layers: int, text_layers: int, n_micro: int, dev_batches: int,
+                           text_dev_batches: int) -> dict:
+    """The launches one run of a stem makes: the frozen variants run K1, K2's
+    layer 0, K8 and K7 on every train micro-batch and dev batch; ``ftall`` K1
+    on all of them, K4 on each micro-batch's backward and K7 on the dev
+    batches (RoBERTa trains on the plain attention, the frontend and the
+    positional conv on cuDNN); the text-only trainer K7 on its dev batches of
+    16; nothing else."""
+    want = dict.fromkeys(KERNELS, 0)
+    if variant is None:
+        want["attention_bhtd"] = text_layers * text_dev_batches
+        return want
+    batches = n_micro + dev_batches
+    want["attention_btd"] = speech_layers * batches
+    if variant == "ftall":
+        want["attention_btd_bwd"] = speech_layers * n_micro
+        want["attention_bhtd"] = text_layers * dev_batches
+    else:
+        want.update(attention_bhtd=text_layers * batches, conv_frontend=batches, pos_conv=batches)
+    return want
+
+
+def phase_joint(tmp: str, baseline_config: str, wavlm_dir: str, roberta_large_dir: str) -> dict:
+    """Phase 14: ``joint_cli.main`` for each JOINT_RUNS stem, one epoch, f32,
+    TF32 off: finite train and dev losses, the files each writes (and their
+    keys: the reference's head names, HF names for ``ftall``'s encoders,
+    ``roberta.*`` / ``classifier.*`` for the text-only trainer), and each
+    run's launches against ``predict_joint_launches`` (logged side by side)."""
+    from interspeech_ser_tpu_torch import joint_cli
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.models.loader import read_config
+
+    shape = JOINT_SHAPE
+    corpus = write_joint_corpus(tmp, baseline_config, wavlm_dir, roberta_large_dir)
+    speech_layers = speech.wavlm_large().num_layers
+    micro = shape["batch_size"] // shape["accum_step"]
+    n_micro = -(-corpus["n_train"] // micro) * shape["epochs"]
+    dev_batches = -(-corpus["n_dev"] // 8) * shape["epochs"]
+    text_dev_batches = -(-corpus["n_dev"] // 16) * shape["epochs"]
+    runs = {}
+    for stem in JOINT_RUNS:
+        variant = joint_cli.STEMS[stem]
+        with open(corpus["configs"][stem]) as f:
+            cfg = json.load(f)
+        text_layers = read_config(cfg["text_type"])["num_hidden_layers"]
+        want = predict_joint_launches(variant, speech_layers, text_layers, n_micro, dev_batches, text_dev_batches)
+        log(f"[joint] {stem}: predicted launches {{{', '.join(f'{k}: {v}' for k, v in want.items() if v)}}}")
+        before = counts()
+        t0 = time.perf_counter()
+        best = joint_cli.main([stem, "--config_path", corpus["configs"][stem], "--device", DEVICE])
+        sync()
+        seconds = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in counts().items()}
+        log(f"[joint] {stem}: measured launches {{{', '.join(f'{k}: {v}' for k, v in got.items() if v)}}}")
+        require(got == want, f"{stem}: launches {got} != predicted {want}")
+        losses = best["dev_losses"] + best.get("train_losses", [])
+        require(best["epoch"] == 0 and losses and all(np.isfinite(losses)), f"{stem}: {best}")
+        files = (["text_ser.pt"] if variant is None else
+                 ["final_ser.pt"] + (["final_text_model.pt", "final_ssl.pt"] if variant == "ftall" else []))
+        keys = {}
+        for name in files:
+            sd = torch.load(os.path.join(cfg["model_path"], name), weights_only=True)
+            keys[name] = len(sd)
+            if name == "final_ser.pt":
+                head = "wav_conv1.weight" if variant in ("base", "ftall") else "wav_transformer.layers.1.linear2.weight"
+                require(head in sd and ("wav_gate.0.weight" in sd) == (variant == "cka"), f"{stem}: {sorted(sd)[:6]}")
+            elif name == "final_ssl.pt":
+                require("encoder.pos_conv_embed.conv.parametrizations.weight.original0" in sd, f"{stem}: final_ssl.pt")
+            elif name == "text_ser.pt":
+                require("roberta.embeddings.word_embeddings.weight" in sd and "classifier.out_proj.weight" in sd,
+                        f"{stem}: text_ser.pt keys")
+        runs[stem] = {"variant": variant, "seconds": seconds, "launches": got, "predicted": want,
+                      "dev_losses": best["dev_losses"], "train_losses": best.get("train_losses"),
+                      "dev_logits": best["dev_logits"], "files": keys, "model_path": cfg["model_path"],
+                      "ssl_type": cfg["ssl_type"], "text_type": cfg["text_type"]}
+        log(f"[joint] {stem} ({variant or 'text only'}): {seconds:.2f} s incl. loading; dev loss "
+            f"{best['dev_losses']}, train loss {best.get('train_losses')}; files {keys}")
+    return {"runs": runs, **corpus, "n_micro": n_micro, "dev_batches": dev_batches}
+
+
+def _joint_engine(run: dict, tokenize):
+    """The run's engine rebuilt from the model directories, its saved files loaded strictly."""
+    from interspeech_ser_tpu_torch.models.loader import speech_state_dict_from_hf
+    from interspeech_ser_tpu_torch.train.joint_engine import VARIANTS, JointEngine, TextOnlyEngine
+
+    load = lambda name: torch.load(os.path.join(run["model_path"], name), weights_only=True)  # noqa: E731
+    if run["variant"] is None:
+        engine = TextOnlyEngine(run["text_type"], tokenize, device=DEVICE)
+        sd = load("text_ser.pt")
+        engine.txt.load_state_dict({k[len("roberta."):]: v for k, v in sd.items() if k.startswith("roberta.")})
+        engine.cls_head.load_state_dict({k[len("classifier."):]: v for k, v in sd.items()
+                                         if k.startswith("classifier.")})
+        return engine
+    engine = JointEngine(run["ssl_type"], run["text_type"], tokenize, VARIANTS[run["variant"]],
+                         head_dim=JOINT_SHAPE["head_dim"], device=DEVICE)
+    if run["variant"] == "ftall":  # the trained encoders
+        engine.ssl.load_state_dict(speech_state_dict_from_hf(load("final_ssl.pt")), strict=True)
+        engine.txt.load_state_dict(load("final_text_model.pt"), strict=True)
+    engine.load_head(run["model_path"])
+    return engine
+
+
+def _joint_split(corpus: dict, split: str, tokenize, model_path: str):
+    """A split's wavs (normalised with the run's train stats) and transcripts, as fit reads them."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.baseline.podcast import SPLIT_MAP, load_cat_emo_label
+    from interspeech_ser_tpu_torch.utils import labels as L
+
+    rows = L.split(L.load_merged(corpus["label_path"], corpus["txt_path"]), SPLIT_MAP[split])
+    utts, labs = load_cat_emo_label(corpus["label_path"], split)
+    mean, std = bdata.load_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
+    return (bdata.WavDataset(bdata.load_audio(corpus["wav_dir"], utts), labs, utts, mean, std),
+            bdata.TxtDataset(L.transcripts(rows), tokenize))
+
+
+def check_joint_runs(joint: dict, smi: str) -> dict:
+    """Each run's saved files, reloaded strictly into a rebuilt engine,
+    reproduce its dev logits (1e-5); dev batches of 8 (16 for the text-only
+    trainer) against batch-1 (1e-4); then on the reloaded ``ftall``, ``large``
+    and ``cka`` engines the median of JOINT_SHAPE's micro-steps (forward +
+    backward, head dropout on, 8 rows of the longest train wavs) and the
+    peak device memory of those steps."""
+    from interspeech_ser_tpu_torch import joint_cli
+
+    from interspeech_ser_tpu_torch.utils import labels as L
+
+    tokenize = joint_cli.make_bpe_tokenize(joint["tokenizer_path"])
+    out = {}
+    for stem, run in joint["runs"].items():
+        engine = _joint_engine(run, tokenize)
+        if run["variant"] is None:
+            rows = L.split(L.load_merged(joint["label_path"], joint["txt_path"]), "Development")
+            toks = tokenize(L.transcripts(rows))
+            logits = engine.predict(toks["input_ids"], toks["attention_mask"])
+            single = engine.predict(toks["input_ids"], toks["attention_mask"], batch_size=1)
+        else:
+            wav_set, txt_set = _joint_split(joint, "dev", tokenize, run["model_path"])
+            logits = engine.predict(wav_set, txt_set)[0]
+            single = engine.predict(wav_set, txt_set, batch_size=1)[0]
+        reload_err = float(np.abs(logits - run["dev_logits"]).max())
+        batch1_err = float(np.abs(logits - single).max())
+        log(f"[joint] {stem}: reloaded dev logits vs the run's max_abs {reload_err:.3e} (bar 1e-5); batched vs "
+            f"batch-1 max_abs {batch1_err:.3e} (bar 1e-4) over {len(logits)} dev rows")
+        require(reload_err <= 1e-5 and batch1_err <= 1e-4, f"{stem}: reload {reload_err}, batch-1 {batch1_err}")
+        res = {"reload_max_abs": reload_err, "batch1_max_abs": batch1_err}
+        if stem in JOINT_TIMED:
+            res.update(time_joint_step(engine, joint, run, tokenize, smi, stem))
+        out[stem] = res
+        del engine
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def time_joint_step(engine, joint: dict, run: dict, tokenize, smi: str, stem: str) -> dict:
+    """Host-clock ms of JOINT_SHAPE's micro-steps of the 8 longest train wavs
+    with their transcripts (each synchronised, after a warm-up) and the peak
+    device memory over them."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+
+    wav_set, txt_set = _joint_split(joint, "train", tokenize, run["model_path"])
+    longest = list(np.argsort([len(w) for w in wav_set.wav_list], kind="stable")[-8:])
+    wb, ids, tmask = bdata.collate_txt_wav(wav_set, txt_set, longest, 8)
+    params = list(engine.head.parameters()) + (engine.encoder_params() if run["variant"] == "ftall" else [])
+    cw = torch.ones(8, device=DEVICE)
+
+    def micro_step():
+        for p in params:
+            p.grad = None
+        total, _, _ = engine.loss(wb, ids, tmask, cw)
+        total.backward()
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times = host_times_ms(micro_step, JOINT_SHAPE["steps"])
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
+    log(f"[joint] {stem} micro-step (8 rows x {wb.wav.shape[1] / 16000:.0f} s + 128 tokens, forward + backward, "
+        f"{'both encoders trained' if run['variant'] == 'ftall' else 'encoders frozen'}): median "
+        f"{statistics.median(times):.3f} ms of runs {[round(t, 3) for t in times]}; peak device memory {peak} GB "
+        f"({smi})")
+    return {"step_ms": statistics.median(times), "step_ms_runs": times, "peak_gb": peak,
+            "trained_values": sum(p.numel() for p in params)}
+
+
+def check_joint_grads(tmp: str, wavlm_dir: str, joint: dict) -> dict:
+    """One ``ftall`` micro-step (head dropout off, a batch whose last rows are
+    padding) on a 2-layer full-width copy (WavLM-large and RoBERTa-base, 2
+    layers each) through K1 + K4 against ``plain=True`` on the card: every
+    trained tensor's f32 gradient within 1e-4 of its largest magnitude (of
+    1e-4 of the step's largest gradient where the tensor's is smaller); the
+    key biases, whose gradient a softmax zeroes but for rounding, below 1e-4
+    of the step's largest on both routes."""
+    from interspeech_ser_tpu_torch import joint_cli
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.train.joint_engine import VARIANTS, JointEngine
+
+    shape = JOINT_SHAPE
+    two_wavlm, two_text = os.path.join(tmp, "wavlm-2layers"), os.path.join(tmp, "roberta-base-2layers")
+    if not os.path.exists(two_wavlm):
+        write_wavlm_layers(wavlm_dir, two_wavlm, 2)
+    write_text_layers(joint["base_dir"], two_text, 2)
+    tokenize = joint_cli.make_bpe_tokenize(two_text)
+    engine = JointEngine(two_wavlm, two_text, tokenize, VARIANTS["ftall"], head_dim=shape["head_dim"], device=DEVICE)
+    run = joint["runs"]["train_cat_roberta_wavlm_ftall"]
+    wav_set, txt_set = _joint_split(joint, "train", tokenize, run["model_path"])
+    wb, ids, tmask = bdata.collate_txt_wav(wav_set, txt_set, list(range(shape["grad_live"])), shape["grad_rows"])
+    named = [(f"{m}.{n}", p) for m in ("ssl", "txt", "head") for n, p in getattr(engine, m).named_parameters()]
+    cw = torch.linspace(0.5, 2.0, 8, device=DEVICE)
+    grads, launched = {}, {}
+    for route in ("kernel", "plain"):
+        for _, p in named:
+            p.grad = None
+        before = counts()
+        total, _, _ = engine.loss(wb, ids, tmask, cw, deterministic=True, plain=route == "plain")
+        total.backward()
+        sync()
+        launched[route] = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        require(bool(torch.isfinite(total)), f"ftall {route} loss {total}")
+        grads[route] = {n: p.grad.detach().clone() for n, p in named}
+    require(launched["plain"] == {} and launched["kernel"] == {"attention_btd": 2, "attention_btd_bwd": 2},
+            f"ftall gradient check launches {launched}")
+    top = max(float(g.abs().max()) for g in grads["plain"].values())
+    key_bias = [n for n in grads["plain"] if n.endswith(("k_proj.bias", "attention.self.key.bias"))]
+    errs = {n: max_abs(grads["kernel"][n], g) / max(float(g.abs().max()), 1e-4 * top)
+            for n, g in grads["plain"].items() if n not in key_bias}
+    worst = max(errs, key=errs.get)
+    key_max = max(float(grads[r][n].abs().max()) for r in grads for n in key_bias) / top
+    log(f"[joint] ftall 2 layers full width, one micro-step's gradients through K1 + K4 vs the plain path "
+        f"({len(errs)} tensors): worst {worst} {errs[worst]:.3e} (bar 1e-4); key biases at most {key_max:.3e} of "
+        f"the largest gradient; launches {launched['kernel']}")
+    require(errs[worst] <= 1e-4 and key_max <= 1e-4, f"ftall gradients: {worst} {errs[worst]}, key biases {key_max}")
+    return {"worst": errs[worst], "tensor": worst, "tensors": len(errs), "key_bias_max": key_max}
+
+
 T0 = time.perf_counter()
 
 
@@ -4378,13 +4711,27 @@ def main() -> None:
         log(f"[legacy path] launches {legacy_path}")
         legacy["steps"] = check_legacy_steps(legacy, smi)
         legacy["phase_s"] = time.perf_counter() - t_leg
+
+        zero_counts()
+        t_joint = time.perf_counter()
+        joint = phase_joint(tmp, baseline["config_path"], wavlm_dir, os.path.join(tmp, "roberta-large"))
+        joint_path = counts()
+        ran = {name: sum(run["launches"][name] for run in joint["runs"].values()) for name in KERNELS}
+        require(joint_path == ran, f"joint path launches {joint_path} != the runs' sum {ran}")
+        for name in ("attention_btd", "attention_btd_bwd", "attention_bhtd", "conv_frontend", "pos_conv"):
+            require(joint_path[name] > 0, f"kernel {name} was not launched on the joint path")
+        log(f"[joint path] launches {joint_path}")
+        joint["checks"] = check_joint_runs(joint, smi)
+        joint["grads"] = check_joint_grads(tmp, wavlm_dir, joint)
+        joint["phase_s"] = time.perf_counter() - t_joint
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
                "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path,
-               "legacy": legacy_path}
-    # the speech, fusion and transcription paths never reach K6 / K7
+               "legacy": legacy_path, "joint": joint_path}
+    # the speech, fusion and transcription paths never reach K6 / K7; the joint path's RoBERTa runs K7 alone
     for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy"):
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
+    require(joint_path["flash_attention"] == 0, f"K6 launched on the joint path: {joint_path}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
 
     record = []
@@ -4423,12 +4770,18 @@ def main() -> None:
     log(f"[legacy] train step median: MoE (4 experts) {moe['train_step_ms']:.3f} ms, dim + CKA "
         f"{dim['train_step_ms']:.3f} ms (batch 64, H=512); MoE scoring forward {moe['score']['score_batch_ms']:.3f} "
         f"ms; phase 13 {legacy['phase_s']:.1f} s ({smi})")
+    timed = [joint["checks"][stem] for stem in JOINT_TIMED]
+    log(f"[joint] micro-step median (8 rows of the longest train wavs + 128 tokens): ftall / large / cka "
+        f"{' / '.join(format(t['step_ms'], '.3f') for t in timed)} ms, beside phase 11's f32 micro-step "
+        f"{b['f32_micro_step_ms']:.3f} ms in this call; peak {' / '.join(str(t['peak_gb']) for t in timed)} GB; "
+        f"gradients worst {joint['grads']['worst']:.3e}; phase 14 {joint['phase_s']:.1f} s ({smi})")
+    joint["runs"] = {stem: {k: v for k, v in run.items() if k != "dev_logits"} for stem, run in joint["runs"].items()}
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
                              **steps},
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
-                    "baseline": baseline, "transcription": transcription, "legacy": legacy,
+                    "baseline": baseline, "transcription": transcription, "legacy": legacy, "joint": joint,
                     "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -6,9 +6,10 @@ training sample and its pickle (``train_norm_stat.pkl``, a pickled ``(mean,
 std)`` tuple, the reference's file), ``WavDataset`` (the 12-s cap and the
 z-norm), ``collate_wav`` (lengths padded to whole 16000-sample quanta and a
 fixed row count; padding rows carry ``sample_mask`` 0), the epoch order with
-its length-sorted windows, and the balanced sampler's weights. The numpy
-draws are the JAX package's, so one seed gives both packages the same
-batches.
+its length-sorted windows, the balanced sampler's weights, and the joint
+RoBERTa + WavLM trainers' transcripts (``TxtDataset``, ``collate_txt_wav``).
+The numpy draws are the JAX package's, so one seed gives both packages the
+same batches.
 """
 
 from __future__ import annotations
@@ -62,7 +63,8 @@ BUCKET_WINDOW = 8  # an epoch's order is length-sorted within windows of this ma
 
 class WavDataset:
     """Waveforms cut to ``min(longest, 12 s)`` and z-normalised with the
-    training set's mean and std (computed here when not given).
+    training set's mean and std (computed here when not given; the norm is
+    skipped with ``normalize_wav=False``, the stats still computed).
     ``augment_fn``, when set, transforms a cut waveform before the norm."""
 
     def __init__(
@@ -72,11 +74,13 @@ class WavDataset:
         utts: Optional[Sequence[str]] = None,
         wav_mean: Optional[float] = None,
         wav_std: Optional[float] = None,
+        normalize_wav: bool = True,
     ):
         self.wav_list = list(wav_list)
         self.labels = labels
         self.utts = list(utts) if utts is not None else None
         self.max_dur = int(min(max(len(w) for w in self.wav_list), MAX_SAMPLES))
+        self.normalize_wav = normalize_wav
         self.augment_fn = None
         if wav_mean is None or wav_std is None:
             wav_mean, wav_std = get_norm_stat_for_wav(self.wav_list)
@@ -90,7 +94,9 @@ class WavDataset:
         w = self.wav_list[idx][: self.max_dur]
         if self.augment_fn is not None:
             w = np.asarray(self.augment_fn(w))
-        w = ((w - self.wav_mean) / (self.wav_std + 1e-6)).astype(np.float32)
+        if self.normalize_wav:
+            w = (w - self.wav_mean) / (self.wav_std + 1e-6)
+        w = w.astype(np.float32)
         return w, len(w)
 
     def save_norm_stat(self, path: str) -> None:
@@ -159,3 +165,35 @@ def inverse_freq_sample_weights(onehot_labels) -> np.ndarray:
     inv = np.where(freq > 0, 1.0 / np.maximum(freq, 1), 0.0)
     w = inv[np.argmax(labs, axis=1)]
     return w / w.sum()
+
+
+class TxtDataset:
+    """Transcripts (a missing one is ``""``), tokenized one at a time by
+    ``tokenize([text]) -> {"input_ids", "attention_mask"}``."""
+
+    def __init__(self, texts: Sequence[Optional[str]], tokenize):
+        self.texts = [t if isinstance(t, str) else "" for t in texts]
+        self.tokenize = tokenize
+
+    def __len__(self) -> int:
+        return len(self.texts)
+
+    def get(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        toks = self.tokenize([self.texts[idx]])
+        return np.asarray(toks["input_ids"])[0], np.asarray(toks["attention_mask"])[0]
+
+
+def collate_txt_wav(wav_dataset: WavDataset, txt_dataset: TxtDataset, indices: Sequence[int],
+                    batch_size: int) -> Tuple[WavBatch, np.ndarray, np.ndarray]:
+    """``collate_wav`` of the rows plus their token ids and attention masks
+    ([batch_size, L] int64, L the longest row's, zeros past a row and on the
+    padding rows) -> (WavBatch, ids, mask)."""
+    wav_batch = collate_wav(wav_dataset, indices, batch_size)
+    items = [txt_dataset.get(i) for i in indices]
+    L = max(len(ids) for ids, _ in items)
+    ids = np.zeros((batch_size, L), np.int64)
+    mask = np.zeros((batch_size, L), np.int64)
+    for row, (tid, tm) in enumerate(items):
+        ids[row, : len(tid)] = tid
+        mask[row, : len(tm)] = tm
+    return wav_batch, ids, mask

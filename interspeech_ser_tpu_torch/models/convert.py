@@ -31,6 +31,10 @@ nested dicts of numpy arrays and return the port's state dicts.
 - :func:`baseline_params_from_flax` mirrors ``pooling_flax_to_torch`` and
   ``ser_flax_to_torch`` (interspeech_ser_tpu/baseline/models.py) and yields
   the challenge baseline's ``final_pool.pt`` / ``final_ser.pt`` names.
+- :func:`joint_params_from_flax` mirrors ``conv_joint_flax_to_torch`` and
+  ``transformer_joint_flax_to_torch`` (interspeech_ser_tpu/models/joint.py)
+  and yields the joint heads' ``final_ser.pt`` names;
+  :func:`joint_params_to_flax` is the way back.
 
 Layouts: a flax Dense kernel [in, out] is a torch Linear weight [out, in];
 a flax Conv kernel [k, in/g, out] is a torch Conv1d weight [out, in/g, k].
@@ -397,3 +401,65 @@ def baseline_params_from_flax(pool: Dict, head: Dict) -> Tuple[Dict[str, torch.T
     head_sd["out.0.weight"] = _t(_get(head, "out", "kernel"))
     head_sd["out.0.bias"] = _get(head, "out", "bias")
     return _to_torch(pool_sd), _to_torch(head_sd)
+
+
+def _dense_pairs(path: tuple, key: str) -> list:
+    """(flax path, port key, layout) of a Dense / Linear."""
+    return [(path + ("kernel",), f"{key}.weight", "dense"), (path + ("bias",), f"{key}.bias", "same")]
+
+
+def _joint_pairs(head: str, classifier_layernorm: bool, num_layers: int, gated: bool) -> list:
+    """(flax path, port key, layout) of every leaf of a joint head: layout
+    ``dense`` ([in, out] <-> [out, in]), ``conv`` ([k, in, out] <-> [out, in, k])
+    or ``same``."""
+    pairs = []
+    if head == "conv":
+        for name in ("wav_conv1", "wav_conv2", "rob_conv1", "rob_conv2"):
+            pairs += [((name, "kernel"), f"{name}.weight", "conv"), ((name, "bias"), f"{name}.bias", "same")]
+        pairs += _dense_pairs(("cls_dense",), "classifier.0")
+        if classifier_layernorm:  # Sequential: Linear, LayerNorm, ReLU, Dropout, Linear
+            pairs += [(("cls_norm", "scale"), "classifier.1.weight", "same"),
+                      (("cls_norm", "bias"), "classifier.1.bias", "same")]
+        return pairs + _dense_pairs(("cls_out",), f"classifier.{4 if classifier_layernorm else 3}")
+    for prefix in ("wav", "rob"):
+        pairs += _dense_pairs((f"{prefix}_proj",), f"{prefix}_proj")
+        for i in range(num_layers):  # TorchTransformerEncoderLayer: torch's nn.TransformerEncoderLayer keys
+            src, dst = (f"{prefix}_transformer_{i}",), f"{prefix}_transformer.layers.{i}"
+            pairs += [(src + ("self_attn", "in_proj_kernel"), f"{dst}.self_attn.in_proj_weight", "dense"),
+                      (src + ("self_attn", "in_proj_bias"), f"{dst}.self_attn.in_proj_bias", "same"),
+                      (src + ("self_attn", "out_kernel"), f"{dst}.self_attn.out_proj.weight", "dense"),
+                      (src + ("self_attn", "out_bias"), f"{dst}.self_attn.out_proj.bias", "same")]
+            for m in ("linear1", "linear2"):
+                pairs += _dense_pairs(src + (m,), f"{dst}.{m}")
+            for m in ("norm1", "norm2"):
+                pairs += [(src + (m, "scale"), f"{dst}.{m}.weight", "same"),
+                          (src + (m, "bias"), f"{dst}.{m}.bias", "same")]
+        if gated:
+            pairs += _dense_pairs((f"{prefix}_gate",), f"{prefix}_gate.0")
+    return pairs + _dense_pairs(("cls_dense",), "classifier.0") + _dense_pairs(("cls_out",), "classifier.3")
+
+
+_JOINT_LAYOUT = {"dense": _t, "conv": _unconv, "same": lambda x: x}
+
+
+def joint_params_from_flax(params: Dict, head: str = "conv", classifier_layernorm: bool = True,
+                           num_layers: int = 2, gated: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX ``ConvJointHead`` (``head='conv'``) or ``TransformerJointHead``
+    params -> the port head's state dict, the reference's ``final_ser.pt``
+    names (mirrors ``conv_joint_flax_to_torch`` / ``transformer_joint_flax_to_torch``)."""
+    pairs = _joint_pairs(head, classifier_layernorm, num_layers, gated)
+    return _to_torch({key: _JOINT_LAYOUT[layout](_get(params, *path)) for path, key, layout in pairs})
+
+
+def joint_params_to_flax(sd: Dict[str, torch.Tensor], head: str = "conv", classifier_layernorm: bool = True,
+                         num_layers: int = 2, gated: bool = False) -> Dict:
+    """The way back: a port joint head's state dict (or ``final_ser.pt``) ->
+    the JAX head's nested param dict of f32 numpy arrays."""
+    out: Dict = {}
+    for path, key, layout in _joint_pairs(head, classifier_layernorm, num_layers, gated):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        v = sd[key].detach().cpu().float().numpy()
+        node[path[-1]] = np.ascontiguousarray(_JOINT_LAYOUT[layout](v))  # each layout is its own inverse
+    return out

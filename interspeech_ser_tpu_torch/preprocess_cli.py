@@ -50,6 +50,7 @@ import os
 import sys
 
 from .utils.device import DEVICES
+from .utils.labels import PANDAS_NA
 
 
 def _speech_parser():
@@ -210,13 +211,6 @@ def _text_parser():
     p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                    help="where the encoder runs; without a card 'cuda' raises")
     return p
-
-
-# the strings pandas.read_csv reads as a missing value (its default na_values)
-PANDAS_NA = frozenset({
-    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN",
-    "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
-})
 
 
 def read_transcripts(path: str):

@@ -155,7 +155,10 @@ def cka_loss(
 ) -> torch.Tensor:
     """1 - linear CKA of two feature batches. With a mask the features are
     centred on the valid rows' mean and the padded rows zeroed, which gives
-    the CKA of the valid rows alone."""
+    the CKA of the valid rows alone. A batch whose centred features vanish
+    (one live row, or one row drawn every time) gives 1 with a zero
+    gradient; the JAX package's square root gives it a NaN gradient there,
+    which a training step spreads to every parameter (ROADMAP.md §C)."""
     a, b = feat_a.float(), feat_b.float()
     if sample_mask is None:
         ac = a - a.mean(dim=0)
@@ -169,7 +172,9 @@ def cka_loss(
     hsic_kl = torch.trace(kc @ lc)
     hsic_kk = torch.trace(kc @ kc)
     hsic_ll = torch.trace(lc @ lc)
-    return 1.0 - hsic_kl / (torch.sqrt(hsic_kk * hsic_ll) + 1e-8)
+    prod = hsic_kk * hsic_ll
+    root = torch.where(prod > 0, torch.sqrt(prod.clamp_min(torch.finfo(prod.dtype).tiny)), torch.zeros_like(prod))
+    return 1.0 - hsic_kl / (root + 1e-8)
 
 
 def diff_f1_loss(logits: torch.Tensor, one_hot_targets: torch.Tensor, epsilon: float = 1e-7) -> torch.Tensor:

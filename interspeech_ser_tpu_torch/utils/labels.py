@@ -19,6 +19,11 @@ CLASS_LETTERS = ["A", "S", "H", "U", "F", "D", "C", "N"]
 INDEX_TO_LETTER = dict(enumerate(CLASS_LETTERS))
 
 Rows = List[Dict[str, str]]
+# the strings pandas.read_csv reads as a missing value (its default na_values)
+PANDAS_NA = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN",
+    "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+})
 
 
 def read_csv(path: str) -> Rows:
@@ -56,6 +61,13 @@ def merge_gender(rows: Rows, gender_csv: str) -> Rows:
         for g in by_name.get(r["FileName"], [""]):
             merged.append({**r, "Gender": g, "target_gender": GENDER_TARGETS.get(g, "0")})
     return merged
+
+
+def transcripts(rows: Rows) -> List[Optional[str]]:
+    """Each merged row's ``transcription``; ``None`` where pandas would read
+    a missing value (no transcript row, an empty cell, ``NA``, ...)."""
+    texts = [r.get("transcription") for r in rows]
+    return [None if t is None or t in PANDAS_NA else t for t in texts]
 
 
 def split(rows: Rows, split_set: str) -> Rows:

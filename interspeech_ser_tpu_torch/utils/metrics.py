@@ -3,8 +3,9 @@
 Port of ``interspeech_ser_tpu/utils/metrics.py``'s ``macro_f1`` (sklearn
 ``f1_score(average='macro')`` semantics: per-class F1 with zero-division =
 0, averaged over the classes seen in ``y_true`` or ``y_pred``),
-``concordance_ccc`` (the challenge baseline's dimensional metric) and
-``LogManager`` (its running stat book).
+``concordance_ccc`` (the challenge baseline's dimensional metric),
+``accuracy`` (the text-only trainer's) and ``LogManager`` (the running stat
+book).
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ def macro_f1(y_true, y_pred, num_classes: int = 8) -> float:
         f1[c] = 2 * tp / denom if denom > 0 else 0.0
     observed = np.union1d(np.unique(y_true), np.unique(y_pred)).astype(int)
     return float(np.mean(f1[observed]))
+
+
+def accuracy(y_true, y_pred) -> float:
+    return float(np.mean(np.asarray(y_true) == np.asarray(y_pred)))
 
 
 def concordance_ccc(pred, lab) -> float:

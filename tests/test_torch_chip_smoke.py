@@ -531,3 +531,94 @@ def test_legacy_phase_on_cpu(tmp_path, monkeypatch):
     assert len(steps["train_cat_bimodal_lazy_moe"]["train_step_ms_runs"]) == 5
     assert len(steps["train_cat_bimodal_lazy_moe"]["score"]["score_batch_ms_runs"]) == 5
     assert ops_gru.BiGRU.forward is ops_gru.BiGRU.forward_stacked  # the plain route is undone
+
+
+def test_joint_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 14 at a tiny size (WavLM at D=128 over 2 layers, RoBERTa-large and
+    -base shapes at D=64 / 48 over 2 / 3 layers, phase 11's corpus at 8 train /
+    4 dev wavs, micro-batches of 4): every JOINT_RUNS stem through
+    ``joint_cli.main`` with its launches against the prediction (K1 / K4
+    through AttentionBtdTrain with the plain backward, K2, K8 and K7 through
+    counting plain versions), the reloads, batched vs batch-1, the timings
+    and the ftall gradient check."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import speech, text
+    from interspeech_ser_tpu_torch.ops import attention_core
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka, attention_bhtd as kb
+    from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as kc, pos_conv as kp
+
+    def tiny_wavlm(dtype="float32"):
+        return speech.SpeechConfig(
+            hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+            conv_dim=(16,) * 3, conv_kernel=(10, 8, 8), conv_stride=(5, 8, 8), conv_bias=True,
+            feat_extract_norm="layer", do_stable_layer_norm=True, attention_type="wavlm",
+            num_conv_pos_embeddings=16, conv_pos_groups=4, dtype=dtype,
+        )
+
+    real_bwd = ka.attention_btd_bwd
+
+    def counted_bwd(*args, **kw):
+        ka.BWD_LAUNCHES += 1
+        return real_bwd(*args, **kw)
+
+    def routed(q, k, v, H, key_mask=None, scale=None, gate=None, shared_bias=None, plain=False):
+        if plain:
+            return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+        ka.LAUNCHES += 1
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)):
+            return ka.AttentionBtdTrain.apply(q, k, v, H, key_mask, scale, gate, shared_bias)
+        return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+
+    def counting(mod, plain):
+        def launch(*args, **kw):
+            mod.LAUNCHES += 1
+            return plain(*args, **kw)
+        return launch
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "BASELINE_SHAPE", dict(
+        n_train=8, n_dev=4, n_test3=2, seconds=(0.5, 1.5), batch_size=8, accumulation_steps=2, lr=1e-5,
+        head_dim=16, epochs=1, grad_rows=4, grad_live=3, steps=2))
+    monkeypatch.setattr(cs, "JOINT_SHAPE", dict(batch_size=8, accum_step=2, epochs=1, lr=1e-3, head_dim=16,
+                                                words=(0, 60), grad_rows=4, grad_live=3, steps=2))
+    monkeypatch.setattr(speech, "wavlm_large", tiny_wavlm)
+    monkeypatch.setattr(text, "roberta_large", lambda dtype="float32": text.RobertaConfig(
+        hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128, dtype=dtype))
+    monkeypatch.setattr(cs, "roberta_base", lambda dtype="float32": text.RobertaConfig(
+        hidden_size=48, num_layers=3, num_heads=3, intermediate_size=96, dtype=dtype))
+    monkeypatch.setattr(speech, "dot_product_attention_btd", routed)
+    monkeypatch.setattr(speech, "conv_frontend", counting(kc, kc.conv_frontend_plain))
+    monkeypatch.setattr(speech, "pos_conv", counting(kp, kp.pos_conv_plain))
+    monkeypatch.setattr(attention_core, "attention_bhtd", counting(kb, kb.attention_bhtd_plain))
+    monkeypatch.setattr(ka, "attention_btd_bwd", counted_bwd)
+    monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
+    monkeypatch.delenv("SER_TPU_FRONTEND", raising=False)
+    for mod, counter in ((ka, "LAUNCHES"), (ka, "BWD_LAUNCHES"), (kc, "LAUNCHES"), (kp, "LAUNCHES"),
+                         (kb, "LAUNCHES")):
+        monkeypatch.setattr(mod, counter, 0)
+
+    tmp = str(tmp_path)
+    wavlm_dir, roberta_dir = os.path.join(tmp, "wavlm-large"), os.path.join(tmp, "roberta-large")
+    cs.write_wavlm_large(wavlm_dir)
+    cs.write_text_model(roberta_dir, text.RobertaModel, text.roberta_large(), "RobertaModel")
+    cs.write_bpe_files(roberta_dir, cs.synthetic_words(cs.SEED + 6), text.roberta_large().vocab_size)
+    config_path = cs.write_baseline_corpus(tmp)
+    cs.zero_counts()
+    joint = cs.phase_joint(tmp, config_path, wavlm_dir, roberta_dir)
+    runs = joint["runs"]
+    assert list(runs) == list(cs.JOINT_RUNS) and joint["n_micro"] == 2 and joint["dev_batches"] == 1
+    # frozen: 2 micro-batches + 1 dev batch; K7 = RoBERTa layers (base 3, large 2) x batches
+    assert runs["train_cat_roberta_wavlm"]["launches"]["attention_bhtd"] == 3 * 3
+    assert runs["train_cat_roberta_wavlm_large"]["launches"]["attention_bhtd"] == 2 * 3
+    ftall = runs["train_cat_roberta_wavlm_ftall"]["launches"]
+    assert (ftall["attention_btd"], ftall["attention_btd_bwd"], ftall["attention_bhtd"], ftall["pos_conv"]) == \
+        (2 * 3, 2 * 2, 3 * 1, 0)
+    assert runs["train_cat_roberta"]["launches"] == {**dict.fromkeys(cs.KERNELS, 0), "attention_bhtd": 3}
+    assert cs.counts() == {k: sum(r["launches"][k] for r in runs.values()) for k in cs.KERNELS}
+    assert runs["train_cat_roberta_wavlm_ftall"]["files"]["final_ssl.pt"] > 0
+    checks = cs.check_joint_runs(joint, "a card, 700 W")
+    assert set(checks) == set(cs.JOINT_RUNS)
+    assert all(c["reload_max_abs"] <= 1e-5 and c["batch1_max_abs"] <= 1e-4 for c in checks.values())
+    assert all(len(checks[s]["step_ms_runs"]) == 2 for s in cs.JOINT_TIMED)
+    grads = cs.check_joint_grads(tmp, wavlm_dir, joint)
+    assert grads["worst"] <= 1e-4 and grads["tensors"] > 50

@@ -1,6 +1,6 @@
 """Every module of ``interspeech_ser_tpu_torch`` (and ``chip_smoke.py``)
 imports without jax, flax, pandas, transformers, safetensors, tokenizers,
-regex or the JAX package, and without building or launching a kernel or
+regex, scikit-learn or the JAX package, and without building or launching a kernel or
 building the native wav loader. Run
 in a fresh interpreter, because this test session has imported jax already
 (tests/conftest.py)."""
@@ -24,7 +24,7 @@ from interspeech_ser_tpu_torch.utils import audio, native_audio
 print(json.dumps({
     "modules": mods,
     "heavy": [m for m in ("jax", "flax", "pandas", "transformers", "safetensors", "tokenizers", "regex",
-                          "interspeech_ser_tpu") if m in sys.modules],
+                          "sklearn", "interspeech_ser_tpu") if m in sys.modules],
     "library_loaded": _build.library.cache_info().currsize,
     "native_probed": native_audio._TRIED or native_audio._LIB is not None or any(audio.LOADS.values()),
     "launches": [attention.LAUNCHES, attention.BWD_LAUNCHES, attention_bhtd.LAUNCHES, attention_bhtd.FLASH_LAUNCHES,
@@ -47,7 +47,8 @@ def test_port_imports_light():
               "baseline.podcast", "baseline.data", "ops.kernels.attention_bhtd", "models.text", "utils.spm",
               "utils.bpe", "ops.kernels.ffn_fused", "ops.kernels.pos_conv", "models.ns3", "models.ns3.facodec",
               "baseline.models", "baseline.engine", "baseline.cli", "utils.metrics", "models.whisper_decoder",
-              "utils.whisper_tokenizer", "utils.native_audio", "utils.audio", "transcribe_cli"):
+              "utils.whisper_tokenizer", "utils.native_audio", "utils.audio", "transcribe_cli",
+              "models.joint", "train.joint_engine", "joint_cli", "stacking"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
