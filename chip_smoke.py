@@ -10,8 +10,10 @@ kernel against its plain PyTorch version at the main path's shapes, then
 drives the serving path, the fusion training path, the LoRA fine-tuning
 path, the text-extraction path, the speech-encoder zoo, the NS3 prosody
 extractor with the trimodal trainer, the challenge baseline, Whisper
-transcription, the legacy fusion trainers and the joint RoBERTa + WavLM
-trainers through their entry points at full width:
+transcription, the legacy fusion trainers, the joint RoBERTa + WavLM
+trainers and the information-encoder family (the proto-angular trainers, the
+timbre perturbation, the legacy baselinelike trainers with the x-vector
+engine) through their entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -197,7 +199,27 @@ trainers through their entry points at full width:
    batch-1 (1e-4), one ``ftall`` micro-step through K1 + K4 against the
    plain path on a 2-layer full-width copy (f32 gradients within 1e-4), the
    median ``ftall``, ``large`` and ``cka`` micro-steps (8 rows x 12 s) and
-   their peak memory.
+   their peak memory;
+15. the information-encoder path: the five ``bin/old/*protoangularloss*``
+   stems through ``train.proto_engine.main`` for two epochs each
+   (``ProtoSERNet`` 1024 -> 512 over phase 6's WavLM-large-width ``.pt``
+   features at C x U = 80, with the CE stem's dev batches of 32 and the
+   4-head gender net at 64; over 160 seeded voiced wavs of 1-3 s the melspec
+   ``ProtoSERNet`` at 80, timbre-perturbed at p = 0.5, and the
+   ``BidirectionalReferenceEncoder`` at 64), ``ProtoAngularEngine`` (feat
+   1024, H = 256, C x U = 32) for one epoch and its ``embed``, then
+   ``baseline.cli`` ``train_cat_baselinelike_focalloss`` with the timbre
+   perturbation (p = 0.5) and ``train_cat_baselinelike_xvector`` for one
+   epoch over phase 11's corpus and WavLM-large (phase 11's hyperparameters),
+   and one ``joint_cli`` ``large`` epoch with the perturbation over phase
+   14's corpus: per run the launches against the prediction (K3 a forward and
+   K3b a train step of a BiGRU net, nothing for ``ProtoSERNet`` and the
+   x-vector, phase 11's K1 / K4 / K2 for the baseline run, phase 14's
+   ``large`` launches for the joint one), finite losses, the files, the
+   perturbation changed wavs it drew; each ``angle_ser.pt`` / ``ser.pt`` /
+   ``final_xvector.pt`` reloaded against its run's val or dev loss (1e-5);
+   one reference-encoder step at batch 64 through K3 + K3b against the
+   plain path (gradients within 1e-4); and the median train step of each net.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -215,7 +237,10 @@ is plain PyTorch, as it is plain XLA in the JAX package), and zeroed again
 just before phase 13 and read after its last run (the legacy path: K3 and
 K3b alone, also counted run by run), and zeroed again just before phase 14
 and read after its last ``joint_cli`` run (the joint path: K1, K4, K7, K2's
-layer 0 and K8, counted run by run). K9 has no path (none
+layer 0 and K8, counted run by run), and zeroed again just before phase 15
+and read after its last run (the information-encoder path: K3 / K3b under
+the BiGRU nets, K1, K4 and K2's layer 0 under the baseline run, phase 14's
+kernels under the joint run, counted run by run). K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -4579,6 +4604,416 @@ def check_joint_grads(tmp: str, wavlm_dir: str, joint: dict) -> dict:
     return {"worst": errs[worst], "tensor": worst, "tensors": len(errs), "key_bias_max": key_max}
 
 
+# -- phase 15: the information-encoder path (the proto-angular trainers, the timbre perturbation, the legacy
+# baselinelike trainers with the x-vector engine) ------------------------------------------------------------------
+
+# the melspec corpus: voiced wavs of 1-3 s, 12 train / 8 dev a class (the melspec stems' C x U = 80 and 64 need 10
+# and 32 rows a class or gender); two epochs of each proto stem, the CE stem's dev batches of ce_batch;
+# ProtoAngularEngine at C x U = 8 x 4 for one epoch; timings: median of steps steps
+INFO_SHAPE = dict(n_train=96, n_dev=64, seconds=(1.0, 3.0), proto_epochs=2, angular_utter=4, steps=5, tp_prob=0.5,
+                  grad_rows=64, ce_batch=32)
+PROTO_RUNS = ("train_cat_wavlm_lazy_protoangularloss_only", "train_cat_wavlm_lazy_protoangularloss",
+              "train_cat_melspec_lazy_protoangularloss_only", "train_cat_melspec_lazy_protoangularloss_only_gender",
+              "train_cat_wavlmlarge_lazy_protoangularloss_only_gender")
+
+
+def write_gender_csv(path: str, label_csv: str) -> str:
+    """``FileName,Gender`` for a label CSV's rows: Female / Male by blocks of 8 rows, so each gender holds every class."""
+    from interspeech_ser_tpu_torch.utils import labels as L
+
+    with open(path, "w", newline="") as f:
+        csv.writer(f).writerows([["FileName", "Gender"]] + [[r["FileName"], ("Female", "Male")[(i // 8) % 2]]
+                                                            for i, r in enumerate(L.read_csv(label_csv))])
+    return path
+
+
+def write_info_corpus(tmp: str, train_config: str) -> dict:
+    """The melspec stems' seeded voiced wavs (F0 by class) with a label CSV,
+    gender CSVs for both corpora (phase 6's features and these wavs), and one
+    config a proto stem (phase 6's ``.pt`` dir for the wavlm stems, ``hidden_dim``
+    1024 = WavLM-large's width, dev batches of 32 for the CE stem)."""
+    from interspeech_ser_tpu_torch.train.proto_engine import STEMS, _PROTO_VARIANTS
+    from interspeech_ser_tpu_torch.utils.labels import CLASSES
+
+    shape = INFO_SHAPE
+    with open(train_config) as f:
+        base = json.load(f)
+    rng = np.random.default_rng(SEED + 15)
+    wav_dir = os.path.join(tmp, "info_wavs")
+    os.makedirs(wav_dir)
+    rows = []
+    for i in range(shape["n_train"] + shape["n_dev"]):
+        cls, name = i % 8, f"info_{i:03d}.wav"
+        write_wav(os.path.join(wav_dir, name), prosody_wave(int(rng.uniform(*shape["seconds"]) * 16000), rng,
+                                                            90.0 + 20.0 * cls))
+        rows.append([name] + [float(c == cls) for c in range(8)]
+                    + ["Train" if i < shape["n_train"] else "Development"])
+    label_csv = os.path.join(tmp, "info_labels.csv")
+    with open(label_csv, "w", newline="") as f:
+        csv.writer(f).writerows([["FileName"] + CLASSES + ["Split_Set"]] + rows)
+    configs, genders = {}, {}
+    for stem in PROTO_RUNS:
+        spec = _PROTO_VARIANTS[STEMS[stem]]
+        melspec = spec["data"] == "melspec"
+        labels = label_csv if melspec else base["label_path"]
+        genders[stem] = write_gender_csv(os.path.join(tmp, f"info_gender_{'wav' if melspec else 'pt'}.csv"), labels)
+        cfg = {"label_path": labels, "audio_lazy_dir": wav_dir if melspec else base["lazy_dir1"], "wav_dir": wav_dir,
+               "epochs": shape["proto_epochs"], "lr": 1e-4, "model_path": os.path.join(tmp, f"info_{stem}"),
+               "feat1_dim": base["feat1_dim"], "hidden_dim": base["feat1_dim"], "batch_size": shape["ce_batch"]}
+        configs[stem] = os.path.join(tmp, f"info_{stem}.json")
+        with open(configs[stem], "w") as f:
+            json.dump(cfg, f)
+    return {"configs": configs, "genders": genders, "label_csv": label_csv, "wav_dir": wav_dir}
+
+
+def proto_split(cfg: dict, variant: str, split: str, gender_csv: str, seed: int = SEED):
+    """A proto stem's split as ``proto_main`` builds it (the same seeds)."""
+    from interspeech_ser_tpu_torch.train import proto_engine as pe
+
+    spec = pe._PROTO_VARIANTS[variant]
+    part = [r for r in pe.proto_rows(cfg["label_path"], spec["target"], gender_csv) if r["Split_Set"] == split]
+    names, y = [r["FileName"] for r in part], np.asarray([r["target"] for r in part], np.int64)
+    if spec["data"] == "melspec":
+        return pe.MelspecProtoDataset(names, y, cfg["audio_lazy_dir"], mel_sample_rate=spec.get("mel_sr", 16000),
+                                      perturb_prob=spec.get("perturb", 0.0),
+                                      seed=seed + (split == "Development"))
+    return pe.LazyProtoDataset(names, y, cfg["audio_lazy_dir"])
+
+
+def proto_batches(labels: np.ndarray, C: int, per_class: int) -> int:
+    """Batches a drop_last ``PerfectBatchSampler`` yields: the scarcest class's rows // per_class."""
+    return min(int((np.asarray(labels) == c).sum()) // per_class for c in range(C))
+
+
+class PerturbLog:
+    """``fixed_timbre_perturb`` wrapped: calls and how many changed their wav."""
+
+    def __init__(self):
+        from interspeech_ser_tpu_torch.train import information_encoder
+
+        self.module, self.real = information_encoder, information_encoder.fixed_timbre_perturb
+        self.calls = self.changed = 0
+
+    def __enter__(self):
+        def perturb(wav, *args, **kw):
+            out = self.real(wav, *args, **kw)
+            self.calls += 1
+            self.changed += bool(np.abs(np.asarray(out) - np.asarray(wav)).max() > 1e-4)
+            return out
+
+        self.module.fixed_timbre_perturb = perturb
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fixed_timbre_perturb = self.real
+
+
+def phase_info(tmp: str, train_config: str, baseline_config: str, wavlm_dir: str, joint: dict) -> dict:
+    """Phase 15: the five proto stems through ``proto_engine.main`` (two epochs
+    each), ``ProtoAngularEngine`` over phase 6's features (one epoch, then
+    ``embed``), ``baseline.cli`` ``train_cat_baselinelike_focalloss`` with the
+    timbre perturbation and ``train_cat_baselinelike_xvector`` over phase 11's
+    corpus and WavLM-large, and one ``joint_cli`` ``large`` epoch with the
+    perturbation over phase 14's corpus. Per run: the launches against the
+    prediction (K3 once a forward and K3b once a train step of a BiGRU net, no
+    kernel for ``ProtoSERNet`` or the x-vector; phase 11's K1 / K4 / K2 for the
+    baseline run, phase 14's for the joint one), finite losses, the files, and
+    the perturbation changed wavs it drew."""
+    from interspeech_ser_tpu_torch import joint_cli
+    from interspeech_ser_tpu_torch.baseline import cli as bcli
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.train import proto_engine as pe
+    from interspeech_ser_tpu_torch.train.data import LazyFeatureDataset
+    from interspeech_ser_tpu_torch.utils import labels as L
+
+    shape = INFO_SHAPE
+    corpus = write_info_corpus(tmp, train_config)
+    runs = {}
+
+    def run(name: str, fn, want: dict) -> dict:
+        before = counts()
+        t0 = time.perf_counter()
+        with PerturbLog() as perturbed:
+            out = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in counts().items()}
+        want = {**dict.fromkeys(KERNELS, 0), **want}
+        log(f"[info] {name}: {seconds:.2f} s, launches {{{', '.join(f'{k}: {v}' for k, v in got.items() if v)}}} "
+            f"(predicted {{{', '.join(f'{k}: {v}' for k, v in want.items() if v)}}}); perturbed {perturbed.changed} "
+            f"changed of {perturbed.calls} drawn")
+        require(got == want, f"{name}: launches {got} != predicted {want}")
+        runs[name] = {"seconds": seconds, "launches": got, "perturbed": perturbed.changed,
+                      "perturb_calls": perturbed.calls, "result": out}
+        return out
+
+    for stem in PROTO_RUNS:
+        variant = pe.STEMS[stem]
+        spec = pe._PROTO_VARIANTS[variant]
+        with open(corpus["configs"][stem]) as f:
+            cfg = json.load(f)
+        train = proto_split(cfg, variant, "Train", corpus["genders"][stem])
+        val = proto_split(cfg, variant, "Development", corpus["genders"][stem])
+        steps = proto_batches(train.labels, spec["C"], spec["U"])
+        val_batches = (len(val) // cfg["batch_size"] if spec.get("ce") else proto_batches(val.labels, spec["C"],
+                                                                                          spec["U_val"]))
+        gru = isinstance(spec["net"](cfg), pe.BidirectionalReferenceEncoder)
+        epochs = cfg["epochs"]
+        want = {"gru_bidir": epochs * (steps + val_batches), "gru_bidir_bwd": epochs * steps} if gru else {}
+        require(steps > 0 and val_batches > 0, f"{stem}: {steps} steps, {val_batches} val batches an epoch")
+        best = run(stem, lambda: pe.main([stem, "--config_path", corpus["configs"][stem], "--gender_labels_csv",
+                                          corpus["genders"][stem], "--device", DEVICE]), want)
+        require(np.isfinite(best["val_angle"]) and best["epoch"] >= 0, f"{stem}: {best}")
+        ckpt = os.path.join(cfg["model_path"], "ser.pt" if spec.get("ce") else "angle_ser.pt")
+        runs[stem].update(variant=variant, steps=epochs * steps, val_batches=epochs * val_batches, ckpt=ckpt,
+                          config=corpus["configs"][stem], gender_csv=corpus["genders"][stem], best=best,
+                          keys=len(torch.load(ckpt, weights_only=True)))
+        if spec.get("perturb"):
+            require(runs[stem]["perturbed"] > 0, f"{stem}: the perturbation changed no wav")
+
+    # ProtoAngularEngine over phase 6's WavLM-large-width features, H = 256 (K3 on a ragged mask)
+    with open(train_config) as f:
+        tcfg = json.load(f)
+    rows = L.read_csv(tcfg["label_path"])
+    train_rows = L.split(rows, "Train")
+    ds = LazyFeatureDataset(L.column(train_rows, "FileName"), L.matrix(train_rows), [tcfg["lazy_dir1"]],
+                            [tcfg["feat1_dim"]])
+    class_ids = np.argmax(ds.labels, axis=1)
+    angular = pe.ProtoAngularEngine(tcfg["feat1_dim"], utter_per_class=shape["angular_utter"], seed=SEED,
+                                    device=DEVICE)
+    a_steps = proto_batches(class_ids, 8, shape["angular_utter"])
+    a_embed = -(-len(ds) // 16)
+    res = run("ProtoAngularEngine", lambda: {"fit": angular.fit(ds, class_ids, epochs=1, lr=1e-4, log=log),
+                                             "emb": angular.embed(ds, batch_size=16)},
+              {"gru_bidir": a_steps + a_embed, "gru_bidir_bwd": a_steps})
+    require(np.isfinite(res["fit"]["loss"]) and res["emb"].shape == (len(ds), 256) and np.isfinite(res["emb"]).all(),
+            f"ProtoAngularEngine: {res['fit']}, embeddings {res['emb'].shape}")
+    runs["ProtoAngularEngine"].update(steps=a_steps, embed_batches=a_embed, result=res["fit"])
+
+    # the legacy baselinelike trainers over phase 11's corpus and WavLM-large
+    with open(baseline_config) as f:
+        paths = json.load(f)
+    bshape = BASELINE_SHAPE
+    n_layers = speech.wavlm_large().num_layers
+    micro = -(-bshape["n_train"] // (bshape["batch_size"] // bshape["accumulation_steps"]))
+    dev_batches = -(-bshape["n_dev"] // 8)
+    legacy = {}
+    for stem, extra in (("train_cat_baselinelike_focalloss", {"use_timbre_perturb": True,
+                                                                "tp_prob": shape["tp_prob"]}),
+                        ("train_cat_baselinelike_xvector", {})):
+        cfg = {**paths, "ssl_type": wavlm_dir, "batch_size": bshape["batch_size"],
+               "accum_step": bshape["accumulation_steps"], "epochs": 1, "lr": bshape["lr"],
+               "model_path": os.path.join(tmp, f"info_{stem}"), "head_dim": bshape["head_dim"],
+               "pooling_type": "AttentiveStatisticsPooling", "weight_decay": 1e-2, "dropout_head": 0.5,
+               "use_timbre_perturb": False, "tp_prob": 0.0, **extra}
+        legacy[stem] = os.path.join(tmp, f"info_{stem}.json")
+        with open(legacy[stem], "w") as f:
+            json.dump(cfg, f)
+        # the baseline's forward: K1 a layer and K2's layer 0 once (train micro-batches and dev batches of 8),
+        # K4 a layer per micro-batch's backward; the x-vector launches nothing
+        want = ({"attention_btd": n_layers * (micro + dev_batches), "attention_btd_bwd": n_layers * micro,
+                 "conv_frontend": micro + dev_batches} if stem.endswith("focalloss") else {})
+        best = run(stem, lambda: bcli.main([stem, "--config_path", legacy[stem], "--device", DEVICE]), want)
+        require(best["epoch"] == 0 and all(np.isfinite(best["dev_losses"])), f"{stem}: {best}")
+        files = ["final_ser.pt", "train_norm_stat.pkl"] + (["final_xvector.pt"] if stem.endswith("xvector")
+                                                            else ["final_pool.pt", "final_ssl.pt"])
+        require(all(os.path.exists(os.path.join(cfg["model_path"], n)) for n in files), f"{stem}: files {files}")
+        runs[stem].update(config=legacy[stem], model_path=cfg["model_path"], best=best)
+    require(runs["train_cat_baselinelike_focalloss"]["perturbed"] > 0, "focalloss: the perturbation changed no wav")
+
+    # one joint_cli large epoch with the perturbation over phase 14's corpus
+    stem = "train_cat_roberta_wavlm_large"
+    with open(joint["configs"][stem]) as f:
+        jcfg = {**json.load(f), "use_timbre_perturb": True, "tp_prob": shape["tp_prob"],
+                "model_path": os.path.join(tmp, "info_joint_large")}
+    jpath = os.path.join(tmp, "info_joint_large.json")
+    with open(jpath, "w") as f:
+        json.dump(jcfg, f)
+    best = run("joint large + timbre", lambda: joint_cli.main([stem, "--config_path", jpath, "--device", DEVICE]),
+               joint["runs"][stem]["predicted"])
+    require(best["epoch"] == 0 and all(np.isfinite(best["dev_losses"])), f"joint large + timbre: {best}")
+    require(runs["joint large + timbre"]["perturbed"] > 0, "joint large: the perturbation changed no wav")
+    return {"runs": runs, **corpus}
+
+
+def check_info_reloads(info: dict) -> dict:
+    """Each proto stem's ``angle_ser.pt`` / ``ser.pt`` loaded strictly into a
+    fresh net gives the run's best val loss again (1e-5; the perturbed melspec
+    stem's val set is read once per earlier epoch first, so that its seeded
+    draws reach the best epoch's), and the x-vector run's ``final_ser.pt`` +
+    ``final_xvector.pt`` its dev loss (1e-5)."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.baseline.engine import labelled_split
+    from interspeech_ser_tpu_torch.baseline.xvector_engine import XVectorEngine
+    from interspeech_ser_tpu_torch.train import proto_engine as pe
+    from interspeech_ser_tpu_torch.utils.labels import CLASSES
+
+    out = {}
+    for stem in PROTO_RUNS:
+        run = info["runs"][stem]
+        spec = pe._PROTO_VARIANTS[run["variant"]]
+        with open(run["config"]) as f:
+            cfg = json.load(f)
+        net = spec["net"](cfg)
+        net.load_state_dict(torch.load(run["ckpt"], weights_only=True), strict=True)
+        engine = pe.ProtoOnlyEngine(net, spec["C"], spec["U"], spec["U_val"], ce_mode=spec.get("ce", False),
+                                    val_batch_size=cfg["batch_size"], device=DEVICE)
+        val = proto_split(cfg, run["variant"], "Development", run["gender_csv"])
+        score = (lambda: engine.eval_ce(val)[0]) if spec.get("ce") else (lambda: engine.val_angle(val))
+        for _ in range(run["best"]["epoch"] if spec.get("perturb") else 0):
+            score()  # the perturbation draws of the epochs before the best one
+        out[stem] = abs(score() - run["best"]["val_angle"])
+    run = info["runs"]["train_cat_baselinelike_xvector"]
+    with open(run["config"]) as f:
+        cfg = json.load(f)
+    engine = XVectorEngine(head_dim=cfg["head_dim"], device=DEVICE)
+    engine.load_checkpoints(run["model_path"])
+    mean, std = bdata.load_norm_stat(os.path.join(run["model_path"], "train_norm_stat.pkl"))
+    train_labs = labelled_split("cat", cfg["label_path"], cfg["wav_dir"], "train").labels
+    freq = np.asarray(train_labs).sum(axis=0)
+    cw = np.where(freq != 0, len(train_labs) / (len(CLASSES) * np.maximum(freq, 1)), 0.0)
+    dev = labelled_split("cat", cfg["label_path"], cfg["wav_dir"], "dev", mean, std)
+    out["train_cat_baselinelike_xvector"] = abs(engine.evaluate(dev, cw)["loss"] - run["best"]["loss"])
+    log(f"[info] reloaded checkpoints vs the runs' best val / dev losses (bar 1e-5): "
+        f"{ {k: float(f'{v:.3e}') for k, v in out.items()} }")
+    require(max(out.values()) <= 1e-5, f"reloads: {out}")
+    return out
+
+
+def check_info_steps(info: dict, smi: str) -> dict:
+    """One ``BidirectionalReferenceEncoder`` train step at batch 64 (the gender
+    stem's C x U, its first train batch) through K3 + K3b against the plain
+    path (``BiGRU.forward_scan``) on the card: each gradient within 1e-4 of its
+    tensor's largest magnitude (of 1e-3 of the step's largest where smaller);
+    then the median train step (forward, backward, optimizer) of each net at
+    its run's batch: ``ProtoSERNet`` 1024 -> 512 at C x U = 80, the reference
+    encoder at 64, ``StyleEmbeddingNet`` at 32, and the x-vector micro-step
+    (8 rows of the longest train wavs)."""
+    from interspeech_ser_tpu_torch.baseline import data as bdata
+    from interspeech_ser_tpu_torch.baseline.engine import labelled_split
+    from interspeech_ser_tpu_torch.baseline.xvector_engine import XVectorEngine
+    from interspeech_ser_tpu_torch.ops.gru import BiGRU
+    from interspeech_ser_tpu_torch.train import proto_engine as pe
+    from interspeech_ser_tpu_torch.train.samplers import PerfectBatchSampler
+
+    out = {}
+
+    def proto_engine_and_batch(stem):
+        run = info["runs"][stem]
+        spec = pe._PROTO_VARIANTS[run["variant"]]
+        with open(run["config"]) as f:
+            cfg = json.load(f)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            engine = pe.ProtoOnlyEngine(spec["net"](cfg), spec["C"], spec["U"], spec["U_val"], device=DEVICE)
+        train = proto_split(cfg, run["variant"], "Train", run["gender_csv"])
+        idxs = next(iter(PerfectBatchSampler(train.labels, range(spec["C"]), spec["C"] * spec["U"], shuffle=False,
+                                             drop_last=True)))
+        return engine, engine.collate(train, list(idxs))
+
+    engine, (feats, y) = proto_engine_and_batch("train_cat_melspec_lazy_protoangularloss_only_gender")
+    require(len(y) == INFO_SHAPE["grad_rows"], f"reference-encoder batch {len(y)}")
+    grads, launched = {}, {}
+    state = {k: v.clone() for k, v in engine.net.state_dict().items()}
+    for route in ("kernel", "plain"):
+        engine.net.load_state_dict(state)  # the same running statistics on both routes
+        engine.net.zero_grad(set_to_none=True)
+        kernel_forward = BiGRU.forward
+        if route == "plain":
+            BiGRU.forward = BiGRU.forward_scan
+        before = counts()
+        try:
+            engine.train_loss(feats, y).backward()
+        finally:
+            BiGRU.forward = kernel_forward
+        sync()
+        launched[route] = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        grads[route] = {n: p.grad.detach().clone() for n, p in engine.net.named_parameters()}
+    require(launched == {"kernel": {"gru_bidir": 1, "gru_bidir_bwd": 1}, "plain": {}},
+            f"reference-encoder gradient check launches {launched}")
+    top = max(float(g.abs().max()) for g in grads["plain"].values())
+    # a conv bias under a training-mode BatchNorm has a true gradient of 0 (the batch mean takes it out)
+    zero = [n for n in grads["plain"] if n.startswith("convs.") and n.endswith(".bias")]
+    errs = {n: max_abs(grads["kernel"][n], g) / max(float(g.abs().max()), 1e-3 * top)
+            for n, g in grads["plain"].items() if n not in zero}
+    worst = max(errs, key=errs.get)
+    gru = max(v for n, v in errs.items() if n.startswith("recurrence."))
+    zero_max = max(float(grads[r][n].abs().max()) for r in grads for n in zero) / top
+    log(f"[info] reference encoder (batch {len(y)}, mel [{feats.shape[1]}, 80], H = 128) one step's gradients, "
+        f"K3 + K3b vs the plain path ({len(errs)} tensors): worst {worst} {errs[worst]:.3e}, worst GRU tensor "
+        f"{gru:.3e} (bar 1e-4); conv biases at most {zero_max:.3e} of the largest gradient")
+    require(errs[worst] <= 1e-4 and zero_max <= 1e-4, f"reference-encoder gradients: {worst} {errs[worst]}, "
+                                                      f"conv biases {zero_max}")
+    out["grad_rel_err"], out["grad_worst"] = errs[worst], worst
+
+    def timed(name, step):
+        times = host_times_ms(step, INFO_SHAPE["steps"])
+        out[f"{name}_step_ms"], out[f"{name}_step_ms_runs"] = statistics.median(times), times
+        log(f"[info] {name} train step (forward, backward, optimizer; TF32 off): median {statistics.median(times):.3f} "
+            f"ms of runs {[round(t, 3) for t in times]} ({smi})")
+
+    def proto_step(engine, feats, y):
+        opt = torch.optim.RAdam(engine.net.parameters(), lr=1e-4)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            engine.train_loss(feats, y).backward()
+            opt.step()
+        return step
+
+    timed("reference_encoder", proto_step(engine, feats, y))
+    engine, (feats, y) = proto_engine_and_batch("train_cat_wavlm_lazy_protoangularloss_only")
+    timed("proto_ser_net", proto_step(engine, feats, y))
+    out["proto_ser_net_frames"] = feats.shape[1]
+
+    # StyleEmbeddingNet: ProtoAngularEngine's step on its first batch
+    from interspeech_ser_tpu_torch.train.data import LazyFeatureDataset
+    from interspeech_ser_tpu_torch.utils import labels as L
+
+    with open(info["configs"]["train_cat_wavlm_lazy_protoangularloss_only"]) as f:
+        cfg = json.load(f)
+    rows = L.split(L.read_csv(cfg["label_path"]), "Train")
+    ds = LazyFeatureDataset(L.column(rows, "FileName"), L.matrix(rows), [cfg["audio_lazy_dir"]], [cfg["feat1_dim"]])
+    angular = pe.ProtoAngularEngine(cfg["feat1_dim"], utter_per_class=INFO_SHAPE["angular_utter"], device=DEVICE)
+    C, U = angular.num_classes, angular.utter_per_class
+    idxs = next(iter(PerfectBatchSampler(np.argmax(ds.labels, 1), range(C), C * U, shuffle=False, drop_last=True)))
+    b = ds.collate(list(idxs), C * U)
+    f_d, m_d = torch.from_numpy(b.feats[0]).to(DEVICE), torch.from_numpy(b.masks[0]).to(DEVICE)
+    y_d = torch.from_numpy(np.argmax(b.labels, 1)).to(DEVICE)
+    wb = [torch.nn.Parameter(torch.tensor(10.0, device=DEVICE)), torch.nn.Parameter(torch.tensor(-5.0, device=DEVICE))]
+    opts = [torch.optim.AdamW(angular.model.parameters(), lr=1e-4, weight_decay=1e-6),
+            torch.optim.AdamW(wb, lr=1e-4, weight_decay=1e-4)]
+
+    def angular_step():
+        for o in opts:
+            o.zero_grad(set_to_none=True)
+        angular.step_loss(f_d, m_d, y_d, wb)[0].backward()
+        for o in opts:
+            o.step()
+
+    timed("style_embedding", angular_step)
+
+    # the x-vector micro-step: 8 rows of the longest train wavs
+    run = info["runs"]["train_cat_baselinelike_xvector"]
+    with open(run["config"]) as f:
+        cfg = json.load(f)
+    xv = XVectorEngine(head_dim=cfg["head_dim"], device=DEVICE)
+    train = labelled_split("cat", cfg["label_path"], cfg["wav_dir"], "train")
+    longest = list(np.argsort([len(w) for w in train.wav_list], kind="stable")[-8:])
+    wb8 = bdata.collate_wav(train, longest, 8)
+    opt = torch.optim.AdamW(xv.parameters(), lr=1e-4, weight_decay=1e-2)
+    cw = torch.ones(8, device=DEVICE)
+
+    def xvector_step():
+        opt.zero_grad(set_to_none=True)
+        xv.batch_loss(wb8, cw).backward()
+        opt.step()
+
+    timed("xvector", xvector_step)
+    out["xvector_seconds"] = wb8.wav.shape[1] / 16000
+    return out
+
+
 T0 = time.perf_counter()
 
 
@@ -4724,14 +5159,28 @@ def main() -> None:
         joint["checks"] = check_joint_runs(joint, smi)
         joint["grads"] = check_joint_grads(tmp, wavlm_dir, joint)
         joint["phase_s"] = time.perf_counter() - t_joint
+
+        zero_counts()
+        t_info = time.perf_counter()
+        info = phase_info(tmp, config_path, baseline["config_path"], wavlm_dir, joint)
+        info_path = counts()
+        ran = {name: sum(run["launches"][name] for run in info["runs"].values()) for name in KERNELS}
+        require(info_path == ran, f"information-encoder path launches {info_path} != the runs' sum {ran}")
+        for name in ("gru_bidir", "gru_bidir_bwd", "attention_btd", "attention_btd_bwd", "conv_frontend"):
+            require(info_path[name] > 0, f"kernel {name} was not launched on the information-encoder path")
+        log(f"[info path] launches {info_path}")
+        info["reloads"] = check_info_reloads(info)
+        info["steps"] = check_info_steps(info, smi)
+        info["phase_s"] = time.perf_counter() - t_info
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
                "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path,
-               "legacy": legacy_path, "joint": joint_path}
+               "legacy": legacy_path, "joint": joint_path, "info": info_path}
     # the speech, fusion and transcription paths never reach K6 / K7; the joint path's RoBERTa runs K7 alone
     for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy"):
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
-    require(joint_path["flash_attention"] == 0, f"K6 launched on the joint path: {joint_path}")
+    require(joint_path["flash_attention"] == info_path["flash_attention"] == 0,
+            f"K6 launched on the joint or information-encoder path: {joint_path}, {info_path}")
     launches = {name: sum(path[name] for path in by_path.values()) for name in KERNELS}
 
     record = []
@@ -4775,13 +5224,22 @@ def main() -> None:
         f"{' / '.join(format(t['step_ms'], '.3f') for t in timed)} ms, beside phase 11's f32 micro-step "
         f"{b['f32_micro_step_ms']:.3f} ms in this call; peak {' / '.join(str(t['peak_gb']) for t in timed)} GB; "
         f"gradients worst {joint['grads']['worst']:.3e}; phase 14 {joint['phase_s']:.1f} s ({smi})")
+    st = info["steps"]
+    log(f"[info] train step median: ProtoSERNet 1024 -> 512 at C x U = 80 ({st['proto_ser_net_frames']} frames) "
+        f"{st['proto_ser_net_step_ms']:.3f} ms, BidirectionalReferenceEncoder at 64 "
+        f"{st['reference_encoder_step_ms']:.3f} ms, StyleEmbeddingNet (H = 256) at 32 "
+        f"{st['style_embedding_step_ms']:.3f} ms, x-vector micro-step (8 x {st['xvector_seconds']:.0f} s) "
+        f"{st['xvector_step_ms']:.3f} ms; K3 + K3b gradients worst {st['grad_rel_err']:.3e}; runs "
+        f"{ {k: round(r['seconds'], 2) for k, r in info['runs'].items()} } s; phase 15 {info['phase_s']:.1f} s ({smi})")
     joint["runs"] = {stem: {k: v for k, v in run.items() if k != "dev_logits"} for stem, run in joint["runs"].items()}
+    info["runs"] = {k: {n: v for n, v in r.items() if n not in ("result", "best")} for k, r in info["runs"].items()}
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
                     "train": {**trained, **step},
                     "lora": {"whisper_extraction_utt_per_sec": whisper["utt_per_sec"], "grad_rel_err": lora_grads,
                              **steps},
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
                     "baseline": baseline, "transcription": transcription, "legacy": legacy, "joint": joint,
+                    "info": info,
                     "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

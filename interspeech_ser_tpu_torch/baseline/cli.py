@@ -1,8 +1,8 @@
 """The challenge baseline's train and eval entry points.
 
 Port of ``interspeech_ser_tpu/baseline/cli.py`` (``train_main``,
-``eval_main``; the ``bin/old`` baselinelike trainers of its
-``legacy_train_main`` are not ported): the reference scripts' flags
+``eval_main``, and ``legacy_train_main`` for the three ``bin/old``
+baselinelike trainers, ``LEGACY_STEMS``): the reference scripts' flags
 (``benchmark/train_eval_files/{train,eval}_{cat,dim}_ser.py``), the wav
 directory and label CSV from ``configs/config_cat.json``, and
 ``final_{ser,pool,ssl}.pt`` + ``train_norm_stat.pkl`` in ``--model_path``,
@@ -17,6 +17,8 @@ directory's ``*test3*`` files): ``FileName,EmoClass`` for ``cat``,
         --config_path configs/config_cat.json --model_path <out> [--device cpu]
     python -m interspeech_ser_tpu_torch.baseline.cli eval --task dim [--dev] --ssl_type <HF dir> \\
         --config_path configs/config_cat.json --model_path <out> [--device cpu]
+    python -m interspeech_ser_tpu_torch.baseline.cli train_cat_baselinelike_focalloss \\
+        --config_path <cfg> [--seed 7] [--device cpu]
 """
 
 from __future__ import annotations
@@ -136,8 +138,66 @@ def eval_main(task: str = "cat", dev: bool = False, argv=None) -> str:
     return out
 
 
+# bin/old wrapper stem -> legacy_train_main variant
+LEGACY_STEMS = {
+    "train_cat_baselinelike": "base",
+    "train_cat_baselinelike_focalloss": "focalloss",
+    "train_cat_baselinelike_xvector": "xvector",
+}
+
+
+def legacy_train_main(variant: str = "base", argv=None) -> dict:
+    """The config-JSON trainers of ``bin/old``: ``base``
+    (train_cat_baselinelike.py, weighted CE), ``focalloss`` (unweighted CE +
+    focal loss with gamma 3 and dynamic alpha) and ``xvector``
+    (``XVectorEngine`` instead of an SSL encoder). Flags: ``--seed`` (7),
+    ``--config_path``, ``--device``. Config keys: ``wav_dir``,
+    ``label_path``, ``ssl_type``, ``batch_size``, ``accum_step``, ``epochs``,
+    ``lr``, ``model_path``, ``head_dim``, ``weight_decay`` (1e-2),
+    ``dropout_head`` (0.5), ``use_timbre_perturb`` with ``tp_prob``,
+    ``use_balanced_batch``, ``normalize_wav`` (true), and for ``xvector``
+    ``xvector_ckpt`` (a speechbrain checkpoint). -> the engine's ``fit``
+    result."""
+    from ..train.engine import setup_run_logging
+
+    if variant not in LEGACY_STEMS.values():
+        raise ValueError(f"variant {variant!r}: one of {sorted(LEGACY_STEMS.values())}")
+    p = argparse.ArgumentParser()
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--config_path", type=str, default="./configs/config_cat.json")
+    p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
+                   help="where the model trains; without a card 'cuda' raises")
+    args = p.parse_args(argv)
+    with open(args.config_path) as f:
+        cfg = json.load(f)
+    logger = setup_run_logging(cfg["model_path"])
+    common = dict(label_path=cfg["label_path"], audio_path=cfg["wav_dir"], model_path=cfg["model_path"],
+                  batch_size=cfg["batch_size"], accumulation_steps=cfg["accum_step"], epochs=cfg["epochs"],
+                  lr=cfg["lr"], use_balanced_batch=cfg.get("use_balanced_batch", False),
+                  normalize_wav=cfg.get("normalize_wav", True), log=logger.info)
+    if variant == "xvector":
+        from .xvector_engine import XVectorEngine
+
+        engine = XVectorEngine(head_dim=cfg["head_dim"], seed=args.seed, xvector_ckpt=cfg.get("xvector_ckpt"),
+                               device=args.device)
+        return engine.fit(**common)
+
+    from .engine import BaselineEngine
+
+    engine = BaselineEngine(get_ssl_type(cfg["ssl_type"]) or cfg["ssl_type"], task="cat", head_dim=cfg["head_dim"],
+                            seed=args.seed, dropout=cfg.get("dropout_head", 0.5),
+                            loss_mode="ce_focal3" if variant == "focalloss" else "wce", device=args.device)
+    return engine.fit(weight_decay=cfg.get("weight_decay", 1e-2),
+                      use_timbre_perturb=cfg.get("use_timbre_perturb", False), tp_prob=cfg.get("tp_prob", 0.0),
+                      **common)
+
+
 def main(argv=None):
-    """``train --task cat|dim [flags]`` or ``eval --task cat|dim [--dev] [flags]``."""
+    """``train --task cat|dim [flags]``, ``eval --task cat|dim [--dev] [flags]``,
+    or a ``LEGACY_STEMS`` stem and ``legacy_train_main``'s flags."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in LEGACY_STEMS:
+        return legacy_train_main(LEGACY_STEMS[argv[0]], argv[1:])
     p = argparse.ArgumentParser(prog="python -m interspeech_ser_tpu_torch.baseline.cli")
     p.add_argument("command", choices=("train", "eval"))
     p.add_argument("--task", choices=("cat", "dim"), default="cat")
@@ -151,4 +211,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main()

@@ -27,7 +27,9 @@ As in the JAX engine:
   built, so its training and its evaluation run in f32;
 - the epoch order is the JAX engine's numpy draws (``numpy_generator(seed)``),
   or with ``use_balanced_batch`` rows drawn with replacement by inverse
-  class frequency;
+  class frequency; ``use_timbre_perturb`` perturbs a drawn training wav with
+  probability ``tp_prob`` (``train/information_encoder.fixed_timbre_perturb``,
+  on the host, from a generator seeded by one draw of the engine's);
 - the best dev loss writes ``final_ser.pt``, ``final_pool.pt`` and
   ``final_ssl.pt`` (HF names, the positional conv's weight norm unfolded).
 """
@@ -142,20 +144,23 @@ class BaselineEngine:
         lr: float = 1e-5,
         weight_decay: float = 1e-2,
         use_balanced_batch: bool = False,
+        normalize_wav: bool = True,
         use_timbre_perturb: bool = False,
+        tp_prob: float = 0.0,
         log=print,
     ) -> Dict:
         """Train on the label CSV's Train split, pick the epoch by dev loss ->
         ``{"epoch", "loss"}`` of the best epoch, its dev predictions
-        (``dev_preds``) and every epoch's dev loss (``dev_losses``)."""
-        if use_timbre_perturb:
-            raise NotImplementedError(
-                "use_timbre_perturb needs train/information_encoder.py, which the port does not have yet "
-                "(ROADMAP.md §A.6)")
+        (``dev_preds``) and every epoch's dev loss (``dev_losses``).
+        ``use_timbre_perturb``: each training wav, when drawn, is perturbed
+        with probability ``tp_prob`` (``timbre_augment``)."""
         os.makedirs(model_path, exist_ok=True)
-        train_set = labelled_split(self.task, label_path, audio_path, "train")
+        train_set = labelled_split(self.task, label_path, audio_path, "train", normalize_wav=normalize_wav)
+        if use_timbre_perturb:
+            train_set.augment_fn = timbre_augment(self.rng, tp_prob)
         train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
-        dev_set = labelled_split(self.task, label_path, audio_path, "dev", train_set.wav_mean, train_set.wav_std)
+        dev_set = labelled_split(self.task, label_path, audio_path, "dev", train_set.wav_mean, train_set.wav_std,
+                                 normalize_wav)
         train_labs = train_set.labels
 
         class_weights = None
@@ -262,14 +267,33 @@ class BaselineEngine:
 
 
 def labelled_split(task: str, label_path: str, audio_path: str, split: str, wav_mean: Optional[float] = None,
-                   wav_std: Optional[float] = None) -> bdata.WavDataset:
+                   wav_std: Optional[float] = None, normalize_wav: bool = True) -> bdata.WavDataset:
     """The ``train`` or ``dev`` split of a label CSV with its targets (``cat``:
     the one-hot emotions, ``dim``: the attributes), normalised with the given
-    mean and std (its own when none are given)."""
+    mean and std (its own when none are given; not at all without
+    ``normalize_wav``)."""
     from .podcast import load_adv_emo_label, load_cat_emo_label
 
     utts, labs = (load_cat_emo_label if task == "cat" else load_adv_emo_label)(label_path, split)
-    return bdata.WavDataset(bdata.load_audio(audio_path, utts), labs, utts, wav_mean=wav_mean, wav_std=wav_std)
+    return bdata.WavDataset(bdata.load_audio(audio_path, utts), labs, utts, wav_mean=wav_mean, wav_std=wav_std,
+                            normalize_wav=normalize_wav)
+
+
+def timbre_augment(rng: np.random.Generator, tp_prob: float):
+    """The reference WavSet's augmentation: a wav -> with probability
+    ``tp_prob`` its ``fixed_timbre_perturb``, else itself. Its draws come from
+    a generator seeded by one draw of ``rng`` (the engine's), taken here, where
+    the JAX engines take it, so the sampler draws after it stay equal."""
+    from ..train.information_encoder import fixed_timbre_perturb
+
+    aug_rng = numpy_generator(int(rng.integers(1 << 31)))
+
+    def augment(w):
+        if aug_rng.random() < tp_prob:
+            return fixed_timbre_perturb(w, sr=16000, rng=aug_rng)
+        return w
+
+    return augment
 
 
 def write_rows(path: str, header: List[str], rows: List[list]) -> str:

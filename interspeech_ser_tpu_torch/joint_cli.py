@@ -8,8 +8,8 @@ Port of ``interspeech_ser_tpu/joint_cli.py`` (``train_main``,
 ``ssl_type``, ``batch_size``, ``accum_step``, ``epochs``, ``lr``,
 ``model_path``, ``head_dim``, and the optional ``weight_decay`` (1e-6),
 ``use_balanced_batch``, ``normalize_wav`` (true), ``use_timbre_perturb``
-(true raises: the timbre perturbation, and with it ``tp_prob``, is not
-ported, ROADMAP.md §A.6) and ``use_focalloss`` (text only); ``pooling_type``
+with ``tp_prob`` (the joint trainers' timbre perturbation of training wavs)
+and ``use_focalloss`` (text only); ``pooling_type``
 and ``dropout_head`` are read by the reference and used by neither package.
 ``text_type`` names the RoBERTa directory (default ``roberta-base`` for
 ``base`` / ``ftall``, ``roberta-large`` otherwise, which resolve only as
@@ -99,7 +99,8 @@ def train_main(variant: str, argv: Optional[list] = None, tokenize=None, dtype: 
         model_path=model_path, batch_size=config["batch_size"], accumulation_steps=config["accum_step"],
         epochs=config["epochs"], lr=config["lr"], weight_decay=config.get("weight_decay", 1e-6),
         use_balanced_batch=config.get("use_balanced_batch", False), normalize_wav=config.get("normalize_wav", True),
-        use_timbre_perturb=config.get("use_timbre_perturb", False), log=logger.info,
+        use_timbre_perturb=config.get("use_timbre_perturb", False), tp_prob=config.get("tp_prob", 0.0),
+        log=logger.info,
     )
 
 

@@ -31,6 +31,13 @@ nested dicts of numpy arrays and return the port's state dicts.
 - :func:`baseline_params_from_flax` mirrors ``pooling_flax_to_torch`` and
   ``ser_flax_to_torch`` (interspeech_ser_tpu/baseline/models.py) and yields
   the challenge baseline's ``final_pool.pt`` / ``final_ser.pt`` names.
+- :func:`style_embedding_params_from_flax`, :func:`proto_ser_params_from_flax`,
+  :func:`bidir_reference_encoder_params_from_flax`,
+  :func:`reference_encoder_classifier_params_from_flax` and
+  :func:`xvector_params_from_flax` take the JAX proto-angular, information-
+  encoder and x-vector nets' params (and BatchNorm ``batch_stats``) and yield
+  the port modules' state dicts; :func:`emotion_regression_params_from_flax`
+  the x-vector (and baseline) head's.
 - :func:`joint_params_from_flax` mirrors ``conv_joint_flax_to_torch`` and
   ``transformer_joint_flax_to_torch`` (interspeech_ser_tpu/models/joint.py)
   and yields the joint heads' ``final_ser.pt`` names;
@@ -392,6 +399,11 @@ def baseline_params_from_flax(pool: Dict, head: Dict) -> Tuple[Dict[str, torch.T
         "sap_linear.bias": _get(pool, "sap_linear", "bias"),
         "attention": _get(pool, "attention"),
     }
+    return _to_torch(pool_sd), emotion_regression_params_from_flax(head)
+
+
+def emotion_regression_params_from_flax(head: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``EmotionRegression`` params -> the port's head (``final_ser.pt`` names)."""
     head_sd: Dict[str, np.ndarray] = {}
     for i in range(sum(1 for k in head if k.startswith("fc"))):
         head_sd[f"fc.{i}.0.weight"] = _t(_get(head, f"fc{i}", "kernel"))
@@ -400,7 +412,7 @@ def baseline_params_from_flax(pool: Dict, head: Dict) -> Tuple[Dict[str, torch.T
         head_sd[f"fc.{i}.1.bias"] = _get(head, f"ln{i}", "bias")
     head_sd["out.0.weight"] = _t(_get(head, "out", "kernel"))
     head_sd["out.0.bias"] = _get(head, "out", "bias")
-    return _to_torch(pool_sd), _to_torch(head_sd)
+    return _to_torch(head_sd)
 
 
 def _dense_pairs(path: tuple, key: str) -> list:
@@ -463,3 +475,101 @@ def joint_params_to_flax(sd: Dict[str, torch.Tensor], head: str = "conv", classi
         v = sd[key].detach().cpu().float().numpy()
         node[path[-1]] = np.ascontiguousarray(_JOINT_LAYOUT[layout](v))  # each layout is its own inverse
     return out
+
+
+def _conv2d(x: np.ndarray) -> np.ndarray:  # flax Conv kernel [kh, kw, in, out] -> torch [out, in, kh, kw]
+    return np.transpose(x, (3, 2, 0, 1))
+
+
+def _dense(sd: Dict[str, np.ndarray], params: Dict, name: str, key: str = None) -> None:
+    sd[f"{key or name}.weight"] = _t(_get(params, name, "kernel"))
+    sd[f"{key or name}.bias"] = _get(params, name, "bias")
+
+
+def _bigru(sd: Dict[str, np.ndarray], gru: Dict, prefix: str) -> None:
+    """JAX ``BiGRU`` (``w_ih_fwd`` [in, 3H] ...) -> torch ``nn.GRU`` names."""
+    for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+        sd[f"{prefix}weight_ih_l0{sfx}"] = _t(_get(gru, f"w_ih_{d}"))
+        sd[f"{prefix}weight_hh_l0{sfx}"] = _t(_get(gru, f"w_hh_{d}"))
+        sd[f"{prefix}bias_ih_l0{sfx}"] = _get(gru, f"b_ih_{d}")
+        sd[f"{prefix}bias_hh_l0{sfx}"] = _get(gru, f"b_hh_{d}")
+
+
+def _conv_bn_stack(sd: Dict[str, np.ndarray], params: Dict, batch_stats: Dict, conv: str, bn: str) -> None:
+    """The 6 x [Conv2d, BatchNorm] stack of the reference encoders."""
+    for i in range(6):
+        sd[f"{conv}.{i}.weight"] = _conv2d(_get(params, f"conv{i}", "kernel"))
+        sd[f"{conv}.{i}.bias"] = _get(params, f"conv{i}", "bias")
+        sd[f"{bn}.{i}.weight"] = _get(params, f"bn{i}", "scale")
+        sd[f"{bn}.{i}.bias"] = _get(params, f"bn{i}", "bias")
+        sd[f"{bn}.{i}.running_mean"] = _get(batch_stats, f"bn{i}", "mean")
+        sd[f"{bn}.{i}.running_var"] = _get(batch_stats, f"bn{i}", "var")
+
+
+def style_embedding_params_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``StyleEmbeddingNet`` -> the port's (``projection``, ``gru``,
+    ``pool_attn``, ``embedding`` [+ ``classifier``])."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("projection", "pool_attn", "embedding", "classifier"):
+        if name in params:
+            _dense(sd, params, name)
+    _bigru(sd, params["gru"], "gru.")
+    return _to_torch(sd)
+
+
+def proto_ser_params_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``ProtoSERNet`` -> the port's, whose keys are the reference's
+    ``angle_ser.pt`` names."""
+    sd: Dict[str, np.ndarray] = {}
+    _dense(sd, params, "wav_proj")
+    mha = params["multihead_attn"]
+    sd["multihead_attn.in_proj_weight"] = _t(_get(mha, "in_proj_kernel"))
+    sd["multihead_attn.in_proj_bias"] = _get(mha, "in_proj_bias")
+    sd["multihead_attn.out_proj.weight"] = _t(_get(mha, "out_kernel"))
+    sd["multihead_attn.out_proj.bias"] = _get(mha, "out_bias")
+    for name in ("attn_norm", "conv_norm"):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _get(params, name, "scale"), _get(params, name, "bias")
+    sd["conv1d.weight"] = _unconv(_get(params, "conv1d", "kernel"))
+    sd["conv1d.bias"] = _get(params, "conv1d", "bias")
+    _dense(sd, params, "attn_pooling")
+    if "classifier_fc1" in params:
+        _dense(sd, params, "classifier_fc1", "classifier.0")
+        _dense(sd, params, "classifier_fc2", "classifier.3")
+    return _to_torch(sd)
+
+
+def bidir_reference_encoder_params_from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``BidirectionalReferenceEncoder`` (params + batch stats) -> the
+    port's (``convs``, ``bns``, ``recurrence``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv_bn_stack(sd, params, batch_stats, "convs", "bns")
+    _bigru(sd, params["recurrence"], "recurrence.")
+    return _to_torch(sd)
+
+
+def reference_encoder_classifier_params_from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``ReferenceEncoderClassifier`` (params + batch stats) -> the port's
+    (``conv``, ``bn``, ``gru_*`` in torch layout, [``proj``,] ``classifier_layer``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv_bn_stack(sd, params, batch_stats, "conv", "bn")
+    for n in ("ih", "hh"):
+        sd[f"gru_weight_{n}"] = _t(_get(params, f"gru_w_{n}"))
+        sd[f"gru_bias_{n}"] = _get(params, f"gru_b_{n}")
+    for name in ("proj", "classifier_layer"):
+        if name in params:
+            _dense(sd, params, name)
+    return _to_torch(sd)
+
+
+def xvector_params_from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``XVector`` (params + batch stats) -> the port's (``tdnn``, ``bn``, ``embedding``)."""
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(sum(1 for k in params if k.startswith("tdnn"))):
+        sd[f"tdnn.{i}.weight"] = _unconv(_get(params, f"tdnn{i}", "kernel"))
+        sd[f"tdnn.{i}.bias"] = _get(params, f"tdnn{i}", "bias")
+        sd[f"bn.{i}.weight"] = _get(params, f"bn{i}", "scale")
+        sd[f"bn.{i}.bias"] = _get(params, f"bn{i}", "bias")
+        sd[f"bn.{i}.running_mean"] = _get(batch_stats, f"bn{i}", "mean")
+        sd[f"bn.{i}.running_var"] = _get(batch_stats, f"bn{i}", "var")
+    _dense(sd, params, "embedding")
+    return _to_torch(sd)

@@ -12,6 +12,14 @@ Also the port of ``ns3_mel_spectrogram`` / ``get_prosody_feature``
 (``interspeech_ser_tpu/models/ns3/facodec.py:42-67``): an 800-sample
 periodic Hann centred in a 1024-point frame, hop 200, ``center=False``
 after a 412-sample reflect pad, magnitude, slaney mel 0-8 kHz, natural log.
+
+And ``speechbrain_fbank`` (``interspeech_ser_tpu/ops/mel.py:148-217``), the
+x-vector trainer's features: speechbrain's ``Fbank`` as
+``spkrec-xvect-voxceleb`` runs it (a periodic Hamming window of 400 samples,
+hop 160, centre reflect pad, the power spectrum as two GEMMs against DFT
+bases, a 24-band HTK mel bank over 0-8 kHz, 10 log10 with an 80-dB floor
+under each utterance's maximum), then the sentence mean over each
+utterance's ``1 + len // 160`` live frames subtracted.
 """
 
 from __future__ import annotations
@@ -136,3 +144,55 @@ def ns3_mel_spectrogram(wav: torch.Tensor, pre_padded: bool = False) -> torch.Te
 def get_prosody_feature(wav: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
     """The first 20 mel bins of :func:`ns3_mel_spectrogram`, [B, 20, T]."""
     return ns3_mel_spectrogram(wav, pre_padded)[:, :20, :]
+
+
+def hz_to_mel_htk(freq):
+    return 2595.0 * np.log10(1.0 + np.asarray(freq, np.float64) / 700.0)
+
+
+def mel_to_hz_htk(mels):
+    return 700.0 * (10.0 ** (np.asarray(mels, np.float64) / 2595.0) - 1.0)
+
+
+@functools.lru_cache(maxsize=4)
+def _htk_mel_bank(num_bins: int, num_mels: int, fmin: float, fmax: float, sr: int) -> np.ndarray:
+    """Triangular HTK-scale mel bank (no norm), [num_bins, num_mels] float32."""
+    fft_freqs = np.linspace(0, sr / 2, num_bins)
+    f_pts = mel_to_hz_htk(np.linspace(hz_to_mel_htk(fmin), hz_to_mel_htk(fmax), num_mels + 2))
+    fdiff = np.diff(f_pts)
+    slopes = f_pts[None, :] - fft_freqs[:, None]
+    return np.maximum(0.0, np.minimum(-slopes[:, :-2] / fdiff[:-1], slopes[:, 2:] / fdiff[1:])).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _hamming_bases(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
+    n = np.arange(n_fft)
+    win = 0.54 - 0.46 * np.cos(2.0 * np.pi * n / n_fft)  # periodic Hamming
+    angle = 2.0 * np.pi * np.outer(n, np.arange(1 + n_fft // 2)) / n_fft
+    return (np.cos(angle) * win[:, None]).astype(np.float32), (-np.sin(angle) * win[:, None]).astype(np.float32)
+
+
+def speechbrain_fbank(
+    wav: torch.Tensor,  # [B, L] at 16 kHz
+    num_mels: int = 24,
+    n_fft: int = 400,
+    hop_length: int = 160,
+    sampling_rate: int = 16000,
+    lengths: Optional[torch.Tensor] = None,  # [B] live samples a row
+) -> torch.Tensor:
+    """speechbrain ``Fbank`` + sentence mean normalisation -> [B, 1 + L // hop, num_mels]
+    float32. With ``lengths`` the mean runs over each row's ``1 + len // hop``
+    frames; the 80-dB floor is under each row's maximum over all frames."""
+    pad = n_fft // 2
+    x = F.pad(wav.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(1, n_fft, hop_length)  # [B, F, n_fft]
+    cos_b, sin_b = (torch.from_numpy(b).to(wav.device) for b in _hamming_bases(n_fft))
+    real, imag = frames @ cos_b, frames @ sin_b
+    fb = torch.from_numpy(_htk_mel_bank(1 + n_fft // 2, num_mels, 0.0, sampling_rate / 2, sampling_rate))
+    log_mel = 10.0 * torch.log10(((real * real + imag * imag) @ fb.to(wav.device)).clamp_min(1e-10))
+    log_mel = torch.maximum(log_mel, log_mel.amax(dim=(1, 2), keepdim=True) - 80.0)
+    if lengths is None:
+        return log_mel - log_mel.mean(dim=1, keepdim=True)
+    live = 1 + lengths.to(torch.int64) // hop_length
+    m = (torch.arange(frames.shape[1], device=wav.device)[None, :] < live[:, None]).float()[:, :, None]
+    return log_mel - (log_mel * m).sum(dim=1, keepdim=True) / m.sum(dim=1, keepdim=True).clamp_min(1.0)

@@ -50,8 +50,9 @@ that fails raises):
 
 Dropout (the heads' only randomness) draws from a seeded ``torch.Generator``
 owned by the engine. f32 engines on the card turn TF32 off.
-``use_timbre_perturb`` and ``n_devices`` above 1 are not ported (ROADMAP.md
-§A.6, §A.7) and raise.
+``use_timbre_perturb`` perturbs a drawn training wav with probability
+``tp_prob`` (``baseline/engine.timbre_augment``, on the host). ``n_devices``
+above 1 is not ported (ROADMAP.md §A.7) and raises.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ import numpy as np
 import torch
 
 from ..baseline import data as bdata
-from ..baseline.engine import set_precision
+from ..baseline.engine import set_precision, timbre_augment
 from ..baseline.podcast import load_cat_emo_label
 from ..models import joint
 from ..models.loader import build_roberta, build_speech_encoder, speech_state_dict_to_hf
@@ -250,16 +251,13 @@ class JointEngine:
         use_balanced_batch: bool = False,
         normalize_wav: bool = True,
         use_timbre_perturb: bool = False,
+        tp_prob: float = 0.0,
         log=print,
     ) -> Dict:
         """Train on the label CSV's Train rows (transcripts left-merged on
         ``FileName``), keep the epoch of the lowest dev loss -> ``{"epoch",
         "loss"}`` of the best epoch, its dev logits (``dev_logits``), and every
         epoch's dev loss and mean train loss (``dev_losses``, ``train_losses``)."""
-        if use_timbre_perturb:
-            raise NotImplementedError(
-                "use_timbre_perturb needs train/information_encoder.py, which the port does not have yet "
-                "(ROADMAP.md §A.6)")
         opts = self.opts
         os.makedirs(model_path, exist_ok=True)
         rows = L.load_merged(label_path, txt_path)
@@ -269,6 +267,8 @@ class JointEngine:
 
         utts, labs = load_cat_emo_label(label_path, "train")
         train_set = bdata.WavDataset(bdata.load_audio(audio_path, utts), labs, utts, normalize_wav=normalize_wav)
+        if use_timbre_perturb:
+            train_set.augment_fn = timbre_augment(self.rng, tp_prob)
         train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
         utts, labs = load_cat_emo_label(label_path, "dev")
         dev_set = bdata.WavDataset(bdata.load_audio(audio_path, utts), labs, utts, train_set.wav_mean,

@@ -5,8 +5,9 @@ lazy-fusion trainers (``bin/`` and the legacy ``bin/old`` ones) and the
 challenge baseline use: weighted CE, focal loss with and without dynamic
 alpha, the ranking trainers' soft-margin loss, the dimensional task's CCC
 and MSE, label-smoothed CE, the hierarchical CE + KL loss, the gender SVM
-hinge, linear CKA and the differentiable macro-F1. Plain PyTorch, as they
-are plain XLA in the JAX package.
+hinge, linear CKA and the differentiable macro-F1; and the proto-angular
+trainers' speaker-embedding losses (angular prototypical, GE2E). Plain
+PyTorch, as they are plain XLA in the JAX package.
 The classification and regression losses take an optional ``sample_mask``
 (1 = real row, 0 = a padding row that fills the fixed batch size): masked
 rows add nothing to the numerator or the denominator, so a padded batch
@@ -226,3 +227,52 @@ def mse_emotion(
         return se.mean(dim=0).sum()
     w = sample_mask.float()[:, None]
     return ((se * w).sum(dim=0) / w.sum().clamp_min(1e-12)).sum()
+
+
+# -- speaker-embedding losses (the proto-angular trainers) -------------------------------------------------------
+
+
+def _cosine_sim(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    a_n = a / a.norm(dim=-1, keepdim=True).clamp_min(eps)
+    b_n = b / b.norm(dim=-1, keepdim=True).clamp_min(eps)
+    return (a_n * b_n).sum(dim=-1)
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+
+
+def angle_proto_loss(embeddings: torch.Tensor, w=10.0, b=-5.0) -> torch.Tensor:
+    """Angular prototypical loss over [n_spk, n_utt, D] embeddings: each
+    group's last utterance is its anchor, the mean of the rest its centroid;
+    CE of ``cos(anchor, centroid) * max(w, 1e-6) + b`` against the group's own
+    centroid. ``w`` and ``b`` may be tensors that train."""
+    e = embeddings.float()
+    cos = _unit(e[:, -1, :]) @ _unit(e[:, :-1, :].mean(dim=1)).t()  # [S, S]
+    w = torch.as_tensor(w, dtype=torch.float32, device=e.device).clamp_min(1e-6)
+    scores = cos * w + b
+    return weighted_cross_entropy(scores, torch.arange(scores.shape[0], device=e.device))
+
+
+def ge2e_loss(embeddings: torch.Tensor, w=10.0, b=-5.0, method: str = "softmax") -> torch.Tensor:
+    """GE2E loss over [n_spk, n_utt, D] embeddings: each utterance scored
+    against every group's centroid of the normalised embeddings, its own
+    group's centroid leaving it out; ``softmax``: CE over the groups,
+    ``contrast``: 1 - sigmoid(own score) + the largest sigmoid of another's."""
+    e = embeddings.float()
+    S, U, _ = e.shape
+    e_n = _unit(e)
+    loo = (e_n.sum(dim=1, keepdim=True) - e_n) / (U - 1)  # [S, U, D]
+    cos_all = torch.einsum("sud,kd->suk", e_n, _unit(e_n.mean(dim=1)))  # [S, U, S]
+    cos_own = (e_n * _unit(loo)).sum(dim=-1)  # [S, U]
+    own_mask = torch.eye(S, device=e.device)[:, None, :]  # [S, 1, S]
+    cos = cos_all * (1 - own_mask) + cos_own[:, :, None] * own_mask
+    w = torch.as_tensor(w, dtype=torch.float32, device=e.device).clamp_min(1e-6)
+    scores = cos * w + b
+    own_idx = torch.arange(S, device=e.device)[:, None, None].expand(S, U, 1)
+    if method == "softmax":
+        return -torch.log_softmax(scores, dim=-1).gather(-1, own_idx).mean()
+    sig = torch.sigmoid(scores)
+    own = sig.gather(-1, own_idx)[..., 0]
+    others_max = sig.masked_fill(own_mask.bool().expand_as(sig), float("-inf")).amax(dim=-1)
+    return (1.0 - own + others_max).mean()

@@ -126,9 +126,14 @@ def test_the_card_is_the_default(corpus, tmp_path):
 
 
 def test_timbre_perturbation_is_refused(corpus, tmp_path):
+    """The perturbation is no longer refused (the port has
+    ``train/information_encoder.py``): ``fit`` takes ``use_timbre_perturb``
+    with ``tp_prob`` and trains with it (the JAX comparison is
+    ``tests/test_torch_legacy_baseline.py``)."""
     engine = BaselineEngine(str(corpus / "hf"), head_dim=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="information_encoder"):
-        engine.fit(str(corpus / "labels.csv"), str(corpus / "wavs"), str(tmp_path), use_timbre_perturb=True)
+    best = engine.fit(str(corpus / "labels.csv"), str(corpus / "wavs"), str(tmp_path), batch_size=4,
+                      accumulation_steps=2, epochs=1, lr=1e-3, use_timbre_perturb=True, tp_prob=0.8)
+    assert best["epoch"] == 0 and np.isfinite(best["loss"]) and (tmp_path / "final_ser.pt").exists()
 
 
 def test_an_f32_engine_turns_tf32_off_on_the_card(monkeypatch):

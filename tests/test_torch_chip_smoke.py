@@ -622,3 +622,118 @@ def test_joint_phase_on_cpu(tmp_path, monkeypatch):
     assert all(len(checks[s]["step_ms_runs"]) == 2 for s in cs.JOINT_TIMED)
     grads = cs.check_joint_grads(tmp, wavlm_dir, joint)
     assert grads["worst"] <= 1e-4 and grads["tensors"] > 50
+
+
+def test_info_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 15 at a tiny size: phase 6's corpus at 16 + 16 rows of dim 24,
+    the proto stems cut to 2 rows a class (8 a gender), the melspec corpus at
+    16 + 16 wavs of 0.3-0.6 s, ProtoAngularEngine at C x U = 16, phase 11's
+    corpus and a 2-layer WavLM for the legacy trainers, phase 14's corpus
+    for the joint run; K3 / K3b through counting plain versions, K1 / K4 / K2
+    / K7 / K8 as the joint rehearsal counts them. Checks each run's launches
+    against the prediction, the reloads, the reference-encoder gradient check
+    and the step timings."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import speech, text
+    from interspeech_ser_tpu_torch.ops import attention_core, gru as ops_gru
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka, attention_bhtd as kb
+    from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as kc, gru as kg, pos_conv as kp
+    from interspeech_ser_tpu_torch.train import proto_engine as pe
+
+    def tiny_wavlm(dtype="float32"):
+        return speech.SpeechConfig(
+            hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+            conv_dim=(16,) * 3, conv_kernel=(10, 8, 8), conv_stride=(5, 8, 8), conv_bias=True,
+            feat_extract_norm="layer", do_stable_layer_norm=True, attention_type="wavlm",
+            num_conv_pos_embeddings=16, conv_pos_groups=4, dtype=dtype,
+        )
+
+    real_bwd = ka.attention_btd_bwd
+
+    def counted_bwd(*args, **kw):
+        ka.BWD_LAUNCHES += 1
+        return real_bwd(*args, **kw)
+
+    def routed(q, k, v, H, key_mask=None, scale=None, gate=None, shared_bias=None, plain=False):
+        if plain:
+            return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+        ka.LAUNCHES += 1
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)):
+            return ka.AttentionBtdTrain.apply(q, k, v, H, key_mask, scale, gate, shared_bias)
+        return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+
+    def counting(mod, plain, counter="LAUNCHES"):
+        def launch(*args, **kw):
+            setattr(mod, counter, getattr(mod, counter) + 1)
+            return plain(*args, **kw)
+        return launch
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "TRAIN_SHAPE", dict(
+        n_train=16, n_dev=16, feat_dim=24, speech_len=(10, 30), text_len=(5, 10), epochs=1, config={}))
+    monkeypatch.setattr(cs, "INFO_SHAPE", dict(n_train=16, n_dev=16, seconds=(0.3, 0.6), proto_epochs=2,
+                                               angular_utter=2, steps=2, tp_prob=0.9, grad_rows=16, ce_batch=8))
+    for variant, cut in (("wavlm_only", dict(U=2, U_val=2)), ("wavlm_ce", dict(U=2, U_val=2)),
+                         ("melspec_only", dict(U=2, U_val=2)), ("melspec_only_gender", dict(U=8, U_val=8)),
+                         ("wavlm_only_gender", dict(U=8, U_val=8))):
+        monkeypatch.setitem(pe._PROTO_VARIANTS, variant, {**pe._PROTO_VARIANTS[variant], **cut})
+    monkeypatch.setattr(cs, "BASELINE_SHAPE", dict(
+        n_train=8, n_dev=4, n_test3=2, seconds=(0.5, 1.5), batch_size=8, accumulation_steps=2, lr=1e-5,
+        head_dim=16, epochs=1, grad_rows=4, grad_live=3, steps=2))
+    monkeypatch.setattr(cs, "JOINT_SHAPE", dict(batch_size=8, accum_step=2, epochs=1, lr=1e-3, head_dim=16,
+                                                words=(0, 60), grad_rows=4, grad_live=3, steps=2))
+    monkeypatch.setattr(speech, "wavlm_large", tiny_wavlm)
+    monkeypatch.setattr(text, "roberta_large", lambda dtype="float32": text.RobertaConfig(
+        hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128, dtype=dtype))
+    monkeypatch.setattr(cs, "roberta_base", lambda dtype="float32": text.RobertaConfig(
+        hidden_size=48, num_layers=3, num_heads=3, intermediate_size=96, dtype=dtype))
+    monkeypatch.setattr(speech, "dot_product_attention_btd", routed)
+    monkeypatch.setattr(speech, "conv_frontend", counting(kc, kc.conv_frontend_plain))
+    monkeypatch.setattr(speech, "pos_conv", counting(kp, kp.pos_conv_plain))
+    monkeypatch.setattr(attention_core, "attention_bhtd", counting(kb, kb.attention_bhtd_plain))
+    monkeypatch.setattr(ka, "attention_btd_bwd", counted_bwd)
+    monkeypatch.setattr(kg, "gru_bidir_carries", counting(kg, kg.gru_bidir_carries_plain))
+    monkeypatch.setattr(kg, "gru_bidir_carries_bwd", counting(kg, kg.gru_bidir_carries_bwd_plain, "BWD_LAUNCHES"))
+    monkeypatch.setattr(ops_gru.BiGRU, "forward", ops_gru.BiGRU.forward_stacked)
+    monkeypatch.delenv("SER_TPU_ATTN_IMPL", raising=False)
+    monkeypatch.delenv("SER_TPU_FRONTEND", raising=False)
+    for spec in cs.KERNELS.values():
+        monkeypatch.setattr(spec["module"], spec.get("counter", "LAUNCHES"), 0)
+
+    tmp = str(tmp_path)
+    train_config = cs.write_train_corpus(tmp)
+    wavlm_dir, roberta_dir = os.path.join(tmp, "wavlm-large"), os.path.join(tmp, "roberta-large")
+    cs.write_wavlm_large(wavlm_dir)
+    cs.write_text_model(roberta_dir, text.RobertaModel, text.roberta_large(), "RobertaModel")
+    cs.write_bpe_files(roberta_dir, cs.synthetic_words(cs.SEED + 6), text.roberta_large().vocab_size)
+    baseline_config = cs.write_baseline_corpus(tmp)
+    corpus = cs.write_joint_corpus(tmp, baseline_config, wavlm_dir, roberta_dir)
+    large = "train_cat_roberta_wavlm_large"
+    joint = {"configs": corpus["configs"], "runs": {large: {"predicted": cs.predict_joint_launches(
+        "large", 2, 2, n_micro=2, dev_batches=1, text_dev_batches=1)}}}
+
+    cs.zero_counts()
+    info = cs.phase_info(tmp, train_config, baseline_config, wavlm_dir, joint)
+    runs = info["runs"]
+    assert list(runs) == list(cs.PROTO_RUNS) + ["ProtoAngularEngine", "train_cat_baselinelike_focalloss",
+                                                "train_cat_baselinelike_xvector", "joint large + timbre"]
+    assert cs.counts() == {k: sum(r["launches"][k] for r in runs.values()) for k in cs.KERNELS}
+    # the reference encoder: 2 epochs x (1 step + 1 val batch) K3, 2 K3b; no kernel under ProtoSERNet
+    assert runs["train_cat_melspec_lazy_protoangularloss_only_gender"]["launches"]["gru_bidir"] == 4
+    assert runs["train_cat_melspec_lazy_protoangularloss_only_gender"]["launches"]["gru_bidir_bwd"] == 2
+    for stem in ("train_cat_wavlm_lazy_protoangularloss_only", "train_cat_wavlm_lazy_protoangularloss",
+                 "train_cat_melspec_lazy_protoangularloss_only", "train_cat_wavlmlarge_lazy_protoangularloss_only_gender",
+                 "train_cat_baselinelike_xvector"):
+        assert not any(runs[stem]["launches"].values()), stem
+    assert runs["ProtoAngularEngine"]["launches"]["gru_bidir"] == 1 + 1  # 1 step + 1 embed batch
+    # the baseline: 2 layers x (2 micro-batches + 1 dev batch) K1, 2 x 2 K4, K2 once a forward
+    focal = runs["train_cat_baselinelike_focalloss"]["launches"]
+    assert (focal["attention_btd"], focal["attention_btd_bwd"], focal["conv_frontend"]) == (6, 4, 3)
+    assert runs["train_cat_baselinelike_focalloss"]["perturbed"] > 0
+    assert runs["train_cat_melspec_lazy_protoangularloss_only"]["perturbed"] > 0
+    assert runs["joint large + timbre"]["perturbed"] > 0
+    reloads = cs.check_info_reloads(info)
+    assert max(reloads.values()) <= 1e-5 and len(reloads) == 6
+    steps = cs.check_info_steps(info, "a card, 700 W")
+    assert steps["grad_rel_err"] <= 1e-4 and len(steps["xvector_step_ms_runs"]) == 2
+    assert ops_gru.BiGRU.forward is ops_gru.BiGRU.forward_stacked  # the plain route is undone

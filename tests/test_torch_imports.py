@@ -48,7 +48,9 @@ def test_port_imports_light():
               "utils.bpe", "ops.kernels.ffn_fused", "ops.kernels.pos_conv", "models.ns3", "models.ns3.facodec",
               "baseline.models", "baseline.engine", "baseline.cli", "utils.metrics", "models.whisper_decoder",
               "utils.whisper_tokenizer", "utils.native_audio", "utils.audio", "transcribe_cli",
-              "models.joint", "train.joint_engine", "joint_cli", "stacking"):
+              "models.joint", "train.joint_engine", "joint_cli", "stacking", "train.losses", "train.samplers",
+              "ops.melspec_ta", "ops.batch_norm", "train.information_encoder", "train.proto_engine",
+              "models.xvector", "baseline.xvector_engine"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
