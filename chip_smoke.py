@@ -11,9 +11,10 @@ drives the serving path, the fusion training path, the LoRA fine-tuning
 path, the text-extraction path, the speech-encoder zoo, the NS3 prosody
 extractor with the trimodal trainer, the challenge baseline, Whisper
 transcription, the legacy fusion trainers, the joint RoBERTa + WavLM
-trainers and the information-encoder family (the proto-angular trainers, the
+trainers, the information-encoder family (the proto-angular trainers, the
 timbre perturbation, the legacy baselinelike trainers with the x-vector
-engine) through their entry points at full width:
+engine), the FACodec full decoder and redecoder and the lora_wavlm wrapper's
+adapter / prompt fine-tune methods through their entry points at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -219,7 +220,34 @@ engine) through their entry points at full width:
    perturbation changed wavs it drew; each ``angle_ser.pt`` / ``ser.pt`` /
    ``final_xvector.pt`` reloaded against its run's val or dev loss (1e-5);
    one reference-encoder step at batch 64 through K3 + K3b against the
-   plain path (gradients within 1e-4); and the median train step of each net.
+   plain path (gradients within 1e-4); and the median train step of each net;
+16. the FACodec full decoder and redecoder, and the adapter fine-tune
+   methods: (a) seeded reference-named full-width FACodec encoder, full
+   decoder (three VQ banks, timbre encoder, HiFiGAN 1536 channels, hop 200;
+   its file also carries phase 10's prosody subset) and redecoder (HiFiGAN
+   1280) ``.bin`` files through ``models/loader.py``; 8 seeded voiced 10-s
+   wavs: the encoder's content latents and the extractor's prosody latents
+   through ``quantize_v2`` -> codes -> ``codes_to_wav`` in f32 (TF32 off):
+   decoding the quantized latents equals decoding the codes (1e-5), wavs
+   [8, 160000] within [-1, 1], the redecoder under the batch's speaker
+   embeddings rolled by one row differs from under its own, ``use_residual``
+   changes the decode and the redecode; one 2-s clip on the card against
+   the CPU (codes equal away from a VQ near tie, wavs from the CPU's codes
+   within 1e-3); one train-mode autoencode of 4 x 4 s at quantizer dropout
+   0.5 drawn from a CPU generator (a finite gradient on every parameter, VQ
+   losses within 1e-5 relative of the CPU's); decode and redecode ms a
+   batch, utt/s, peak memory and profiles; (b) ``lora_model.
+   build_wavlm_wrapper`` over phase 9's wavlm-base-plus with ``adapter``,
+   ``adapter_l``, ``embedding_prompt`` and ``combined`` and over phase 4's
+   WavLM-large with ``adapter`` and ``combined``: fresh adapters against the
+   base encoder's hidden states (1e-5), 3 AdamW steps over the tuned tensors
+   and the head on 8 seeded wavs of 3-6 s (the base weights bit for bit
+   unchanged, every tuned tensor moved), a dev batch through
+   ``lora_evaluation.EvalMetric``, each run's K1 / K4 / K2 launches against
+   ``predict_adapter_launches``; then ``combined`` on 2-layer full-width
+   copies of both through K1 + K4 against the plain path (the tuned tensors'
+   gradients of a smooth probe of the hidden states within 1e-4) and
+   ``embedding_prompt``'s padded batch against batch-1 (1e-4).
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -240,7 +268,12 @@ and read after its last ``joint_cli`` run (the joint path: K1, K4, K7, K2's
 layer 0 and K8, counted run by run), and zeroed again just before phase 15
 and read after its last run (the information-encoder path: K3 / K3b under
 the BiGRU nets, K1, K4 and K2's layer 0 under the baseline run, phase 14's
-kernels under the joint run, counted run by run). K9 has no path (none
+kernels under the joint run, counted run by run), and zeroed again just
+before phase 16's decoder and read after it (every count 0: the decoder and
+the redecoder have no kernel, as in the JAX package), and zeroed again just
+before its adapter runs and read after the last (the adapter path: K1, K4
+and, on WavLM-large, K2's layer 0, each run's counts equal to its
+prediction). K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -248,6 +281,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import copy
 import csv
 import dataclasses
 import json
@@ -2893,21 +2927,30 @@ def seeded_facodec(seed: int = SEED, spread_codes: int = 128) -> tuple:
                 prm.copy_(0.2 * torch.randn(prm.shape, generator=g))
         waves = [prosody_wave(4 * 16000, rng, rng.uniform(90, 250)).astype(np.float32) for _ in range(6)]
         z = model.fvq.in_proj(torch.cat([model.prosody_latents(torch.from_numpy(w)[None])[0] for w in waves]))
-        e = z / z.norm(dim=-1, keepdim=True)
-        picked = [0]
-        dist = (e - e[0]).norm(dim=-1)
-        for _ in range(spread_codes - 1):
-            picked.append(int(dist.argmax()))
-            dist = torch.minimum(dist, (e - e[picked[-1]]).norm(dim=-1))
-        model.fvq.codebook.weight[:spread_codes] = z[picked]
+        spread_codebook(model.fvq.codebook.weight, z, spread_codes)
     return model, g
+
+
+def spread_codebook(codebook: torch.Tensor, z: torch.Tensor, n: int) -> None:
+    """Overwrite the first ``n`` rows of ``codebook`` with rows of ``z`` (projected
+    latents [N, d]) picked farthest-first on the unit sphere (the VQ's distance
+    compares directions), so that frames like ``z``'s take many codes."""
+    e = z / z.norm(dim=-1, keepdim=True)
+    picked = [0]
+    dist = (e - e[0]).norm(dim=-1)
+    for _ in range(n - 1):
+        picked.append(int(dist.argmax()))
+        dist = torch.minimum(dist, (e - e[picked[-1]]).norm(dim=-1))
+    codebook[:n] = z[picked]
 
 
 def vq_top2_gap(latents: torch.Tensor, fvq) -> np.ndarray:
     """Pre-VQ latents [..., T, 256] -> each frame's gap between its two best
     codes' cosine similarities, in float64. Two computations of the same
-    latents may pick different codes only where this gap is small."""
-    w, b, cb = (t.detach().double().cpu() for t in (fvq.in_proj.weight, fvq.in_proj.bias, fvq.codebook.weight))
+    latents may pick different codes only where this gap is small. ``fvq``:
+    the extractor's ``FactorizedVQ`` or a decoder bank's (``_codebook``)."""
+    codebook = fvq.codebook if hasattr(fvq, "codebook") else fvq._codebook
+    w, b, cb = (t.detach().double().cpu() for t in (fvq.in_proj.weight, fvq.in_proj.bias, codebook.weight))
     z = latents.detach().double().cpu() @ w.t() + b
     top2 = torch.topk((z / z.norm(dim=-1, keepdim=True)) @ (cb / cb.norm(dim=-1, keepdim=True)).t(), 2).values
     return (top2[..., 0] - top2[..., 1]).numpy()
@@ -5017,6 +5060,510 @@ def check_info_steps(info: dict, smi: str) -> dict:
 T0 = time.perf_counter()
 
 
+# -- phase 16: the FACodec full decoder and redecoder, and the adapter fine-tune methods --------------------------
+
+# (a) ``n_wavs`` seeded voiced wavs of ``seconds`` through the full decoder and the redecoder; the card against the
+# CPU on one clip of ``cpu_seconds``; one train-mode autoencode over ``train_rows`` x ``train_seconds`` at quantizer
+# dropout ``quantizer_dropout``; ``spread_codes`` codebook rows of the content and residual banks spread over encoder
+# latents; ``decoder`` / ``redecoder``: the modules' constructor arguments (none at full width)
+DECODE_SHAPE = dict(n_wavs=8, seconds=10.0, cpu_seconds=2.0, train_rows=4, train_seconds=4.0, quantizer_dropout=0.5,
+                    spread_codes=128, decoder={}, redecoder={})
+WAV_BAR = 1e-3  # a wav on the card against the CPU's from the same codes, max abs (f32, TF32 off)
+# (b) each run: ``rows`` seeded voiced wavs of ``seconds`` (and as many for the dev batch), ``steps`` AdamW steps
+# at ``lr`` over the tuned tensors and the head, ``classes`` classes; the gradient check on ``grad_layers``-layer
+# full-width copies
+ADAPTER_SHAPE = dict(rows=8, seconds=(3.0, 6.0), steps=3, lr=1e-3, classes=4, grad_layers=2)
+ADAPTER_RUNS = (("wavlm-base-plus", "adapter"), ("wavlm-base-plus", "adapter_l"),
+                ("wavlm-base-plus", "embedding_prompt"), ("wavlm-base-plus", "combined"),
+                ("wavlm-large", "adapter"), ("wavlm-large", "combined"))
+
+
+def facodec_reference_layout(sd: dict, g: torch.Generator, wn) -> dict:
+    """A port FACodec decoder or redecoder state dict in the reference's
+    ``.bin`` naming: each ``.weight`` that ``wn`` accepts weight-normed
+    (``_weight_norm_pair``; g over every dim but 0, a transposed conv's
+    input channel), the VQ projections in the ``parametrizations`` key
+    style, the convs in the ``weight_g`` one."""
+    out = {}
+    for k, w in sd.items():
+        if k.endswith(".weight") and wn(k):
+            style = "param" if k.startswith("quantizer.") else "weight_g"
+            out.update({f"{k[:-7]}.{n}": t for n, t in _weight_norm_pair(w, g, style).items()})
+        else:
+            out[k] = w.clone()
+    return out
+
+
+def seeded_decoders(facodec, g: torch.Generator, seed: int = SEED) -> tuple:
+    """A seeded random-init ``FACodecDecoderFull`` and ``FACodecRedecoder``
+    (DECODE_SHAPE's widths) on the CPU, beside ``seeded_facodec``'s extractor:
+    its prosody VQ is the decoder's prosody bank and its timbre encoder the
+    decoder's (one decoder file feeds both, as the reference's does); the
+    SnakeBeta parameters drawn; the content and residual banks' first
+    codebooks spread over the encoder's latents of seeded waves
+    (``spread_codebook``); the redecoder's code embeddings drawn at unit
+    scale, a trained model's, not a fresh one's 1e-5 (under which the codes
+    would barely move its output)."""
+    from interspeech_ser_tpu_torch.models.ns3.facodec_decoder import FACodecDecoderFull, FACodecRedecoder
+
+    torch.manual_seed(seed + 16)
+    dec = FACodecDecoderFull(**DECODE_SHAPE["decoder"]).eval()
+    red = FACodecRedecoder(**DECODE_SHAPE["redecoder"]).eval()
+    rng = np.random.default_rng(seed + 16)
+    with torch.no_grad():
+        for model in (dec, red):
+            for name, prm in model.named_parameters():
+                if name.endswith(("act.alpha", "act.beta")):
+                    prm.copy_(0.2 * torch.randn(prm.shape, generator=g))
+        for emb in (*red.prosody_embs, *red.content_embs, *red.residual_embs):
+            emb.weight.copy_(torch.randn(emb.weight.shape, generator=g))
+        vq = dec.quantizer[0].layers[0]
+        vq.in_proj.load_state_dict(facodec.fvq.in_proj.state_dict())
+        vq.out_proj.load_state_dict(facodec.fvq.out_proj.state_dict())
+        vq._codebook.weight.copy_(facodec.fvq.codebook.weight)
+        dec.timbre_encoder.load_state_dict(facodec.timbre_encoder.state_dict())
+        waves = [prosody_wave(2 * 16000, rng, rng.uniform(90, 250)).astype(np.float32) for _ in range(2)]
+        z = torch.cat([facodec.encoder(torch.from_numpy(w)[None])[0] for w in waves])
+        for bank in dec.quantizer[1:]:
+            layer = bank.layers[0]
+            spread_codebook(layer._codebook.weight, layer.in_proj(z), DECODE_SHAPE["spread_codes"])
+    return dec, red
+
+
+def write_facodec_decoder_checkpoints(out_dir: str, seed: int = SEED) -> tuple:
+    """``seeded_facodec``'s encoder, and ``seeded_decoders``' decoder and
+    redecoder, as reference-named ``.bin`` files -> (encoder, decoder,
+    redecoder paths). The decoder file carries phase 10's prosody subset
+    (``melspec_*``, ``quantizer.0.*``, ``timbre_encoder.*``) and every key
+    the full loader reads: the three VQ banks with weight-normed
+    projections, ``timbre_linear``, the HiFiGAN ``model.*`` with
+    weight-normed convs; the redecoder's ``model.*`` likewise."""
+    facodec, g = seeded_facodec(seed)
+    enc, _ = facodec_reference_state_dicts(facodec, g)
+    dec, red = seeded_decoders(facodec, g, seed)
+    full = {k: v.clone() for k, v in facodec.state_dict().items()
+            if k.startswith(("melspec_linear.", "melspec_encoder."))}
+    full.update(facodec_reference_layout(
+        dec.state_dict(), g, lambda k: k.startswith("model.") or k.startswith("quantizer.") and "_proj." in k))
+    red_sd = facodec_reference_layout(red.state_dict(), g, lambda k: k.startswith("model."))
+    os.makedirs(out_dir, exist_ok=True)
+    paths = tuple(os.path.join(out_dir, n) for n in
+                  ("ns3_facodec_encoder_v2.bin", "ns3_facodec_decoder_v2_full.bin", "ns3_facodec_redecoder.bin"))
+    for sd, path in zip((enc, full, red_sd), paths):
+        torch.save(sd, path)
+    return paths
+
+
+def bank_clear_frames(dec, content: torch.Tensor, prosody: torch.Tensor) -> np.ndarray:
+    """[6, B, T]: where each quantizer's code is clear of a near tie
+    (``vq_top2_gap`` > VQ_MARGIN on that stage's own input) at its stage and
+    at every stage its input depends on (the earlier stages of its bank; for
+    the residual bank, all of the prosody and content banks')."""
+    inputs = (prosody, content)
+    clear, bank_ok, quantized = [], [], []
+    with torch.inference_mode():
+        for b, bank in enumerate(dec.quantizer):
+            r = inputs[b] if b < 2 else content - (quantized[0] + quantized[1])
+            run = np.ones(r.shape[:2], bool) if b < 2 else bank_ok[0] & bank_ok[1]
+            q_sum = torch.zeros_like(r)
+            for layer in bank.layers:
+                run = run & (vq_top2_gap(r, layer) > VQ_MARGIN)
+                clear.append(run)
+                q, _, _ = layer(r)
+                r, q_sum = r - q, q_sum + q
+            bank_ok.append(run)
+            quantized.append(q_sum)
+    return np.stack(clear)
+
+
+def phase_decoder(tmp: str, smi: str) -> dict:
+    """(a) The FACodec full decoder and redecoder at full width, f32, TF32 off,
+    from seeded reference-named ``.bin`` files through the loaders: content
+    latents from the encoder, prosody latents from the extractor,
+    ``quantize_v2`` -> codes -> ``codes_to_wav``; decoding the quantized
+    latents equals decoding the codes (1e-5); wavs [B, L] within [-1, 1];
+    the redecoder under the rolled speaker embeddings differs from under the
+    batch's own, ``use_residual`` changes both outputs; one clip's codes on
+    the card equal the CPU's where clear of a near tie and its wavs from the
+    CPU's codes within WAV_BAR; one train-mode autoencode with quantizer
+    dropout drawn from a CPU generator: a finite gradient on every parameter,
+    its VQ losses within 1e-5 relative of the CPU's. Decode and redecode ms a
+    batch, utt/s, peak memory, a profile."""
+    from interspeech_ser_tpu_torch.models.loader import (build_facodec_decoder, build_facodec_redecoder,
+                                                         build_prosody_extractor)
+
+    shape = DECODE_SHAPE
+    set_tf32(False)
+    t0 = time.perf_counter()
+    paths = write_facodec_decoder_checkpoints(os.path.join(tmp, "facodec_full"))
+    extractor = build_prosody_extractor(paths[1], paths[0], with_speaker=True)
+    dec = build_facodec_decoder(paths[1], **shape["decoder"])
+    red = build_facodec_redecoder(paths[2], **shape["redecoder"])
+    out = {"write_s": time.perf_counter() - t0,
+           "file_mb": {os.path.basename(p): os.path.getsize(p) / 1e6 for p in paths}}
+    cpu_extractor, cpu_dec, cpu_red = (copy.deepcopy(m) for m in (extractor, dec, red))
+    extractor, dec, red = (m.to(DEVICE) for m in (extractor, dec, red))
+    rng = np.random.default_rng(SEED + 16)
+    n = int(shape["seconds"] * 16000)
+    waves = np.stack([prosody_wave(n, rng, rng.uniform(90, 250)) for _ in range(shape["n_wavs"])]).astype(np.float32)
+    wav = torch.from_numpy(waves).to(DEVICE)
+    with torch.inference_mode():
+        content = extractor.encoder(wav)
+        prosody = extractor.prosody_latents(wav)
+        quantized, codes, _ = dec.quantize_v2(content, prosody)
+        spk = dec.speaker_embedding(content)
+        wav_q = dec.decode(quantized, spk)
+        wav_c = dec.codes_to_wav(codes, spk)
+        wav_nores = dec.codes_to_wav(codes, spk, use_residual=False)
+        red_own = red(codes, spk)
+        red_roll = red(codes, spk.roll(1, dims=0))
+        red_res = red(codes, spk, use_residual=True)
+    sync()
+    B = shape["n_wavs"]
+    for name, w in (("decode", wav_c), ("redecode", red_own)):
+        require(tuple(w.shape) == (B, n), f"{name}: shape {tuple(w.shape)}, want {(B, n)}")
+        require(bool(torch.isfinite(w).all()) and float(w.abs().max()) <= 1.0, f"{name}: values outside [-1, 1]")
+    out["max_abs"] = {"quantized_vs_codes": max_abs(wav_q, wav_c), "decode_residual": max_abs(wav_c, wav_nores),
+                      "redecode_rolled_speaker": max_abs(red_own, red_roll),
+                      "redecode_residual": max_abs(red_own, red_res)}
+    out["distinct_codes"] = [len(torch.unique(c)) for c in codes]
+    out["wav_rms"] = float(wav_c.square().mean().sqrt())
+    log(f"[decoder] {B} x {shape['seconds']:g} s: codes {tuple(codes.shape)} (distinct per quantizer "
+        f"{out['distinct_codes']}), wav {tuple(wav_c.shape)} rms {out['wav_rms']:.4f}; decode from the quantized "
+        f"latents vs from the codes: max_abs {out['max_abs']['quantized_vs_codes']:.3e} (bar 1e-5); use_residual "
+        f"off changes the decode by {out['max_abs']['decode_residual']:.3e}, on changes the redecode by "
+        f"{out['max_abs']['redecode_residual']:.3e}; the rolled speakers change the redecode by "
+        f"{out['max_abs']['redecode_rolled_speaker']:.3e}")
+    require(out["max_abs"]["quantized_vs_codes"] <= 1e-5, f"decode(quantized) vs codes_to_wav: {out['max_abs']}")
+    for key in ("decode_residual", "redecode_rolled_speaker", "redecode_residual"):
+        require(out["max_abs"][key] > 1e-4, f"{key}: the outputs do not differ ({out['max_abs'][key]})")
+    del wav_q, wav_nores, red_roll, red_res
+
+    def decode():
+        with torch.inference_mode():
+            dec.codes_to_wav(codes, spk)
+
+    def redecode():
+        with torch.inference_mode():
+            red(codes, spk)
+
+    out["decode_ms_runs"], out["redecode_ms_runs"] = host_times_ms(decode, 3), host_times_ms(redecode, 3)
+    out["decode_ms"], out["redecode_ms"] = (statistics.median(out[f"{k}_ms_runs"]) for k in ("decode", "redecode"))
+    out["decode_utt_per_sec"] = B / out["decode_ms"] * 1e3
+    out["redecode_utt_per_sec"] = B / out["redecode_ms"] * 1e3
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        for name, fn in (("decode", decode), ("redecode", redecode)):
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                sync()
+            kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+            out[f"{name}_profile"] = {
+                "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]}
+    log(f"[decoder] codes_to_wav of {B} x {shape['seconds']:g} s: median {out['decode_ms']:.1f} ms "
+        f"({out['decode_utt_per_sec']:.2f} utt/s), redecoder {out['redecode_ms']:.1f} ms "
+        f"({out['redecode_utt_per_sec']:.2f} utt/s), runs {[round(t, 1) for t in out['decode_ms_runs']]} / "
+        f"{[round(t, 1) for t in out['redecode_ms_runs']]} ({smi})")
+    for name in ("decode", "redecode"):
+        prof = out.get(f"{name}_profile")
+        if prof:
+            log(f"[decoder] {name} profile: device busy {prof['device_busy_ms']:.1f} ms, peak device memory "
+                f"{prof['peak_gb']:.2f} GB")
+            for op, ms, count in prof["top"]:
+                log(f"[decoder]   {ms:9.3f} ms  x{count:<4d} {op}")
+
+    # one clip on the card and on the CPU, the same weights
+    m = int(shape["cpu_seconds"] * 16000)
+    clip = torch.from_numpy(waves[:1, :m])
+    runs = {}
+    for where, (ex, de) in (("card", (extractor, dec)), ("cpu", (cpu_extractor, cpu_dec))):
+        x = clip.to(DEVICE if where == "card" else "cpu")
+        with torch.inference_mode():
+            c, p = ex.encoder(x), ex.prosody_latents(x)
+            _, cd, _ = de.quantize_v2(c, p)
+            runs[where] = (c.cpu(), p.cpu(), cd.cpu(), de.speaker_embedding(c).cpu())
+    c_cpu, p_cpu, codes_cpu, spk_cpu = runs["cpu"]
+    clear = torch.from_numpy(bank_clear_frames(cpu_dec, c_cpu, p_cpu))
+    agree = bool((runs["card"][2] == codes_cpu)[clear].all())
+    with torch.inference_mode():
+        w_card = dec.codes_to_wav(codes_cpu.to(DEVICE), spk_cpu.to(DEVICE)).cpu()
+        r_card = red(codes_cpu.to(DEVICE), spk_cpu.to(DEVICE)).cpu()
+        w_cpu, r_cpu = cpu_dec.codes_to_wav(codes_cpu, spk_cpu), cpu_red(codes_cpu, spk_cpu)
+    out["cpu"] = {"latents_max_abs": max(max_abs(runs["card"][0], c_cpu), max_abs(runs["card"][1], p_cpu)),
+                  "speaker_max_abs": max_abs(runs["card"][3], spk_cpu), "near_tie_codes": int((~clear).sum()),
+                  "codes_differing": int((runs["card"][2] != codes_cpu).sum()), "codes": codes_cpu.numel(),
+                  "decode_max_abs": max_abs(w_card, w_cpu), "redecode_max_abs": max_abs(r_card, r_cpu)}
+    log(f"[decoder] one {shape['cpu_seconds']:g}-s clip, {DEVICE} vs the CPU: latents max_abs "
+        f"{out['cpu']['latents_max_abs']:.3e}, speaker embedding {out['cpu']['speaker_max_abs']:.3e}; codes "
+        f"differing {out['cpu']['codes_differing']} of {out['cpu']['codes']} ({out['cpu']['near_tie_codes']} within "
+        f"{VQ_MARGIN} of a tie, left out); from the CPU's codes: decode max_abs {out['cpu']['decode_max_abs']:.3e}, "
+        f"redecode {out['cpu']['redecode_max_abs']:.3e} (bar {WAV_BAR})")
+    require(agree, f"decoder codes on the card differ from the CPU's away from a near tie: {out['cpu']}")
+    require(out["cpu"]["decode_max_abs"] <= WAV_BAR and out["cpu"]["redecode_max_abs"] <= WAV_BAR,
+            f"decoder wavs card vs CPU: {out['cpu']}")
+
+    # one train-mode autoencode, quantizer dropout drawn from a CPU generator
+    rows, mt = shape["train_rows"], int(shape["train_seconds"] * 16000)
+    for model in (dec, cpu_dec):
+        for bank in model.quantizer:
+            bank.quantizer_dropout = shape["quantizer_dropout"]
+    with torch.no_grad():
+        x = extractor.encoder(torch.from_numpy(waves[:rows, :mt]).to(DEVICE))
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    wav_t, _, losses = dec(x, train=True, generator=torch.Generator().manual_seed(SEED))
+    (wav_t.square().mean() + losses.sum()).backward()
+    sync()
+    train_ms = (time.perf_counter() - t1) * 1e3
+    bad = [n for n, p in dec.named_parameters() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    with torch.no_grad():
+        _, _, cpu_losses = cpu_dec.quantize(x.cpu(), train=True, generator=torch.Generator().manual_seed(SEED))
+    rel = float(((losses.detach().cpu() - cpu_losses).abs() / cpu_losses.abs().clamp_min(1e-30)).max())
+    out["train"] = {"ms": train_ms, "vq_losses": losses.detach().cpu().tolist(), "vq_loss_rel_err": rel,
+                    "params": sum(1 for _ in dec.parameters()), "without_finite_grad": bad,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None}
+    log(f"[decoder] train-mode autoencode of {rows} x {shape['train_seconds']:g} s, quantizer dropout "
+        f"{shape['quantizer_dropout']}: forward + backward {train_ms:.1f} ms, peak {out['train']['peak_gb']} GB; "
+        f"{out['train']['params'] - len(bad)} of {out['train']['params']} parameters with a finite gradient; VQ "
+        f"losses {[round(v, 6) for v in out['train']['vq_losses']]} vs the CPU's: worst relative {rel:.3e} (bar 1e-5)")
+    require(not bad, f"decoder parameters without a finite gradient: {bad[:5]}")
+    require(rel <= 1e-5, f"train-mode VQ losses card vs CPU: {rel}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def adapter_corpus(seed: int) -> tuple:
+    """ADAPTER_SHAPE's seeded voiced waves (F0 by class) -> (waves, labels)."""
+    shape = ADAPTER_SHAPE
+    rng = np.random.default_rng(seed)
+    labels = np.arange(shape["rows"]) % shape["classes"]
+    waves = [prosody_wave(int(rng.uniform(*shape["seconds"]) * 16000), rng, 90.0 + 30.0 * c).astype(np.float32)
+             for c in labels]
+    return waves, labels
+
+
+def adapter_batch(waves, labels, do_normalize: bool) -> tuple:
+    """(wav, mask, y) on the device, padded as the LoRA engine pads."""
+    from interspeech_ser_tpu_torch.train.lora_engine import pad_batch
+    from interspeech_ser_tpu_torch.utils.audio import normalize_waveform
+
+    wav, mask = pad_batch([normalize_waveform(w, do_normalize) for w in waves], len(waves))
+    return (torch.from_numpy(wav).to(DEVICE), torch.from_numpy(mask).to(DEVICE),
+            torch.from_numpy(np.asarray(labels)).long().to(DEVICE))
+
+
+def predict_adapter_launches(method: str, layers: int, layer_norm_frontend: bool, steps: int) -> dict:
+    """One run's launches: K1 once a layer a forward (the steps', the dev
+    batch's and, for ``adapter`` / ``adapter_l``, the identity check's two);
+    K4 once a step on each layer whose attention input needs a gradient:
+    every layer under prompts, all but layer 0 (whose input is the frozen
+    features) under adapters alone; K2 once a forward of a layer-norm
+    frontend; nothing else (training leaves K8's ``inference_kernels`` off)."""
+    forwards = steps + 1 + (2 if method in ("adapter", "adapter_l") else 0)
+    k4_layers = layers if method in ("embedding_prompt", "combined") else layers - 1
+    return {"attention_btd": layers * forwards, "attention_btd_bwd": steps * k4_layers,
+            "conv_frontend": forwards if layer_norm_frontend else 0}
+
+
+def phase_adapters(tmp: str, smi: str) -> tuple:
+    """(b) ``lora_model.build_wavlm_wrapper`` over phase 9's wavlm-base-plus
+    (post-LN, group-norm frontend) with each non-LoRA method and over phase
+    4's WavLM-large (pre-LN, K2) with ``adapter`` and ``combined``, f32:
+    fresh ``adapter`` / ``adapter_l`` against the base encoder's hidden states
+    (1e-5), ADAPTER_SHAPE's AdamW steps over the tuned tensors and the head
+    (the base weights bit for bit unchanged, every tuned tensor moved), a dev
+    batch through ``EvalMetric``, each run's launches against
+    ``predict_adapter_launches`` -> (results, the trained embedding_prompt
+    wrapper and its batch)."""
+    from interspeech_ser_tpu_torch.lora_evaluation import EvalMetric
+    from interspeech_ser_tpu_torch.lora_model import build_wavlm_wrapper
+    from interspeech_ser_tpu_torch.models.loader import build_speech_encoder
+
+    shape = ADAPTER_SHAPE
+    set_tf32(False)
+    train, dev = adapter_corpus(SEED + 17), adapter_corpus(SEED + 18)
+    out, kept = {"runs": {}}, None
+    for model_name in dict.fromkeys(d for d, _ in ADAPTER_RUNS):
+        model_dir, base = os.path.join(tmp, model_name), None
+        for method in (m for d, m in ADAPTER_RUNS if d == model_name):
+            before = counts()
+            t0 = time.perf_counter()
+            w = build_wavlm_wrapper(model_dir, method, seed=SEED, device=DEVICE)
+            cfg = w.encoder.config
+            wav, mask, y = adapter_batch(*train, w.do_normalize)
+            run = {"build_s": time.perf_counter() - t0, "layers": cfg.num_layers, "tuned": len(w.finetune),
+                   "lora": len(w.lora)}
+            if method in ("adapter", "adapter_l"):
+                if base is None:
+                    base = build_speech_encoder(model_dir)[0].to(DEVICE)
+                with torch.inference_mode():
+                    got, ref = w.hidden_states(wav, mask)["hidden_states"], base(wav, mask)["hidden_states"]
+                run["identity_max_abs"] = max(max_abs(a, b) for a, b in zip(got, ref))
+                del got, ref
+                require(run["identity_max_abs"] <= 1e-5, f"{model_name} {method} at init vs the base encoder: "
+                                                         f"{run['identity_max_abs']}")
+            frozen = {n: p.detach().clone() for n, p in w.encoder.named_parameters() if not p.requires_grad}
+            tuned = [t.detach().clone() for t in w.trainable()]
+            opt = torch.optim.AdamW(w.trainable(), lr=shape["lr"])
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            w.head.train()
+            run["step_ms_runs"], run["losses"] = [], []
+            for _ in range(shape["steps"]):
+                t1 = time.perf_counter()
+                opt.zero_grad(set_to_none=True)
+                loss = torch.nn.functional.cross_entropy(w.forward(wav, mask, gen), y)
+                loss.backward()
+                opt.step()
+                sync()
+                run["step_ms_runs"].append((time.perf_counter() - t1) * 1e3)
+                run["losses"].append(loss.item())
+            run["step_ms"] = statistics.median(run["step_ms_runs"])
+            w.head.eval()
+            dwav, dmask, dy = adapter_batch(*dev, w.do_normalize)
+            with torch.inference_mode():
+                logits = w.forward(dwav, dmask)
+                dev_loss = torch.nn.functional.cross_entropy(logits, dy).item()
+            metric = EvalMetric(shape["classes"])
+            metric.append_classification_results(dy.cpu().numpy(), logits.argmax(1).cpu().numpy(), dev_loss)
+            summary = metric.classification_summary()
+            run["dev"] = {"acc": summary["acc"], "uar": summary["uar"], "loss": summary["loss"],
+                          "conf": summary["conf"].tolist()}
+            run["launches"] = {k: v - before[k] for k, v in counts().items()}
+            run["predicted"] = predict_adapter_launches(method, cfg.num_layers, cfg.feat_extract_norm == "layer",
+                                                        shape["steps"])
+            run["base_unchanged"] = all(torch.equal(p, frozen[n]) for n, p in w.encoder.named_parameters()
+                                        if not p.requires_grad)
+            run["tuned_moved"] = sum(not torch.equal(a, b) for a, b in zip(w.trainable(), tuned))
+            run["trainable"] = len(tuned)
+            run["seconds"] = time.perf_counter() - t0
+            log(f"[adapters] {model_name} {method}: {run['tuned']} adapter / prompt tensors, {run['lora']} LoRA "
+                f"pairs; step median {run['step_ms']:.1f} ms of {[round(t, 1) for t in run['step_ms_runs']]} "
+                f"({shape['rows']} rows of {shape['seconds'][0]:g}-{shape['seconds'][1]:g} s, f32; {smi}); "
+                f"losses {[round(v, 4) for v in run['losses']]}; dev acc {run['dev']['acc']:.3f} uar "
+                f"{run['dev']['uar']:.3f} loss {run['dev']['loss']:.4f}; launches {run['launches']} (predicted "
+                f"{run['predicted']}); identity at init {run.get('identity_max_abs', 'n/a')}; {run['seconds']:.1f} s")
+            require(all(np.isfinite(run["losses"])), f"{model_name} {method}: losses {run['losses']}")
+            require(run["base_unchanged"], f"{model_name} {method}: a base weight changed")
+            require(run["tuned_moved"] == run["trainable"],
+                    f"{model_name} {method}: {run['tuned_moved']} of {run['trainable']} tuned tensors moved")
+            require(all(run["launches"][k] == run["predicted"].get(k, 0) for k in KERNELS),
+                    f"{model_name} {method}: launches {run['launches']} != predicted {run['predicted']}")
+            out["runs"][f"{model_name}/{method}"] = run
+            if method == "embedding_prompt":
+                kept = (w, (wav, mask))
+            del w, frozen, tuned, opt
+        del base
+    return out, kept
+
+
+def check_adapter_grads(tmp: str) -> dict:
+    """``combined`` (LoRA on the FFN, ``adapter_l`` and prompts) on
+    ADAPTER_SHAPE's ``grad_layers``-layer full-width copies of WavLM-large and
+    wavlm-base-plus, the adapters' ``up`` and the LoRA B drawn non-zero: one
+    step's gradients of every tuned tensor through K1 + K4 (K4 once a layer)
+    against the plain path (none). The loss is a smooth probe of the hidden
+    states (each state's masked time-mean against a seeded vector), not the
+    head's cross entropy: a ReLU whose input lies within the routes' ~3e-6
+    of 0 takes another branch on each route, and the head's frame-level
+    ReLUs (rows x frames x 256 units) hold enough such units to move every
+    upstream gradient by 1e-3. An adapter's own ReLU can flip too: its
+    ``down`` tensors are held to the bar only where no unit flipped (the
+    flips are counted and reported). Bar: per tensor max|g_kernel -
+    g_plain| <= 1e-4 x max|g_plain| -> the worst ratio per model."""
+    from interspeech_ser_tpu_torch.lora_model import build_wavlm_wrapper
+    from interspeech_ser_tpu_torch.models.speech import Adapter
+
+    layers = ADAPTER_SHAPE["grad_layers"]
+    wavs, labels = adapter_corpus(SEED + 17)
+    out = {}
+    for name in ("wavlm-large", "wavlm-base-plus"):
+        copy_dir = os.path.join(tmp, f"{name}-{layers}layers-adapters")
+        write_wavlm_layers(os.path.join(tmp, name), copy_dir, layers)
+        w = build_wavlm_wrapper(copy_dir, "combined", seed=SEED, device=DEVICE)
+        gen = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for n, p in w.finetune.items():
+                if ".up." in n:
+                    p.copy_(0.01 * torch.randn(p.shape, generator=gen))
+            for pair in w.lora.values():
+                pair["lora_B"].copy_(0.01 * torch.randn(pair["lora_B"].shape, generator=gen))
+        probe = torch.randn(layers + 1, w.encoder.config.hidden_size, generator=gen).to(DEVICE)
+        names = [f"{k}.{leaf}" for k, pair in w.lora.items() for leaf in pair] + list(w.finetune)
+        tuned = [t for pair in w.lora.values() for t in pair.values()] + list(w.finetune.values())
+        wav, mask, _ = adapter_batch(wavs, labels, w.do_normalize)
+        signs = {}
+        hooks = [mod.down.register_forward_hook(
+            lambda m, i, o, key=key: signs.setdefault(key, []).append(o.detach() > 0))
+            for key, mod in w.encoder.named_modules() if isinstance(mod, Adapter)]
+        grads = {}
+        for route in ("kernel", "plain"):
+            before = counts()["attention_btd_bwd"]
+            hs = w.hidden_states(wav, mask, plain=route == "plain")
+            m = hs["frame_mask"]
+            loss = sum(((h.float() * m[:, :, None]).sum(1) / m.sum(1, keepdim=True) @ r).sum()
+                       for h, r in zip(hs["hidden_states"], probe))
+            grads[route] = torch.autograd.grad(loss, tuned)
+            sync()
+            launched = counts()["attention_btd_bwd"] - before
+            require(launched == (layers if route == "kernel" else 0), f"{name} {route}: {launched} K4 launches")
+        for h in hooks:
+            h.remove()
+        flips = {key: int((a[0] != a[1]).sum()) for key, a in signs.items()}
+        errs = {n: max_abs(a, b) / max(float(b.abs().max()), 1e-30)
+                for n, a, b in zip(names, grads["kernel"], grads["plain"])}
+        flipped = {n for n in errs if any(n.startswith(f"{key}.down.") for key, f in flips.items() if f)}
+        held = {n: e for n, e in errs.items() if n not in flipped}
+        out[name] = {"worst": max(held.values()), "tensors": len(held), "relu_flips": flips,
+                     "flipped_down_errs": {n: errs[n] for n in flipped}}
+        log(f"[adapters] {name} {layers} layers full width, combined: one step's gradients through K1 + K4 vs the "
+            f"plain path: worst {out[name]['worst']:.3e} over {len(held)} tensors (bar 1e-4); adapter ReLU units "
+            f"on the other branch {flips} of {sum(a[0].numel() for a in signs.values())}, their down tensors "
+            f"{ {n: f'{e:.2e}' for n, e in out[name]['flipped_down_errs'].items()} }")
+        require(out[name]["worst"] <= 1e-4, f"{name} adapter gradients: relative error {out[name]} > 1e-4")
+        require(sum(flips.values()) <= 1e-4 * sum(a[0].numel() for a in signs.values()),
+                f"{name}: {flips} adapter ReLU units flipped between the routes")
+        del w, grads
+    return out
+
+
+def check_prompt_batch1(tmp: str, kept) -> dict:
+    """``embedding_prompt``: each row of a padded batch against its batch-1
+    forward, last hidden state over the valid frames (bar 1e-4). On the
+    ``grad_layers``-layer copy of WavLM-large (layer-norm frontend) the rows
+    run unpadded; on the trained wavlm-base-plus wrapper each row runs padded
+    alone to the batch's length, as its GroupNorm frontend normalises over the
+    padded sequence (in both packages, as in HF's base models)."""
+    from interspeech_ser_tpu_torch.lora_model import build_wavlm_wrapper
+
+    layers = ADAPTER_SHAPE["grad_layers"]
+    wavs, labels = adapter_corpus(SEED + 17)
+    w_large = build_wavlm_wrapper(os.path.join(tmp, f"wavlm-large-{layers}layers-adapters"), "embedding_prompt",
+                                  seed=SEED, device=DEVICE)
+    out = {}
+    for name, w, (wav, mask), unpadded in (
+            ("wavlm-large", w_large, adapter_batch(wavs, labels, w_large.do_normalize)[:2], True),
+            ("wavlm-base-plus", kept[0], kept[1], False)):
+        errs = []
+        with torch.inference_mode():
+            batched = w.hidden_states(wav, mask)
+            for i in range(wav.shape[0]):
+                n = int(mask[i].sum())
+                one = w.hidden_states(wav[i:i + 1, :n]) if unpadded else w.hidden_states(wav[i:i + 1], mask[i:i + 1])
+                t = int(one["frame_mask"][0].sum())
+                errs.append(max_abs(batched["last_hidden_state"][i, :t], one["last_hidden_state"][0, :t]))
+        out[name] = max(errs)
+        log(f"[adapters] {name} embedding_prompt: padded batch of {wav.shape[0]} vs batch-1 "
+            f"({'unpadded' if unpadded else 'each row padded alone'}): max_abs {out[name]:.3e} (bar 1e-4)")
+        require(out[name] <= 1e-4, f"{name} embedding_prompt batch vs batch-1: {out[name]}")
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     set_tf32(False)
@@ -5172,11 +5719,31 @@ def main() -> None:
         info["reloads"] = check_info_reloads(info)
         info["steps"] = check_info_steps(info, smi)
         info["phase_s"] = time.perf_counter() - t_info
+
+        zero_counts()
+        t16 = time.perf_counter()
+        decoded = phase_decoder(tmp, smi)
+        decoder_path = counts()
+        require(not any(decoder_path.values()), f"a kernel launched on the decoder path: {decoder_path}")
+        log(f"[decoder path] launches {decoder_path} (none, as in the JAX package)")
+        zero_counts()
+        adapters, kept = phase_adapters(tmp, smi)
+        adapter_path = counts()
+        want = {name: sum(run["predicted"].get(name, 0) for run in adapters["runs"].values()) for name in KERNELS}
+        require(adapter_path == want, f"adapter path launches {adapter_path} != predicted {want}")
+        for name in ("attention_btd", "attention_btd_bwd", "conv_frontend"):
+            require(adapter_path[name] > 0, f"kernel {name} was not launched on the adapter path")
+        log(f"[adapter path] launches {adapter_path} (predicted {want})")
+        adapters["grads"] = check_adapter_grads(tmp)
+        adapters["prompt_batch1"] = check_prompt_batch1(tmp, kept)
+        del kept
+        phase16_s = time.perf_counter() - t16
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
                "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path,
-               "legacy": legacy_path, "joint": joint_path, "info": info_path}
+               "legacy": legacy_path, "joint": joint_path, "info": info_path, "decoder": decoder_path,
+               "adapters": adapter_path}
     # the speech, fusion and transcription paths never reach K6 / K7; the joint path's RoBERTa runs K7 alone
-    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy"):
+    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy", "adapters"):
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     require(joint_path["flash_attention"] == info_path["flash_attention"] == 0,
@@ -5231,6 +5798,15 @@ def main() -> None:
         f"{st['style_embedding_step_ms']:.3f} ms, x-vector micro-step (8 x {st['xvector_seconds']:.0f} s) "
         f"{st['xvector_step_ms']:.3f} ms; K3 + K3b gradients worst {st['grad_rel_err']:.3e}; runs "
         f"{ {k: round(r['seconds'], 2) for k, r in info['runs'].items()} } s; phase 15 {info['phase_s']:.1f} s ({smi})")
+    steps16 = " / ".join(f"{k.split('/')[0].replace('wavlm-', '')} {k.split('/')[1]} {r['step_ms']:.1f}"
+                         for k, r in adapters["runs"].items())
+    log(f"[phase 16] FACodec decode of {DECODE_SHAPE['n_wavs']} x {DECODE_SHAPE['seconds']:g} s "
+        f"{decoded['decode_ms']:.1f} ms ({decoded['decode_utt_per_sec']:.2f} utt/s), redecode "
+        f"{decoded['redecode_ms']:.1f} ms ({decoded['redecode_utt_per_sec']:.2f} utt/s), peak "
+        f"{decoded.get('decode_profile', {}).get('peak_gb')} / {decoded.get('redecode_profile', {}).get('peak_gb')} "
+        f"GB; adapter step ms {steps16}; gradients worst "
+        f"{max(g['worst'] for g in adapters['grads'].values()):.3e}; phase 16 "
+        f"{phase16_s:.1f} s ({smi})")
     joint["runs"] = {stem: {k: v for k, v in run.items() if k != "dev_logits"} for stem, run in joint["runs"].items()}
     info["runs"] = {k: {n: v for n, v in r.items() if n not in ("result", "best")} for k, r in info["runs"].items()}
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
@@ -5239,7 +5815,7 @@ def main() -> None:
                              **steps},
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
                     "baseline": baseline, "transcription": transcription, "legacy": legacy, "joint": joint,
-                    "info": info,
+                    "info": info, "decoder": decoded, "adapters": adapters, "phase16_s": phase16_s,
                     "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -6,7 +6,8 @@ nested dicts of numpy arrays and return the port's state dicts.
 - :func:`speech_params_from_flax` mirrors ``speech_flax_to_hf``
   (interspeech_ser_tpu/models/convert_hf.py) and yields HF key names, with
   the positional conv kept as one plain (folded) ``weight``: layer-norm and
-  group-norm frontends, with or without conv biases.
+  group-norm frontends, with or without conv biases, and each layer's
+  ``adapter`` / ``embed_prompt`` where the params have them.
 - :func:`whisper_params_from_flax` mirrors ``whisper_encoder_hf_to_flax``
   in reverse and yields HF Whisper-encoder key names.
 - :func:`whisper_decoder_params_from_flax` mirrors ``whisper_decoder_hf_to_flax``
@@ -28,6 +29,9 @@ nested dicts of numpy arrays and return the port's state dicts.
 - :func:`ns3_params_from_flax` takes the JAX ``ProsodyExtractor``'s param
   dict and yields the port's ``ProsodyExtractor`` state dict (its pieces:
   :func:`ns3_transformer_params_from_flax`, :func:`facodec_encoder_params_from_flax`).
+- :func:`facodec_decoder_params_from_flax` and :func:`facodec_redecoder_params_from_flax`
+  take the JAX ``FACodecDecoderFull`` / ``FACodecRedecoder`` params and yield
+  the port modules' (reference-named) state dicts.
 - :func:`baseline_params_from_flax` mirrors ``pooling_flax_to_torch`` and
   ``ser_flax_to_torch`` (interspeech_ser_tpu/baseline/models.py) and yields
   the challenge baseline's ``final_pool.pt`` / ``final_ser.pt`` names.
@@ -120,6 +124,12 @@ def speech_params_from_flax(params: Dict, config) -> Dict[str, torch.Tensor]:
         for dense in ("intermediate_dense", "output_dense"):
             sd[f"{base}.feed_forward.{dense}.weight"] = _t(g(src, "feed_forward", dense, "kernel"))
             sd[f"{base}.feed_forward.{dense}.bias"] = g(src, "feed_forward", dense, "bias")
+        if "adapter" in params[src]:  # the fine-tune hooks (config.finetune_method)
+            for dense in ("down", "up"):
+                sd[f"{base}.adapter.{dense}.weight"] = _t(g(src, "adapter", dense, "kernel"))
+                sd[f"{base}.adapter.{dense}.bias"] = g(src, "adapter", dense, "bias")
+        if "embed_prompt" in params[src]:
+            sd[f"{base}.embed_prompt"] = g(src, "embed_prompt")
     return _to_torch(sd)
 
 
@@ -389,6 +399,94 @@ def ns3_params_from_flax(params: Dict, with_speaker: bool = False) -> Dict[str, 
         sd.update(facodec_encoder_params_from_flax(params["encoder"], "encoder."))
         sd.update(ns3_transformer_params_from_flax(params["timbre_encoder"], "timbre_encoder."))
     return sd
+
+
+def _resunit_pairs(sd: Dict[str, np.ndarray], p: Dict, prefix: str) -> None:
+    """A flax ``_ResidualUnit`` (act1, conv1, act2, conv2) -> the port's ``ResidualUnit`` under ``prefix``."""
+    for j, name in ((0, "act1"), (2, "act2")):
+        sd[f"{prefix}.block.{j}.act.alpha"] = _get(p, name, "alpha")
+        sd[f"{prefix}.block.{j}.act.beta"] = _get(p, name, "beta")
+    for j, name in ((1, "conv1"), (3, "conv2")):
+        sd[f"{prefix}.block.{j}.weight"] = _unconv(_get(p, name, "kernel"))
+        sd[f"{prefix}.block.{j}.bias"] = _get(p, name, "bias")
+
+
+def _hifigan_pairs(sd: Dict[str, np.ndarray], p: Dict, prefix: str) -> None:
+    n = sum(1 for k in p if k.startswith("up"))
+    for i, name in ((0, "conv_in"), (n + 2, "conv_out")):
+        sd[f"{prefix}.{i}.weight"] = _unconv(_get(p, name, "kernel"))
+        sd[f"{prefix}.{i}.bias"] = _get(p, name, "bias")
+    for i in range(n):
+        up, base = p[f"up{i}"], f"{prefix}.{i + 1}.block"
+        sd[f"{base}.0.act.alpha"] = _get(up, "act", "alpha")
+        sd[f"{base}.0.act.beta"] = _get(up, "act", "beta")
+        sd[f"{base}.1.weight"] = _get(up, "up_kernel")  # torch layout [in, out, k] on both sides
+        sd[f"{base}.1.bias"] = _get(up, "up_bias")
+        for j in range(3):
+            _resunit_pairs(sd, up[f"res{j + 1}"], f"{base}.{j + 2}")
+    sd[f"{prefix}.{n + 1}.act.alpha"] = _get(p, "act_out", "alpha")
+    sd[f"{prefix}.{n + 1}.act.beta"] = _get(p, "act_out", "beta")
+
+
+def _dense_as(sd: Dict[str, np.ndarray], p: Dict, dst: str) -> None:
+    sd[f"{dst}.weight"] = _t(_get(p, "kernel"))
+    sd[f"{dst}.bias"] = _get(p, "bias")
+
+
+def _vq_bank_pairs(sd: Dict[str, np.ndarray], bank: Dict, prefix: str) -> None:
+    """A flax ``ResidualVQBank`` (``vq{i}``) -> the port's ``ResidualVQBank`` under ``prefix``."""
+    for i in range(len(bank)):
+        vq, base = bank[f"vq{i}"], f"{prefix}layers.{i}"
+        sd[f"{base}.in_proj.weight"] = _t(_get(vq, "in_kernel"))
+        sd[f"{base}.in_proj.bias"] = _get(vq, "in_bias")
+        sd[f"{base}.out_proj.weight"] = _t(_get(vq, "out_kernel"))
+        sd[f"{base}.out_proj.bias"] = _get(vq, "out_bias")
+        sd[f"{base}._codebook.weight"] = _get(vq, "codebook")
+
+
+def facodec_decoder_params_from_flax(params: Dict, with_predictors: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX ``FACodecDecoderFull`` params -> the port's ``FACodecDecoderFull`` state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for b, bank in enumerate(("prosody_vq", "content_vq", "residual_vq")):
+        _vq_bank_pairs(sd, params[bank], f"quantizer.{b}.")
+    _dense_as(sd, params["timbre_linear"], "timbre_linear")
+    _hifigan_pairs(sd, params["model"], "model")
+    if with_predictors:
+        for name in ("f0_predictor", "phone_predictor"):
+            p = params[name]
+            for j in range(3):
+                _resunit_pairs(sd, p[f"res{j + 1}"], f"{name}.model.{j}")
+            sd[f"{name}.model.3.act.alpha"] = _get(p, "act", "alpha")
+            sd[f"{name}.model.3.act.beta"] = _get(p, "act", "beta")
+            for i in range(sum(1 for k in p if k.startswith("head"))):
+                _dense_as(sd, p[f"head{i}"], f"{name}.heads.{i}")
+    out = _to_torch(sd)
+    out.update(ns3_transformer_params_from_flax(params["timbre_encoder"], "timbre_encoder."))
+    return out
+
+
+def facodec_redecoder_params_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``FACodecRedecoder`` params -> the port's ``FACodecRedecoder`` state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("prosody", "content", "residual"):
+        for i in range(sum(1 for k in params if k.startswith(f"{name}_emb"))):
+            sd[f"{name}_embs.{i}.weight"] = _get(params, f"{name}_emb{i}")
+    enc, dst = params["timbre_cond_prosody_enc"], "timbre_cond_prosody_enc"
+    for i in range(sum(1 for k in enc if k.startswith("layer"))):
+        src, base = enc[f"layer{i}"], f"{dst}.layers.{i}"
+        for ln in ("ln_1", "ln_2"):
+            _dense_as(sd, src[f"{ln}_style"], f"{base}.{ln}.style")
+        sd[f"{base}.self_attn.in_proj_weight"] = _t(_get(src, "self_attn", "in_proj_kernel"))
+        sd[f"{base}.self_attn.in_proj_bias"] = _get(src, "self_attn", "in_proj_bias")
+        sd[f"{base}.self_attn.out_proj.weight"] = _t(_get(src, "self_attn", "out_kernel"))
+        sd[f"{base}.self_attn.out_proj.bias"] = _get(src, "self_attn", "out_bias")
+        sd[f"{base}.ffn.ffn_1.weight"] = _unconv(_get(src, "ffn_1", "kernel"))
+        sd[f"{base}.ffn.ffn_1.bias"] = _get(src, "ffn_1", "bias")
+        _dense_as(sd, src["ffn_2"], f"{base}.ffn.ffn_2")
+    _dense_as(sd, enc["last_ln_style"], f"{dst}.last_ln.style")
+    _dense_as(sd, params["timbre_linear"], "timbre_linear")
+    _hifigan_pairs(sd, params["model"], "model")
+    return _to_torch(sd)
 
 
 def baseline_params_from_flax(pool: Dict, head: Dict) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:

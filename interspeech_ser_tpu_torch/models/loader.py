@@ -16,7 +16,12 @@ Also the port of the FACodec converters of
 ``interspeech_ser_tpu/models/ns3/facodec.py`` (``ns3_encoder_params_from_torch``,
 ``ns3_decoder_prosody_params_from_torch``): :func:`ns3_state_dict_from_reference`
 reads the reference's ``ns3_facodec_{encoder,decoder}_v2.bin`` key names,
-with FACodec's ``dim=0`` weight norm folded.
+with FACodec's ``dim=0`` weight norm folded; and of ``facodec_decoder.py``'s
+``ns3_decoder_full_params_from_torch`` / ``ns3_redecoder_params_from_torch``:
+:func:`ns3_decoder_full_state_dict_from_reference` and
+:func:`ns3_redecoder_state_dict_from_reference` (the port's modules carry the
+reference's names, so only the weight norms are folded; a transposed conv's
+``dim=0`` is its input channel, g ``[in, 1, 1]``, the norm over (out, k)).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .ns3.facodec import ProsodyExtractor
+from .ns3.facodec_decoder import FACodecDecoderFull, FACodecRedecoder
 from .speech import SpeechConfig, SpeechEncoderModel
 from .text import DebertaV2Config, DebertaV2Model, RobertaConfig, RobertaModel
 from .whisper import WhisperEncoderConfig, WhisperEncoderModel
@@ -174,6 +180,49 @@ def build_prosody_extractor(decoder_ckpt: str, encoder_ckpt: Optional[str] = Non
     model = ProsodyExtractor(with_speaker=with_speaker)
     model.load_state_dict(sd, strict=True)
     return model.eval()
+
+
+def _reference_subset(sd: Dict[str, torch.Tensor], model_cls, what: str, **kw) -> Dict[str, torch.Tensor]:
+    """A reference FACodec state dict, its weight norms (``dim=0``, either key
+    style) folded, cut to the keys of ``model_cls(**kw)`` in f32; a missing key raises."""
+    folded = _fold_all_weight_norms(dict(sd))
+    with torch.device("meta"):
+        keys = list(model_cls(**kw).state_dict())
+    missing = [k for k in keys if k not in folded]
+    if missing:
+        raise KeyError(f"{what} checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
+    return {k: folded[k].float() for k in keys}
+
+
+def ns3_decoder_full_state_dict_from_reference(sd: Dict[str, torch.Tensor], **config) -> Dict[str, torch.Tensor]:
+    """The reference FACodecDecoder's state dict -> the state dict of
+    :class:`FACodecDecoderFull` built with ``config`` (its constructor's
+    arguments: ``up_ratios``, ``with_predictors``, ...): the three VQ banks,
+    the timbre encoder and linear, the HiFiGAN, and the f0 / phone heads
+    ``with_predictors``; other keys are left."""
+    return _reference_subset(sd, FACodecDecoderFull, "FACodec decoder", **config)
+
+
+def ns3_redecoder_state_dict_from_reference(sd: Dict[str, torch.Tensor], **config) -> Dict[str, torch.Tensor]:
+    """The reference FACodecRedecoder's state dict -> :class:`FACodecRedecoder`'s (built with ``config``)."""
+    return _reference_subset(sd, FACodecRedecoder, "FACodec redecoder", **config)
+
+
+def _load_reference(ckpt: str, model_cls, to_state_dict, **config):
+    sd = to_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True), **config)
+    model = model_cls(**config)
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
+
+
+def build_facodec_decoder(ckpt: str, **config) -> FACodecDecoderFull:
+    """-> the full decoder (built with ``config``) in f32 on the CPU from a reference ``.bin``, loaded strictly."""
+    return _load_reference(ckpt, FACodecDecoderFull, ns3_decoder_full_state_dict_from_reference, **config)
+
+
+def build_facodec_redecoder(ckpt: str, **config) -> FACodecRedecoder:
+    """-> the redecoder (built with ``config``) in f32 on the CPU from a reference ``.bin``, loaded strictly."""
+    return _load_reference(ckpt, FACodecRedecoder, ns3_redecoder_state_dict_from_reference, **config)
 
 
 POS_CONV = "encoder.pos_conv_embed.conv"

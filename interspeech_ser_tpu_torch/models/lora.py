@@ -1,9 +1,13 @@
 """LoRA as a transform of an HF-named state dict.
 
-Port of ``interspeech_ser_tpu/models/lora.py`` (the LoRA half; the adapter
-and prompt methods are not ported yet). Covers both of the reference's LoRA
-variants: peft on ``q_proj`` / ``v_proj`` (r=8, alpha=16; the production
-``whisper_lora_ser.pt``) and loralib on the FFN dense layers.
+Port of ``interspeech_ser_tpu/models/lora.py``. Covers both of the
+reference's LoRA variants: peft on ``q_proj`` / ``v_proj`` (r=8, alpha=16;
+the production ``whisper_lora_ser.pt``) and loralib on the FFN dense layers;
+and the helpers of the non-LoRA methods (``adapter``, ``adapter_l``,
+``embedding_prompt``, ``combined``; ``models/speech.py``), whose parameters
+live inside the encoder under the names in ``FINETUNE_KEYS``:
+:func:`split_finetune_params` / :func:`merge_finetune_params` over a state
+dict, :func:`add_finetune_params` and :func:`freeze_base`.
 
 No module surgery: the factors live in a dict ``{flax path: {"lora_A": A
 [in, r], "lora_B": B [r, out]}}`` and merge functionally, ``W' = W +
@@ -26,6 +30,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 Lora = Dict[str, Dict[str, torch.Tensor]]  # "layer3.attention.q_proj.kernel" -> {"lora_A", "lora_B"}
 
@@ -139,3 +144,52 @@ def lora_from_checkpoint(sd: Dict[str, torch.Tensor]) -> Lora:
     if any(".lora_A.default." in k for k in sd):
         return lora_from_peft_state_dict(sd)
     return lora_from_state_dict(sd)
+
+
+# -- the non-LoRA methods (adapter / adapter_l / embedding_prompt / combined) ----
+
+FINETUNE_KEYS = ("adapter", "embed_prompt")
+
+
+def is_finetune_key(name: str) -> bool:
+    """Whether a state-dict name lies under an adapter or is a prompt."""
+    return any(part in FINETUNE_KEYS for part in name.split("."))
+
+
+def split_finetune_params(state_dict: Dict[str, torch.Tensor]):
+    """state dict -> (frozen base, tuned adapter / prompt entries), by name."""
+    base = {k: v for k, v in state_dict.items() if not is_finetune_key(k)}
+    tuned = {k: v for k, v in state_dict.items() if is_finetune_key(k)}
+    return base, tuned
+
+
+def merge_finetune_params(base: Dict[str, torch.Tensor], tuned: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`split_finetune_params`."""
+    return {**base, **tuned}
+
+
+def add_finetune_params(model: nn.Module, base_state_dict: Dict[str, torch.Tensor],
+                        generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Load the pretrained ``base_state_dict`` into ``model`` (a
+    ``SpeechEncoderModel`` whose config sets ``finetune_method``) and draw its
+    adapters and prompts afresh from ``generator``, layer by layer. Any
+    other missing or unexpected key raises."""
+    from .speech import Adapter, EncoderLayer, init_prompt
+
+    missing, unexpected = model.load_state_dict(base_state_dict, strict=False)
+    base_missing = [k for k in missing if not is_finetune_key(k)]
+    if base_missing or unexpected:
+        raise KeyError(f"base weights: missing {base_missing[:3]}, unexpected {list(unexpected)[:3]}")
+    for mod in model.modules():
+        if isinstance(mod, EncoderLayer) and hasattr(mod, "embed_prompt"):
+            init_prompt(mod.embed_prompt, generator)
+        elif isinstance(mod, Adapter):
+            mod.reset_parameters(generator)
+    return model
+
+
+def freeze_base(model: nn.Module) -> nn.Module:
+    """``requires_grad_(False)`` on every parameter but the adapters and prompts."""
+    for name, prm in model.named_parameters():
+        prm.requires_grad_(is_finetune_key(name))
+    return model

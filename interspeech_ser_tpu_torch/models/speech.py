@@ -35,11 +35,18 @@ and ``plain=True`` forces the plain versions, a reference run on the card):
   it off.
 Both environment variables are read once, when the model is built, so a
 model's routes stay fixed for its life.
+
+``SpeechConfig.finetune_method`` adds the parameter-efficient fine-tune
+hooks of every layer (``adapter``, ``adapter_l``, ``embedding_prompt``,
+``combined``; see ``EncoderLayer``): their parameters carry the JAX
+package's names, ``encoder.layers.{i}.adapter.{down,up}.*`` and
+``encoder.layers.{i}.embed_prompt`` (``models/lora.py`` splits them out).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -77,6 +84,12 @@ class SpeechConfig:
     conv_pos_groups: int = 16
     layer_norm_eps: float = 1e-5
     dtype: str = "float32"  # compute dtype; parameters load in f32
+    # parameter-efficient fine-tune hooks (lora_wavlm/model.py): 'adapter' | 'adapter_l' |
+    # 'embedding_prompt' | 'combined' (LoRA itself is a state-dict transform, models/lora.py)
+    finetune_method: Optional[str] = None
+    adapter_hidden_dim: int = 128
+    adapter_scalar: float = 0.1
+    embedding_prompt_dim: int = 5
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -403,30 +416,103 @@ class FeedForward(nn.Module):
         return _dense(h, self.output_dense, dt)
 
 
+FINETUNE_METHODS = ("adapter", "adapter_l", "embedding_prompt", "combined")
+
+
+class Adapter(nn.Module):
+    """Bottleneck adapter: down-projection, ReLU, a zero-init up-projection,
+    times ``scalar``, so that a fresh adapter outputs exactly 0. The reference
+    never defines its ``Adapter`` (an unbound name in lora_wavlm/model.py);
+    this is the JAX package's design. It runs in f32 on any input dtype, as
+    flax promotes a bf16 input against f32 parameters."""
+
+    def __init__(self, hidden_size: int, bottleneck: int, scalar: float = 0.1):
+        super().__init__()
+        self.scalar = scalar
+        self.down = nn.Linear(hidden_size, bottleneck)
+        self.up = nn.Linear(bottleneck, hidden_size)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """``down`` lecun-normal (a normal truncated at 2 std, scaled to
+        variance 1 / fan_in, flax's ``lecun_normal``), ``up`` and both biases zeros."""
+        std = (1.0 / self.down.in_features) ** 0.5 / 0.87962566103423978
+        lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))  # the normal's CDF at -2
+        with torch.no_grad():
+            u = torch.rand(self.down.weight.shape, generator=generator) * (1.0 - 2.0 * lo) + lo
+            w = (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp(-2.0, 2.0)  # inverse CDF in [-2, 2]
+            self.down.weight.copy_(w * std)
+            for t in (self.down.bias, self.up.weight, self.up.bias):
+                t.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.scalar * self.up(torch.relu(self.down(x.float())))
+
+
+def init_prompt(prompt: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+    """flax ``xavier_uniform`` on (1, P, D): fan_in = P, fan_out = D, bound
+    sqrt(6 / (P + D)) (torch's ``xavier_uniform_`` would read fan_in = P * D)."""
+    _, P, D = prompt.shape
+    bound = (6.0 / (P + D)) ** 0.5
+    with torch.no_grad():
+        prompt.copy_((torch.rand(prompt.shape, generator=generator) * 2 - 1) * bound)
+
+
 class EncoderLayer(nn.Module):
-    """Transformer layer: pre-LN (``do_stable_layer_norm``) or post-LN."""
+    """Transformer layer: pre-LN (``do_stable_layer_norm``) or post-LN, with
+    the fine-tune hooks of ``cfg.finetune_method``, in the JAX package's order:
+    ``adapter`` reads the attention residual (pre-LN: x after attention;
+    post-LN: x_res before ``layer_norm``) and is added after the FFN residual;
+    ``adapter_l`` / ``combined`` add ``adapter(x)`` after the FFN (post-LN:
+    before ``final_layer_norm``); ``embedding_prompt`` / ``combined`` prepend
+    P learned rows before attention (the key mask extended by ones; layer 0's
+    relative-position bias built over T + P) and strip them after the layer."""
 
     def __init__(self, cfg: SpeechConfig, has_relative_position_bias: bool = False, ffn_kernel: bool = False):
         super().__init__()
         self.cfg = cfg
+        ft = cfg.finetune_method
+        if ft is not None and ft not in FINETUNE_METHODS:
+            raise ValueError(f"finetune_method {ft!r}: expected one of {FINETUNE_METHODS}")
         self.attention = SpeechSelfAttention(cfg, has_relative_position_bias)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.feed_forward = FeedForward(cfg, ffn_kernel)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        if ft in ("adapter", "adapter_l", "combined"):
+            self.adapter = Adapter(cfg.hidden_size, cfg.adapter_hidden_dim, cfg.adapter_scalar)
+        if ft in ("embedding_prompt", "combined"):
+            self.embed_prompt = nn.Parameter(torch.empty(1, cfg.embedding_prompt_dim, cfg.hidden_size))
+            init_prompt(self.embed_prompt)
 
     def forward(self, x, key_mask, position_bias, plain: bool = False):
         dt = self.cfg.compute_dtype
+        ft = self.cfg.finetune_method
+        P = self.cfg.embedding_prompt_dim if ft in ("embedding_prompt", "combined") else 0
+        if P:
+            B = x.shape[0]
+            x = torch.cat([self.embed_prompt.to(x.dtype).expand(B, -1, -1), x], dim=1)
+            if key_mask is not None:
+                key_mask = torch.cat([key_mask.new_ones(B, P), key_mask], dim=1)
         if self.cfg.do_stable_layer_norm:
             h, position_bias = self.attention(
                 _layer_norm(x, self.layer_norm).to(dt), key_mask, position_bias, plain
             )
             x = x + h
+            adapt_h = self.adapter(x) if ft == "adapter" else None
             x = x + self.feed_forward(_layer_norm(x, self.final_layer_norm).to(dt), plain)
-            return x, position_bias
-        h, position_bias = self.attention(x, key_mask, position_bias, plain)
-        x = _layer_norm(x + h, self.layer_norm).to(dt)
-        x = x + self.feed_forward(x, plain)
-        return _layer_norm(x, self.final_layer_norm).to(dt), position_bias
+        else:
+            h, position_bias = self.attention(x, key_mask, position_bias, plain)
+            x_res = x + h
+            adapt_h = self.adapter(x_res) if ft == "adapter" else None
+            x = _layer_norm(x_res, self.layer_norm).to(dt)
+            x = x + self.feed_forward(x, plain)
+        if adapt_h is not None:
+            x = x + adapt_h
+        if ft in ("adapter_l", "combined"):
+            x = x + self.adapter(x)
+        if not self.cfg.do_stable_layer_norm:
+            x = _layer_norm(x, self.final_layer_norm).to(dt)
+        return (x[:, P:] if P else x), position_bias
 
 
 class Encoder(nn.Module):

@@ -16,6 +16,8 @@ per direction and the recurrence through kernel K3, both directions stacked
 along batch (the backward one reversed in time); its gradient comes from
 kernel K3b through ``GruBidirCarries``. On a CPU tensor it runs ``gru_scan``,
 the plain version, once per direction, and autograd differentiates it.
+``gru_scan_bidir_stacked`` is the plain stacked form (both directions in one
+loop), the JAX package's one-scan BiGRU.
 """
 
 from __future__ import annotations
@@ -57,6 +59,42 @@ def gru_scan(
         h = m[:, t] * h_new + (1.0 - m[:, t]) * h
         out[t] = h * m[:, t]
     return torch.stack(out, dim=1).to(x.dtype)
+
+
+def gru_scan_bidir_stacked(
+    x: torch.Tensor,  # [B, T, I]
+    h0: torch.Tensor,  # [B, H]
+    params_fwd,  # (w_ih [3H, I], w_hh [3H, H], b_ih [3H], b_hh [3H]), torch layout
+    params_bwd,  # the ``_reverse`` direction's
+    mask: Optional[torch.Tensor] = None,  # [B, T], 1 = real frame
+) -> torch.Tensor:  # [B, T, 2H] = concat(forward, backward), zeros at masked steps
+    """Both directions in one loop over T, stacked on a leading [2] axis (the
+    backward direction's inputs and mask reversed in time): the plain
+    counterpart of the JAX package's one-scan BiGRU, equal to two
+    ``gru_scan`` calls."""
+    B, T, _ = x.shape
+    H = h0.shape[-1]
+
+    def proj(w_ih, b_ih):
+        return x.float() @ w_ih.float().t() + b_ih.float()  # [B, T, 3H]
+
+    xp = torch.stack([proj(params_fwd[0], params_fwd[2]), proj(params_bwd[0], params_bwd[2]).flip(1)])
+    m = torch.ones(B, T, 1, device=x.device) if mask is None else mask.float()[:, :, None]
+    m2 = torch.stack([m, m.flip(1)])  # [2, B, T, 1]
+    w = torch.stack([params_fwd[1], params_bwd[1]]).float().transpose(1, 2)  # [2, H, 3H]
+    b = torch.stack([params_fwd[3], params_bwd[3]]).float()[:, None]  # [2, 1, 3H]
+    h = h0.float().expand(2, B, H)
+    out = []
+    for t in range(T):
+        hp = torch.bmm(h, w) + b
+        xt, mt = xp[:, :, t], m2[:, :, t]
+        r = torch.sigmoid(xt[..., :H] + hp[..., :H])
+        z = torch.sigmoid(xt[..., H:2 * H] + hp[..., H:2 * H])
+        n = torch.tanh(xt[..., 2 * H:] + r * hp[..., 2 * H:])
+        h = mt * ((1.0 - z) * n + z * h) + (1.0 - mt) * h
+        out.append(h * mt)
+    ys = torch.stack(out, dim=2)  # [2, B, T, H]
+    return torch.cat([ys[0], ys[1].flip(1)], dim=-1).to(x.dtype)
 
 
 class BiGRU(nn.Module):

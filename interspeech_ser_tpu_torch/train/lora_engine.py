@@ -1,8 +1,9 @@
 """LoRA fine-tuning of a speech or Whisper encoder with a mean-pool classifier.
 
 Port of ``interspeech_ser_tpu/train/lora_engine.py`` (``MeanPoolClassifier``,
-``uar``, ``ReduceLROnPlateau`` and ``LoRAFTEngine``; ``WavLMWrapperModel``
-is not ported yet). The production fine-tune whose checkpoint feeds the
+``WavLMWrapperModel``, ``uar``, ``ReduceLROnPlateau`` and ``LoRAFTEngine``).
+``WavLMWrapperModel`` is the layer-weighted head of ``lora_wavlm``
+(``lora_model.build_wavlm_wrapper``). The production fine-tune whose checkpoint feeds the
 ``*_pretrained`` extraction CLIs: encoder -> mean pool over valid frames ->
 Linear(512) -> ReLU -> Dropout(0.5) -> Linear(num_emotions).
 
@@ -60,6 +61,44 @@ class MeanPoolClassifier(nn.Module):
         h = torch.relu(self.fc1(pooled))
         h = dropout(h, self.dropout_p if self.training else 0.0, generator)
         return self.fc2(h)
+
+
+class WavLMWrapperModel(nn.Module):
+    """The layer-weighted head: a softmax-weighted sum of the hidden states
+    (``layer_weights`` ones / (L + 1) over all L + 1 states with
+    ``use_conv_output``, else zeros over the L layer outputs), three pointwise
+    "conv" Linears with ReLU and dropout 0.1 after the first two, a mean over
+    time (over the first ``lengths`` frames when given), then Linear -> ReLU
+    -> Linear. Names as the JAX package's (``seq{i}``, ``out1``, ``out2``)."""
+
+    def __init__(self, num_layers: int, hidden_size: int, hidden_dim: int = 256, output_class_num: int = 4,
+                 use_conv_output: bool = True):
+        super().__init__()
+        self.use_conv_output = use_conv_output
+        self.dropout_p = 0.1
+        n = num_layers + 1 if use_conv_output else num_layers
+        self.layer_weights = nn.Parameter(torch.full((n,), 1.0 / n) if use_conv_output else torch.zeros(n))
+        for i in range(3):
+            setattr(self, f"seq{i}", nn.Linear(hidden_size if i == 0 else hidden_dim, hidden_dim))
+        self.out1 = nn.Linear(hidden_dim, hidden_dim)
+        self.out2 = nn.Linear(hidden_dim, output_class_num)
+
+    def forward(self, hidden_states: Sequence[torch.Tensor], lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        states = hidden_states if self.use_conv_output else hidden_states[1:]
+        h = torch.einsum("l,lbtd->btd", torch.softmax(self.layer_weights, dim=0),
+                         torch.stack([s.float() for s in states]))
+        p = self.dropout_p if self.training else 0.0
+        for i in range(3):
+            h = getattr(self, f"seq{i}")(h)
+            if i < 2:
+                h = dropout(torch.relu(h), p, generator)
+        if lengths is None:
+            pooled = h.mean(dim=1)
+        else:
+            mask = (torch.arange(h.shape[1], device=h.device)[None, :] < lengths[:, None]).to(h.dtype)
+            pooled = (h * mask[:, :, None]).sum(dim=1) / lengths[:, None].to(h.dtype).clamp_min(1.0)
+        return self.out2(torch.relu(self.out1(pooled)))
 
 
 def uar(y_true, y_pred, num_classes: int) -> float:

@@ -2,8 +2,12 @@
 
 Port of ``interspeech_ser_tpu/utils/labels.py``: the reference's left merge
 of the label CSV with the transcript CSV on ``FileName``, the ``Split_Set``
-filter, the class order, the trainers' class and sample weights, and the
-gender targets of the legacy gender trainers (``interspeech_ser_tpu/cli.py``).
+filter, the class order, the trainers' class and sample weights, the one-hot
+helpers of the ranking trainers, the gender targets of the legacy gender
+trainers (``interspeech_ser_tpu/cli.py``), and the pipeline's first step,
+``process_labels_for_categorical`` (labels_consensus.csv -> one-hot
+processed_labels.csv; ``python -m interspeech_ser_tpu_torch.utils.labels IN
+OUT``, the counterpart of ``benchmark/process_labels_for_categorical.py``).
 Rows are dicts of strings, as ``csv.DictReader`` gives them.
 """
 
@@ -17,6 +21,7 @@ import numpy as np
 CLASSES = ["Angry", "Sad", "Happy", "Surprise", "Fear", "Disgust", "Contempt", "Neutral"]
 CLASS_LETTERS = ["A", "S", "H", "U", "F", "D", "C", "N"]
 INDEX_TO_LETTER = dict(enumerate(CLASS_LETTERS))
+LETTER_TO_NAME = dict(zip(CLASS_LETTERS, CLASSES))
 
 Rows = List[Dict[str, str]]
 # the strings pandas.read_csv reads as a missing value (its default na_values)
@@ -113,3 +118,43 @@ def neutral_balanced_sample_weights(rows: Rows) -> np.ndarray:
     gw = gw * (len(gw) / gw.sum())
     idx = np.argmax(groups, axis=1)
     return gw[idx]
+
+
+def labels_to_index(onehot: np.ndarray) -> np.ndarray:
+    """One-hot (or soft) label rows -> the arg-max class index."""
+    return np.argmax(np.asarray(onehot), axis=1)
+
+
+def neutral_margin_targets(onehot: np.ndarray) -> np.ndarray:
+    """+-1 neutral targets for the ranking trainers' SoftMarginLoss (Neutral is the last column)."""
+    neutral = np.asarray(onehot)[:, -1].astype(np.int64)
+    return (2 * neutral - 1).astype(np.float32)
+
+
+def process_labels_for_categorical(consensus_csv: str, out_csv: Optional[str] = None) -> Rows:
+    """labels_consensus.csv -> one-hot rows (``FileName``, the eight classes
+    as 1.0 / 0.0, ``Split_Set``) of the rows whose ``EmoClass`` is one of the
+    eight letters (X / O, no consensus, dropped); written to ``out_csv`` with
+    the bytes pandas' ``to_csv(index=False)`` writes (a missing value, as
+    pandas reads one, is an empty field)."""
+    rows = [r for r in read_csv(consensus_csv) if r["EmoClass"] in LETTER_TO_NAME]
+    out = [{"FileName": r["FileName"], **{name: float(r["EmoClass"] == letter)
+                                          for letter, name in LETTER_TO_NAME.items()},
+            "Split_Set": r["Split_Set"]} for r in rows]
+    if out_csv is not None:
+        with open(out_csv, "w", newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow(["FileName", *CLASSES, "Split_Set"])
+            for r in out:
+                w.writerow(["" if r["FileName"] in PANDAS_NA else r["FileName"], *(repr(r[c]) for c in CLASSES),
+                            "" if r["Split_Set"] in PANDAS_NA else r["Split_Set"]])
+    return out
+
+
+if __name__ == "__main__":
+    import sys
+
+    in_csv = sys.argv[1] if len(sys.argv) > 1 else "labels_consensus.csv"
+    out_csv = sys.argv[2] if len(sys.argv) > 2 else "processed_labels.csv"
+    process_labels_for_categorical(in_csv, out_csv)
+    print(f"wrote {out_csv}")

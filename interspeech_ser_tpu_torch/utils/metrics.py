@@ -3,9 +3,12 @@
 Port of ``interspeech_ser_tpu/utils/metrics.py``'s ``macro_f1`` (sklearn
 ``f1_score(average='macro')`` semantics: per-class F1 with zero-division =
 0, averaged over the classes seen in ``y_true`` or ``y_pred``),
-``concordance_ccc`` (the challenge baseline's dimensional metric),
-``accuracy`` (the text-only trainer's) and ``LogManager`` (the running stat
-book).
+``concordance_ccc`` (the challenge baseline's dimensional metric; ``ccc``,
+the same on device tensors),
+``accuracy`` (the text-only trainer's) and ``micro_f1`` (its equal for
+single-label classes), ``calc_err`` / ``calc_acc`` (error rate and accuracy
+from logits, the baseline's loss manager) and ``LogManager`` (the running
+stat book).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 
 def macro_f1(y_true, y_pred, num_classes: int = 8) -> float:
@@ -31,6 +35,22 @@ def accuracy(y_true, y_pred) -> float:
     return float(np.mean(np.asarray(y_true) == np.asarray(y_pred)))
 
 
+def micro_f1(y_true, y_pred) -> float:
+    """Micro F1: accuracy, for single-label classes."""
+    return accuracy(y_true, y_pred)
+
+
+def calc_err(pred_logits, labels) -> float:
+    """The error rate of the logits' arg-max."""
+    lab = np.asarray(labels)
+    ans = np.argmax(np.asarray(pred_logits), axis=1)
+    return float((len(lab) - (ans == lab).sum()) / len(lab))
+
+
+def calc_acc(pred_logits, labels) -> float:
+    return 1.0 - calc_err(pred_logits, labels)
+
+
 def concordance_ccc(pred, lab) -> float:
     """Concordance correlation coefficient with population (biased) moments,
     in float64: ``2 cov / (var_p + var_l + (m_p - m_l)^2 + 1e-9)``."""
@@ -42,6 +62,14 @@ def concordance_ccc(pred, lab) -> float:
     var_p = np.mean(d_p * d_p)
     var_l = np.mean(d_l * d_l)
     return float(2 * cov / (var_p + var_l + (m_p - m_l) ** 2 + 1e-9))
+
+
+def ccc(pred: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """The CCC on the device, in the tensors' dtype, differentiable (``concordance_ccc``'s formula)."""
+    m_p, m_l = pred.mean(), lab.mean()
+    d_p, d_l = pred - m_p, lab - m_l
+    cov = (d_p * d_l).mean()
+    return 2 * cov / ((d_p * d_p).mean() + (d_l * d_l).mean() + (m_p - m_l) ** 2 + 1e-9)
 
 
 class LogManager:

@@ -737,3 +737,91 @@ def test_info_phase_on_cpu(tmp_path, monkeypatch):
     steps = cs.check_info_steps(info, "a card, 700 W")
     assert steps["grad_rel_err"] <= 1e-4 and len(steps["xvector_step_ms_runs"]) == 2
     assert ops_gru.BiGRU.forward is ops_gru.BiGRU.forward_stacked  # the plain route is undone
+
+
+def test_decoder_and_adapter_phases_on_cpu(tmp_path, monkeypatch):
+    """Phase 16 at a tiny size: (a) the FACodec checkpoints (the encoder at
+    ngf 8, the full decoder and redecoder at 16 HiFiGAN channels) through the
+    loaders, 2 x 0.5-s wavs, every decode / redecode check, the CPU
+    comparison and the train-mode autoencode; no launch. (b) the wrapper's
+    methods over a wavlm-base-plus-shaped (group norm, post-LN, 2 layers) and
+    a WavLM-large-shaped (layer norm, pre-LN, 3 layers) directory, 2 steps of
+    4 rows, each run's launches against ``predict_adapter_launches`` (K1, K2
+    through counting plain versions, K4 through AttentionBtdTrain's counted
+    plain backward), the gradient check on 2-layer copies and the prompt's
+    batch-1 checks."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.models.ns3 import facodec
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka, conv_frontend as kc
+
+    narrow = dict(conv_dim=(32,) * 4, conv_kernel=(10, 4, 4, 4), conv_stride=(5, 4, 4, 4), num_conv_pos_embeddings=16,
+                  conv_pos_groups=4, num_buckets=32, max_distance=64)
+    real_bwd = ka.attention_btd_bwd
+
+    def counted_bwd(*args, **kw):
+        ka.BWD_LAUNCHES += 1
+        return real_bwd(*args, **kw)
+
+    def routed(q, k, v, H, key_mask=None, scale=None, gate=None, shared_bias=None, plain=False):
+        if plain:
+            return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+        ka.LAUNCHES += 1
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, gate, shared_bias)):
+            return ka.AttentionBtdTrain.apply(q, k, v, H, key_mask, scale, gate, shared_bias)
+        return ka.attention_btd_plain(q, k, v, H, key_mask, scale, gate, shared_bias)
+
+    def counting_conv(*args, **kw):
+        kc.LAUNCHES += 1
+        return kc.conv_frontend_plain(*args, **kw)
+
+    small = dict(upsample_initial_channel=16)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "DECODE_SHAPE", dict(n_wavs=2, seconds=0.5, cpu_seconds=0.5, train_rows=2,
+                                                 train_seconds=0.5, quantizer_dropout=0.5, spread_codes=32,
+                                                 decoder=small, redecoder=small))
+    monkeypatch.setattr(cs, "ADAPTER_SHAPE", dict(rows=4, seconds=(0.3, 0.6), steps=2, lr=1e-3, classes=2,
+                                                  grad_layers=2))
+    monkeypatch.setattr(facodec.FACodecEncoderV2Model.__init__, "__defaults__", (8, (2, 4, 5, 5), 256))
+    monkeypatch.setattr(speech, "dot_product_attention_btd", routed)
+    monkeypatch.setattr(speech, "conv_frontend", counting_conv)
+    monkeypatch.setattr(ka, "attention_btd_bwd", counted_bwd)
+    for key in ("SER_TPU_ATTN_IMPL", "SER_TPU_FRONTEND"):
+        monkeypatch.delenv(key, raising=False)
+    for spec in cs.KERNELS.values():
+        monkeypatch.setattr(spec["module"], spec.get("counter", "LAUNCHES"), 0)
+
+    tmp, smi = str(tmp_path), "a card, 700 W"
+    out = cs.phase_decoder(tmp, smi)
+    assert not any(cs.counts().values())
+    assert out["max_abs"]["quantized_vs_codes"] <= 1e-5 and out["cpu"]["decode_max_abs"] == 0.0
+    assert min(out["max_abs"][k] for k in ("decode_residual", "redecode_rolled_speaker", "redecode_residual")) > 1e-4
+    assert out["train"]["without_finite_grad"] == [] and out["train"]["vq_loss_rel_err"] == 0.0
+    assert len(out["decode_ms_runs"]) == 3 and out["distinct_codes"][1] > 1
+    # the decoder file also feeds phase 10's prosody extractor
+    from interspeech_ser_tpu_torch.models.loader import build_prosody_extractor
+
+    paths = [os.path.join(tmp, "facodec_full", n) for n in ("ns3_facodec_encoder_v2.bin",
+                                                            "ns3_facodec_decoder_v2_full.bin")]
+    assert build_prosody_extractor(paths[1], paths[0], with_speaker=True) is not None
+
+    cs.write_speech_model(os.path.join(tmp, "wavlm-base-plus"), speech.SpeechConfig(
+        hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128, attention_type="wavlm", **narrow),
+        "WavLMModel", do_normalize=False)
+    cs.write_speech_model(os.path.join(tmp, "wavlm-large"), speech.SpeechConfig(
+        hidden_size=64, num_layers=3, num_heads=2, intermediate_size=128, conv_bias=True, feat_extract_norm="layer",
+        do_stable_layer_norm=True, attention_type="wavlm", **narrow), "WavLMModel")
+    cs.zero_counts()
+    adapters, kept = cs.phase_adapters(tmp, smi)
+    runs = adapters["runs"]
+    assert list(runs) == [f"{d}/{m}" for d, m in cs.ADAPTER_RUNS]
+    assert cs.counts() == {k: sum(r["predicted"].get(k, 0) for r in runs.values()) for k in cs.KERNELS}
+    # K4: 2 steps x 1 layer under adapters alone on the 2-layer base, x 2 layers under prompts, x 3 / 2 on large
+    assert [r["launches"]["attention_btd_bwd"] for r in runs.values()] == [2, 2, 4, 4, 4, 6]
+    assert [r["launches"]["conv_frontend"] for r in runs.values()] == [0, 0, 0, 0, 5, 3]
+    assert all(r["base_unchanged"] and r["tuned_moved"] == r["trainable"] for r in runs.values())
+    grads = cs.check_adapter_grads(tmp)
+    assert set(grads) == {"wavlm-large", "wavlm-base-plus"} and max(g["worst"] for g in grads.values()) <= 1e-4
+    assert all(g["tensors"] == 2 * 2 * 2 + 2 * 5 for g in grads.values())  # 2 layers x 2 LoRA pairs, 4 adapter + 1 prompt
+    batch1 = cs.check_prompt_batch1(tmp, kept)
+    assert max(batch1.values()) <= 1e-4
