@@ -14,7 +14,8 @@ transcription, the legacy fusion trainers, the joint RoBERTa + WavLM
 trainers, the information-encoder family (the proto-angular trainers, the
 timbre perturbation, the legacy baselinelike trainers with the x-vector
 engine), the FACodec full decoder and redecoder and the lora_wavlm wrapper's
-adapter / prompt fine-tune methods through their entry points at full width:
+adapter / prompt fine-tune methods through their entry points at full width,
+then the multi-device surface on spawned ranks:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -247,7 +248,27 @@ adapter / prompt fine-tune methods through their entry points at full width:
    ``predict_adapter_launches``; then ``combined`` on 2-layer full-width
    copies of both through K1 + K4 against the plain path (the tuned tensors'
    gradients of a smooth probe of the hidden states within 1e-4) and
-   ``embedding_prompt``'s padded batch against batch-1 (1e-4).
+   ``embedding_prompt``'s padded batch against batch-1 (1e-4);
+17. the multi-device surface (``parallel/``, one process a rank over
+   ``torch.distributed``): the one process, then 2 spawned ranks (gloo on
+   the one card they share; NCCL, one card a rank, where there are 2), then
+   a world of one NCCL rank (init, all-reduce, all-gather and broadcast on
+   the card): (a) one ``FusionEngine`` epoch over phase 6's features at
+   batch 64 (each rank its 32 rows, K3 + K3b per rank): the dev macro-F1
+   equal, every loss within 1e-5 relative and every parameter within Adam's
+   budget (2 lr a step, + 1e-5) of the one process's; (b) phase 4's
+   WavLM-large through ``speech_main`` in bf16 and f32 (every ``.pt`` within
+   1e-2 / 1e-5 of phase 4's) and through the pipeline at a 24-s token budget
+   (several batches, whole batches a rank: within 1e-5 of the one
+   process's); (c) ``model_parallel=2`` f32 extraction at full width (8
+   heads a rank through K1; cosine to phase 4's files >= 0.99999, max abs
+   reported); (d) 2 LoRA steps over phase 7's wavs (the factors and the head
+   within Adam's budget of the one process's); (e) each rank's launches
+   against ``predict_parallel_launches`` and collectives against
+   ``expected_audit`` (DP: one all-reduce of the trainable elements a step;
+   DP extraction: one of the 4 stats; TP: two a layer a batch; the one
+   process: ``NONE``); step ms and utt/s of the one process beside 2 ranks
+   (plumbing on a shared card, not a speed-up).
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -273,7 +294,9 @@ before phase 16's decoder and read after it (every count 0: the decoder and
 the redecoder have no kernel, as in the JAX package), and zeroed again just
 before its adapter runs and read after the last (the adapter path: K1, K4
 and, on WavLM-large, K2's layer 0, each run's counts equal to its
-prediction). K9 has no path (none
+prediction), and zeroed before each of phase 17's runs in the one process
+and in every rank and read after it (the multi-device path: their sum).
+K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -304,6 +327,7 @@ from interspeech_ser_tpu_torch.ops.kernels import conv_frontend as k_conv
 from interspeech_ser_tpu_torch.ops.kernels import ffn_fused as k_ffn
 from interspeech_ser_tpu_torch.ops.kernels import gru as k_gru
 from interspeech_ser_tpu_torch.ops.kernels import pos_conv as k_pos
+from interspeech_ser_tpu_torch.parallel import audit
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
@@ -5564,6 +5588,343 @@ def check_prompt_batch1(tmp: str, kept) -> dict:
     return out
 
 
+# -- phase 17: the multi-device surface ------------------------------------------
+
+# a world of 2 ranks (gloo on one shared card, NCCL one card a rank where there
+# are 2), extraction batches at a 24-s token budget (several batches for the
+# data-parallel leg), 8 of phase 7's wavs at batch 4 (2 LoRA steps)
+PARALLEL_SHAPE = dict(world=2, budget_seconds=24, lora_rows=8, lora_batch=4, lora_dev=2)
+LAUNCHING = True  # phase 17 holds the ranks' launch counts to their predictions (on the card)
+
+
+def predict_parallel_launches(what: str, rank: int, world: int, **n) -> dict:
+    """The kernel launches one rank of a ``world``-rank data axis makes (the
+    model axis's ranks all run every batch): ``fusion`` (``n_mod``,
+    ``train_batches``, ``dev_batches``: every rank runs its rows of every
+    batch, so its counts are the one-process counts), ``dp_extract`` (whole
+    batches ``rank``, ``rank + world``, ... of ``batches``, ``layers``),
+    ``tp_extract`` (every batch on every model rank), ``lora`` (``layers``,
+    ``steps``, ``dev_batches``). K2 runs its layer-0 kernel once a forward."""
+    if what == "fusion":
+        return {"gru_bidir": n["n_mod"] * (n["train_batches"] + n["dev_batches"]),
+                "gru_bidir_bwd": n["n_mod"] * n["train_batches"]}
+    if what in ("dp_extract", "tp_extract"):
+        mine = len(range(rank, n["batches"], world)) if what == "dp_extract" else n["batches"]
+        return {"attention_btd": n["layers"] * mine, "conv_frontend": mine, "pos_conv": mine}
+    if what == "lora":
+        forwards = n["steps"] + n["dev_batches"]
+        return {"attention_btd": n["layers"] * forwards, "attention_btd_bwd": n["layers"] * n["steps"],
+                "conv_frontend": forwards}
+    raise ValueError(what)
+
+
+def expected_audit(what: str, **n) -> dict:
+    """{op: (count, elements)} of one rank's run (``None``: any; an op not
+    listed: none): a data-parallel trainer all-reduces its trainable
+    elements once a step (``steps``, ``trainable``), gathers the outputs its
+    loss reads and broadcasts rank 0's parameters when it starts;
+    data-parallel extraction sums its 4 stats once; tensor parallelism
+    all-reduces twice a layer a batch (``layers``, ``batches``); one rank
+    issues nothing."""
+    if what == "one_rank":
+        return {}
+    if what == "train":
+        return {"all-reduce": (n["steps"], n["steps"] * n["trainable"]), "all-gather": (None, None),
+                "broadcast": (None, None)}
+    if what == "dp_extract":
+        return {"all-reduce": (1, 4)}
+    if what == "tp_extract":
+        return {"all-reduce": (2 * n["layers"] * n["batches"], None)}
+    raise ValueError(what)
+
+
+def check_audit(rec: dict, want: dict, what: str) -> None:
+    line = audit.audit_line(rec)
+    for op, r in rec.items():
+        count, elements = want.get(op, (0, 0))
+        require((count is None or r["count"] == count) and (elements is None or r["elements"] == elements),
+                f"{what}: {line}, want {op} {count} x {elements} elems")
+    if not want:
+        require(line == "collectives: NONE", f"{what}: {line}")
+
+
+def parallel_runs(job: dict, rank_heads: bool = False) -> dict:
+    """Phase 17's runs on this process's mesh (a rank of the spawned world,
+    or the one process): (a) one fusion epoch, (b) WavLM-large extraction
+    through ``speech_main`` at the default budget (bf16, f32) and through the
+    pipeline at the 24-s budget (f32), (c) with ``rank_heads`` the TP=2 f32
+    extraction, (d) 2 LoRA steps -> each run's result, launch counts, audit
+    and seconds."""
+    from interspeech_ser_tpu_torch.extract.pipeline import SpeechExtractionPipeline
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.models.loader import build_speech_encoder
+    from interspeech_ser_tpu_torch.preprocess_cli import speech_main
+    from interspeech_ser_tpu_torch.train import engine as E
+    from interspeech_ser_tpu_torch.train.lora_engine import LoRAFTEngine
+    from interspeech_ser_tpu_torch.utils import labels as L
+    from interspeech_ser_tpu_torch.utils.audio import load_wav
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+
+    dev, tag = job["device"], job["tag"]
+    out = {}
+
+    def run(name, fn):
+        zero_counts()
+        t0 = time.perf_counter()
+        with audit.collective_audit() as rec:
+            res = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[name] = {**res, "launches": counts(), "audit": rec, "seconds": time.perf_counter() - t0}
+
+    def fusion():
+        cfg = dataclasses.replace(load_fusion_config(job["config_path"]), epochs=1,
+                                  model_path=os.path.join(job["tmp"], f"parallel_fusion_{tag}"))
+        rows = L.load_merged(cfg.label_path, cfg.txt_dir)
+        eng = E.FusionEngine(cfg, seed=SEED, device=dev)
+        f1s, losses, ends = [], [], []
+        evaluate, accumulate, apply = eng.evaluate, eng.accumulate_gradients, eng.apply_gradients
+        eng.evaluate = lambda *a, **kw: (lambda r: f1s.append(r["macro_f1"]) or r)(evaluate(*a, **kw))
+        eng.accumulate_gradients = lambda *a, **kw: (lambda r: losses.append(float(r[0])) or r)(accumulate(*a, **kw))
+
+        def timed_apply(*a, **kw):
+            apply(*a, **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+        eng.apply_gradients = timed_apply
+        t0 = time.perf_counter()
+        eng.fit(L.split(rows, "Train"), L.split(rows, "Development"))
+        steps_ms = [1e3 * (b - a) for a, b in zip([t0] + ends[:-1], ends)]
+        return {"f1": f1s, "losses": losses, "step_ms": steps_ms, "trainable": audit.param_elements(eng.model),
+                "params": {k: v.detach().cpu() for k, v in eng.model.state_dict().items()},
+                "train_batches": len(losses), "dev_batches": -(-len(L.split(rows, "Development")) // cfg.batch_size),
+                "n_mod": len(cfg.feat_dims)}
+
+    def cli_extract(dtype):
+        def fn():
+            save = os.path.join(job["tmp"], f"parallel_{dtype}_{tag}")
+            stats = speech_main(["--ssl_type", job["model_dir"], "--wav_dir", job["wav_dir"], "--save_path", save,
+                                 "--dtype", dtype, "--device", dev])
+            return {"save": save, "stats": dataclasses.asdict(stats)}
+        return fn
+
+    def pipeline_extract(model_parallel):
+        def fn():
+            heads = []
+            real = speech.dot_product_attention_btd
+            speech.dot_product_attention_btd = lambda q, k, v, H, **kw: (heads.append(H), real(q, k, v, H, **kw))[1]
+            try:
+                model, cfg, do_norm = build_speech_encoder(job["model_dir"], dtype="float32")
+                budget = None if model_parallel > 1 else 16000 * PARALLEL_SHAPE["budget_seconds"]
+                pipe = SpeechExtractionPipeline(model, cfg, do_normalize=do_norm, token_budget=budget, device=dev,
+                                                model_parallel=model_parallel)
+                save = os.path.join(job["tmp"], f"parallel_{'tp' if model_parallel > 1 else 'dp'}_{tag}")
+                stats = pipe.run(job["wav_dir"], save)
+            finally:
+                speech.dot_product_attention_btd = real
+            return {"save": save, "stats": dataclasses.asdict(stats), "heads": sorted(set(heads)),
+                    "layers": cfg.num_layers, "num_heads": cfg.num_heads, "mesh": pipe.mesh.shape}
+        return fn
+
+    def lora():
+        shape = PARALLEL_SHAPE
+        names = [f"ft{i}.wav" for i in range(shape["lora_rows"] + shape["lora_dev"])]
+        wavs = [load_wav(os.path.join(job["lora_wav_dir"], n))[0] for n in names]
+        y = np.arange(len(names)) % 8
+        eng = LoRAFTEngine(job["model_dir"], rank=8, num_emotions=8, seed=SEED, device=dev)
+        res = eng.train_epochs(wavs[: shape["lora_rows"]], y[: shape["lora_rows"]], wavs[shape["lora_rows"]:],
+                               y[shape["lora_rows"]:], epochs=1, batch_size=shape["lora_batch"], log=lambda *_: None)
+        from interspeech_ser_tpu_torch.models import lora as lora_lib
+
+        trained = {**lora_lib.lora_state_dict(eng.lora),
+                   **{f"head.{k}": v.detach().cpu() for k, v in eng.head.state_dict().items()}}
+        return {"losses": res["losses"], "trained": {k: v.detach().cpu() for k, v in trained.items()},
+                "trainable": audit.param_elements(eng.trainable()), "layers": eng.cfg.num_layers,
+                "steps": len(res["losses"]), "dev_batches": -(-shape["lora_dev"] // shape["lora_batch"])}
+
+    run("fusion", fusion)
+    run("cli_bf16", cli_extract("bfloat16"))
+    run("cli_f32", cli_extract("float32"))
+    run("dp", pipeline_extract(1))
+    if rank_heads:
+        run("tp", pipeline_extract(2))
+    run("lora", lora)
+    return out
+
+
+def parallel_rank(rank: int, world: int, init: str, job: dict, out_dir: str) -> None:
+    """One rank of phase 17's spawned world: join the group (the backend the
+    cards allow, printed), run ``parallel_runs``, save its results."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    from interspeech_ser_tpu_torch.utils.device import init_distributed, teardown
+
+    init_distributed(job["device"], init_method=init, rank=rank, world_size=world)
+    try:
+        torch.save(parallel_runs(job, rank_heads=True), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        teardown()
+
+
+def nccl_world(rank: int, world: int, init: str, out_dir: str) -> None:
+    """A world of one NCCL rank on card 0: init, then all-reduce, all-gather
+    and broadcast on the card, checked and timed."""
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = "0"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=init, rank=rank, world_size=world)
+    try:
+        x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        dist.broadcast(x, src=0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        ok = bool(torch.equal(parts[0], x)) and float(x[-1]) == float((1 << 20) - 1)
+        torch.save({"ok": ok, "ms": ms, "backend": dist.get_backend()}, os.path.join(out_dir, "nccl.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, args: tuple, out_dir: str) -> None:
+    """``fn(rank, world, init, *args)`` on ``world`` spawned processes
+    (``file://`` init under ``out_dir``); a rank that fails raises here."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(out_dir, exist_ok=True)
+    init = "file://" + os.path.join(out_dir, "init")
+    mp.spawn(fn, args=(world, init) + args, nprocs=world, join=True)
+
+
+def _files_max_abs(got_dir: str, want_dir: str) -> tuple:
+    """(max abs diff, min cosine, files) over the ``.pt`` files of ``want_dir``."""
+    worst, cos_min, names = 0.0, 1.0, sorted(f for f in os.listdir(want_dir) if f.endswith(".pt"))
+    require(sorted(f for f in os.listdir(got_dir) if f.endswith(".pt")) == names, f"{got_dir}: files differ")
+    for name in names:
+        a = torch.load(os.path.join(got_dir, name), weights_only=True)
+        b = torch.load(os.path.join(want_dir, name), weights_only=True)
+        require(a.shape == b.shape, f"{got_dir}/{name}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+        worst, cos_min = max(worst, max_abs(a, b)), min(cos_min, cosine(a, b))
+    return worst, cos_min, len(names)
+
+
+def phase_parallel(tmp: str, config_path: str, smi: str) -> dict:
+    """Phase 17: phase 4's WavLM-large and wavs, phase 6's features and
+    phase 7's LoRA wavs through the multi-device surface: the one-process
+    runs here, then 2 spawned ranks (gloo sharing the card, or NCCL one card
+    a rank), then a 1-rank NCCL world; each rank's results against the one
+    process's and phase 4's files, its launches against
+    ``predict_parallel_launches``, its audit against ``expected_audit``."""
+    global LAUNCHING
+    LAUNCHING = DEVICE == "cuda"  # spawned CPU ranks run the plain versions, which count nothing
+    t0 = time.perf_counter()
+    world = PARALLEL_SHAPE["world"]
+    job = {"device": DEVICE, "tmp": tmp, "config_path": config_path, "model_dir": os.path.join(tmp, "wavlm-large"),
+           "wav_dir": os.path.join(tmp, "wavs"), "lora_wav_dir": os.path.join(tmp, "lora_wavs")}
+    one = parallel_runs({**job, "tag": "one"})
+    out_dir = os.path.join(tmp, "parallel_ranks")
+    spawn_ranks(parallel_rank, world, ({**job, "tag": "ranks"}, out_dir), out_dir)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    nccl = None
+    if DEVICE == "cuda":
+        spawn_ranks(nccl_world, 1, (out_dir,), out_dir + "_nccl")
+        nccl = torch.load(os.path.join(out_dir, "nccl.pt"), weights_only=False)
+        require(nccl["ok"] and nccl["backend"] == "nccl", f"NCCL world of one: {nccl}")
+    report = {"card": smi, "world": world, "nccl_world_1": nccl}
+
+    # (a) fusion: the one process's trajectory, one optimizer step a batch
+    a1 = one["fusion"]
+    with open(config_path) as f:
+        lr = json.load(f)["lr"]
+    bar = 2 * lr * a1["train_batches"] + 1e-5  # Adam's steps on elements at the rounding floor
+    for r, res in enumerate(ranks):
+        a = res["fusion"]
+        require(a["f1"] == a1["f1"], f"(a) rank {r}: dev macro-F1 {a['f1']} != one process's {a1['f1']}")
+        loss_err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a["losses"], a1["losses"]))
+        param_err = max(max_abs(a["params"][k], a1["params"][k]) for k in a1["params"])
+        require(len(a["losses"]) == len(a1["losses"]) and loss_err <= 1e-5, f"(a) rank {r}: losses rel {loss_err}")
+        require(param_err <= bar, f"(a) rank {r}: params max abs {param_err} > {bar}")
+        want = predict_parallel_launches("fusion", r, world, **{k: a1[k] for k in ("n_mod", "train_batches",
+                                                                                   "dev_batches")})
+        got = {k: a["launches"][k] for k in want}
+        require(not LAUNCHING or got == want == {k: a1["launches"][k] for k in want},
+                f"(a) rank {r}: K3 / K3b {got} != {want}")
+        check_audit(a["audit"], expected_audit("train", steps=a1["train_batches"], trainable=a1["trainable"]),
+                    f"(a) rank {r}")
+        report.setdefault("fusion", {})[f"rank{r}"] = {"loss_rel_err": loss_err, "param_max_abs": param_err,
+                                                       "step_ms": a["step_ms"], "launches": got,
+                                                       "audit": audit.audit_line(a["audit"])}
+    check_audit(a1["audit"], expected_audit("one_rank"), "(a) one process")
+    report["fusion"]["one"] = {"step_ms": a1["step_ms"], "f1": a1["f1"], "param_bar": bar}
+
+    # (b) data-parallel extraction: phase 4's files at the default budget, the one process's at 24 s
+    report["extract"] = {}
+    for name, ref, bar in (("cli_bf16", os.path.join(tmp, "feats_bfloat16"), 1e-2),
+                           ("cli_f32", os.path.join(tmp, "feats_float32"), 1e-5),
+                           ("dp", one["dp"]["save"], 1e-5)):
+        worst, cos_min, n = _files_max_abs(ranks[0][name]["save"], ref)  # the ranks share the save dir
+        require(worst <= bar, f"(b) {name}: max abs {worst} > {bar} against {ref}")
+        st = ranks[0][name]["stats"]
+        report["extract"][name] = {"max_abs": worst, "cos_min": cos_min, "files": n, "bar": bar,
+                                   "utt_per_sec": st["n_utts"] / st["wall_seconds"],
+                                   "one_utt_per_sec": one[name]["stats"]["n_utts"] / one[name]["stats"]["wall_seconds"]}
+        check_audit(one[name]["audit"], expected_audit("one_rank"), f"(b) one process {name}")
+        for r, res in enumerate(ranks):
+            check_audit(res[name]["audit"], expected_audit("dp_extract"), f"(b) rank {r} {name}")
+            report["extract"][name][f"audit_rank{r}"] = audit.audit_line(res[name]["audit"])
+    require(one["dp"]["stats"]["n_batches"] >= world, f"(b) {one['dp']['stats']['n_batches']} batches at 24 s")
+    for r, res in enumerate(ranks):
+        want = predict_parallel_launches("dp_extract", r, world, batches=one["dp"]["stats"]["n_batches"],
+                                         layers=one["dp"]["layers"])
+        got = {k: res["dp"]["launches"][k] for k in want}
+        require(not LAUNCHING or got == want, f"(b) rank {r}: launches {got} != {want}")
+        report["extract"]["dp"][f"launches_rank{r}"] = got
+
+    # (c) tensor parallelism: phase 4's f32 files, K1 at H / 2 heads a rank
+    worst, cos_min, n = _files_max_abs(ranks[0]["tp"]["save"], os.path.join(tmp, "feats_float32"))
+    require(cos_min >= 0.99999, f"(c) TP={world} cosine {cos_min} < 0.99999 (max abs {worst})")
+    report["tp"] = {"max_abs": worst, "cos_min": cos_min, "files": n}
+    for r, res in enumerate(ranks):
+        c = res["tp"]
+        require(c["heads"] == [c["num_heads"] // world] and c["mesh"] == {"data": 1, "model": world},
+                f"(c) rank {r}: heads {c['heads']}, mesh {c['mesh']}")
+        want = predict_parallel_launches("tp_extract", r, world, batches=c["stats"]["n_batches"], layers=c["layers"])
+        got = {k: c["launches"][k] for k in want}
+        require(not LAUNCHING or got == want, f"(c) rank {r}: launches {got} != {want}")
+        check_audit(c["audit"], expected_audit("tp_extract", layers=c["layers"], batches=c["stats"]["n_batches"]),
+                    f"(c) rank {r}")
+        report["tp"][f"rank{r}"] = {"heads": c["heads"], "launches": got, "audit": audit.audit_line(c["audit"]),
+                                    "utt_per_sec": c["stats"]["n_utts"] / c["stats"]["wall_seconds"]}
+
+    # (d) LoRA: the trained factors and head against the one process's
+    d1 = one["lora"]
+    lbar = 2 * 5e-4 * d1["steps"] + 1e-5
+    for r, res in enumerate(ranks):
+        d = res["lora"]
+        worst = max(max_abs(d["trained"][k], d1["trained"][k]) for k in d1["trained"])
+        loss_err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(d["losses"], d1["losses"]))
+        require(worst <= lbar and loss_err <= 1e-4, f"(d) rank {r}: trained max abs {worst} (bar {lbar}), "
+                                                    f"losses rel {loss_err}")
+        want = predict_parallel_launches("lora", r, world, layers=d1["layers"], steps=d1["steps"],
+                                         dev_batches=d1["dev_batches"])
+        got = {k: d["launches"][k] for k in want}
+        require(not LAUNCHING or got == want == {k: d1["launches"][k] for k in want},
+                f"(d) rank {r}: launches {got} != {want}")
+        check_audit(d["audit"], expected_audit("train", steps=d1["steps"], trainable=d1["trainable"]), f"(d) rank {r}")
+        report.setdefault("lora", {})[f"rank{r}"] = {"max_abs": worst, "loss_rel_err": loss_err,
+                                                     "audit": audit.audit_line(d["audit"]), "seconds": d["seconds"]}
+    check_audit(d1["audit"], expected_audit("one_rank"), "(d) one process")
+    report["lora"]["one"] = {"seconds": d1["seconds"], "bar": lbar, "trainable": d1["trainable"]}
+    report["one_audit"] = audit.audit_line(one["fusion"]["audit"])
+    runs = list(one.values()) + [run for res in ranks for run in res.values()]
+    report["launches"] = {k: sum(run["launches"][k] for run in runs) for k in KERNELS}
+    report["phase_s"] = time.perf_counter() - t0
+    return report
+
+
 def main() -> None:
     smi = phase_device()
     set_tf32(False)
@@ -5738,12 +6099,20 @@ def main() -> None:
         adapters["prompt_batch1"] = check_prompt_batch1(tmp, kept)
         del kept
         phase16_s = time.perf_counter() - t16
+
+        zero_counts()
+        parallel = phase_parallel(tmp, config_path, smi)
+        parallel_path = parallel["launches"]
+        for name in ("attention_btd", "attention_btd_bwd", "conv_frontend", "pos_conv", "gru_bidir", "gru_bidir_bwd"):
+            require(parallel_path[name] > 0, f"kernel {name} was not launched on the multi-device path")
+        log(f"[parallel path] launches {parallel_path} (the one process and every rank)")
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
                "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path,
                "legacy": legacy_path, "joint": joint_path, "info": info_path, "decoder": decoder_path,
-               "adapters": adapter_path}
+               "adapters": adapter_path, "parallel": parallel_path}
     # the speech, fusion and transcription paths never reach K6 / K7; the joint path's RoBERTa runs K7 alone
-    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy", "adapters"):
+    for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy", "adapters",
+                 "parallel"):
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     require(joint_path["flash_attention"] == info_path["flash_attention"] == 0,
@@ -5807,6 +6176,13 @@ def main() -> None:
         f"GB; adapter step ms {steps16}; gradients worst "
         f"{max(g['worst'] for g in adapters['grads'].values()):.3e}; phase 16 "
         f"{phase16_s:.1f} s ({smi})")
+    pf, pe = parallel["fusion"], parallel["extract"]["dp"]
+    log(f"[parallel] {parallel['world']} ranks ({'NCCL' if torch.cuda.device_count() >= parallel['world'] else 'gloo, one shared card'}): "
+        f"fusion train step ms one process {[round(t, 3) for t in pf['one']['step_ms']]}, rank 0 "
+        f"{[round(t, 3) for t in pf['rank0']['step_ms']]}; WavLM-large f32 extraction at {PARALLEL_SHAPE['budget_seconds']} s "
+        f"batches utt/s one process {pe['one_utt_per_sec']:.2f}, {parallel['world']} ranks {pe['utt_per_sec']:.2f}; "
+        f"TP={parallel['world']} cos {parallel['tp']['cos_min']:.7f} max abs {parallel['tp']['max_abs']:.3e}; NCCL world "
+        f"of one {parallel['nccl_world_1']}; phase 17 {parallel['phase_s']:.1f} s ({smi})")
     joint["runs"] = {stem: {k: v for k, v in run.items() if k != "dev_logits"} for stem, run in joint["runs"].items()}
     info["runs"] = {k: {n: v for n, v in r.items() if n not in ("result", "best")} for k, r in info["runs"].items()}
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
@@ -5816,6 +6192,7 @@ def main() -> None:
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
                     "baseline": baseline, "transcription": transcription, "legacy": legacy, "joint": joint,
                     "info": info, "decoder": decoded, "adapters": adapters, "phase16_s": phase16_s,
+                    "parallel": {k: v for k, v in parallel.items() if k != "launches"},
                     "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

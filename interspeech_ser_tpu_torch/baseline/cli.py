@@ -19,6 +19,10 @@ directory's ``*test3*`` files): ``FileName,EmoClass`` for ``cat``,
         --config_path configs/config_cat.json --model_path <out> [--device cpu]
     python -m interspeech_ser_tpu_torch.baseline.cli train_cat_baselinelike_focalloss \\
         --config_path <cfg> [--seed 7] [--device cpu]
+
+Under ``torchrun --nproc_per_node N -m interspeech_ser_tpu_torch.baseline.cli
+...`` every command runs data-parallel over the N ranks; rank 0 alone writes
+files and prints.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import json
 import os
 import sys
 
-from ..utils.device import DEVICES
+from ..utils.device import DEVICES, init_distributed, is_main, teardown
 
 SSL_BOOK = {
     "wavlm-large": "microsoft/wavlm-large",
@@ -80,6 +84,7 @@ def _load_paths(config_path: str):
 def _engine(args, task: str, dtype: str = "float32"):
     from .engine import BaselineEngine
 
+    init_distributed(args.device)
     ssl = get_ssl_type(args.ssl_type)
     if ssl is None:
         raise ValueError(f"Invalid SSL type! {args.ssl_type!r} is neither a known name nor a path")
@@ -113,7 +118,8 @@ def eval_main(task: str = "cat", dev: bool = False, argv=None) -> str:
         ds = labelled_split(task, label_path, audio_path, "dev", mean, std)
         utts = ds.utts
         res = engine.evaluate(ds)
-        print(f"dev loss = {res['loss']}")
+        if is_main():
+            print(f"dev loss = {res['loss']}")
         preds, split = res["preds"], "dev"
     else:
         utts = sorted(f for f in os.listdir(audio_path) if "test3" in f)
@@ -128,11 +134,11 @@ def eval_main(task: str = "cat", dev: bool = False, argv=None) -> str:
         out = write_rows(os.path.join(args.model_path, "results", f"{split}.csv"),
                          ["FileName", "EmoAct", "EmoVal", "EmoDom"], rows)
 
-    if timing.get("audio_sec"):
+    if timing.get("audio_sec") and is_main():
         print("Duration of whole dev+test set", timing["audio_sec"], "sec")
         print("Inference time", timing["inference"], "sec")
         print("Inference time per sec", timing["inference"] / timing["audio_sec"], "sec")
-    if args.store_path:
+    if args.store_path and is_main():
         with open(args.store_path, "w") as f:
             f.write(out + "\n")
     return out
@@ -168,6 +174,7 @@ def legacy_train_main(variant: str = "base", argv=None) -> dict:
     p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                    help="where the model trains; without a card 'cuda' raises")
     args = p.parse_args(argv)
+    init_distributed(args.device)
     with open(args.config_path) as f:
         cfg = json.load(f)
     logger = setup_run_logging(cfg["model_path"])
@@ -212,3 +219,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    teardown()

@@ -1,7 +1,6 @@
 """The challenge baseline: an end-to-end fine-tune of a speech SSL encoder.
 
-Port of ``interspeech_ser_tpu/baseline/engine.py`` on one device (the JAX
-engine's data-parallel mesh is not ported). An encoder from a local HF
+Port of ``interspeech_ser_tpu/baseline/engine.py``. An encoder from a local HF
 directory -> ``AttentiveStatisticsPooling`` -> ``EmotionRegression``: 8
 logits (``cat``, weighted CE, or CE + focal loss under ``ce_focal3``) or 3
 attributes (``dim``, the CCC loss). Every loss is masked by the batch's
@@ -31,7 +30,15 @@ As in the JAX engine:
   probability ``tp_prob`` (``train/information_encoder.fixed_timbre_perturb``,
   on the host, from a generator seeded by one draw of the engine's);
 - the best dev loss writes ``final_ser.pt``, ``final_pool.pt`` and
-  ``final_ssl.pt`` (HF names, the positional conv's weight norm unfolded).
+  ``final_ssl.pt`` (HF names, the positional conv's weight norm unfolded);
+- data-parallel over the ranks of a process group (``n_devices``, ``None``:
+  the world's; ``parallel/mesh.py``): each micro-batch is padded to a
+  multiple of the data axis with masked rows, each rank runs its rows (K2,
+  K1 and K4 per rank), the outputs are gathered so that every rank computes
+  the whole micro-batch's loss (CCC and focal's dynamic alpha are nonlinear
+  in the batch), and the gradients are summed over the ranks by one
+  all-reduce an optimizer step; prediction gathers the outputs. Rank 0 alone
+  writes files and logs.
 """
 
 from __future__ import annotations
@@ -45,10 +52,11 @@ import numpy as np
 import torch
 
 from ..models.loader import build_speech_encoder, speech_state_dict_from_hf, speech_state_dict_to_hf
+from ..parallel.mesh import all_reduce_grads, barrier, data_parallel, make_mesh, replicate
 from ..train import losses
 from ..train.engine import _host_weighted_ce
 from ..utils import ptio
-from ..utils.device import resolve_device
+from ..utils.device import is_main, resolve_device
 from ..utils.labels import CLASSES, INDEX_TO_LETTER
 from ..utils.metrics import LogManager, concordance_ccc
 from ..utils.seeding import numpy_generator
@@ -81,11 +89,13 @@ class BaselineEngine:
         dropout: float = 0.5,
         loss_mode: str = "wce",  # 'wce' | 'ce_focal3'
         device="cuda",  # "cpu" only when asked: no card raises
+        n_devices: Optional[int] = None,  # ranks (one process each); None: the world's
     ):
         if task not in TASKS or loss_mode not in LOSS_MODES:
             raise ValueError(f"task {task!r} / loss_mode {loss_mode!r}: expected one of {TASKS} / {LOSS_MODES}")
         self.task, self.loss_mode = task, loss_mode
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
         model, self.ssl_cfg, _ = build_speech_encoder(ssl_type, dtype=dtype)
         set_precision(self.device, dtype)
         model.feature_extractor.requires_grad_(False)
@@ -96,6 +106,8 @@ class BaselineEngine:
             torch.manual_seed(seed)
             self.pool = AttentiveStatisticsPooling(feat_dim).to(self.device)
             self.head = EmotionRegression(2 * feat_dim, head_dim, 1, self.out_dim, dropout=dropout).to(self.device)
+        for m in (self.ssl, self.pool, self.head):
+            replicate(self.mesh, m)
         self.rng = numpy_generator(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)  # the head's dropout
 
@@ -118,9 +130,11 @@ class BaselineEngine:
 
     def loss(self, batch: bdata.WavBatch, class_weights: Optional[torch.Tensor] = None,
              plain: bool = False) -> torch.Tensor:
-        """The training loss of one micro-batch (head dropout on)."""
+        """The training loss of one micro-batch (head dropout on; each rank
+        runs its rows, the loss is the whole micro-batch's)."""
         dev = self.device
-        pred = self.forward(torch.from_numpy(batch.wav).to(dev), torch.from_numpy(batch.mask).to(dev), True, plain)
+        wav, mask = torch.from_numpy(batch.wav).to(dev), torch.from_numpy(batch.mask).to(dev)
+        pred = data_parallel(self.mesh, lambda w, m: self.forward(w, m, True, plain), (wav, mask), wav.shape[0])
         labels = torch.from_numpy(batch.labels).to(dev)
         smask = torch.from_numpy(batch.sample_mask).to(dev)
         if self.task == "dim":
@@ -154,11 +168,15 @@ class BaselineEngine:
         (``dev_preds``) and every epoch's dev loss (``dev_losses``).
         ``use_timbre_perturb``: each training wav, when drawn, is perturbed
         with probability ``tp_prob`` (``timbre_augment``)."""
-        os.makedirs(model_path, exist_ok=True)
+        main = self.mesh.is_main
+        log = self.mesh.main_only(log)
+        if main:
+            os.makedirs(model_path, exist_ok=True)
         train_set = labelled_split(self.task, label_path, audio_path, "train", normalize_wav=normalize_wav)
         if use_timbre_perturb:
             train_set.augment_fn = timbre_augment(self.rng, tp_prob)
-        train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
+        if main:
+            train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
         dev_set = labelled_split(self.task, label_path, audio_path, "dev", train_set.wav_mean, train_set.wav_std,
                                  normalize_wav)
         train_labs = train_set.labels
@@ -195,6 +213,7 @@ class BaselineEngine:
                 step_losses.append(loss.detach())
                 n_micro += 1
                 if (i + 1) % accumulation_steps == 0 or (i + 1) == len(batches):
+                    all_reduce_grads(self.mesh, params)
                     for p in params:
                         p.grad.div_(n_micro)
                     opt.step()
@@ -205,12 +224,14 @@ class BaselineEngine:
             dev = self.evaluate(dev_set, class_weights)
             lm.add_stat("dev_loss", dev["loss"])
             best["dev_losses"].append(dev["loss"])
-            lm.print_stat()
+            if main:
+                lm.print_stat()
             if dev["loss"] < best["loss"]:
                 best.update(epoch=epoch, loss=dev["loss"], dev_preds=dev["preds"])
                 log(f"Save {epoch}")
                 log(f"Loss {dev['loss']}")
                 self.save_checkpoints(model_path)
+        barrier(self.mesh)  # rank 0's files are written when fit returns on any rank
         return best
 
     # -- evaluation ------------------------------------------------------------
@@ -219,7 +240,8 @@ class BaselineEngine:
     def predict(self, dataset: bdata.WavDataset, batch_size: int = PREDICT_BATCH,
                 timing: Optional[Dict] = None) -> np.ndarray:
         """[N, out_dim] float32 outputs in the dataset's order, computed over
-        batches of ``batch_size`` rows in length order. ``timing`` gains the
+        batches of ``batch_size`` rows in length order (each rank its rows of
+        a batch, the outputs gathered). ``timing`` gains the
         seconds from each batch's copy to the card to its result back on the
         host (``inference``) and the seconds of audio (``audio_sec``)."""
         n = len(dataset)
@@ -231,7 +253,7 @@ class BaselineEngine:
             t0 = time.perf_counter()
             wav = torch.from_numpy(b.wav).to(self.device)
             mask = torch.from_numpy(b.mask).to(self.device)
-            pred = self.forward(wav, mask).cpu().numpy()
+            pred = data_parallel(self.mesh, self.forward, (wav, mask), len(b.wav)).cpu().numpy()
             if timing is not None:
                 timing["inference"] = timing.get("inference", 0.0) + time.perf_counter() - t0
                 timing["audio_sec"] = timing.get("audio_sec", 0.0) + float(b.mask.sum()) / 16000
@@ -253,6 +275,9 @@ class BaselineEngine:
     # -- checkpoints -----------------------------------------------------------
 
     def save_checkpoints(self, model_path: str) -> None:
+        """``final_{ser,pool,ssl}.pt`` (rank 0 writes)."""
+        if not self.mesh.is_main:
+            return
         ptio.save_state_dict(self.head.state_dict(), os.path.join(model_path, "final_ser.pt"))
         ptio.save_state_dict(self.pool.state_dict(), os.path.join(model_path, "final_pool.pt"))
         ptio.save_state_dict(speech_state_dict_to_hf(self.ssl.state_dict()),
@@ -298,7 +323,10 @@ def timbre_augment(rng: np.random.Generator, tp_prob: float):
 
 def write_rows(path: str, header: List[str], rows: List[list]) -> str:
     """``results`` CSV as pandas' ``to_csv(index=False)`` writes it: rows sorted
-    by their first field, ``\\n`` line ends."""
+    by their first field, ``\\n`` line ends. Rank 0 writes; every rank
+    returns the path."""
+    if not is_main():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")

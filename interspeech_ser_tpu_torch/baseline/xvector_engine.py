@@ -1,7 +1,6 @@
 """The x-vector SER trainer of ``bin/old/train_cat_baselinelike_xvector.py``.
 
-Port of ``interspeech_ser_tpu/baseline/xvector_engine.py`` on one device
-(``n_devices`` above 1 raises): speechbrain fbank features
+Port of ``interspeech_ser_tpu/baseline/xvector_engine.py``: speechbrain fbank features
 (``ops/mel.speechbrain_fbank``, plain PyTorch on the card) -> ``XVector``
 (five TDNN blocks, statistics pooling, 512-d) -> ``EmotionRegression(512,
 head_dim, 1, 8)``, trained jointly under the train split's weighted CE by one
@@ -17,6 +16,18 @@ init.
 The dev loss is the full dev set's; ``last_batch_dev_loss=True`` replicates
 the reference's bug (the loss of the last 8 dev rows in the split's order).
 No kernel runs here, as none does in the JAX engine.
+
+Data-parallel over the ranks of a process group (``n_devices``, ``None``:
+the world's; ``parallel/mesh.py``): each rank runs its rows of a
+micro-batch, BatchNorm takes the micro-batch's global moments (one
+all-reduce of each layer's sums in the forward and one in the backward,
+``ops/batch_norm.sync``), the logits are gathered for the micro-batch's
+loss and one all-reduce of the gradients precedes each step. BatchNorm
+moments must not see extra padding rows, so the data axis must divide the
+micro-batch (``batch_size / accumulation_steps``) or ``fit`` raises, where
+the JAX engine trains on the largest sub-mesh that divides it (ROADMAP.md
+§C). Prediction pads freely (BatchNorm on its running statistics). Rank 0
+alone writes files and logs.
 """
 
 from __future__ import annotations
@@ -28,10 +39,11 @@ import numpy as np
 import torch
 
 from ..models.xvector import XVector, xvector_from_speechbrain, xvector_to_speechbrain
+from ..ops.batch_norm import sync
 from ..ops.mel import speechbrain_fbank
+from ..parallel.mesh import all_reduce_grads, barrier, data_parallel, make_mesh, replicate
 from ..train import losses
 from ..train.engine import _host_weighted_ce
-from ..train.joint_engine import check_devices
 from ..utils import ptio
 from ..utils.device import resolve_device
 from ..utils.labels import CLASSES
@@ -53,8 +65,8 @@ class XVectorEngine:
         n_devices: Optional[int] = None,
         device="cuda",  # "cpu" only when asked: no card raises
     ):
-        check_devices(n_devices)
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.xvector = XVector()
@@ -63,6 +75,9 @@ class XVectorEngine:
             self.xvector.load_state_dict(xvector_from_speechbrain(ptio.load_state_dict(xvector_ckpt)))
         self.xvector.to(self.device)
         self.head.to(self.device)
+        sync(self.xvector, self.mesh)
+        for m in (self.xvector, self.head):
+            replicate(self.mesh, m)
         self.rng = numpy_generator(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)  # the head's dropout
         self.last_batch_dev_loss = last_batch_dev_loss
@@ -81,7 +96,8 @@ class XVectorEngine:
 
     def batch_loss(self, b: bdata.WavBatch, class_weights: torch.Tensor) -> torch.Tensor:
         dev = self.device
-        pred = self.forward(torch.from_numpy(b.wav).to(dev), torch.from_numpy(b.mask.sum(axis=1)).to(dev), True)
+        wav, lengths = torch.from_numpy(b.wav).to(dev), torch.from_numpy(b.mask.sum(axis=1)).to(dev)
+        pred = data_parallel(self.mesh, lambda w, n: self.forward(w, n, True), (wav, lengths), wav.shape[0])
         y = torch.from_numpy(np.argmax(b.labels, axis=1)).to(dev)
         return losses.weighted_cross_entropy(pred, y, class_weights, torch.from_numpy(b.sample_mask).to(dev))
 
@@ -102,9 +118,17 @@ class XVectorEngine:
         (``dev_preds``) and every epoch's dev loss (``dev_losses``)."""
         from .engine import labelled_split
 
-        os.makedirs(model_path, exist_ok=True)
+        micro_bs = batch_size // accumulation_steps
+        if micro_bs % self.mesh.data:
+            raise ValueError(f"{self.mesh.data} data ranks do not divide the micro-batch of {micro_bs} rows: "
+                             "BatchNorm's moments must not take padding rows")
+        main = self.mesh.is_main
+        log = self.mesh.main_only(log)
+        if main:
+            os.makedirs(model_path, exist_ok=True)
         train_set = labelled_split("cat", label_path, audio_path, "train", normalize_wav=normalize_wav)
-        train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
+        if main:
+            train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
         dev_set = labelled_split("cat", label_path, audio_path, "dev", train_set.wav_mean, train_set.wav_std,
                                  normalize_wav)
         freq = np.asarray(train_set.labels).sum(axis=0).astype(np.float64)
@@ -113,7 +137,6 @@ class XVectorEngine:
 
         params = self.parameters()
         opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
-        micro_bs = batch_size // accumulation_steps
         n = len(train_set)
         lengths = np.asarray([len(w) for w in train_set.wav_list])
         sample_w = bdata.inverse_freq_sample_weights(train_set.labels) if use_balanced_batch else None
@@ -137,6 +160,7 @@ class XVectorEngine:
                 step_losses.append(loss.detach())
                 n_micro += 1
                 if (i + 1) % accumulation_steps == 0 or (i + 1) == len(batches):
+                    all_reduce_grads(self.mesh, params)
                     for p in params:
                         p.grad.div_(n_micro)
                     opt.step()
@@ -147,12 +171,14 @@ class XVectorEngine:
             dev = self.evaluate(dev_set, class_weights)
             lm.add_stat("dev_loss", dev["loss"])
             best["dev_losses"].append(dev["loss"])
-            lm.print_stat()
+            if main:
+                lm.print_stat()
             log(f"|VALIDATION| Epoch ({epoch + 1}/{epochs}): eval_loss = {dev['loss']}")
             if dev["loss"] < best["loss"]:
                 best.update(epoch=epoch, loss=dev["loss"], dev_preds=dev["preds"])
                 log(f"New best model at epoch {epoch + 1}")
                 self.save_checkpoints(model_path)
+        barrier(self.mesh)  # rank 0's files are written when fit returns on any rank
         return best
 
     @torch.inference_mode()
@@ -167,7 +193,8 @@ class XVectorEngine:
             idxs = order[s: s + batch_size].tolist()
             b = bdata.collate_wav(dataset, idxs, batch_size)
             wav = torch.from_numpy(b.wav).to(self.device)
-            pred = self.forward(wav, torch.from_numpy(b.mask.sum(axis=1)).to(self.device))
+            pred = data_parallel(self.mesh, self.forward, (wav, torch.from_numpy(b.mask.sum(axis=1)).to(self.device)),
+                                 batch_size)
             preds[idxs] = pred.float().cpu().numpy()[: len(idxs)]
         return preds
 
@@ -181,6 +208,9 @@ class XVectorEngine:
         return {"loss": _host_weighted_ce(preds_, y_, cw), "preds": preds, "y": y}
 
     def save_checkpoints(self, model_path: str) -> None:
+        """``final_ser.pt`` and ``final_xvector.pt`` (rank 0 writes)."""
+        if not self.mesh.is_main:
+            return
         ptio.save_state_dict(self.head.state_dict(), os.path.join(model_path, "final_ser.pt"))
         ptio.save_state_dict(xvector_to_speechbrain(self.xvector.state_dict()),
                              os.path.join(model_path, "final_xvector.pt"))

@@ -22,7 +22,10 @@ the wrappers do). The model goes to and comes from
 ``<model_path>/multimodal_ser.pt``; the CSVs go to
 ``<model_path>/results/{dev,test,train}.csv``. Every command runs on the
 card (``--device cuda``, the default; no card raises) unless given
-``--device cpu``.
+``--device cpu``. Under ``torchrun --nproc_per_node N -m
+interspeech_ser_tpu_torch.cli ...`` every command runs data-parallel over
+the N ranks (``FusionEngine``); rank 0 alone writes the checkpoint, the
+CSVs and the logs.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import numpy as np
 
 from .utils import labels as L
 from .utils.config import load_fusion_config
-from .utils.device import DEVICES
+from .utils.device import DEVICES, init_distributed, is_main, teardown
 from .utils.seeding import set_deterministic
 
 
@@ -128,6 +131,7 @@ def train_main(argv=None, gender_labels_csv: str = None, **overrides) -> dict:
     from .train.engine import FusionEngine, setup_run_logging
 
     args = _parser(train=True).parse_args(argv)
+    init_distributed(args.device)
     trimodal, options = _options(args, overrides)
     set_deterministic(seed=args.seed)
     cfg = load_fusion_config(args.config_path, trimodal=trimodal or None)
@@ -167,6 +171,7 @@ def train_main(argv=None, gender_labels_csv: str = None, **overrides) -> dict:
 def _scoring_engine(args, overrides: dict, strict: bool):
     from .train.engine import FusionEngine
 
+    init_distributed(args.device)
     trimodal, options = _options(args, overrides)
     set_deterministic(seed=args.seed, verbose=False)
     cfg = load_fusion_config(args.config_path, trimodal=trimodal or None)
@@ -227,7 +232,9 @@ def extract_train_main(argv=None, **overrides) -> str:
 
 
 def _write_dim_csv(path: str, header: str, names, cols, preds: np.ndarray) -> str:
-    """``<header>, <dim columns>`` rows, values at 4 decimals."""
+    """``<header>, <dim columns>`` rows, values at 4 decimals (rank 0 writes)."""
+    if not is_main():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
@@ -290,3 +297,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    teardown()

@@ -1,9 +1,7 @@
-"""Batched, bucketed embedding extraction on one device.
+"""Batched, bucketed embedding extraction.
 
 Port of ``interspeech_ser_tpu/extract/pipeline.py::SpeechExtractionPipeline``,
-``WhisperExtractionPipeline`` and ``TextExtractionPipeline`` (single
-device; the mesh, tensor-parallel and shard_map legs come with the
-multi-device slice):
+``WhisperExtractionPipeline`` and ``TextExtractionPipeline``:
 
   header-only batch plan (exact post-resample lengths, length-sorted
   token-budget batches, 1-s buckets)  ->  decoder threads + assembler
@@ -34,6 +32,16 @@ transcription that is not a string tokenizes as ``""``.
 
 Output contract: ``save_path/<utt>.pt``, a float32 [T_valid, D] tensor
 (text: [max_length, D]).
+
+Multi-device (one process a rank, ``parallel/mesh.py``): the one-device
+batch plan is kept, and data rank r of n takes whole batches r, r + n, ...
+and writes its own rows' files, so every file equals the one-device run's
+(a group-norm frontend's padding included) and no gather is needed; the
+stats are summed over the data axis by one all-reduce at the end.
+``SpeechExtractionPipeline(model_parallel=mp)`` adds a model axis: the mp
+ranks of a model group run the same batches on their shard of the encoder
+(``parallel/tp.py``) and model rank 0 writes. ``n_devices`` is the number
+of ranks (``None``: the world's).
 """
 
 from __future__ import annotations
@@ -53,6 +61,8 @@ import torch
 from ..models.ns3.facodec import HOP
 from ..models.speech import feat_extract_output_length, with_config
 from ..ops.mel import NS3_PAD, whisper_log_mel
+from ..parallel.mesh import Mesh, all_reduce_numbers, barrier, make_mesh
+from ..parallel.tp import shard_speech_model
 from ..utils import ptio
 from ..utils.audio import load_wav, normalize_waveform
 from ..utils.device import resolve_device
@@ -74,6 +84,18 @@ class ExtractionStats:
     @property
     def utts_per_sec(self) -> float:
         return self.n_utts / self.wall_seconds if self.wall_seconds else 0.0
+
+    def summed(self, mesh: Mesh, shared_failed: int = 0) -> "ExtractionStats":
+        """The counts summed over the data axis by one all-reduce; the
+        ``shared_failed`` failures every rank counted (the plan's header
+        reads) and the skips (every rank sees the same files) count once, and
+        the wall time is this rank's."""
+        if mesh.data == 1:
+            return self
+        n_utts, n_failed, n_batches, audio = all_reduce_numbers(
+            mesh, [self.n_utts, self.n_failed - shared_failed, self.n_batches, self.audio_seconds])
+        return ExtractionStats(n_utts=int(n_utts), n_failed=int(n_failed) + shared_failed, n_skipped=self.n_skipped,
+                               n_batches=int(n_batches), audio_seconds=audio, wall_seconds=self.wall_seconds)
 
 
 def _skip_existing(names: Sequence[str], save_path: str, stats: ExtractionStats) -> Sequence[str]:
@@ -106,10 +128,12 @@ def _drive(
     stats: ExtractionStats,
     num_workers: int,
     cuda: bool,
+    write: bool = True,
 ) -> None:
     """The device loop: batch k is enqueued on the card, and its selected
     hidden state starts an async copy into pinned host memory, before batch
-    k-1 is written out by the bounded writer threads."""
+    k-1 is written out by the bounded writer threads. ``write=False`` (a
+    model rank other than 0) counts the batches and writes nothing."""
     writer = streaming.BoundedWriter(num_workers=num_workers)
 
     def fetch(sel: torch.Tensor):
@@ -129,8 +153,8 @@ def _drive(
         for i, name in enumerate(rb.names):
             stem = os.path.splitext(os.path.basename(name))[0]
             n = n_frames(rb.lengths[i], feats.shape[1])
-            # save_tensor writes a compact clone of the row, not the batch's storage
-            writer.submit(ptio.save_tensor, feats[i, :n], os.path.join(save_path, f"{stem}.pt"))
+            if write:  # save_tensor writes a compact clone of the row, not the batch's storage
+                writer.submit(ptio.save_tensor, feats[i, :n], os.path.join(save_path, f"{stem}.pt"))
             stats.n_utts += 1
             stats.audio_seconds += rb.lengths[i] / 16000.0
 
@@ -141,7 +165,7 @@ def _drive(
             continue
         sel = forward(rb)
         stats.n_batches += 1
-        cur = (rb, *fetch(sel))
+        cur = (rb, *fetch(sel)) if write else (rb, sel, None)
         if prev is not None:
             drain(*prev)  # host writes of k-1 overlap the device work of k
         prev = cur
@@ -169,13 +193,19 @@ class SpeechExtractionPipeline:
         num_workers: int = 8,
         replicate_dir_count_bug: bool = False,
         device="cuda",  # "cpu" only when asked: no card raises
+        n_devices: Optional[int] = None,  # ranks; None: the world's
+        model_parallel: int = 1,  # ranks a model group (tensor parallelism)
     ):
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices, model_parallel=model_parallel)
         # extraction is inference only: the no-backward kernels (K8, and K5
         # under SER_TPU_FFN_KERNEL=1) on a copy of the config, the same
         # parameters, and K2's depth from default_fused_frontend
         config = dataclasses.replace(config, inference_kernels=True)
         model = with_config(model, config)
+        # tensor parallelism: this rank's shard of the attentions and feed-forwards
+        model = shard_speech_model(model, self.mesh)
+        config = model.config
         # bf16 mode: cast the frozen parameters once (norms still compute in
         # f32 on the bf16 values)
         model = model.to(self.device)
@@ -240,15 +270,18 @@ class SpeechExtractionPipeline:
         t0 = time.perf_counter()
 
         wav_names = _skip_existing(wav_names, save_path, stats)
+        barrier(self.mesh)  # every rank has read the save dir before any rank writes to it
         plan = self._plan(wav_dir, wav_names, stats)
+        shared_failed = stats.n_failed
         stream = streaming.BatchStream(
-            partial(self._load_one, wav_dir), plan, BUCKET_QUANTUM, num_workers=self.num_workers,
+            partial(self._load_one, wav_dir), plan[self.mesh.data_rank:: self.mesh.data], BUCKET_QUANTUM,
+            num_workers=self.num_workers,
         )
         _drive(stream, lambda rb: self._forward(rb.wav, rb.mask, n_layer),
                lambda n, T: feat_extract_output_length(n, self.config), save_path, stats,
-               self.num_workers, self.device.type == "cuda")
+               self.num_workers, self.device.type == "cuda", write=self.mesh.model_rank == 0)
         stats.wall_seconds = time.perf_counter() - t0
-        return stats
+        return stats.summed(self.mesh, shared_failed)
 
 
 class WhisperExtractionPipeline:
@@ -265,8 +298,10 @@ class WhisperExtractionPipeline:
         batch_size: int = 8,
         num_workers: int = 8,
         device="cuda",  # "cpu" only when asked: no card raises
+        n_devices: Optional[int] = None,  # ranks; None: the world's
     ):
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
         model = model.to(self.device)
         if config.compute_dtype == torch.bfloat16:
             model = model.to(torch.bfloat16)  # cast once
@@ -300,17 +335,18 @@ class WhisperExtractionPipeline:
         stats = ExtractionStats()
         t0 = time.perf_counter()
         wav_names = _skip_existing(wav_names, save_path, stats)
+        barrier(self.mesh)  # every rank has read the save dir before any rank writes to it
         bs = self.batch_size
         plan = [streaming.PlannedBatch(list(wav_names[i: i + bs]), [0] * len(wav_names[i: i + bs]))
                 for i in range(0, len(wav_names), bs)]
         stream = streaming.BatchStream(
-            partial(self._load_one, wav_dir), plan, self.N_SAMPLES, num_workers=self.num_workers,
-            fixed_len=self.N_SAMPLES, row_multiple=bs,
+            partial(self._load_one, wav_dir), plan[self.mesh.data_rank:: self.mesh.data], self.N_SAMPLES,
+            num_workers=self.num_workers, fixed_len=self.N_SAMPLES, row_multiple=bs,
         )
         _drive(stream, lambda rb: self._forward(rb.wav), lambda n, T: min(math.ceil(n / 320), T),
                save_path, stats, self.num_workers, self.device.type == "cuda")
         stats.wall_seconds = time.perf_counter() - t0
-        return stats
+        return stats.summed(self.mesh)
 
 
 def ns3_batch_inputs(wav: np.ndarray, lengths: Sequence[int]):
@@ -434,8 +470,10 @@ class TextExtractionPipeline:
         batch_size: int = 64,
         num_workers: int = 8,
         device="cuda",  # "cpu" only when asked: no card raises
+        n_devices: Optional[int] = None,  # ranks; None: the world's
     ):
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
         model = model.to(self.device)
         if config.compute_dtype == torch.bfloat16:
             model = model.to(torch.bfloat16)  # cast once
@@ -458,8 +496,9 @@ class TextExtractionPipeline:
         return hs[self.n_layer]
 
     def _batches(self, names: Sequence[str], texts: Sequence):
-        bs = self.batch_size
-        for start in range(0, len(names), bs):
+        """The rank's batches: r, r + n, ... of the one-device run's."""
+        bs, m = self.batch_size, self.mesh
+        for start in range(m.data_rank * bs, len(names), m.data * bs):
             chunk = [t if isinstance(t, str) else "" for t in texts[start: start + bs]]
             toks = self.tokenize(chunk)
             yield TextBatch(list(names[start: start + bs]), np.asarray(toks["input_ids"], np.int64),
@@ -470,10 +509,11 @@ class TextExtractionPipeline:
         stats = ExtractionStats()
         t0 = time.perf_counter()
         kept = set(_skip_existing(names, save_path, stats))
+        barrier(self.mesh)  # every rank has read the save dir before any rank writes to it
         if len(kept) < len(names):
             pairs = [(n, t) for n, t in zip(names, texts) if n in kept]
             names, texts = [n for n, _ in pairs], [t for _, t in pairs]
         _drive(self._batches(names, texts), self._forward, lambda n, T: T, save_path, stats,
                self.num_workers, self.device.type == "cuda")
         stats.wall_seconds = time.perf_counter() - t0
-        return stats
+        return stats.summed(self.mesh)

@@ -35,7 +35,7 @@ import json
 import sys
 from typing import Optional
 
-from .utils.device import DEVICES
+from .utils.device import DEVICES, init_distributed, teardown
 
 MAX_LENGTH = 128  # the JAX tokenizer's padding="max_length"
 
@@ -72,6 +72,7 @@ def _parse(argv):
     p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                    help="where the models run; without a card 'cuda' raises")
     args = p.parse_args(argv)
+    init_distributed(args.device)
     with open(args.config_path) as f:
         return args, json.load(f)
 
@@ -136,3 +137,4 @@ def main(argv: Optional[list] = None) -> dict:
 
 if __name__ == "__main__":
     main()
+    teardown()

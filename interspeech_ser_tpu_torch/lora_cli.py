@@ -8,7 +8,9 @@ default; ``cpu`` only when asked). Trains the LoRA factors and the
 mean-pool head on the label CSV's Train split, tracks UAR and accuracy on
 its Development split, and writes ``<model_path>/whisper_lora_ser.pt``
 (the JAX package's checkpoint format), which the ``*_pretrained`` commands
-of ``preprocess_cli`` merge into the encoder.
+of ``preprocess_cli`` merge into the encoder. Under ``torchrun
+--nproc_per_node N -m interspeech_ser_tpu_torch.lora_cli ...`` the
+fine-tune runs data-parallel over the N ranks; rank 0 alone writes and prints.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import os
 
 import numpy as np
 
-from .utils.device import DEVICES
+from .utils.device import DEVICES, init_distributed, is_main, teardown
 
 
 def main(argv=None) -> dict:
@@ -48,8 +50,10 @@ def main(argv=None) -> dict:
     from .train.lora_engine import LoRAFTEngine
     from .utils.seeding import set_deterministic
 
-    set_deterministic(args.seed)
-    os.makedirs(args.model_path, exist_ok=True)
+    init_distributed(args.device)
+    set_deterministic(args.seed, verbose=is_main())
+    if is_main():
+        os.makedirs(args.model_path, exist_ok=True)
     train_utts, train_labs = load_cat_emo_label(args.label_path, "train")
     dev_utts, dev_labs = load_cat_emo_label(args.label_path, "dev")
     train_wavs = bdata.load_audio(args.wav_dir, train_utts)
@@ -69,9 +73,11 @@ def main(argv=None) -> dict:
     )
     out = os.path.join(args.model_path, "whisper_lora_ser.pt")
     engine.save(out)
-    print(f"saved LoRA checkpoint to {out}")
+    if is_main():
+        print(f"saved LoRA checkpoint to {out}")
     return {**result, "checkpoint": out}
 
 
 if __name__ == "__main__":
     main()
+    teardown()

@@ -41,6 +41,14 @@ hooks of every layer (``adapter``, ``adapter_l``, ``embedding_prompt``,
 ``combined``; see ``EncoderLayer``): their parameters carry the JAX
 package's names, ``encoder.layers.{i}.adapter.{down,up}.*`` and
 ``encoder.layers.{i}.embed_prompt`` (``models/lora.py`` splits them out).
+
+Tensor parallelism (``SpeechConfig.model_parallel`` > 1, built by
+``parallel/tp.py``): each attention holds its rank's ``H / mp`` heads (the
+column shards of q / k / v, the per-head slices of WavLM's relative-position
+embedding and gate constant) and each feed-forward its ``F / mp`` columns;
+the row-parallel ``out_proj`` / ``output_dense`` products are summed over
+the model axis by one all-reduce each (in f32), and their bias added once,
+after it. An inference path: the sums carry no gradient.
 """
 
 from __future__ import annotations
@@ -90,6 +98,9 @@ class SpeechConfig:
     adapter_hidden_dim: int = 128
     adapter_scalar: float = 0.1
     embedding_prompt_dim: int = 5
+    # tensor parallelism: the model axis this rank's shard of the attention and
+    # feed-forward belongs to (parallel/tp.py builds such a model)
+    model_parallel: int = 1
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -193,8 +204,9 @@ def default_fused_frontend(cfg: SpeechConfig) -> int:
 
 def default_ffn_kernel(cfg: SpeechConfig) -> bool:
     """Whether each feed-forward pair runs K5: ``SER_TPU_FFN_KERNEL=1`` with
-    ``inference_kernels`` set."""
-    return cfg.inference_kernels and os.environ.get("SER_TPU_FFN_KERNEL") == "1"
+    ``inference_kernels`` set, on one model rank (K5 stays off under tensor
+    parallelism, as the JAX package keeps XLA there)."""
+    return cfg.inference_kernels and cfg.model_parallel == 1 and os.environ.get("SER_TPU_FFN_KERNEL") == "1"
 
 
 def feat_extract_output_length(length, config: SpeechConfig):
@@ -206,6 +218,15 @@ def feat_extract_output_length(length, config: SpeechConfig):
 
 def _dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dt), lin.weight.to(dt), None if lin.bias is None else lin.bias.to(dt))
+
+
+def _row_parallel(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype, mesh) -> torch.Tensor:
+    """A row-parallel Linear: the rank's partial product, summed in f32 over
+    the model axis, then the bias, once."""
+    from ..parallel.mesh import all_reduce
+
+    part = F.linear(x.to(dt), lin.weight.to(dt)).float()
+    return (all_reduce(mesh, part, "model") + lin.bias.float()).to(dt)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -350,22 +371,24 @@ class SpeechSelfAttention(nn.Module):
     def __init__(self, cfg: SpeechConfig, has_relative_position_bias: bool = False):
         super().__init__()
         self.cfg = cfg
-        D, H = cfg.hidden_size, cfg.num_heads
-        self.q_proj = nn.Linear(D, D)
-        self.k_proj = nn.Linear(D, D)
-        self.v_proj = nn.Linear(D, D)
-        self.out_proj = nn.Linear(D, D)
+        D, H, mp = cfg.hidden_size, cfg.num_heads, cfg.model_parallel
+        self.q_proj = nn.Linear(D, D // mp)
+        self.k_proj = nn.Linear(D, D // mp)
+        self.v_proj = nn.Linear(D, D // mp)
+        self.out_proj = nn.Linear(D // mp, D)
         self.has_relative_position_bias = has_relative_position_bias
+        self.tp_mesh = None  # the model axis's mesh when model_parallel > 1 (parallel/tp.py)
         if cfg.attention_type == "wavlm":
             self.gru_rel_pos_linear = nn.Linear(D // H, 8)
-            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H, 1, 1))
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H // mp, 1, 1))
             if has_relative_position_bias:
-                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H)
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H // mp)
 
     def forward(self, x, key_mask, position_bias, plain: bool = False):
         cfg = self.cfg
-        D, H = cfg.hidden_size, cfg.num_heads
-        hd = D // H
+        D, mp = cfg.hidden_size, cfg.model_parallel
+        hd = D // cfg.num_heads
+        H = cfg.num_heads // mp  # this rank's heads
         dt = cfg.compute_dtype
         B, T, _ = x.shape
         q = _dense(x, self.q_proj, dt)
@@ -381,8 +404,11 @@ class SpeechSelfAttention(nn.Module):
                 # attention rounds it to the compute dtype, so the layers' gradients sum in f32
                 position_bias = self.rel_attn_embed.weight[buckets].permute(2, 0, 1).contiguous()
             assert position_bias is not None, "layers > 0 need layer 0's position_bias"
-            # per-(batch, head, query) gate from the layer's input x, per head
-            gate_in = x.reshape(B, T, H, hd).transpose(1, 2)  # [B, H, T, hd]
+            # per-(batch, head, query) gate from the layer's input x, per head (the rank's heads)
+            gate_in = x.reshape(B, T, cfg.num_heads, hd)
+            if mp > 1:
+                gate_in = gate_in[:, :, self.tp_mesh.model_rank * H: (self.tp_mesh.model_rank + 1) * H]
+            gate_in = gate_in.transpose(1, 2)  # [B, H, T, hd]
             proj = _dense(gate_in, self.gru_rel_pos_linear, dt).float()
             gates = torch.sigmoid(proj.reshape(B, H, T, 2, 4).sum(-1))  # [B, H, T, 2]
             const = self.gru_rel_pos_const.float().reshape(1, H, 1)
@@ -392,6 +418,8 @@ class SpeechSelfAttention(nn.Module):
             shared_bias=position_bias if cfg.attention_type == "wavlm" else None,
             plain=plain,
         )
+        if mp > 1:
+            return _row_parallel(out, self.out_proj, dt, self.tp_mesh), position_bias
         return _dense(out, self.out_proj, dt), position_bias
 
 
@@ -400,8 +428,10 @@ class FeedForward(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.fused = fused  # K5 (default_ffn_kernel)
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        mp = cfg.model_parallel
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size // mp)
+        self.output_dense = nn.Linear(cfg.intermediate_size // mp, cfg.hidden_size)
+        self.tp_mesh = None  # the model axis's mesh when model_parallel > 1 (parallel/tp.py)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         cfg = self.cfg
@@ -413,6 +443,8 @@ class FeedForward(nn.Module):
             )
             return out.reshape(x.shape)
         h = F.gelu(_dense(x, self.intermediate_dense, dt), approximate=cfg.gelu_mode)
+        if cfg.model_parallel > 1:
+            return _row_parallel(h, self.output_dense, dt, self.tp_mesh)
         return _dense(h, self.output_dense, dt)
 
 

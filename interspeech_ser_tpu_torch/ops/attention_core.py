@@ -33,8 +33,9 @@ calls ``dot_product_attention_plain`` and never reaches them.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -145,10 +146,38 @@ def dot_product_attention_plain(
     return (weights.float() @ v.float()).to(dt)
 
 
+# (start, stop, total) while a data-parallel rank runs rows [start, stop) of a
+# global batch of ``total`` rows (``parallel.mesh.dropout_rows``); None on one device
+ROW_SHARD: Optional[Tuple[int, int, int]] = None
+
+
+@contextlib.contextmanager
+def row_shard(start: int, stop: int, total: int):
+    """Within the context ``dropout`` draws the mask of the global batch's
+    ``total`` rows and keeps rows [start, stop) of it (rows past ``total``,
+    the padding a rank holds, are kept whole), so that a data-parallel rank
+    drops what the one-device run drops on its rows."""
+    global ROW_SHARD
+    prev, ROW_SHARD = ROW_SHARD, (start, stop, total)
+    try:
+        yield
+    finally:
+        ROW_SHARD = prev
+
+
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout (keep with probability 1 - p, scale by 1 / (1 - p))
-    with its mask drawn from ``generator``; the identity when p == 0."""
+    with its mask drawn from ``generator``; the identity when p == 0. Dim 0
+    is the batch: under ``row_shard`` the mask is the global batch's."""
     if p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if ROW_SHARD is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    else:
+        start, stop, total = ROW_SHARD
+        assert x.shape[0] == stop - start, f"dropout on {x.shape[0]} rows under a row shard of {stop - start}"
+        full = torch.rand((total,) + tuple(x.shape[1:]), generator=generator, device=x.device) >= p
+        keep = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+        kept = max(0, min(stop, total) - start)
+        keep[:kept] = full[start: start + kept]
     return x * keep.to(x.dtype) / (1.0 - p)

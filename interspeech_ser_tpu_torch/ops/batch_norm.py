@@ -11,6 +11,14 @@ buffers by flax's rule; in eval mode it uses the buffers. State-dict keys
 are torch's ``weight``, ``bias``, ``running_mean``, ``running_var`` (no
 ``num_batches_tracked``: the reference checkpoints the JAX package writes
 have none).
+
+Data parallelism (``sync``): the JAX package's data-parallel step takes a
+BatchNorm's batch moments over the global batch. A BatchNorm given a mesh
+with a data axis above one all-reduces, in one call, the per-channel sum and
+sum of squares of its rank's rows and their count, with the gradient (the
+backward all-reduces too: each rank's downstream gradient covers its own
+rows); it normalises with the global moments and moves its running
+statistics by them, the same on every rank.
 """
 
 from __future__ import annotations
@@ -33,13 +41,44 @@ class RunningBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.mesh = None  # set by ``sync``: global moments over its data axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, EPS)
+        if self.mesh is not None and self.mesh.data > 1:
+            return self._forward_global(x)
         with torch.no_grad():
             dims = [d for d in range(x.ndim) if d != 1]
             var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
             self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
             self.running_var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, EPS)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import all_reduce_sum
+
+        dims = [d for d in range(x.ndim) if d != 1]
+        C = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), float(x.numel() // C), device=x.device)
+        stats = all_reduce_sum(self.mesh, torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+        n = stats[-1]
+        mean = stats[:C] / n
+        var = (stats[C: 2 * C] / n - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(MOMENTUM).add_(mean.detach(), alpha=1.0 - MOMENTUM)
+            self.running_var.mul_(MOMENTUM).add_(var.detach(), alpha=1.0 - MOMENTUM)
+        shape = [1, C] + [1] * (x.ndim - 2)
+        scale = self.weight.float() * torch.rsqrt(var + EPS)
+        y = (xf - mean.reshape(shape)) * scale.reshape(shape) + self.bias.float().reshape(shape)
+        return y.to(x.dtype)
+
+
+def sync(module: nn.Module, mesh) -> nn.Module:
+    """Give every ``RunningBatchNorm`` in ``module`` the mesh whose data axis
+    its training moments span -> ``module``."""
+    for m in module.modules():
+        if isinstance(m, RunningBatchNorm):
+            m.mesh = mesh
+    return module

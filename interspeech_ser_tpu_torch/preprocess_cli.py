@@ -29,7 +29,13 @@ write one full padded [max_len, D] ``.pt`` per row, in batches of 64
 pytorch_model.bin or model.safetensors); there is no hub access. In float32
 mode TF32 is off for matmuls and cuDNN convolutions alike, so f32 means f32;
 ``--matmul_precision highest`` turns it off in bfloat16 mode too.
-``--model_parallel`` above 1 is not ported yet.
+Multi-device: launch with ``torchrun --nproc_per_node N -m
+interspeech_ser_tpu_torch.preprocess_cli <command> ...`` (``--device cpu``
+for gloo ranks on the CPU): each data rank extracts whole batches of the
+one-device plan and writes their files, and rank 0 alone prints.
+``--model_parallel mp`` (``speech`` / ``speech_pretrained``) shards the
+encoder's attentions and feed-forwards over mp ranks a model group
+(``parallel/tp.py``); ``whisper`` with mp above 1 raises.
 ``ns3_prosody`` / ``ns3_prosody_speaker`` run the NS3 FACodec prosody
 extractor (``models/ns3/facodec.py``) through
 ``extract/pipeline.py::ProsodyExtractionPipeline`` in f32 with TF32 off,
@@ -45,11 +51,12 @@ indices of the literal forward on the zero-padded batch.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 import sys
 
-from .utils.device import DEVICES
+from .utils.device import DEVICES, teardown
 from .utils.labels import PANDAS_NA
 
 
@@ -69,7 +76,7 @@ def _speech_parser():
     p.add_argument("--replicate_dir_count_bug", action="store_true",
                    help="reproduce the reference's hidden_states[len(os.listdir(save_path))] quirk")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel degree (only 1 is supported for now)")
+                   help="tensor-parallel degree: ranks a model group (torchrun ranks; must divide the heads)")
     p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                    help="where the encoder runs; without a card 'cuda' raises")
     return p
@@ -106,18 +113,31 @@ def _pretrained_parser():
 
 
 def _setup(args):
-    """Seed, precision and the missing-file audit -> the wav names (None on a missing file)."""
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model_parallel > 1 comes with the multi-device port")
+    """Process group (under torchrun), seed, precision and the missing-file
+    audit -> the wav names (None on a missing file). Rank 0 alone prints."""
     import torch
 
+    from .utils.device import init_distributed, is_main
+
+    init_distributed(args.device)
     torch.manual_seed(args.seed)
     set_precision(args.dtype, args.matmul_precision)
-    print(f"Using average = {args.use_average == 'y'}")
-    wav_names = _audit_wavs(args.wav_dir)
-    if wav_names is None:
-        print("Something went wrong, make sure everything is correct before running again!")
+    with _quiet_unless(is_main()):
+        print(f"Using average = {args.use_average == 'y'}")
+        wav_names = _audit_wavs(args.wav_dir)
+        if wav_names is None:
+            print("Something went wrong, make sure everything is correct before running again!")
     return wav_names
+
+
+@contextlib.contextmanager
+def _quiet_unless(main: bool):
+    """Silence this rank's prints unless it is rank 0."""
+    if main:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
 
 
 def _merge_checkpoint(model, args) -> None:
@@ -134,6 +154,10 @@ def _merge_checkpoint(model, args) -> None:
 
 
 def _report(stats, device) -> None:
+    from .utils.device import is_main
+
+    if not is_main():
+        return
     print(
         f"extracted {stats.n_utts} utts ({stats.audio_seconds:.1f} audio-s) in "
         f"{stats.wall_seconds:.1f}s = {stats.utts_per_sec:.1f} utt/s on {device}; "
@@ -150,14 +174,17 @@ def speech_main(argv=None, with_lora: bool = False):
     from .extract.pipeline import SpeechExtractionPipeline
     from .models.loader import build_speech_encoder
 
-    print(f"Extracting features using {args.ssl_type}" + (f" + LoRA {args.lora_ckpt}" if with_lora else ""))
+    from .utils.device import is_main
+
+    with _quiet_unless(is_main()):
+        print(f"Extracting features using {args.ssl_type}" + (f" + LoRA {args.lora_ckpt}" if with_lora else ""))
     model, cfg, do_normalize = build_speech_encoder(args.ssl_type, dtype=args.dtype)
     if with_lora:
         _merge_checkpoint(model, args)
     pipe = SpeechExtractionPipeline(
         model, cfg, n_layer=args.n_layer, use_average=args.use_average == "y", do_normalize=do_normalize,
         num_workers=args.num_workers, replicate_dir_count_bug=args.replicate_dir_count_bug,
-        device=args.device,
+        device=args.device, model_parallel=args.model_parallel,
     )
     stats = pipe.run(args.wav_dir, args.save_path, wav_names)
     _report(stats, pipe.device)
@@ -166,14 +193,19 @@ def speech_main(argv=None, with_lora: bool = False):
 
 def whisper_main(argv=None, with_lora: bool = False):
     args = (_pretrained_parser() if with_lora else _speech_parser()).parse_args(argv)
+    if args.model_parallel != 1:
+        raise ValueError(f"--model_parallel {args.model_parallel}: tensor parallelism shards the speech "
+                         "encoders (speech / speech_pretrained); Whisper extraction is data-parallel only")
     wav_names = _setup(args)
     if wav_names is None:
         return None
 
     from .extract.pipeline import WhisperExtractionPipeline
     from .models.loader import build_whisper_encoder
+    from .utils.device import is_main
 
-    print(f"Extracting features using {args.ssl_type}" + (f" + LoRA {args.lora_ckpt}" if with_lora else ""))
+    with _quiet_unless(is_main()):
+        print(f"Extracting features using {args.ssl_type}" + (f" + LoRA {args.lora_ckpt}" if with_lora else ""))
     model, cfg = build_whisper_encoder(args.ssl_type, dtype=args.dtype)
     if with_lora:
         _merge_checkpoint(model, args)
@@ -227,11 +259,14 @@ def _text_main(argv, family: str):
 
     from .extract.pipeline import TextExtractionPipeline
     from .models.loader import build_deberta_v2, build_roberta
+    from .utils.device import init_distributed, is_main
     from .utils.spm import auto_tokenizer
 
+    init_distributed(args.device)
     torch.manual_seed(args.seed)
     set_precision(args.dtype)
-    print(f"Using average = {args.use_average == 'y'}")
+    with _quiet_unless(is_main()):
+        print(f"Using average = {args.use_average == 'y'}")
     names, texts = read_transcripts(args.df_path)
     model, cfg = (build_roberta if family == "roberta" else build_deberta_v2)(args.roberta_type, dtype=args.dtype)
     tokenizer = auto_tokenizer(args.roberta_type)
@@ -244,8 +279,9 @@ def _text_main(argv, family: str):
         batch_size=32 if family == "deberta" else 64, device=args.device,
     )
     stats = pipe.run(names, texts, args.save_path)
-    print(f"extracted {stats.n_utts} texts in {stats.wall_seconds:.1f}s = {stats.utts_per_sec:.1f} texts/s "
-          f"on {pipe.device}; {stats.n_skipped} skipped")
+    with _quiet_unless(is_main()):
+        print(f"extracted {stats.n_utts} texts in {stats.wall_seconds:.1f}s = {stats.utts_per_sec:.1f} texts/s "
+              f"on {pipe.device}; {stats.n_skipped} skipped")
     return stats
 
 
@@ -325,3 +361,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    teardown()

@@ -37,7 +37,18 @@ MoE expert's too) runs through K3 and its backward K3b
 (``ops/kernels/gru.py``). Training runs in float32 with TF32 off (the f32
 parity mode). Dropout draws from a seeded ``torch.Generator`` owned by the
 engine; the samplers from a numpy ``Generator``; both are saved with every
-epoch's full-state checkpoint. One device: ``n_devices`` above 1 raises.
+epoch's full-state checkpoint.
+
+Data parallelism (one process a rank, ``parallel/mesh.py``; ``n_devices``
+is the number of ranks, ``None`` the world's): every rank draws the same
+batches, pads each to a multiple of the data axis with masked rows and runs
+its own rows (K3 forward and K3b backward per rank: the kernels always run);
+dropout keeps the rank's rows of the global batch's mask; the outputs the
+loss reads (logits, neutral, gender, pooled) are gathered, so that every
+rank computes the global batch's loss (CKA, diff-F1 and focal's dynamic
+alpha are nonlinear in the batch); one all-reduce of the gradients a
+optimizer step (after accumulation) gives the one-device gradient. Eval
+gathers the logits. Rank 0 alone writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -58,8 +69,9 @@ from ..models.fusion import MultiModalEmotionClassifier
 from ..models.fusion_variants import MoEEmotionClassifier, SingleModalitySERClassifier
 from ..utils import labels as L
 from ..utils import ptio
+from ..parallel.mesh import all_reduce_grads, barrier, data_parallel, make_mesh, replicate
 from ..utils.config import FusionConfig
-from ..utils.device import resolve_device
+from ..utils.device import is_main, resolve_device
 from ..utils.metrics import concordance_ccc, macro_f1
 from ..utils.seeding import numpy_generator
 from . import checkpointing, losses
@@ -79,7 +91,11 @@ def cosine_epoch_lr(lr0: float, epoch: int, total_epochs: int, eta_min: float = 
 
 
 def setup_run_logging(model_path: str) -> logging.Logger:
-    """File + stream logging into the model path, as the reference does."""
+    """File + stream logging into the model path, as the reference does; on a
+    rank other than 0 of a multi-device run, warnings only and no file."""
+    if not is_main():
+        logging.basicConfig(level=logging.WARNING, handlers=[logging.StreamHandler()], force=True)
+        return logging.getLogger()
     os.makedirs(model_path, exist_ok=True)
     handlers = [
         logging.FileHandler(os.path.join(model_path, "loggingtxt-%d.log" % time.time())),
@@ -103,7 +119,7 @@ class EngineOptions:
     bucket_window: int = BUCKET_WINDOW
     bucket_quantum: int = BUCKET_QUANTUM
     log_every: int = LOG_EVERY
-    n_devices: Optional[int] = None
+    n_devices: Optional[int] = None  # ranks (one process each); None: the world's
     task: str = "cat"  # 'cat' | 'dim' (CCC regression)
     loss_type: Optional[str] = None  # None: the config's flags; 'ce'|'focal'|'labelsmooth'|'hierarchical'|'f1'
     label_smoothing: float = 0.1
@@ -123,9 +139,6 @@ class EngineOptions:
     modality_norm: bool = True
 
     def __post_init__(self) -> None:
-        if self.n_devices is not None and self.n_devices > 1:
-            raise ValueError(f"n_devices={self.n_devices}: the port trains on one device; "
-                             "multi-device training is ROADMAP.md §A.7")
         for name, value, allowed in (("task", self.task, ("cat", "dim")), ("loss_type", self.loss_type, LOSS_TYPES),
                                      ("gender_mode", self.gender_mode, GENDER_MODES),
                                      ("model_variant", self.model_variant, ("fusion", "moe", "single"))):
@@ -134,10 +147,10 @@ class EngineOptions:
 
 
 class FusionEngine:
-    """Train and score the lazy-fusion classifier on one device (``cuda``
-    unless the caller passes ``device="cpu"``; no card raises). ``options``
-    (an ``EngineOptions``) or the ``ranking`` / ``focal_dynamic_alpha``
-    shorthands, not both."""
+    """Train and score the lazy-fusion classifier on the card (``cuda``, the
+    rank's card in a multi-device run, unless the caller passes
+    ``device="cpu"``; no card raises). ``options`` (an ``EngineOptions``) or
+    the ``ranking`` / ``focal_dynamic_alpha`` shorthands, not both."""
 
     def __init__(
         self,
@@ -155,6 +168,7 @@ class FusionEngine:
         self.cfg = cfg
         self.opt = opt = options
         self.device = resolve_device(device)
+        self.mesh = make_mesh(opt.n_devices)
         self.dim_columns = tuple(opt.dim_columns or DIM_COLUMNS)
         self.num_out = len(self.dim_columns) if opt.task == "dim" else cfg.num_emotions
         self.loss_type = opt.loss_type or ("focal" if cfg.use_focalloss else "ce")
@@ -163,6 +177,7 @@ class FusionEngine:
         self.renames = convert.fusion_renames(len(cfg.feat_dims)) if opt.model_variant == "fusion" else None
         torch.manual_seed(seed)  # the init, and what strict=False leaves in place
         self.model = self._build_model().to(self.device).eval()
+        replicate(self.mesh, self.model)
         self.rng = numpy_generator(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer: Optional[torch.optim.Optimizer] = None
@@ -210,7 +225,9 @@ class FusionEngine:
         return kept, [k for k in sd if k not in kept]
 
     def save_torch_checkpoint(self, path: str) -> None:
-        """``multimodal_ser.pt`` as the JAX engine writes it, CPU tensors."""
+        """``multimodal_ser.pt`` as the JAX engine writes it, CPU tensors (rank 0 writes)."""
+        if not self.mesh.is_main:
+            return
         sd = self.model.state_dict()
         if self.flat_checkpoint:
             sd = {k: torch.from_numpy(v) for k, v in convert.port_to_flax_flat(sd, self.renames).items()}
@@ -243,6 +260,20 @@ class FusionEngine:
         else:
             logits = self.model(feats, masks, generator=generator)
         return {"logits": logits, "neutral": None, "gender": None, "pooled": None, "fused": None}
+
+    def _forward_rows(self, feats, masks, n: int, generator=None) -> Dict:
+        """The forward of a global batch of ``n`` rows: this rank's rows, then
+        the outputs the loss reads gathered from every rank (``fused`` is
+        not gathered: ``None`` on more than one rank)."""
+        if self.mesh.data == 1:
+            return self._forward(feats, masks, generator)
+
+        def rows(f, m):
+            out = self._forward(f, m, generator)
+            return (out["logits"], out["neutral"], out["gender"], *(out["pooled"] or ()))
+
+        logits, neutral, gender, *pooled = data_parallel(self.mesh, rows, (feats, masks), n)
+        return {"logits": logits, "neutral": neutral, "gender": gender, "pooled": pooled or None, "fused": None}
 
     def _loss_terms(self, out: Dict, labels: torch.Tensor, sample_mask: torch.Tensor,
                     class_w: Optional[torch.Tensor], aux: Optional[torch.Tensor] = None):
@@ -295,13 +326,15 @@ class FusionEngine:
         gradients add into ``.grad``. -> (loss, logged CE) as tensors."""
         self.model.train()
         feats, masks, labels, smask, aux = self._to_device(batch)
-        out = self._forward(feats, masks, generator=self.generator)
+        out = self._forward_rows(feats, masks, labels.shape[0], generator=self.generator)
         backward, ce = self._loss_terms(out, labels, smask, class_w, aux)
         backward.backward()
         return backward.detach(), ce.detach()
 
     def apply_gradients(self, lr: float, n_micro: int = 1) -> None:
-        """One AdamW step on the mean of ``n_micro`` accumulated gradients."""
+        """One AdamW step on the mean of ``n_micro`` accumulated gradients
+        (summed over the data axis first: one all-reduce a step)."""
+        all_reduce_grads(self.mesh, self.model.parameters())
         if n_micro != 1:
             for p in self.model.parameters():
                 if p.grad is not None:
@@ -323,7 +356,8 @@ class FusionEngine:
     ) -> Dict[str, float]:
         cfg = self.cfg
         logger = log or self.logger
-        os.makedirs(cfg.model_path, exist_ok=True)
+        if self.mesh.is_main:
+            os.makedirs(cfg.model_path, exist_ok=True)
         if self.device.type == "cuda":  # f32 parity mode
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -399,12 +433,14 @@ class FusionEngine:
                 logger.info(f"New best model at epoch {epoch+1}")
                 best = {"epoch": epoch, "macro_f1": dev.get("macro_f1", 0.0), "dev_loss": dev["loss"]}
                 self.save_torch_checkpoint(os.path.join(cfg.model_path, "multimodal_ser.pt"))
-            checkpointing.save_train_state(
-                cfg.model_path, self.model, self.optimizer, epoch, best, self.rng, self.generator
-            )
+            if self.mesh.is_main:
+                checkpointing.save_train_state(
+                    cfg.model_path, self.model, self.optimizer, epoch, best, self.rng, self.generator
+                )
             if stop_after_epoch is not None and epoch >= stop_after_epoch:
                 logger.info(f"Stopping after epoch {epoch} (stop_after_epoch)")
                 break
+        barrier(self.mesh)  # rank 0's files are written when fit returns on any rank
         return best
 
     # -- evaluation / scoring ---------------------------------------------------
@@ -413,7 +449,8 @@ class FusionEngine:
     def predict(self, dataset: LazyFeatureDataset) -> np.ndarray:
         """Logits (the dim task's attributes) for every sample, in dataset
         order (batches of the config's ``batch_size``, length-sorted, time
-        padded to multiples of 64)."""
+        padded to multiples of 64; on several ranks each runs its rows and
+        the logits are gathered)."""
         self.model.eval()
         bs = self.cfg.batch_size
         n = len(dataset)
@@ -422,7 +459,7 @@ class FusionEngine:
         for start in range(0, n, bs):
             idxs = order[start : start + bs].tolist()
             feats, masks, _, _, _ = self._to_device(dataset.collate(idxs, bs, self.opt.bucket_quantum))
-            logits = self._forward(feats, masks)["logits"].float().cpu().numpy()
+            logits = self._forward_rows(feats, masks, bs)["logits"].float().cpu().numpy()
             out[idxs] = logits[: len(idxs)]
         return out
 
@@ -461,9 +498,11 @@ def save_predictions_with_probs(
 ) -> str:
     """results/{dev,test,train}.csv in the reference's format: raw logits at
     4 decimals; 'Filename' for dev and train, 'FileName' for test (a
-    reference quirk)."""
-    os.makedirs(os.path.join(model_path, "results"), exist_ok=True)
+    reference quirk). Rank 0 writes; every rank returns the path."""
     out = os.path.join(model_path, "results", f"{dtype}.csv")
+    if not is_main():
+        return out
+    os.makedirs(os.path.join(model_path, "results"), exist_ok=True)
     headers = [filename_header, "Prediction"] + [f"class_{i}_prob" for i in range(logits.shape[1])]
     with open(out, "w", newline="") as f:
         w = csv.writer(f)

@@ -1,7 +1,7 @@
 """The joint RoBERTa + WavLM trainers (the ``bin/old/train_cat_roberta*`` family).
 
-Port of ``interspeech_ser_tpu/train/joint_engine.py`` on one device. One
-engine covers six scripts (``VARIANTS``):
+Port of ``interspeech_ser_tpu/train/joint_engine.py``. One engine covers
+six scripts (``VARIANTS``):
 
 | variant   | head                  | encoders  | loss                        |
 |-----------|-----------------------|-----------|-----------------------------|
@@ -51,8 +51,16 @@ that fails raises):
 Dropout (the heads' only randomness) draws from a seeded ``torch.Generator``
 owned by the engine. f32 engines on the card turn TF32 off.
 ``use_timbre_perturb`` perturbs a drawn training wav with probability
-``tp_prob`` (``baseline/engine.timbre_augment``, on the host). ``n_devices``
-above 1 is not ported (ROADMAP.md §A.7) and raises.
+``tp_prob`` (``baseline/engine.timbre_augment``, on the host).
+
+Both engines are data-parallel over the ranks of a process group
+(``n_devices``, ``None``: the world's; ``parallel/mesh.py``): each
+micro-batch is padded to a multiple of the data axis with masked rows, each
+rank runs its rows through the encoders and the head, the head's outputs
+(the logits, and the gated features of the CKA variants) are gathered so
+that every rank computes the whole micro-batch's loss (focal's dynamic alpha
+and CKA are nonlinear in the batch), and one all-reduce of the trained
+gradients precedes each update. Rank 0 alone writes files and logs.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from ..baseline.podcast import load_cat_emo_label
 from ..models import joint
 from ..models.loader import build_roberta, build_speech_encoder, speech_state_dict_to_hf
 from ..models.speech import with_config
+from ..parallel.mesh import all_reduce_grads, barrier, data_parallel, make_mesh, replicate
 from ..utils import labels as L
 from ..utils import ptio
 from ..utils.device import resolve_device
@@ -117,12 +126,6 @@ VARIANTS: Dict[str, JointOptions] = {
 VARIANTS["small_cka"] = VARIANTS["cka"]
 
 
-def check_devices(n_devices: Optional[int]) -> None:
-    if n_devices is not None and n_devices > 1:
-        raise ValueError(f"n_devices={n_devices}: the port trains on one device; "
-                         "multi-device training is ROADMAP.md §A.7")
-
-
 def cosine_step_lr(lr: float, count: int, t_max: int) -> float:
     """The head's lr before update ``count`` (0-based) under ``cosine_step``:
     ``optax.cosine_decay_schedule(lr - 1e-6, t_max)(min(count, t_max)) + 1e-6``."""
@@ -144,8 +147,9 @@ def _update(opt: torch.optim.Optimizer, params: List[torch.Tensor], n_micro: int
 
 
 class JointEngine:
-    """Speech + text encoders, frozen or trained, under a fusion head, on one
-    device (``cuda`` unless the caller passes ``device="cpu"``; no card raises)."""
+    """Speech + text encoders, frozen or trained, under a fusion head, on the
+    card (``cuda``, the rank's card in a multi-device run, unless the caller
+    passes ``device="cpu"``; no card raises)."""
 
     def __init__(
         self,
@@ -159,9 +163,9 @@ class JointEngine:
         n_devices: Optional[int] = None,
         device="cuda",
     ):
-        check_devices(n_devices)
         self.opts, self.tokenize, self.head_dim = options, tokenize, head_dim
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
         set_precision(self.device, dtype)
         ssl, self.ssl_cfg, _ = build_speech_encoder(ssl_type, dtype=dtype)
         txt, self.txt_cfg = build_roberta(text_type, dtype=dtype)
@@ -183,6 +187,8 @@ class JointEngine:
                 head = joint.TransformerJointHead(wav_dim, txt_dim, head_dim, gated=options.gated,
                                                   masked=options.masked)
         self.head = head.to(self.device)
+        for m in (self.ssl, self.txt, self.head):
+            replicate(self.mesh, m)
         self.rng = numpy_generator(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)  # the head's dropout
 
@@ -217,7 +223,9 @@ class JointEngine:
         opts = self.opts
         wav, mask, ids_t, tmask, labels, smask = self._tensors(batch.wav, batch.mask, ids, txt_mask, batch.labels,
                                                                batch.sample_mask)
-        out = self.forward(wav, mask, ids_t, tmask, None if deterministic else self.generator, plain)
+        gen = None if deterministic else self.generator
+        out = data_parallel(self.mesh, lambda *a: self.forward(*a, gen, plain), (wav, mask, ids_t, tmask),
+                            wav.shape[0])
         logits = out[0] if opts.gated else out
         y = labels.argmax(dim=1)
         if opts.loss == "wce":
@@ -259,7 +267,10 @@ class JointEngine:
         "loss"}`` of the best epoch, its dev logits (``dev_logits``), and every
         epoch's dev loss and mean train loss (``dev_losses``, ``train_losses``)."""
         opts = self.opts
-        os.makedirs(model_path, exist_ok=True)
+        main = self.mesh.is_main
+        log = self.mesh.main_only(log)
+        if main:
+            os.makedirs(model_path, exist_ok=True)
         rows = L.load_merged(label_path, txt_path)
         train_rows, dev_rows = L.split(rows, "Train"), L.split(rows, "Development")
         class_weights = torch.from_numpy(L.class_weights(train_rows)).to(self.device)
@@ -269,7 +280,8 @@ class JointEngine:
         train_set = bdata.WavDataset(bdata.load_audio(audio_path, utts), labs, utts, normalize_wav=normalize_wav)
         if use_timbre_perturb:
             train_set.augment_fn = timbre_augment(self.rng, tp_prob)
-        train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
+        if main:
+            train_set.save_norm_stat(os.path.join(model_path, "train_norm_stat.pkl"))
         utts, labs = load_cat_emo_label(label_path, "dev")
         dev_set = bdata.WavDataset(bdata.load_audio(audio_path, utts), labs, utts, train_set.wav_mean,
                                    train_set.wav_std, normalize_wav)
@@ -310,6 +322,7 @@ class JointEngine:
                 if (i + 1) % accumulation_steps == 0 or (i + 1) == len(batches):
                     if opts.scheduler == "cosine_step":
                         opt.param_groups[0]["lr"] = cosine_step_lr(lr, updates, t_max)
+                    all_reduce_grads(self.mesh, params)
                     _update(opt, params, n_micro)
                     n_micro, updates = 0, updates + 1
                 if (i + 2) % LOG_EVERY == 0:
@@ -322,7 +335,8 @@ class JointEngine:
             dev = self.evaluate(dev_set, dev_txt, dev_weights)
             lm.add_stat("dev_loss", dev["loss"])
             best["dev_losses"].append(dev["loss"])
-            lm.print_stat()
+            if main:
+                lm.print_stat()
             msg = f"|VALIDATION| Epoch ({epoch + 1}/{epochs}): eval_loss = {dev['loss']}"
             if opts.cka != "none":
                 msg += f" eval_cka = {dev['cka']}"
@@ -331,6 +345,7 @@ class JointEngine:
                 best.update(epoch=epoch, loss=dev["loss"], dev_logits=dev["logits"])
                 log(f"New best model at epoch {epoch + 1}")
                 self.save_checkpoints(model_path)
+        barrier(self.mesh)  # rank 0's files are written when fit returns on any rank
         return best
 
     # -- evaluation ------------------------------------------------------------
@@ -349,7 +364,7 @@ class JointEngine:
         for s in range(0, n, batch_size):
             idxs = order[s: s + batch_size].tolist()
             wb, ids, tmask = bdata.collate_txt_wav(wav_set, txt_set, idxs, batch_size)
-            out = self.forward(*self._tensors(wb.wav, wb.mask, ids, tmask))
+            out = data_parallel(self.mesh, self.forward, self._tensors(wb.wav, wb.mask, ids, tmask), batch_size)
             if gated:
                 out, wx, rx = out
                 feats_w[idxs] = wx[: len(idxs)].cpu().numpy()
@@ -380,7 +395,9 @@ class JointEngine:
 
     def save_checkpoints(self, model_path: str) -> None:
         """``final_ser.pt``; with ``save_encoders`` also ``final_text_model.pt``
-        and ``final_ssl.pt`` (f32 CPU copies)."""
+        and ``final_ssl.pt`` (f32 CPU copies); rank 0 writes."""
+        if not self.mesh.is_main:
+            return
         ptio.save_state_dict(self._head_file(self.head.state_dict(), True), os.path.join(model_path, "final_ser.pt"))
         if self.opts.save_encoders:
             ptio.save_state_dict({k: v.float() for k, v in self.txt.state_dict().items()},
@@ -408,9 +425,9 @@ class TextOnlyEngine:
 
     def __init__(self, text_type: str, tokenize: Tokenize, seed: int = 7, dtype: str = "float32",
                  n_devices: Optional[int] = None, device="cuda"):
-        check_devices(n_devices)
         self.tokenize = tokenize
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
         set_precision(self.device, dtype)
         txt, self.txt_cfg = build_roberta(text_type, dtype=dtype)
         self.txt = txt.to(self.device)
@@ -418,6 +435,7 @@ class TextOnlyEngine:
             torch.manual_seed(seed)
             head = joint.RobertaClassificationHead(self.txt_cfg.hidden_size, 8)
         self.cls_head = head.to(self.device)
+        replicate(self.mesh, self.parameters())
         self.rng = numpy_generator(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -433,7 +451,8 @@ class TextOnlyEngine:
     def loss(self, ids: np.ndarray, mask: np.ndarray, y: np.ndarray, sample_mask: np.ndarray,
              class_weights: torch.Tensor, use_focalloss: bool = False, deterministic: bool = False) -> torch.Tensor:
         ids_t, mask_t, y_t, smask = (torch.from_numpy(a).to(self.device) for a in (ids, mask, y, sample_mask))
-        logits = self.forward(ids_t, mask_t, None if deterministic else self.generator)
+        gen = None if deterministic else self.generator
+        logits = data_parallel(self.mesh, lambda i, m: self.forward(i, m, gen), (ids_t, mask_t), ids_t.shape[0])
         loss = losses.weighted_cross_entropy(logits, y_t, class_weights, smask)
         if use_focalloss:
             loss = loss + losses.focal_loss(logits, y_t, alpha=1.0, gamma=3.0, dynamic_alpha=True, sample_mask=smask)
@@ -454,7 +473,9 @@ class TextOnlyEngine:
     ) -> Dict:
         """-> ``{"epoch", "loss", "acc"}`` of the best epoch, its dev logits
         (``dev_logits``) and every epoch's dev loss (``dev_losses``)."""
-        os.makedirs(model_path, exist_ok=True)
+        log = self.mesh.main_only(log)
+        if self.mesh.is_main:
+            os.makedirs(model_path, exist_ok=True)
         rows = L.load_merged(label_path, txt_path)
         splits = {}
         for name, key in (("train", "Train"), ("dev", "Development")):
@@ -495,6 +516,7 @@ class TextOnlyEngine:
                 self.loss(ids, mask, y, smask, class_weights, use_focalloss).backward()
                 n_micro += 1
                 if (i + 1) % accumulation_steps == 0 or (i + 1) == len(batches):
+                    all_reduce_grads(self.mesh, params)
                     _update(opt, params, n_micro)
                     n_micro = 0
             logits = self.predict(splits["dev"]["ids"], splits["dev"]["mask"])
@@ -506,6 +528,7 @@ class TextOnlyEngine:
                 best.update(epoch=epoch, loss=dev_loss, acc=acc, dev_logits=logits)
                 log(f"New best model at epoch {epoch + 1}")
                 self.save_checkpoint(model_path)
+        barrier(self.mesh)  # rank 0's files are written when fit returns on any rank
         return best
 
     @torch.inference_mode()
@@ -514,11 +537,14 @@ class TextOnlyEngine:
         logits = np.zeros((len(ids), 8), np.float32)
         for s in range(0, len(ids), batch_size):
             i_, m_ = (torch.from_numpy(a[s: s + batch_size]).to(self.device) for a in (ids, mask))
-            logits[s: s + len(i_)] = self.forward(i_, m_).cpu().numpy()
+            logits[s: s + len(i_)] = data_parallel(self.mesh, self.forward, (i_, m_), len(i_)).cpu().numpy()
         return logits
 
     def save_checkpoint(self, model_path: str) -> None:
-        """``text_ser.pt``: ``roberta.*`` (HF names) and ``classifier.{dense,out_proj}.*``."""
+        """``text_ser.pt``: ``roberta.*`` (HF names) and ``classifier.{dense,out_proj}.*``;
+        rank 0 writes."""
+        if not self.mesh.is_main:
+            return
         sd = {f"roberta.{k}": v.float() for k, v in self.txt.state_dict().items()}
         sd.update({f"classifier.{k}": v for k, v in self.cls_head.state_dict().items()})
         ptio.save_state_dict(sd, os.path.join(model_path, "text_ser.pt"))

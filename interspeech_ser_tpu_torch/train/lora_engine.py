@@ -17,6 +17,14 @@ CE, the epoch order from ``numpy_generator(0)``, batches padded to whole
 multiples of 3200 samples, and the dev UAR fed to a plateau scheduler, as
 in the JAX engine. Whisper batches are padded or cut to 30 s, turned into
 a log-mel on the device, and pooled over frames with ``t * 320 < samples``.
+
+Data-parallel over the ranks of a process group (``n_devices``, ``None``:
+the world's; ``parallel/mesh.py``): each batch is padded to a multiple of
+the data axis with zero-weight rows, each rank runs its rows (K1 + K4 per
+rank), the logits are gathered so that every rank computes the batch's CE,
+and one all-reduce of the trainable gradients (the LoRA factors and the
+head, never the frozen encoder) precedes each step. Rank 0 alone logs and
+saves.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from ..models import lora as lora_lib
 from ..models.loader import build_speech_encoder, build_whisper_encoder, read_config
 from ..ops.attention_core import dropout
 from ..ops.mel import whisper_log_mel
+from ..parallel.mesh import all_reduce_grads, data_parallel, make_mesh, replicate
 from ..utils import ptio
 from ..utils.audio import normalize_waveform
 from ..utils.device import resolve_device
@@ -155,8 +164,10 @@ class LoRAFTEngine:
         seed: int = 7,
         dtype: str = "float32",
         device="cuda",  # "cpu" only when asked: no card raises
+        n_devices: Optional[int] = None,  # ranks (one process each); None: the world's
     ):
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
         self.is_whisper = read_config(ssl_type).get("model_type") == "whisper"
         if self.is_whisper:
             if target != "qv":
@@ -178,6 +189,7 @@ class LoRAFTEngine:
             self.head = MeanPoolClassifier(hidden, num_emotions).to(self.device)
         self.num_emotions = num_emotions
         self.generator = torch.Generator(device=self.device).manual_seed(seed)  # the head's dropout
+        replicate(self.mesh, self.trainable())
 
     def _set_lora(self, factors: lora_lib.Lora) -> None:
         self.lora = {p: {n: t.detach().to(self.device).float().contiguous().requires_grad_() for n, t in pair.items()}
@@ -210,9 +222,11 @@ class LoRAFTEngine:
         return self.head(out["last_hidden_state"], frame_mask, self.generator if train else None)
 
     def loss(self, wav, mask, y, smask, class_weights=None, plain: bool = False) -> torch.Tensor:
-        """Weighted CE of one training forward (head dropout on); padding rows weigh 0."""
+        """Weighted CE of one training forward (head dropout on); padding rows
+        weigh 0. Each rank runs its rows; the CE is the whole batch's."""
         dev = self.device
-        logits = self.forward(torch.as_tensor(wav, device=dev), torch.as_tensor(mask, device=dev), True, plain)
+        wav, mask = torch.as_tensor(wav, device=dev), torch.as_tensor(mask, device=dev)
+        logits = data_parallel(self.mesh, lambda w, m: self.forward(w, m, True, plain), (wav, mask), wav.shape[0])
         return losses.weighted_cross_entropy(
             logits, torch.as_tensor(y, device=dev).long(),
             None if class_weights is None else torch.as_tensor(class_weights, device=dev),
@@ -250,6 +264,7 @@ class LoRAFTEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         rng = numpy_generator(0)
+        log = self.mesh.main_only(log)
         opt = torch.optim.AdamW(self.trainable(), lr=lr, weight_decay=1e-2)
         sched = ReduceLROnPlateau(lr)
         norm = [normalize_waveform(w, self.do_normalize) for w in wavs]
@@ -263,6 +278,7 @@ class LoRAFTEngine:
                 opt.zero_grad(set_to_none=True)
                 loss = self.loss(wav, mask, y, smask, class_weights)
                 loss.backward()
+                all_reduce_grads(self.mesh, self.trainable())
                 opt.step()
                 step_losses.append(loss.detach())
             dev_pred = self.predict(dev_norm, batch_size)
@@ -283,7 +299,8 @@ class LoRAFTEngine:
         for s in range(0, len(wavs), batch_size):
             chunk = wavs[s: s + batch_size]
             wav, mask = pad_batch(chunk, batch_size)
-            logits = self.forward(torch.from_numpy(wav).to(self.device), torch.from_numpy(mask).to(self.device))
+            logits = data_parallel(self.mesh, self.forward, (torch.from_numpy(wav).to(self.device),
+                                                             torch.from_numpy(mask).to(self.device)), batch_size)
             preds[s: s + len(chunk)] = logits[: len(chunk)].argmax(dim=1).cpu().numpy()
         return preds
 
@@ -291,7 +308,9 @@ class LoRAFTEngine:
 
     def save(self, path: str) -> None:
         """The LoRA factors and the head in one state dict, the JAX package's
-        names and orientations (head kernels [in, out])."""
+        names and orientations (head kernels [in, out]); rank 0 writes."""
+        if not self.mesh.is_main:
+            return
         sd = lora_lib.lora_state_dict(self.lora)
         for fc in ("fc1", "fc2"):
             lin = getattr(self.head, fc)

@@ -3,8 +3,7 @@
     python -m interspeech_ser_tpu_torch.train.proto_engine <bin/old stem> --config_path <cfg> [--seed 7] \\
         [--gender_labels_csv <csv>] [--device cpu]
 
-Port of ``interspeech_ser_tpu/train/proto_engine.py`` on one device (the JAX
-engines' data-parallel mesh is not ported: ``n_devices`` above 1 raises).
+Port of ``interspeech_ser_tpu/train/proto_engine.py``.
 
 - ``StyleEmbeddingNet`` (projection -> BiGRU -> attention pooling ->
   embedding [+ classifier]) under ``ProtoAngularEngine``: class-balanced
@@ -31,6 +30,18 @@ reference encoder's convs and GRU), so a padded batch is not the batch-1
 forward, as in the JAX package. BatchNorm keeps flax's running statistics
 (``ops/batch_norm.py``). Dropout draws from the engine's seeded
 ``torch.Generator``; a net runs it only when given one.
+
+Both engines are data-parallel over the ranks of a process group
+(``n_devices``, ``None``: the world's; ``parallel/mesh.py``): each rank runs
+its rows of a class-major batch, the embeddings (and logits) are gathered
+so that every rank computes the batch's grouped loss, as the JAX step
+all-gathers its [B, D] embeddings, and one all-reduce of the net's
+gradients precedes each step (the loss's learnable (w, b), outside the
+per-rank forward, have the whole gradient on every rank and are not
+reduced). The reference encoder's BatchNorm takes the global moments
+(``ops/batch_norm.sync``). The grouped loss cannot take masked rows, so the
+data axis must divide C x U (and C x U_val), or the engine raises, where the
+JAX engines shrink the mesh to a divisor (ROADMAP.md §C).
 """
 
 from __future__ import annotations
@@ -49,13 +60,13 @@ from torch import nn
 
 from ..ops.attention import TorchMultiheadAttention, attention_pool
 from ..ops.attention_core import dropout
-from ..ops.batch_norm import RunningBatchNorm
+from ..ops.batch_norm import RunningBatchNorm, sync
 from ..ops.gru import BiGRU
-from ..utils.device import DEVICES, resolve_device
+from ..parallel.mesh import Mesh, all_reduce_grads, barrier, data_parallel, make_mesh, replicate
+from ..utils.device import DEVICES, init_distributed, resolve_device, teardown
 from ..utils.seeding import numpy_generator
 from . import losses
 from .information_encoder import FILTERS, conv_out
-from .joint_engine import check_devices
 from .samplers import PerfectBatchSampler
 
 
@@ -77,6 +88,16 @@ class StyleEmbeddingNet(nn.Module):
         return emb if self.classifier is None else (emb, self.classifier(emb))
 
 
+def _divisible_mesh(n_devices: Optional[int], *batch_sizes: int) -> Mesh:
+    """The mesh, when its data axis divides every fixed batch size; else raise."""
+    mesh = make_mesh(n_devices)
+    bad = [b for b in batch_sizes if b % mesh.data]
+    if bad:
+        raise ValueError(f"{mesh.data} data ranks do not divide the class-major batch of {bad[0]} rows: the "
+                         "grouped angular loss takes no padding rows (the JAX engines shrink the mesh)")
+    return mesh
+
+
 class ProtoAngularEngine:
     """Train a style embedder on angular-prototypical batches of C classes x U
     utterances."""
@@ -92,19 +113,21 @@ class ProtoAngularEngine:
         n_devices: Optional[int] = None,
         device="cuda",  # "cpu" only when asked: no card raises
     ):
-        check_devices(n_devices)
         self.device = resolve_device(device)
+        self.mesh = _divisible_mesh(n_devices, num_classes * utter_per_class)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.model = StyleEmbeddingNet(feat_dim, embedding_dim=embedding_dim,
                                            num_classes=num_classes if use_softmax_proto else 0).to(self.device)
+        replicate(self.mesh, self.model)
         self.num_classes, self.utter_per_class = num_classes, utter_per_class
         self.use_softmax_proto = use_softmax_proto
         self.rng = numpy_generator(seed)
 
     def step_loss(self, feats: torch.Tensor, mask: torch.Tensor, y: torch.Tensor, wb) -> tuple:
-        """(total, angle-proto) of one batch; ``wb`` the loss's (w, b)."""
-        out = self.model(feats, mask)
+        """(total, angle-proto) of one batch; ``wb`` the loss's (w, b). Each
+        rank embeds its rows; the loss is the whole batch's."""
+        out = data_parallel(self.mesh, self.model, (feats, mask), feats.shape[0])
         emb, ce = (out[0], losses.weighted_cross_entropy(out[1], y)) if self.use_softmax_proto else (out, 0.0)
         ap = losses.angle_proto_loss(emb.reshape(self.num_classes, self.utter_per_class, -1), *wb)
         return ap + ce, ap
@@ -117,6 +140,7 @@ class ProtoAngularEngine:
         C, U = self.num_classes, self.utter_per_class
         batch_size = C * U
         dev = self.device
+        log = self.mesh.main_only(log)
         opt = torch.optim.AdamW(self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-6)
         wb = [nn.Parameter(torch.tensor(10.0, device=dev)), nn.Parameter(torch.tensor(-5.0, device=dev))]
         # optax.adamw(lr)'s defaults: weight decay 1e-4, not torch's 1e-2
@@ -135,6 +159,7 @@ class ProtoAngularEngine:
                 opt.zero_grad(set_to_none=True)
                 wb_opt.zero_grad(set_to_none=True)
                 total.backward()
+                all_reduce_grads(self.mesh, self.model.parameters())
                 opt.step()
                 wb_opt.step()
                 last = (float(total.detach()), float(ap.detach()))
@@ -151,7 +176,8 @@ class ProtoAngularEngine:
         for s in range(0, len(dataset), batch_size):
             idxs = list(range(s, min(s + batch_size, len(dataset))))
             b = dataset.collate(idxs, batch_size)
-            o = self.model(torch.from_numpy(b.feats[0]).to(self.device), torch.from_numpy(b.masks[0]).to(self.device))
+            o = data_parallel(self.mesh, self.model, (torch.from_numpy(b.feats[0]).to(self.device),
+                                                      torch.from_numpy(b.masks[0]).to(self.device)), batch_size)
             emb = o[0] if self.use_softmax_proto else o
             out.append(emb.float().cpu().numpy()[: len(idxs)])
         return np.concatenate(out)
@@ -313,9 +339,11 @@ class ProtoOnlyEngine:
         n_devices: Optional[int] = None,
         device="cuda",  # "cpu" only when asked: no card raises
     ):
-        check_devices(n_devices)
         self.device = resolve_device(device)
-        self.net = net.to(self.device)
+        self.mesh = _divisible_mesh(n_devices, num_classes_in_batch * num_utter_per_class,
+                                    num_classes_in_batch * num_utter_per_class_val)
+        self.net = sync(net.to(self.device), self.mesh)
+        replicate(self.mesh, self.net)
         self.C, self.U, self.U_val = num_classes_in_batch, num_utter_per_class, num_utter_per_class_val
         self.ce_mode, self.val_batch_size = ce_mode, val_batch_size
         self.bucket_quantum = bucket_quantum
@@ -335,9 +363,12 @@ class ProtoOnlyEngine:
 
     def forward(self, feats: np.ndarray, train: bool):
         """The net on a host batch: training mode (BatchNorm's batch moments,
-        dropout from the engine's generator) or eval."""
+        dropout from the engine's generator) or eval; each rank runs its rows,
+        the outputs are gathered."""
         self.net.train(train)
-        return self.net(torch.from_numpy(feats).to(self.device), self.generator if train else None)
+        gen = self.generator if train else None
+        return data_parallel(self.mesh, lambda x: self.net(x, gen), (torch.from_numpy(feats).to(self.device),),
+                             len(feats))
 
     def angle_loss(self, out) -> torch.Tensor:
         emb = out[0] if isinstance(out, tuple) else out
@@ -354,6 +385,7 @@ class ProtoOnlyEngine:
         """-> ``{"epoch", "val_angle"}`` of the best epoch (``val_angle`` is the
         dev CE in ``ce_mode``); the net ends at the last epoch's parameters."""
         C, U, U_val = self.C, self.U, self.U_val
+        log = self.mesh.main_only(log)
         total = epochs * math.ceil(len(train_ds) / (C * U))
         opt = torch.optim.RAdam(self.net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
         step = 0
@@ -368,6 +400,7 @@ class ProtoOnlyEngine:
                 loss = self.train_loss(*self.collate(train_ds, list(idxs)))
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                all_reduce_grads(self.mesh, self.net.parameters())
                 opt.step()
                 step += 1
                 last = float(loss.detach())
@@ -383,6 +416,7 @@ class ProtoOnlyEngine:
                 best = {"epoch": epoch, "val_angle": v}
                 if model_path:
                     self.save_torch_checkpoint(os.path.join(model_path, ckpt_name))
+        barrier(self.mesh)  # rank 0's files are written when fit returns on any rank
         return best
 
     @torch.inference_mode()
@@ -417,9 +451,11 @@ class ProtoOnlyEngine:
         return float((nll * w[y]).sum() / w[y].sum()), macro_f1(y, logits.argmax(1), n_cls)
 
     def save_torch_checkpoint(self, path: str) -> None:
-        """The net's state dict: the reference's flat module names."""
+        """The net's state dict: the reference's flat module names (rank 0 writes)."""
         from ..utils import ptio
 
+        if not self.mesh.is_main:
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         ptio.save_state_dict(self.net.state_dict(), path)
 
@@ -498,6 +534,7 @@ def proto_main(variant: str, argv=None) -> dict:
     ap.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                     help="where the net trains; without a card 'cuda' raises")
     args = ap.parse_args(argv)
+    init_distributed(args.device)
     device = resolve_device(args.device)
     set_deterministic(seed=args.seed)
     with open(args.config_path) as f:
@@ -536,3 +573,4 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    teardown()

@@ -14,6 +14,7 @@ import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -825,3 +826,79 @@ def test_decoder_and_adapter_phases_on_cpu(tmp_path, monkeypatch):
     assert all(g["tensors"] == 2 * 2 * 2 + 2 * 5 for g in grads.values())  # 2 layers x 2 LoRA pairs, 4 adapter + 1 prompt
     batch1 = cs.check_prompt_batch1(tmp, kept)
     assert max(batch1.values()) <= 1e-4
+
+
+def test_parallel_predictions_and_audit_expectations():
+    """Phase 17's launch predictions per rank and its audit expectations."""
+    import chip_smoke as cs
+
+    # fusion: every rank runs its rows of every batch, as the one process does
+    assert cs.predict_parallel_launches("fusion", 1, 2, n_mod=2, train_batches=2, dev_batches=1) == {
+        "gru_bidir": 6, "gru_bidir_bwd": 4}
+    # data-parallel extraction: whole batches in turn, 5 batches over 2 ranks -> 3 and 2
+    assert cs.predict_parallel_launches("dp_extract", 0, 2, batches=5, layers=24)["attention_btd"] == 24 * 3
+    assert cs.predict_parallel_launches("dp_extract", 1, 2, batches=5, layers=24) == {
+        "attention_btd": 48, "conv_frontend": 2, "pos_conv": 2}
+    # tensor parallelism: every model rank runs every batch
+    assert cs.predict_parallel_launches("tp_extract", 1, 2, batches=1, layers=24)["attention_btd"] == 24
+    assert cs.predict_parallel_launches("lora", 0, 2, layers=24, steps=2, dev_batches=1) == {
+        "attention_btd": 72, "attention_btd_bwd": 48, "conv_frontend": 3}
+    from interspeech_ser_tpu_torch.parallel import audit
+
+    rec = audit.empty_audit()
+    cs.check_audit(rec, cs.expected_audit("one_rank"), "one rank")
+    rec["all-reduce"] = {"count": 2, "elements": 2 * 100}
+    rec["broadcast"] = {"count": 7, "elements": 100}
+    cs.check_audit(rec, cs.expected_audit("train", steps=2, trainable=100), "dp")
+    for bad in (dict(steps=3, trainable=100), dict(steps=2, trainable=99)):
+        with pytest.raises(AssertionError):
+            cs.check_audit(rec, cs.expected_audit("train", **bad), "dp")
+    with pytest.raises(AssertionError):
+        cs.check_audit(rec, cs.expected_audit("one_rank"), "one rank")
+    rec = audit.empty_audit()
+    rec["all-reduce"] = {"count": 2 * 24, "elements": 12345}
+    cs.check_audit(rec, cs.expected_audit("tp_extract", layers=24, batches=1), "tp")
+
+
+def test_parallel_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 17 at a tiny size on 2 gloo CPU ranks: a 2-layer WavLM with 4
+    heads (TP=2: 2 a rank), phase 4's extraction through ``speech_main``,
+    phase 6's corpus at H=16 and phase 7's wavs; every comparison, the
+    audits and the report (launch counts are the card's: the CPU ranks run
+    the plain versions)."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch.models import speech
+    from interspeech_ser_tpu_torch.preprocess_cli import speech_main
+
+    def tiny(dtype="float32"):
+        return speech.SpeechConfig(
+            hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+            conv_dim=(16,) * 3, conv_kernel=(10, 8, 8), conv_stride=(5, 8, 8), conv_bias=True,
+            feat_extract_norm="layer", do_stable_layer_norm=True, attention_type="wavlm",
+            num_conv_pos_embeddings=16, conv_pos_groups=4, dtype=dtype,
+        )
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(speech, "wavlm_large", tiny)
+    monkeypatch.setattr(cs, "TRAIN_SHAPE", dict(
+        n_train=10, n_dev=6, feat_dim=24, speech_len=(30, 70), text_len=(5, 20), epochs=2,
+        config=dict(fusion_hidden_dim=16, batch_size=4)))
+    monkeypatch.setattr(cs, "LORA_SHAPE", dict(n_train=8, n_dev=2, seconds=(0.5, 1.5), steps=2))
+    monkeypatch.setattr(cs, "PARALLEL_SHAPE", dict(cs.PARALLEL_SHAPE, budget_seconds=2))
+    tmp = str(tmp_path)
+    cs.write_wavlm_large(os.path.join(tmp, "wavlm-large"))
+    cs.write_wavs(os.path.join(tmp, "wavs"), 6, (0.5, 1.5), cs.SEED)
+    for dtype in ("bfloat16", "float32"):
+        speech_main(["--ssl_type", os.path.join(tmp, "wavlm-large"), "--wav_dir", os.path.join(tmp, "wavs"),
+                     "--save_path", os.path.join(tmp, f"feats_{dtype}"), "--dtype", dtype, "--device", "cpu"])
+    config_path = cs.write_train_corpus(tmp)
+    cs.write_lora_corpus(tmp)
+    report = cs.phase_parallel(tmp, config_path, "card")
+    assert report["world"] == 2 and report["nccl_world_1"] is None  # no card: no NCCL world
+    assert report["fusion"]["rank0"]["param_max_abs"] <= report["fusion"]["one"]["param_bar"]
+    assert report["fusion"]["rank1"]["audit"].startswith("collectives: all-reduce×")
+    assert report["extract"]["dp"]["max_abs"] <= 1e-5 and report["extract"]["cli_f32"]["max_abs"] <= 1e-5
+    assert report["extract"]["dp"]["audit_rank1"] == "collectives: all-reduce×1 (4 elems)"
+    assert report["tp"]["cos_min"] >= 0.99999 and report["tp"]["rank1"]["heads"] == [2]
+    assert report["one_audit"] == "collectives: NONE"
+    assert report["lora"]["rank0"]["max_abs"] <= report["lora"]["one"]["bar"]

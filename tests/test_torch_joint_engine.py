@@ -224,7 +224,8 @@ def test_one_train_step_matches_jax(corpus, variant):
 
 
 def test_timbre_perturb_and_devices_raise(corpus, tmp_path):
-    with pytest.raises(ValueError, match="§A.7"):
+    # n_devices counts the ranks of a process group: 2 in a one-process run raises
+    with pytest.raises(ValueError, match="n_devices=2, but this run has 1 rank"):
         JointEngine(str(corpus / "hf_wavlm"), str(corpus / "hf_roberta"), dummy_tokenize, VARIANTS["base"],
                     n_devices=2, device="cpu")
     # the timbre perturbation no longer raises: fit trains with it (held to JAX in

@@ -238,15 +238,15 @@ def pe_norm(model_path):
 
 def test_xvector_engine_balanced_batches_and_devices(corpus, tmp_path):
     """``use_balanced_batch``: the same rows drawn as JAX (one epoch, dev loss
-    within 1e-5); ``n_devices`` above 1 raises; without a card the default
-    device raises."""
+    within 1e-5); ``n_devices`` above 1 raises in a one-process run; without a
+    card the default device raises."""
     je, pe = engines(seed=4)
     kw = dict(label_path=str(corpus / "labels.csv"), audio_path=str(corpus / "audio"), batch_size=4,
               accumulation_steps=1, epochs=1, lr=1e-4, use_balanced_batch=True)
     jbest = je.fit(model_path=str(tmp_path / "jax"), **kw)
     pbest = pe.fit(model_path=str(tmp_path / "port"), **kw)
     assert abs(pbest["loss"] - jbest["loss"]) <= 1e-5
-    with pytest.raises(ValueError, match="§A.7"):
+    with pytest.raises(ValueError, match="n_devices=2, but this run has 1 rank"):
         XVectorEngine(n_devices=2, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
