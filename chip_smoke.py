@@ -15,7 +15,7 @@ trainers, the information-encoder family (the proto-angular trainers, the
 timbre perturbation, the legacy baselinelike trainers with the x-vector
 engine), the FACodec full decoder and redecoder and the lora_wavlm wrapper's
 adapter / prompt fine-tune methods through their entry points at full width,
-then the multi-device surface on spawned ranks:
+then the multi-device surface on spawned ranks, then the profiling helpers:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc, seconds and the compiler's register report;
@@ -268,7 +268,23 @@ then the multi-device surface on spawned ranks:
    ``expected_audit`` (DP: one all-reduce of the trainable elements a step;
    DP extraction: one of the 4 stats; TP: two a layer a batch; the one
    process: ``NONE``); step ms and utt/s of the one process beside 2 ranks
-   (plumbing on a shared card, not a speed-up).
+   (plumbing on a shared card, not a speed-up);
+18. profiling (``utils/profiling.py``, ``profile_trace.py``), in a
+   spawned process of its own (this one's, after the phases before, has
+   lost kernel records at a trace's start; a small trace here records how
+   many): (a)
+   ``profile_trace`` of WavLM-large in bf16 (B=32 x 10 s, 2 steps): the
+   Chrome trace's step spans, and in each step 24 K1, 1 K2 layer-0 and 1 K8
+   kernels attributed to its span (a kernel belongs to the span that holds
+   its launch call, joined by the correlation id; ``kernels_by_span``), each
+   span's host ms beside its kernels' device ms and K1's share, the trace's
+   size; (b) the same for the Whisper-large-v3 encoder (B=8 x 30 s): 32 K1 a
+   step; (c) 5 fusion train steps at batch 64 in ``StepTimer.span`` with
+   the loss read back: the timer's total >= 0.98 x the CUDA events around
+   the steps, K3 = K3b = modalities x steps, and, as a record, 5 more timed
+   with no readback; (d) ``RTFMeter`` over (a)'s steps: rtf = inference s /
+   audio s, its report; (e) ``SER_TPU_TRACE=0`` around one step writes
+   nothing.
 
 The launch counters are zeroed just before phase 4 and read after phase 5
 (the serving path), zeroed again just before phase 6 and read after its
@@ -295,7 +311,10 @@ the redecoder have no kernel, as in the JAX package), and zeroed again just
 before its adapter runs and read after the last (the adapter path: K1, K4
 and, on WavLM-large, K2's layer 0, each run's counts equal to its
 prediction), and zeroed before each of phase 17's runs in the one process
-and in every rank and read after it (the multi-device path: their sum).
+and in every rank and read after it (the multi-device path: their sum),
+and counted in phase 18's own process from its start to its end (the
+profiling path: K1, K2's layer 0 and K8 under the traces, K3 / K3b under
+the timed train steps).
 K9 has no path (none
 calls it in the JAX package either): phase 3 holds it to its plain version.
 The line before the last is the kernels' JSON record; the last line is
@@ -1902,8 +1921,9 @@ def train_step_fn(engine, batch, class_w):
     engine.optimizer = engine.make_optimizer()
 
     def step():
-        engine.accumulate_gradients(batch, class_w)
+        loss, _ = engine.accumulate_gradients(batch, class_w)
         engine.apply_gradients(engine.cfg.lr)
+        return loss
 
     return step
 
@@ -1921,6 +1941,19 @@ def host_times_ms(fn, reps: int = 5) -> list:
     return times
 
 
+def first_train_batch(config_path: str) -> tuple:
+    """-> (config, the first batch of the train split, class weights on the device)."""
+    from interspeech_ser_tpu_torch.train.data import LazyFeatureDataset
+    from interspeech_ser_tpu_torch.utils import labels as L
+    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
+
+    cfg = load_fusion_config(config_path)
+    train_rows = L.split(L.load_merged(cfg.label_path, cfg.txt_dir), "Train")
+    ds = LazyFeatureDataset(L.column(train_rows, "FileName"), L.matrix(train_rows), cfg.lazy_dirs, cfg.feat_dims)
+    batch = ds.collate(list(range(cfg.batch_size)), cfg.batch_size)
+    return cfg, batch, torch.from_numpy(L.class_weights(train_rows)).to(DEVICE)
+
+
 def check_train_step(config_path: str) -> dict:
     """One train step's gradients through the kernels (K3 + K3b) against the
     same step through the plain path (autograd through ``gru_scan``) on the
@@ -1930,16 +1963,9 @@ def check_train_step(config_path: str) -> dict:
     in exact arithmetic (the pooling scorers' biases). Then the median of 5
     timed train steps and a profile of 2."""
     from interspeech_ser_tpu_torch.ops.gru import BiGRU
-    from interspeech_ser_tpu_torch.train.data import LazyFeatureDataset
     from interspeech_ser_tpu_torch.train.engine import FusionEngine
-    from interspeech_ser_tpu_torch.utils import labels as L
-    from interspeech_ser_tpu_torch.utils.config import load_fusion_config
 
-    cfg = load_fusion_config(config_path)
-    train_rows = L.split(L.load_merged(cfg.label_path, cfg.txt_dir), "Train")
-    ds = LazyFeatureDataset(L.column(train_rows, "FileName"), L.matrix(train_rows), cfg.lazy_dirs, cfg.feat_dims)
-    batch = ds.collate(list(range(cfg.batch_size)), cfg.batch_size)
-    class_w = torch.from_numpy(L.class_weights(train_rows)).to(DEVICE)
+    cfg, batch, class_w = first_train_batch(config_path)
     grads = {}
     for route in ("kernel", "plain"):
         engine = FusionEngine(cfg, seed=SEED, device=DEVICE)
@@ -5925,6 +5951,311 @@ def phase_parallel(tmp: str, config_path: str, smi: str) -> dict:
     return report
 
 
+# -- phase 18: profiling ---------------------------------------------------------
+
+# (a) WavLM-large B=32 x 10 s and (b) Whisper-large-v3 B=8 x 30 s traced in bf16; (c) fusion train steps timed
+PROFILING_SHAPE = dict(wavlm_steps=2, batch=32, seconds=10.0, whisper_steps=1, train_steps=5)
+# the kernel each wrapper counts as its launch, as the profiler names it: K1; K2's layer 0 without the
+# one-off fill of its bf16 GELU table; K8 without its per-call weight layout
+LAUNCH_EVENTS = {"K1": K1_EVENTS, "K2": ("conv_frontend_kernel", "conv_frontend_mma_kernel"),
+                 "K8": ("pos_conv_f32_kernel", "pos_conv_wgmma_kernel")}
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")  # where a trace keeps the host's launch calls
+
+
+def kernels_by_span(events: list, spans, route=None) -> tuple:
+    """Attribute each device kernel of a Chrome trace to the host span (a
+    ``user_annotation`` named in ``spans``) that holds its launch call, the
+    two joined by the correlation id -> (route, {span: [kernel events]}).
+    Where no kernel's launch call is in the trace, a kernel belongs to the
+    ``gpu_user_annotation`` range of a span's name that holds it on the
+    device (route ``gpu_user_annotation``); ``route`` asks for one."""
+    xs = [e for e in events if e.get("ph") == "X"]
+    kernels = [e for e in xs if e.get("cat") == "kernel"]
+    out = {name: [] for name in spans}
+    launches = {e["args"]["correlation"]: e for e in xs
+                if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+    if route != "gpu_user_annotation" and any(k.get("args", {}).get("correlation") in launches for k in kernels):
+        ranges = [e for e in xs if e.get("cat") == "user_annotation" and e["name"] in out]
+        for k in kernels:
+            launch = launches.get(k.get("args", {}).get("correlation"))
+            held = launch and [r for r in ranges if r["pid"] == launch["pid"]
+                               and r["ts"] <= launch["ts"] <= r["ts"] + r["dur"]]
+            if held:
+                out[held[0]["name"]].append(k)
+        return "correlation", out
+    ranges = [e for e in xs if e.get("cat") == "gpu_user_annotation" and e["name"] in out]
+    for k in kernels:
+        held = [r for r in ranges if r["ts"] <= k["ts"] and k["ts"] + k["dur"] <= r["ts"] + r["dur"]]
+        if held:
+            out[held[0]["name"]].append(k)
+    return "gpu_user_annotation", out
+
+
+def count_events(kernels: list, names) -> int:
+    return sum(any(n in k["name"] for n in names) for k in kernels)
+
+
+def launch_calls(events: list, kernels: list) -> dict:
+    """{launch call's name: kernels of ``kernels`` it launched} (``cudaLaunchKernel``, ...)."""
+    names = {e["args"]["correlation"]: e["name"] for e in events
+             if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+    out = {}
+    for k in kernels:
+        name = names.get(k.get("args", {}).get("correlation"), "none")
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def clock_margins(events: list) -> tuple:
+    """The least room, in us, between a launch call (CUPTI's clock) and the
+    host op it was made in (the profiler's clock), at the op's start and at its
+    end, over the launch calls that name their op's External id: negative
+    where the two clocks disagree by more than the op's own margin."""
+    ops = {e["args"]["External id"]: e for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    pairs = [(e, ops[e["args"]["External id"]]) for e in events
+             if e.get("cat") in LAUNCH_CATS and e.get("args", {}).get("External id") in ops]
+    if not pairs:
+        return None, None
+    return (min(c["ts"] - o["ts"] for c, o in pairs),
+            min(o["ts"] + o["dur"] - c["ts"] - c["dur"] for c, o in pairs))
+
+
+def read_trace(run, want: dict, what: str, smi: str) -> dict:
+    """A ``profile_trace`` run's Chrome trace: every step span present and,
+    on the card, each step's kernels attributed to its span, ``want``
+    ({K1 / K2 / K8: launches a step}) of each; per step the span's host ms,
+    the attributed kernels' device ms and K1's share of it."""
+    require(run.path is not None and os.path.exists(run.path), f"{what}: no trace file")
+    size = os.path.getsize(run.path)
+    with open(run.path) as f:
+        events = json.load(f)["traceEvents"]
+    host_ms = {e["name"]: e["dur"] / 1e3 for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") in run.spans}
+    require(sorted(host_ms) == sorted(run.spans), f"{what}: spans {sorted(host_ms)} != {run.spans}")
+    res = {"trace_bytes": size, "spans": {}, "step_s": [run.timer.totals[s] for s in run.spans]}
+    if DEVICE == "cuda":
+        res["route"], attributed = kernels_by_span(events, run.spans)
+        _, on_device = kernels_by_span(events, run.spans, "gpu_user_annotation")
+        res["clock_margins_us"] = clock_margins(events)
+        spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "user_annotation"
+                 and e.get("name") in run.spans}
+        launched = {e["args"]["correlation"]: e["ts"] for e in events
+                    if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+    for name in run.spans:
+        step = {"host_ms": host_ms[name], "readback_ms": run.timer.totals[name] * 1e3}
+        if DEVICE == "cuda":
+            ks = attributed[name]
+            step["launches"] = {k: count_events(ks, names) for k, names in LAUNCH_EVENTS.items()}
+            step["device_ms"] = sum(k["dur"] for k in ks) / 1e3
+            step["k1_ms"] = sum(k["dur"] for k in ks if any(n in k["name"] for n in K1_EVENTS)) / 1e3
+            step["kernels"] = len(ks)
+            step["launch_calls"] = launch_calls(events, ks)
+            step["gpu_user_annotation"] = {k: count_events(on_device[name], names) for k, names in LAUNCH_EVENTS.items()}
+            if not all(step["launches"][k] == n for k, n in want.items()):
+                # each kernel of the wanted kinds with its launch call's time from each span's start and end
+                where = [(k["name"][:48], k["args"].get("correlation"),
+                          {s: (round(launched[k["args"]["correlation"]] - a, 3), round(launched[k["args"]["correlation"]] - b, 3))
+                           for s, (a, b) in spans.items()} if k.get("args", {}).get("correlation") in launched else None)
+                         for k in events if k.get("cat") == "kernel"
+                         and any(n in k["name"] for w in want for n in LAUNCH_EVENTS[w] if w != "K1")]
+                require(False, f"{what} {name}: attributed launches {step['launches']} != {want} (route "
+                               f"{res['route']}; by the device ranges {step['gpu_user_annotation']}; clock margins "
+                               f"{res['clock_margins_us']} us; K2 / K8 kernels (name, correlation, launch - span "
+                               f"start / end us): {where})")
+            log(f"[profiling] {what} {name}: span {step['host_ms']:.3f} host ms, {step['kernels']} kernels attributed "
+                f"({res['route']}) = {step['device_ms']:.3f} device ms, K1 {step['k1_ms']:.3f} ms = "
+                f"{100 * step['k1_ms'] / step['device_ms']:.1f}%; to readback {step['readback_ms']:.3f} ms; "
+                f"launches {step['launches']} through {step['launch_calls']} (by the device ranges "
+                f"{step['gpu_user_annotation']}); launch calls in their host ops with {res['clock_margins_us']} us to "
+                f"spare at start / end; trace {size / 2 ** 20:.2f} MiB ({smi})")
+        res["spans"][name] = step
+    return res
+
+
+def time_train_steps(tmp: str, config_path: str, n: int, smi: str) -> tuple:
+    """(c) ``n`` fusion train steps (the first train batch, as
+    ``check_train_step`` times) in ``StepTimer.span("train_step")`` with the
+    loss as its result, CUDA events around each step on the same stream; then
+    ``n`` more in spans with no result (the launch-only time, a record); then
+    one step traced, K3's cluster launch and K3b's attributed to its span.
+    -> (the record, the step)."""
+    from interspeech_ser_tpu_torch.train.engine import FusionEngine
+    from interspeech_ser_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    cfg, batch, class_w = first_train_batch(config_path)
+    engine = FusionEngine(cfg, seed=SEED, device=DEVICE)
+    step = train_step_fn(engine, batch, class_w)
+    step()
+    sync()
+    before = counts()
+    timer, launch_only, event_ms, box = StepTimer(), StepTimer(), [], {}
+    for _ in range(n):
+        sync()
+        if DEVICE == "cuda":
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+        with timer.span("train_step", result_getter=lambda: box["loss"]):
+            box["loss"] = step()
+            if DEVICE == "cuda":
+                e.record()
+        if DEVICE == "cuda":
+            e.synchronize()
+            event_ms.append(s.elapsed_time(e))
+    for _ in range(n):
+        sync()
+        with launch_only.span("train_step"):
+            step()
+    sync()
+    delta = {k: v - before[k] for k, v in counts().items()}
+    n_mod = len(cfg.feat_dims)
+    require(delta["gru_bidir"] == delta["gru_bidir_bwd"] == n_mod * 2 * n,
+            f"(c) K3 / K3b launches {delta['gru_bidir']} / {delta['gru_bidir_bwd']} != {n_mod} modalities x {2 * n} steps")
+    require(bool(torch.isfinite(box["loss"])), f"(c) train-step loss {box['loss']}")
+    res = {"timer_s": timer.totals["train_step"], "launch_only_s": launch_only.totals["train_step"],
+           "report": timer.report(), "launches": delta, "batch": cfg.batch_size}
+    if DEVICE == "cuda":
+        res["event_s"] = sum(event_ms) / 1e3
+        res["ratio"] = res["timer_s"] / res["event_s"]
+        require(res["ratio"] >= 0.98, f"(c) StepTimer {res['timer_s']:.6f} s < 0.98 x CUDA events {res['event_s']:.6f} s")
+    log(f"[profiling] (c) {n} fusion train steps (batch {cfg.batch_size}) under StepTimer with a readback: "
+        f"{res['timer_s'] * 1e3:.3f} ms"
+        + (f" against {res['event_s'] * 1e3:.3f} ms of CUDA events (ratio {res['ratio']:.4f})" if "event_s" in res
+           else "")
+        + f"; {n} more with no result (launch-only, a record): {res['launch_only_s'] * 1e3:.3f} ms; K3 / K3b "
+          f"{delta['gru_bidir']} / {delta['gru_bidir_bwd']} ({smi})")
+    log(f"[profiling]   {res['report']}")
+    with trace(os.path.join(tmp, "trace_train")) as tr:
+        with annotate("train_step"):
+            step()
+        sync()
+    if DEVICE == "cuda":
+        with open(tr.path) as f:
+            events = json.load(f)["traceEvents"]
+        route, spans = kernels_by_span(events, ["train_step"])
+        ks = spans["train_step"]
+        got = {"K3": count_events(ks, K3_EVENTS),
+               "K3b": count_events(ks, ("gru_bidir_bwd_kernel", "gru_bidir_bwd_cluster_kernel"))}
+        require(got == {"K3": n_mod, "K3b": n_mod}, f"(c) traced train step: K3 / K3b attributed {got} != {n_mod} each")
+        res["traced"] = {"route": route, "launches": got, "kernels": len(ks),
+                         "launch_calls": {k: launch_calls(events, [e for e in ks if any(n in e["name"] for n in names)])
+                                          for k, names in (("K3", K3_EVENTS), ("K3b", K3B_EVENTS))}}
+        log(f"[profiling] (c) one traced train step: {len(ks)} kernels attributed ({route}); K3 / K3b recurrences "
+            f"{got}; launch calls {res['traced']['launch_calls']}")
+    return res, step
+
+
+def profiling_paths(tmp: str, config_path: str, smi: str) -> dict:
+    """Phase 18's paths: (a) a WavLM-large trace and (b) a Whisper-large-v3
+    trace, each kernel attributed to its step span; (c) ``StepTimer`` over
+    fusion train steps against CUDA events; (d) ``RTFMeter`` over (a)'s
+    steps; (e) ``SER_TPU_TRACE=0`` writes nothing. ``launches``: the counts
+    of the run."""
+    from interspeech_ser_tpu_torch.models.speech import wavlm_large
+    from interspeech_ser_tpu_torch.models.whisper import whisper_large_v3
+    from interspeech_ser_tpu_torch.profile_trace import profile_trace
+    from interspeech_ser_tpu_torch.utils.profiling import RTFMeter, trace
+
+    shape = PROFILING_SHAPE
+    t0, at_start = time.perf_counter(), counts()
+    out, runs = {}, {}
+    for model, steps, layers, what in (
+            ("wavlm", shape["wavlm_steps"], wavlm_large().num_layers, "(a) WavLM-large bf16"),
+            ("whisper", shape["whisper_steps"], whisper_large_v3().encoder_layers, "(b) Whisper-large-v3 bf16")):
+        before = counts()
+        run = profile_trace(model, steps, shape["batch"], shape["seconds"], os.path.join(tmp, f"trace_{model}"),
+                            DEVICE, SEED)
+        sync()
+        delta = {k: v - before[k] for k, v in counts().items()}
+        want = {"K1": layers} if model == "whisper" else {"K1": layers, "K2": 1, "K8": 1}
+        require(delta["attention_btd"] == layers * (steps + 1),
+                f"{what}: K1 launches {delta['attention_btd']} != {layers} layers x {steps + 1} forwards")
+        out[model] = read_trace(run, want, what, smi)
+        runs[model] = run
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+    # (d) the inference seconds of (a)'s readback-forced steps over their audio
+    run = runs["wavlm"]
+    meter = RTFMeter()
+    for name in run.spans:
+        meter.add(run.timer.totals[name], n_samples=run.samples_per_step)
+    inference_s = sum(run.timer.totals[name] for name in run.spans)
+    audio_s = sum(run.samples_per_step / meter.sample_rate for _ in run.spans)
+    require(meter.rtf == inference_s / audio_s, f"(d) rtf {meter.rtf} != {inference_s} / {audio_s}")
+    out["rtf"] = {"rtf": meter.rtf, "inference_s": meter.inference_s, "audio_s": meter.audio_s}
+    log(f"[profiling] (d) RTFMeter over (a)'s steps ({smi}):\n{meter.report()}")
+
+    out["train"], step = time_train_steps(tmp, config_path, shape["train_steps"], smi)
+
+    # (e) switched off: one step writes nothing
+    off_dir = os.path.join(tmp, "trace_off")
+    saved = os.environ.get("SER_TPU_TRACE")
+    os.environ["SER_TPU_TRACE"] = "0"
+    try:
+        with trace(off_dir) as tr:
+            step()
+            sync()
+    finally:
+        if saved is None:
+            del os.environ["SER_TPU_TRACE"]
+        else:
+            os.environ["SER_TPU_TRACE"] = saved
+    require(tr is None and not os.path.exists(off_dir), f"(e) SER_TPU_TRACE=0 wrote under {off_dir}")
+    out["paths_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v - at_start[k] for k, v in counts().items()}
+    log(f"[profiling] (e) SER_TPU_TRACE=0: nothing under {os.path.basename(off_dir)}; paths "
+        f"{out['paths_s']:.1f} s ({smi})")
+    return out
+
+
+def profiling_process(_rank: int, tmp: str, config_path: str, smi: str, out_path: str) -> None:
+    out = profiling_paths(tmp, config_path, smi)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def kernel_records(tmp: str) -> tuple:
+    """A trace of 8 elementwise launches and a matmul in this process ->
+    (launch calls, kernel records of them)."""
+    from interspeech_ser_tpu_torch.utils.profiling import annotate, trace
+
+    x = torch.randn(2048, 2048, device=DEVICE)
+    sync()
+    with trace(os.path.join(tmp, "trace_records")) as tr:
+        with annotate("records"):
+            for _ in range(8):
+                x * 2.0
+            x @ x
+        sync()
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    calls = {e["args"]["correlation"] for e in events
+             if e.get("cat") in LAUNCH_CATS and "Launch" in e["name"] and "correlation" in e.get("args", {})}
+    return len(calls), len(calls & {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"})
+
+
+def phase_profiling(tmp: str, config_path: str, smi: str) -> dict:
+    """Phase 18: ``utils/profiling`` and ``profile_trace`` on the card, in a
+    process of its own (``profiling_paths``). In a process that has run much
+    GPU work untraced, as this script's own has by now, ``torch.profiler``
+    may lose the kernel records at a session's start (a record: the launch
+    calls of a small trace here against its kernel records)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    own = kernel_records(tmp)
+    log(f"[profiling] this process ({t0 - T0:.0f} s old): a trace of {own[0]} launch calls holds the kernel records "
+        f"of {own[1]}")
+    out_path = os.path.join(tmp, "profiling.json")
+    mp.spawn(profiling_process, args=(tmp, config_path, smi, out_path), nprocs=1, join=True)
+    with open(out_path) as f:
+        out = json.load(f)
+    out.update(own_process_records=own, phase_s=time.perf_counter() - t0)
+    log(f"[profiling] phase 18 {out['phase_s']:.1f} s ({smi})")
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     set_tf32(False)
@@ -6106,13 +6437,19 @@ def main() -> None:
         for name in ("attention_btd", "attention_btd_bwd", "conv_frontend", "pos_conv", "gru_bidir", "gru_bidir_bwd"):
             require(parallel_path[name] > 0, f"kernel {name} was not launched on the multi-device path")
         log(f"[parallel path] launches {parallel_path} (the one process and every rank)")
+
+        prof = phase_profiling(tmp, config_path, smi)
+        profiling_path = prof.pop("launches")
+        for name in ("attention_btd", "conv_frontend", "pos_conv", "gru_bidir", "gru_bidir_bwd"):
+            require(profiling_path[name] > 0, f"kernel {name} was not launched on the profiling path")
+        log(f"[profiling path] launches {profiling_path}")
     by_path = {"serving": serving, "training": training, "lora": lora_path, "text": text_path, "zoo": zoo_path,
                "trimodal": trimodal_path, "baseline": baseline_path, "transcribe": transcribe_path,
                "legacy": legacy_path, "joint": joint_path, "info": info_path, "decoder": decoder_path,
-               "adapters": adapter_path, "parallel": parallel_path}
+               "adapters": adapter_path, "parallel": parallel_path, "profiling": profiling_path}
     # the speech, fusion and transcription paths never reach K6 / K7; the joint path's RoBERTa runs K7 alone
     for path in ("serving", "training", "lora", "zoo", "trimodal", "baseline", "transcribe", "legacy", "adapters",
-                 "parallel"):
+                 "parallel", "profiling"):
         require(by_path[path]["attention_bhtd"] == by_path[path]["flash_attention"] == 0,
                 f"K6 / K7 launched on the {path} path: {by_path[path]}")
     require(joint_path["flash_attention"] == info_path["flash_attention"] == 0,
@@ -6183,6 +6520,15 @@ def main() -> None:
         f"batches utt/s one process {pe['one_utt_per_sec']:.2f}, {parallel['world']} ranks {pe['utt_per_sec']:.2f}; "
         f"TP={parallel['world']} cos {parallel['tp']['cos_min']:.7f} max abs {parallel['tp']['max_abs']:.3e}; NCCL world "
         f"of one {parallel['nccl_world_1']}; phase 17 {parallel['phase_s']:.1f} s ({smi})")
+    pw, tr = prof["wavlm"], prof["train"]
+    log(f"[profiling] WavLM-large bf16 B={PROFILING_SHAPE['batch']} x {PROFILING_SHAPE['seconds']:g} s steps: span host ms "
+        f"{[round(st['host_ms'], 3) for st in pw['spans'].values()]}, attributed device ms "
+        f"{[round(st.get('device_ms', 0.0), 3) for st in pw['spans'].values()]}, to readback ms "
+        f"{[round(st['readback_ms'], 3) for st in pw['spans'].values()]} (route {pw.get('route')}), trace "
+        f"{pw['trace_bytes'] / 2 ** 20:.2f} MiB; Whisper trace {prof['whisper']['trace_bytes'] / 2 ** 20:.2f} MiB; "
+        f"rtf {prof['rtf']['rtf']:.6f}; StepTimer / CUDA events {tr.get('ratio', float('nan')):.4f}; phase 18 "
+        f"{prof['phase_s']:.1f} s; in this process a trace held the kernel records of {prof['own_process_records'][1]} "
+        f"of {prof['own_process_records'][0]} launch calls ({smi})")
     joint["runs"] = {stem: {k: v for k, v in run.items() if k != "dev_logits"} for stem, run in joint["runs"].items()}
     info["runs"] = {k: {n: v for n, v in r.items() if n not in ("result", "best")} for k, r in info["runs"].items()}
     log(json.dumps({"kernels": record, "card": smi, "extraction_utt_per_sec": extracted["utt_per_sec"],
@@ -6192,7 +6538,7 @@ def main() -> None:
                     "text": text_run, "zoo": zoo, "ns3": {**ns3, "trimodal": {**tri, **tri_step}},
                     "baseline": baseline, "transcription": transcription, "legacy": legacy, "joint": joint,
                     "info": info, "decoder": decoded, "adapters": adapters, "phase16_s": phase16_s,
-                    "parallel": {k: v for k, v in parallel.items() if k != "launches"},
+                    "parallel": {k: v for k, v in parallel.items() if k != "launches"}, "profiling": prof,
                     "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -10,6 +10,7 @@ the CLIs, the shape, launch-count, gradient and CSV checks. The card run is
 ``python3 chip_smoke.py``.
 """
 
+import json
 import os
 import sys
 
@@ -902,3 +903,122 @@ def test_parallel_phase_on_cpu(tmp_path, monkeypatch):
     assert report["tp"]["cos_min"] >= 0.99999 and report["tp"]["rank1"]["heads"] == [2]
     assert report["one_audit"] == "collectives: NONE"
     assert report["lora"]["rank0"]["max_abs"] <= report["lora"]["one"]["bar"]
+
+
+def _synthetic_trace():
+    """A Chrome trace in the profiler's layout: two step spans on the host,
+    launch calls of both categories inside and outside them, and the
+    kernels they launched, one of them running past its span's end."""
+    span = lambda name, ts, dur: dict(ph="X", cat="user_annotation", name=name, pid=1, tid=1, ts=ts, dur=dur)
+    launch = lambda corr, ts, cat="cuda_runtime": dict(ph="X", cat=cat, name="cudaLaunchKernel", pid=1, tid=1, ts=ts,
+                                                       dur=2, args={"correlation": corr})
+    kernel = lambda corr, name, ts, dur: dict(ph="X", cat="kernel", name=name, pid=0, tid=7, ts=ts, dur=dur,
+                                              args={"correlation": corr})
+    gpu = lambda name, ts, dur: dict(ph="X", cat="gpu_user_annotation", name=name, pid=0, tid=7, ts=ts, dur=dur)
+    return [
+        span("extract_step_0", 100, 50), span("extract_step_1", 200, 50), span("other", 300, 10),
+        launch(1, 110), launch(2, 120, "cuda_driver"), launch(3, 160), launch(4, 249), launch(5, 301),
+        kernel(1, "void attention_btd_mma_kernel<64>(...)", 130, 20),
+        kernel(2, "void pos_conv_wgmma_kernel<64>(...)", 150, 200),  # launched in step 0, runs past it
+        kernel(3, "void attention_btd_mma_kernel<64>(...)", 205, 10),  # runs in step 1, launched between spans
+        kernel(4, "void conv_frontend_mma_kernel<false>(...)", 360, 5),  # launched at step 1's end
+        kernel(5, "void attention_btd_mma_kernel<64>(...)", 400, 5),  # another span's
+        dict(ph="i", cat="kernel", name="marker", pid=0, tid=7, ts=210, args={}),
+        gpu("extract_step_0", 130, 220), gpu("extract_step_1", 355, 10),
+    ]
+
+
+def test_kernels_by_span_on_a_synthetic_trace():
+    import chip_smoke as cs
+
+    events = _synthetic_trace()
+    route, spans = cs.kernels_by_span(events, ["extract_step_0", "extract_step_1", "other"])
+    assert route == "correlation" and [k["args"]["correlation"] for k in spans["other"]] == [5]
+    assert [k["args"]["correlation"] for k in spans["extract_step_0"]] == [1, 2]
+    assert [k["args"]["correlation"] for k in spans["extract_step_1"]] == [4]
+    assert {n: cs.count_events(spans["extract_step_0"], names) for n, names in cs.LAUNCH_EVENTS.items()} == {
+        "K1": 1, "K2": 0, "K8": 1}
+    assert cs.launch_calls(events, spans["extract_step_0"] + [{"args": {"correlation": 99}}]) == {
+        "cudaLaunchKernel": 2, "none": 1}
+    # no launch call in the trace: the device ranges of the spans' names hold their kernels
+    route, spans = cs.kernels_by_span([e for e in events if e["cat"] not in cs.LAUNCH_CATS],
+                                      ["extract_step_0", "extract_step_1"])
+    assert route == "gpu_user_annotation"
+    assert [k["args"]["correlation"] for k in spans["extract_step_0"]] == [1, 2, 3]
+    assert [k["args"]["correlation"] for k in spans["extract_step_1"]] == [4]
+    assert cs.kernels_by_span(events, ["extract_step_0", "extract_step_1"], "gpu_user_annotation") == (route, spans)
+    # a launch call 3 us into its host op and 3 us before its end; the synthetic calls name no op
+    op = dict(ph="X", cat="cpu_op", name="aten::mm", pid=1, tid=1, ts=100, dur=10, args={"External id": 5})
+    call = dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", pid=1, tid=1, ts=103, dur=4,
+                args={"External id": 5, "correlation": 9})
+    assert cs.clock_margins([op, call]) == (3, 3) and cs.clock_margins(events) == (None, None)
+
+
+def test_profiling_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase 18's paths at a tiny size, in this process: ``profile_trace`` over a 2-layer WavLM and a
+    2-layer Whisper encoder (their spans in the trace files), the fusion
+    train steps under ``StepTimer`` with K3 / K3b counted, ``RTFMeter`` and
+    ``SER_TPU_TRACE=0``. K1, K2, K8, K3 and K3b go through counting plain
+    versions; kernel attribution needs the card's trace."""
+    import chip_smoke as cs
+    from interspeech_ser_tpu_torch import profile_trace
+    from interspeech_ser_tpu_torch.models import speech, whisper
+    from interspeech_ser_tpu_torch.ops import attention_core, gru as ops_gru
+    from interspeech_ser_tpu_torch.ops.kernels import attention as ka, conv_frontend as kc, gru as kg, pos_conv as kp
+
+    def tiny(dtype="float32"):
+        return speech.SpeechConfig(
+            hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
+            conv_dim=(16,) * 3, conv_kernel=(10, 8, 8), conv_stride=(5, 8, 8), conv_bias=True,
+            feat_extract_norm="layer", do_stable_layer_norm=True, attention_type="wavlm",
+            num_conv_pos_embeddings=16, conv_pos_groups=4, dtype=dtype,
+        )
+
+    def tiny_whisper(dtype="float32"):
+        return whisper.WhisperEncoderConfig(num_mel_bins=16, d_model=32, encoder_layers=2,
+                                            encoder_attention_heads=2, encoder_ffn_dim=64, dtype=dtype)
+
+    def counting(mod, counter, plain):
+        def launch(*args, **kw):
+            setattr(mod, counter, getattr(mod, counter) + 1)
+            return plain(*args, **kw)
+        return launch
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(speech, "wavlm_large", tiny)
+    monkeypatch.setattr(whisper, "whisper_large_v3", tiny_whisper)
+    monkeypatch.setattr(cs, "PROFILING_SHAPE", dict(wavlm_steps=2, batch=2, seconds=0.5, whisper_steps=1,
+                                                    train_steps=1))
+    monkeypatch.setattr(profile_trace, "WHISPER_ROWS", 1)
+    monkeypatch.setattr(cs, "TRAIN_SHAPE", dict(
+        n_train=4, n_dev=2, feat_dim=24, speech_len=(10, 20), text_len=(5, 10), epochs=1,
+        config=dict(fusion_hidden_dim=16, batch_size=4)))
+    monkeypatch.setattr(attention_core, "attention_btd", counting(ka, "LAUNCHES", ka.attention_btd_plain))
+    monkeypatch.setattr(speech, "conv_frontend", counting(kc, "LAUNCHES", kc.conv_frontend_plain))
+    monkeypatch.setattr(speech, "pos_conv", counting(kp, "LAUNCHES", kp.pos_conv_plain))
+    monkeypatch.setattr(kg, "gru_bidir_carries", counting(kg, "LAUNCHES", kg.gru_bidir_carries_plain))
+    monkeypatch.setattr(kg, "gru_bidir_carries_bwd", counting(kg, "BWD_LAUNCHES", kg.gru_bidir_carries_bwd_plain))
+    monkeypatch.setattr(ops_gru.BiGRU, "forward", ops_gru.BiGRU.forward_stacked)
+    monkeypatch.delenv("SER_TPU_TRACE", raising=False)
+    monkeypatch.delenv("SER_TPU_FRONTEND", raising=False)
+    for spec in cs.KERNELS.values():
+        monkeypatch.setattr(spec["module"], spec.get("counter", "LAUNCHES"), 0)
+
+    tmp = str(tmp_path)
+    config_path = cs.write_train_corpus(tmp)
+    out = cs.profiling_paths(tmp, config_path, "a card, 700 W")
+    launches = cs.counts()
+    assert out["launches"] == launches
+    # K1: 2 layers x 3 WavLM forwards + 2 x 2 Whisper; K2 and K8 once a WavLM forward;
+    # K3 / K3b: 2 modalities x (warm-up + 2 x 1 timed + 1 traced + 1 traced-off step)
+    assert (launches["attention_btd"], launches["conv_frontend"], launches["pos_conv"]) == (10, 3, 3)
+    assert launches["gru_bidir"] == launches["gru_bidir_bwd"] == 2 * 5
+    assert list(out["wavlm"]["spans"]) == ["extract_step_0", "extract_step_1"]
+    assert list(out["whisper"]["spans"]) == ["extract_step_0"]
+    assert min(out["wavlm"]["trace_bytes"], out["whisper"]["trace_bytes"]) > 0
+    assert out["rtf"]["audio_s"] == 2 * 2 * 0.5 and out["rtf"]["rtf"] > 0
+    assert out["train"]["launches"]["gru_bidir_bwd"] == 2 * 2 and "train_step: total" in out["train"]["report"]
+    assert not os.path.exists(os.path.join(tmp, "trace_off")) and os.listdir(os.path.join(tmp, "trace_train"))
+    assert os.environ.get("SER_TPU_TRACE") is None
+    assert cs.kernel_records(tmp) == (0, 0)  # no launch call on the CPU
+    json.dumps(out)  # what the phase's own process hands back
