@@ -33,6 +33,11 @@ transcription that is not a string tokenizes as ``""``.
 Output contract: ``save_path/<utt>.pt``, a float32 [T_valid, D] tensor
 (text: [max_length, D]).
 
+Spans (``utils/profiling``, recorded while a profiler session records):
+every ``_forward`` holds ``forward.h2d`` (the batch's inputs made on the
+host, pinned and their copies enqueued) and ``forward.encoder`` (the rest:
+Whisper's log-mel, the model, the layer select or average, enqueued).
+
 Multi-device (one process a rank, ``parallel/mesh.py``): the one-device
 batch plan is kept, and data rank r of n takes whole batches r, r + n, ...
 and writes its own rows' files, so every file equals the one-device run's
@@ -66,6 +71,7 @@ from ..parallel.tp import shard_speech_model
 from ..utils import ptio
 from ..utils.audio import load_wav, normalize_waveform
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import streaming
 
 BUCKET_QUANTUM = 16000  # batches pad to whole seconds of 16-kHz audio
@@ -120,6 +126,10 @@ def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev, non_blocking=True)
 
 
+def discard(name: str, row: torch.Tensor) -> None:
+    """``_drive``'s sink for a rank that writes nothing."""
+
+
 def _drive(
     stream,
     forward: Callable,  # ReadyBatch -> selected hidden state [B, T, D] on the device
@@ -128,13 +138,22 @@ def _drive(
     stats: ExtractionStats,
     num_workers: int,
     cuda: bool,
-    write: bool = True,
+    sink: Optional[Callable[[str, torch.Tensor], None]] = None,
 ) -> None:
     """The device loop: batch k is enqueued on the card, and its selected
     hidden state starts an async copy into pinned host memory, before batch
-    k-1 is written out by the bounded writer threads. ``write=False`` (a
-    model rank other than 0) counts the batches and writes nothing."""
-    writer = streaming.BoundedWriter(num_workers=num_workers)
+    k-1 is handed on. Each utterance's host row (what its file holds, as a
+    view of its batch's host tensor) goes to ``sink(name, host_row)`` on this
+    thread; with no sink, to ``save_path/<utt>.pt`` by the bounded writer
+    threads. ``sink=discard`` (a model rank other than 0) counts the batches,
+    copies nothing to the host and writes nothing."""
+    writer = None
+    if sink is None:
+        writer = streaming.BoundedWriter(num_workers=num_workers)
+
+        def sink(name: str, row: torch.Tensor) -> None:  # save_tensor writes a compact clone of the row
+            stem = os.path.splitext(os.path.basename(name))[0]
+            writer.submit(ptio.save_tensor, row, os.path.join(save_path, f"{stem}.pt"))
 
     def fetch(sel: torch.Tensor):
         """Start the device-to-host copy; return (host tensor, done event)."""
@@ -151,10 +170,7 @@ def _drive(
             ev.synchronize()
         feats = host.float() if host.is_floating_point() else host  # NS3 codes stay int32
         for i, name in enumerate(rb.names):
-            stem = os.path.splitext(os.path.basename(name))[0]
-            n = n_frames(rb.lengths[i], feats.shape[1])
-            if write:  # save_tensor writes a compact clone of the row, not the batch's storage
-                writer.submit(ptio.save_tensor, feats[i, :n], os.path.join(save_path, f"{stem}.pt"))
+            sink(name, feats[i, :n_frames(rb.lengths[i], feats.shape[1])])
             stats.n_utts += 1
             stats.audio_seconds += rb.lengths[i] / 16000.0
 
@@ -165,13 +181,14 @@ def _drive(
             continue
         sel = forward(rb)
         stats.n_batches += 1
-        cur = (rb, *fetch(sel)) if write else (rb, sel, None)
+        cur = (rb, sel, None) if sink is discard else (rb, *fetch(sel))
         if prev is not None:
             drain(*prev)  # host writes of k-1 overlap the device work of k
         prev = cur
     if prev is not None:
         drain(*prev)
-    writer.drain()
+    if writer is not None:
+        writer.drain()
 
 
 class SpeechExtractionPipeline:
@@ -227,12 +244,14 @@ class SpeechExtractionPipeline:
     @torch.inference_mode()
     def _forward(self, wav: np.ndarray, mask: np.ndarray, n_layer: int) -> torch.Tensor:
         """Selected hidden state [B, T, D] in the compute dtype, on the device."""
-        wav_t, mask_t = _to_device(wav, self.device), _to_device(mask, self.device)
-        keep = (-4, -3, -2, -1) if self.use_average else (n_layer,)
-        hs = self.model(wav_t, mask_t, keep=keep)["hidden_states"]
-        if self.use_average:
-            return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
-        return hs[n_layer]
+        with span("forward.h2d"):
+            wav_t, mask_t = _to_device(wav, self.device), _to_device(mask, self.device)
+        with span("forward.encoder"):
+            keep = (-4, -3, -2, -1) if self.use_average else (n_layer,)
+            hs = self.model(wav_t, mask_t, keep=keep)["hidden_states"]
+            if self.use_average:
+                return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
+            return hs[n_layer]
 
     def _load_one(self, wav_dir: str, name: str) -> Optional[np.ndarray]:
         path = os.path.join(wav_dir, name)
@@ -279,7 +298,7 @@ class SpeechExtractionPipeline:
         )
         _drive(stream, lambda rb: self._forward(rb.wav, rb.mask, n_layer),
                lambda n, T: feat_extract_output_length(n, self.config), save_path, stats,
-               self.num_workers, self.device.type == "cuda", write=self.mesh.model_rank == 0)
+               self.num_workers, self.device.type == "cuda", None if self.mesh.model_rank == 0 else discard)
         stats.wall_seconds = time.perf_counter() - t0
         return stats.summed(self.mesh, shared_failed)
 
@@ -314,12 +333,15 @@ class WhisperExtractionPipeline:
 
     @torch.inference_mode()
     def _forward(self, wav: np.ndarray) -> torch.Tensor:
-        mel = whisper_log_mel(_to_device(wav, self.device), self.config.num_mel_bins)
-        keep = (-4, -3, -2, -1) if self.use_average else (self.n_layer,)
-        hs = self.model(mel, keep=keep)["hidden_states"]
-        if self.use_average:
-            return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
-        return hs[self.n_layer]
+        with span("forward.h2d"):
+            wav_t = _to_device(wav, self.device)
+        with span("forward.encoder"):
+            mel = whisper_log_mel(wav_t, self.config.num_mel_bins)
+            keep = (-4, -3, -2, -1) if self.use_average else (self.n_layer,)
+            hs = self.model(mel, keep=keep)["hidden_states"]
+            if self.use_average:
+                return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
+            return hs[self.n_layer]
 
     def _load_one(self, wav_dir: str, name: str) -> Optional[np.ndarray]:
         try:
@@ -416,11 +438,15 @@ class ProsodyExtractionPipeline:
 
     @torch.inference_mode()
     def _forward(self, rb) -> torch.Tensor:
-        wav = _to_device(rb.wav, self.device)
-        if self.codes:
-            return self.extractor.codes(wav)
-        refl, fmask = ns3_batch_inputs(rb.wav, rb.lengths)
-        return self.extractor.extract_batched(wav, _to_device(refl, self.device), _to_device(fmask, self.device))
+        with span("forward.h2d"):
+            wav = _to_device(rb.wav, self.device)
+            if not self.codes:
+                refl, fmask = ns3_batch_inputs(rb.wav, rb.lengths)
+                refl, fmask = _to_device(refl, self.device), _to_device(fmask, self.device)
+        with span("forward.encoder"):
+            if self.codes:
+                return self.extractor.codes(wav)
+            return self.extractor.extract_batched(wav, refl, fmask)
 
     def run(self, wav_dir: str, save_path: str, wav_names: Optional[Sequence[str]] = None) -> ExtractionStats:
         os.makedirs(save_path, exist_ok=True)
@@ -488,12 +514,14 @@ class TextExtractionPipeline:
     @torch.inference_mode()
     def _forward(self, tb: TextBatch) -> torch.Tensor:
         """Selected hidden state [B, max_length, D] in the compute dtype, on the device."""
-        ids, mask = _to_device(tb.ids, self.device), _to_device(tb.mask, self.device)
-        keep = (-4, -3, -2, -1) if self.use_average else (self.n_layer,)
-        hs = self.model(ids, mask, keep=keep)["hidden_states"]
-        if self.use_average:
-            return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
-        return hs[self.n_layer]
+        with span("forward.h2d"):
+            ids, mask = _to_device(tb.ids, self.device), _to_device(tb.mask, self.device)
+        with span("forward.encoder"):
+            keep = (-4, -3, -2, -1) if self.use_average else (self.n_layer,)
+            hs = self.model(ids, mask, keep=keep)["hidden_states"]
+            if self.use_average:
+                return (hs[-4] + hs[-3] + hs[-2] + hs[-1]) / 4.0
+            return hs[self.n_layer]
 
     def _batches(self, names: Sequence[str], texts: Sequence):
         """The rank's batches: r, r + n, ... of the one-device run's."""

@@ -13,6 +13,15 @@ never idles on host I/O:
 
 Memory bound ~ queue_depth x batch arrays + decode window x one waveform +
 writer window x one feature slice, independent of corpus size.
+
+Spans and counters (``utils/profiling``, recorded while a profiler session
+records): ``stream.decode`` one a wav on the decode threads,
+``stream.assemble`` one a batch on the assembler, ``stream.put_wait`` the
+assembler's wait on a full queue (the host running ahead of the card),
+``stream.get_wait`` the consumer's wait on the queue (the card's loop
+waiting on host I/O), and the
+counters ``stream.live_samples`` / ``stream.padded_samples``: the real
+samples kept against ``B x T`` of each assembled batch.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..utils.profiling import count, span
 
 
 def planned_wav_len(path: str, target_sr: int = 16000) -> int:
@@ -135,13 +146,18 @@ class BatchStream:
 
     def _put(self, item) -> bool:
         """Bounded put that aborts when the consumer is gone."""
-        while not self._stop.is_set():
-            try:
-                self.q.put(item, timeout=0.5)
-                return True
-            except queue.Full:
-                continue
-        return False
+        with span("stream.put_wait"):
+            while not self._stop.is_set():
+                try:
+                    self.q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+    def _decode(self, name: str) -> Optional[np.ndarray]:
+        with span("stream.decode"):
+            return self.load_one(name)
 
     def _assemble(self, batch: PlannedBatch, waves: List[Optional[np.ndarray]]) -> Optional[ReadyBatch]:
         ok = [(n, w) for n, w in zip(batch.names, waves) if w is not None]
@@ -157,10 +173,14 @@ class BatchStream:
         B = -(-len(ok) // self.row_multiple) * self.row_multiple
         wav = np.zeros((B, T), np.float32)
         mask = np.zeros((B, T), np.float32)
+        live = 0
         for i, (_, w) in enumerate(ok):
             m = min(len(w), T)
             wav[i, :m] = w[:m]
             mask[i, :m] = 1.0
+            live += m
+        count("stream.live_samples", live)
+        count("stream.padded_samples", B * T)
         return ReadyBatch([n for n, _ in ok], [len(w) for _, w in ok],
                           wav, mask, n_failed)
 
@@ -169,10 +189,12 @@ class BatchStream:
         try:
             flat = [n for b in self.plan for n in b.names]
             window = max(2 * self.num_workers, 1)
-            gen = bounded_map(pool, self.load_one, flat, window)
+            gen = bounded_map(pool, self._decode, flat, window)
             for batch in self.plan:
                 waves = [next(gen) for _ in batch.names]
-                if not self._put(self._assemble(batch, waves)):
+                with span("stream.assemble"):
+                    rb = self._assemble(batch, waves)
+                if not self._put(rb):
                     return  # consumer abandoned iteration
         except BaseException as e:  # surface on the consumer side
             self._err = e
@@ -193,7 +215,8 @@ class BatchStream:
         t.start()
         try:
             while True:
-                item = self.q.get()
+                with span("stream.get_wait"):
+                    item = self.q.get()
                 if item is self._SENTINEL:
                     break
                 yield item

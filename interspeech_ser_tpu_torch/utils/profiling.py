@@ -14,6 +14,18 @@ around launches measures the launches, not the work. ``StepTimer.span``
 with a ``result_getter`` therefore copies one element of the step's output
 to the host before it stops the clock: the copy waits for every kernel
 queued before it on that stream.
+
+The program's own spans and counters (``span``, ``count``, read by
+``snapshot``) sit on its hot path and cost one read of a flag while no
+``torch.profiler`` session records. While one does, a span is also an
+``annotate`` range named ``ser.<name>`` (it lands in the Chrome trace from
+the thread that started the session; ranges opened on other threads may
+not), and every span and counter, from any thread, is added to one
+process-wide record that ``snapshot`` reads and ``reset`` clears. A span
+is recorded only when a session records both where it opens and where it
+closes, so one left open across a session's start or stop (a thread blocked
+on a queue) is left out whole, and a lone session's record holds the spans
+that lie inside it.
 """
 
 from __future__ import annotations
@@ -22,8 +34,13 @@ import contextlib
 import os
 import socket
 import tempfile
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 # /tmp/ser_tpu_trace, as in the JAX package, unless TMPDIR names another place
 DEFAULT_LOG_DIR = os.path.join(tempfile.gettempdir(), "ser_tpu_trace")
@@ -66,9 +83,6 @@ def trace(log_dir: str = DEFAULT_LOG_DIR, enabled: bool = True):
         return
     if env:
         log_dir = env
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -82,9 +96,69 @@ def annotate(name: str):
     """Named ``record_function`` context — a span on the trace timeline
     inside a ``trace()`` capture. Kernels launched within it are tied to it
     through their launch events' correlation ids."""
-    import torch
+    return record_function(name)
 
-    return torch.profiler.record_function(name)
+
+_OFF = contextlib.nullcontext()
+_LOCK = threading.Lock()
+_SPANS: Dict[str, Tuple[int, float]] = {}  # name -> (occurrences, host seconds)
+_COUNTERS: Dict[str, int] = {}  # name -> sum
+
+
+class _Span:
+    """A span opened while a session records: an ``annotate`` range and a
+    host duration added to the record when it closes, raised or not, if a
+    session still records then."""
+
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        self.range = annotate(f"ser.{self.name}")
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> bool:
+        dt = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        if _autograd_profiler._is_profiler_enabled:
+            with _LOCK:
+                n, s = _SPANS.get(self.name, (0, 0.0))
+                _SPANS[self.name] = (n + 1, s + dt)
+        return False
+
+
+def span(name: str):
+    """A context manager timing the block as the program's span ``name``.
+    While no ``torch.profiler`` session records it reads one flag and does
+    nothing else: no clock, no lock, no allocation."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name`` while a session records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def snapshot() -> Dict[str, Dict]:
+    """The record so far: ``{"spans": {name: (occurrences, host seconds)},
+    "counters": {name: sum}}``."""
+    with _LOCK:
+        return {"spans": dict(_SPANS), "counters": dict(_COUNTERS)}
+
+
+def reset() -> None:
+    """Clear the record."""
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTERS.clear()
 
 
 def _first_leaf(out):

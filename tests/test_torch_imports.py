@@ -52,7 +52,7 @@ def test_port_imports_light():
               "ops.melspec_ta", "ops.batch_norm", "train.information_encoder", "train.proto_engine",
               "models.xvector", "baseline.xvector_engine", "models.ns3.facodec_decoder", "lora_model",
               "lora_evaluation", "parallel", "parallel.mesh", "parallel.audit", "parallel.tp", "utils.profiling",
-              "utils.benchsuite", "profile_trace"):
+              "profile_trace"):
         assert f"interspeech_ser_tpu_torch.{m}" in out["modules"], m
     assert out["heavy"] == []
     assert out["library_loaded"] == 0
